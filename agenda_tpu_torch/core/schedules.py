@@ -1,8 +1,11 @@
-"""Diffusion schedule and the DDIM / PLMS samplers used by generation.
+"""Diffusion schedule, the training-side noise functions, and the DDIM /
+PLMS samplers used by generation.
 
-Counterpart of ``agenda_tpu/core/schedules.py:46-83,175-366`` (the sampler's
-subset; ``add_noise``, ``get_velocity`` and the SNR functions come with the
-trainer). The JAX version carries the PLMS state through ``lax.scan`` and
+Counterpart of ``agenda_tpu/core/schedules.py``: the tables (``:46-83``),
+``add_noise``, ``get_velocity``, ``compute_snr`` and ``min_snr_weights``
+(``:89-147``), and the samplers (``:175-366``). The training functions take
+timesteps as a device tensor and gather from a device copy of the f32
+alpha-bar table, so a train step never waits on the host. The JAX version carries the PLMS state through ``lax.scan`` and
 picks the multistep order with ``lax.switch``; here the loop is Python, so
 the step counter lives on the host and the order is a plain branch. The
 sampler state (latents and the eps history) stays f32 on the device.
@@ -11,7 +14,7 @@ sampler state (latents and the eps history) stays f32 on the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +73,56 @@ def make_schedule(
         prediction_type=prediction_type,
         steps_offset=steps_offset,
     )
+
+
+_TABLES: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def _abar_table(schedule: DiffusionSchedule, device: torch.device) -> torch.Tensor:
+    """The f32 alpha-bar table on ``device``, copied there once."""
+    key = (id(schedule.alphas_cumprod), str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(np.asarray(schedule.alphas_cumprod, np.float32)).to(device)
+    return _TABLES[key]
+
+
+def _extract(schedule: DiffusionSchedule, timesteps: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Per-timestep alpha-bar, shaped to broadcast against an ndim tensor."""
+    vals = _abar_table(schedule, timesteps.device)[timesteps.long()]
+    return vals.reshape(vals.shape + (1,) * (ndim - vals.dim()))
+
+
+def add_noise(schedule: DiffusionSchedule, samples: torch.Tensor, noise: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion x_t = sqrt(abar_t) x_0 + sqrt(1 - abar_t) eps, f32."""
+    abar = _extract(schedule, timesteps, samples.dim())
+    return torch.sqrt(abar) * samples.float() + torch.sqrt(1.0 - abar) * noise.float()
+
+
+def get_velocity(schedule: DiffusionSchedule, samples: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+    """v-prediction target v = sqrt(abar) eps - sqrt(1 - abar) x_0, f32."""
+    abar = _extract(schedule, timesteps, samples.dim())
+    return torch.sqrt(abar) * noise.float() - torch.sqrt(1.0 - abar) * samples.float()
+
+
+def compute_snr(schedule: DiffusionSchedule, timesteps: torch.Tensor) -> torch.Tensor:
+    """Per-timestep SNR = abar / (1 - abar), f32."""
+    abar = _abar_table(schedule, timesteps.device)[timesteps.long()]
+    return abar / (1.0 - abar)
+
+
+def min_snr_weights(schedule: DiffusionSchedule, timesteps: torch.Tensor,
+                    snr_gamma: float) -> torch.Tensor:
+    """Min-SNR-gamma loss weights: min(snr, gamma) / snr for epsilon
+    prediction, min(snr, gamma) / (snr + 1) for v-prediction."""
+    snr = compute_snr(schedule, timesteps)
+    w = torch.clamp(snr, max=float(np.float32(snr_gamma)))
+    if schedule.prediction_type == "epsilon":
+        return w / snr
+    if schedule.prediction_type == "v_prediction":
+        return w / (snr + 1.0)
+    raise ValueError(f"Unknown prediction_type: {schedule.prediction_type}")
 
 
 def _f32(x) -> float:

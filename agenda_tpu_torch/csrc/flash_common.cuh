@@ -1,0 +1,112 @@
+// Warp-level building blocks shared by the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): cp.async tile copies, ldmatrix, and the
+// mma.sync.m16n8k16 bf16 -> f32 product.
+//
+// Fragment conventions (PTX ISA, mma.m16n8k16): lane = 4 * gr + tq. An f32
+// accumulator c[4] of a 16 x 8 tile holds rows gr (c[0], c[1]) and gr + 8
+// (c[2], c[3]) at columns 2 * tq and 2 * tq + 1. Two neighbouring 8-column
+// accumulator tiles, rounded to bf16 pairwise, are the A fragment of one
+// 16 x 16 tile (a[0] = tile 0 rows gr, a[1] = tile 0 rows gr + 8, a[2] =
+// tile 1 rows gr, a[3] = tile 1 rows gr + 8), which is how P and dS feed the
+// next product without leaving registers.
+//
+// Shared-memory tiles are row-major with a pitch of ROW = DP + 8 elements
+// (16 bytes of pad, so ldmatrix rows land in distinct banks). Three address
+// patterns read them:
+//   a_frag     A operand from rows [r0, r0 + 16) x k [kk*16, kk*16 + 16);
+//   b_frag     B operands of two 8-column tiles, from a tile whose rows are
+//              the product's N dimension and whose columns are K (as K in Q K^T);
+//   b_frag_t   the same from a tile whose rows are K and columns are N (as V in
+//              P V), through ldmatrix.trans.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // src-size 0 zero-fills the 16 destination bytes without reading src
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d = a (16x16 bf16, row) * b (16x8 bf16, col) + d, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragment of rows [r0, r0 + 16), k-step kk, of a row-major tile
+template <int ROW>
+__device__ __forceinline__ void a_frag(const __nv_bfloat16* tile, int r0, int kk, uint32_t* a) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(smem_u32(tile + (r0 + lane % 16) * ROW + kk * 16 + (lane / 16) * 8), a);
+}
+
+// B fragments of N tiles n and n + 1 at k-step kk; the tile's rows are N
+template <int ROW>
+__device__ __forceinline__ void b_frag(const __nv_bfloat16* tile, int n, int kk, uint32_t* b) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(smem_u32(tile + (n * 8 + lane % 8 + (lane / 16) * 8) * ROW + kk * 16 +
+                       ((lane / 8) % 2) * 8),
+              b);
+}
+
+// B fragments of N tiles n and n + 1 at k-step kk; the tile's rows are K
+template <int ROW>
+__device__ __forceinline__ void b_frag_t(const __nv_bfloat16* tile, int n, int kk, uint32_t* b) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4_trans(smem_u32(tile + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ROW + n * 8 +
+                             (lane / 16) * 8),
+                    b);
+}
+
+// rows [row0, row0 + ROWS) of one (batch, head) slice of a (B, S, H, D) tensor
+// -> a (ROWS x DP) shared tile of pitch DP + 8, zero-filled past S and past D
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          int64_t row_stride, int row0, int S, int D) {
+  constexpr int chunks = DP / 8;
+  for (int i = threadIdx.x; i < ROWS * chunks; i += THREADS) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    const bool valid = row0 + r < S && c < D;
+    const __nv_bfloat16* g = valid ? src + (int64_t)(row0 + r) * row_stride + c : src;
+    cp_async16(smem_u32(dst + r * (DP + 8) + c), g, valid);
+  }
+}
+
+}  // namespace flash

@@ -1,0 +1,61 @@
+"""Resize of the uint8 training tiles on the device, with Pillow's filters.
+
+Counterpart of ``agenda_tpu/data/device_resize.py:40-76``. The trainer ships
+each source tile as uint8 and resizes it where the model runs, as two
+separable filter products out = W_h @ img @ W_w^T per channel.
+``resize_weights`` builds Pillow's filter matrix (support window, half-pixel
+centres, per-position normalisation); each pass rounds and clamps to the
+uint8 range as Pillow's 8-bit resample does, so the result agrees with
+Pillow's ``resize`` to about one level.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - np.abs(x))
+
+
+def _lanczos3(x: np.ndarray) -> np.ndarray:
+    return np.where(np.abs(x) < 3.0, np.sinc(x) * np.sinc(x / 3.0), 0.0)
+
+
+_FILTERS = {"bilinear": (_triangle, 1.0), "lanczos": (_lanczos3, 3.0)}
+
+
+def resize_weights(src: int, dst: int, filt: str = "lanczos") -> np.ndarray:
+    """(dst, src) f32 row-stochastic filter matrix, Pillow semantics."""
+    kernel, support0 = _FILTERS[filt]
+    scale = src / dst
+    filterscale = max(scale, 1.0)
+    support = support0 * filterscale
+    w = np.zeros((dst, src), np.float64)
+    for i in range(dst):
+        center = (i + 0.5) * scale
+        xmin = max(0, int(center - support + 0.5))
+        xmax = min(src, int(center + support + 0.5))
+        xs = np.arange(xmin, xmax)
+        ww = kernel((xs - center + 0.5) / filterscale)
+        s = ww.sum()
+        if s != 0:
+            w[i, xmin:xmax] = ww / s
+    return w.astype(np.float32)
+
+
+def apply_resize(pixels_u8: torch.Tensor, wy, wx) -> torch.Tensor:
+    """(B, h, w, 3) uint8 -> (B, H, W, 3) f32 in [-1, 1], on pixels_u8's device.
+
+    The width pass runs first, then the height pass, as in Pillow.
+    """
+    dev = pixels_u8.device
+    wy = torch.as_tensor(np.asarray(wy), dtype=torch.float32).to(dev)
+    wx = torch.as_tensor(np.asarray(wx), dtype=torch.float32).to(dev)
+    x = pixels_u8.float()
+    x = torch.einsum("Ww,bhwc->bhWc", wx, x)
+    x = torch.round(torch.clamp(x, 0.0, 255.0))
+    x = torch.einsum("Hh,bhwc->bHwc", wy, x)
+    x = torch.round(torch.clamp(x, 0.0, 255.0))
+    return x / 255.0 * 2.0 - 1.0

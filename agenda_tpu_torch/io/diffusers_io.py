@@ -14,6 +14,7 @@ load straight into them with no transposes. ``params_from_jax`` is the
 port's own copy of the JAX package's key maps (``diffusers_io.py:95-285``):
 it turns flax parameter trees, given as numpy, into the port's state dicts
 (conv HWIO -> OIHW, dense (I, O) -> (O, I), embedding tables verbatim).
+``opt_state_from_jax`` carries a JAX int8-AdamW state across the same map.
 """
 
 from __future__ import annotations
@@ -137,10 +138,12 @@ def save_pipeline(
     text_config: CLIPTextConfig,
     text_state: StateDict,
     tokenizer_dir: str,
+    scheduler_config: Optional[dict] = None,
 ) -> None:
-    """Write a diffusers-layout pipeline directory with SD-1.x's PNDM scheduler;
-    the tokenizer files are copied from ``tokenizer_dir`` unless they are
-    already in place."""
+    """Write a diffusers-layout pipeline directory with ``scheduler_config``
+    (default: SD-1.x's PNDM scheduler); the tokenizer files are copied from
+    ``tokenizer_dir`` unless they are already in place."""
+    sched = dict(scheduler_config or _SCHEDULER_CONFIG)
     os.makedirs(out_dir, exist_ok=True)
 
     def dump(subdir, cfg_json, tensors, fname):
@@ -159,13 +162,13 @@ def save_pipeline(
         shutil.copytree(tokenizer_dir, dst, dirs_exist_ok=True)
     os.makedirs(os.path.join(out_dir, "scheduler"), exist_ok=True)
     with open(os.path.join(out_dir, "scheduler", "scheduler_config.json"), "w") as f:
-        json.dump(_SCHEDULER_CONFIG, f, indent=2)
+        json.dump(sched, f, indent=2)
     with open(os.path.join(out_dir, "model_index.json"), "w") as f:
         json.dump(
             {
                 "_class_name": "StableDiffusionPipeline",
                 "_diffusers_version": "0.27.0",
-                "scheduler": ["diffusers", _SCHEDULER_CONFIG["_class_name"]],
+                "scheduler": ["diffusers", sched.get("_class_name", "PNDMScheduler")],
                 "text_encoder": ["transformers", "CLIPTextModel"],
                 "tokenizer": ["transformers", "CLIPTokenizer"],
                 "unet": ["diffusers", "UNet2DConditionModel"],
@@ -278,3 +281,58 @@ def params_from_jax(
 
     return (conv(_unet_from_flax, unet_params), conv(_vae_from_flax, vae_params),
             conv(_clip_from_flax, text_params))
+
+
+def _flatten_moments(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+    """Flatten a flax-shaped moment tree whose leaves are arrays or int8
+    ``_Quantized``-like pairs (anything with ``.q`` and ``.scale``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten_moments(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def opt_state_from_jax(state: Any):
+    """A JAX ``ScaleByAdam8bitState`` of the UNet (numpy leaves: ``count``, and
+    ``mu``/``nu`` flax trees of f32 arrays or int8 ``_Quantized(q, scale)``)
+    -> the port's ``ScaleByAdam8bitState``, keyed by the port's names.
+
+    The int8 blocks run over each leaf's flat order, and flax keeps
+    convolutions as HWIO and dense kernels as (in, out) where torch keeps
+    OIHW and (out, in). So a transposed leaf's codes and block scales do not
+    carry over: its moment is dequantized, transposed and requantized in the
+    port's blocks, which moves each value by at most one quantization step (a
+    factor of 10^(7/126) either way) and keeps code 0 at 0; a value within a
+    step of its new block's floor (absmax * 10^-7) may become 0. A leaf whose
+    layout is the same on both sides (biases, norms) keeps its codes and
+    scales bit for bit; f32 moments are transposed exactly.
+    """
+    from agenda_tpu_torch.train.optim import ScaleByAdam8bitState, _Quantized, dequantize, quantize
+
+    def convert(tree):
+        out = {}
+        for path, v in _flatten_moments(tree.get("params", tree)).items():
+            name = _indexed(".".join(path[:-1]))
+            name = name.replace("linear.1", "linear_1").replace("linear.2", "linear_2")
+            if hasattr(v, "q") and hasattr(v, "scale"):
+                q = np.asarray(v.q)
+                leaf, moved = _leaf_to_torch(path[-1], q)
+                if moved.ndim <= 1:  # same flat order on both sides
+                    out[f"{name}.{leaf}"] = _Quantized(
+                        torch.from_numpy(np.array(moved, np.int8)),
+                        torch.from_numpy(np.array(v.scale, np.float32)))
+                    continue
+                values = dequantize(_Quantized(torch.from_numpy(np.array(q, np.int8)),
+                                               torch.from_numpy(np.array(v.scale, np.float32))))
+                _, moved = _leaf_to_torch(path[-1], values.numpy())
+                out[f"{name}.{leaf}"] = quantize(torch.from_numpy(np.ascontiguousarray(moved)))
+            else:
+                leaf, moved = _leaf_to_torch(path[-1], np.asarray(v, np.float32))
+                out[f"{name}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(moved))
+        return out
+
+    return ScaleByAdam8bitState(count=torch.tensor(int(np.asarray(state.count)), dtype=torch.int32),
+                                mu=convert(state.mu), nu=convert(state.nu))

@@ -6,10 +6,13 @@ Counterpart of ``agenda_tpu/kernels/attention.py``:
   (CLIP's causal attention), f32 softmax.
 - ``cross_attention_with_probs``: plain torch; returns the output and the
   head-mean f32 probabilities (B, Sq, Sk), the DAAM side output.
-- ``attention``: on CUDA every unmasked self-attention goes through the flash
-  kernel (UNet ``attn1`` at every level and the VAE mid-block attention);
-  the TPU's cutoffs on head dim and sequence length are not inherited. On
-  the CPU it takes the plain version.
+- ``attention``: every unmasked attention whose k/v length equals q's (UNet
+  ``attn1`` at every level and the VAE mid-block attention) goes through
+  ``flash_attention``, the flash kernels forward and backward on CUDA and
+  their plain versions on the CPU; the TPU's cutoffs on head dim and
+  sequence length are not inherited. Cross-attention (77 context rows)
+  takes ``attention_reference``, as the JAX package's dispatch does
+  (``agenda_tpu/kernels/attention.py:119-131``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from agenda_tpu_torch.kernels.flash import flash_attention_fwd
+from agenda_tpu_torch.kernels.flash import flash_attention
 
 
 def _probs(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -54,5 +57,7 @@ def cross_attention_with_probs(
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Unmasked self-attention: the flash kernel on CUDA, plain on the CPU."""
-    return flash_attention_fwd(q, k, v)[0]
+    """Unmasked attention: flash when q, k and v have one shape, else plain."""
+    if q.shape == k.shape == v.shape:
+        return flash_attention(q, k, v)
+    return attention_reference(q, k, v)

@@ -6,6 +6,12 @@ numerics here are flax's (``_compute_stats`` with fast variance, clamped at
 0). ``group_norm_act`` launches ``csrc/groupnorm.cu`` for every GroupNorm of
 a CUDA model and takes the plain version only for CPU tensors;
 ``group_norm_act.launches`` counts the kernel launches.
+
+``group_norm_act`` is differentiable, as the JAX ``custom_vjp`` is
+(``groupnorm.py:193-217``): the forward is the kernel, the backward is the
+VJP of ``group_norm_act_reference`` recomputed in f32 from the saved input
+(``groupnorm.py:208-214``). There is no backward kernel: the JAX package has
+none.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ def _kernel():
         "agenda_groupnorm", [_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, _P])
 
 
-def group_norm_act(
+def _group_norm_act_fwd(
     x: torch.Tensor,
     weight: torch.Tensor,
     bias: torch.Tensor,
@@ -58,11 +64,7 @@ def group_norm_act(
     eps: float,
     act: Optional[str] = None,
 ) -> torch.Tensor:
-    """GroupNorm(+SiLU) of x (B, C, *spatial); weight, bias (C,).
-
-    CUDA: x contiguous bf16 with H*W a multiple of 8 (as at every layer of
-    a 512x512 sample), weight and bias f32.
-    """
+    """The forward: the kernel on CUDA, the plain version on the CPU."""
     if act not in (None, "silu"):
         raise ValueError(f"unsupported activation {act!r}")
     if x.dim() < 3:
@@ -95,6 +97,42 @@ def group_norm_act(
     _build.check(rc, "group_norm_act")
     group_norm_act.launches += 1
     return y
+
+
+class _GroupNormAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, act):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (groups, eps, act)
+        return _group_norm_act_fwd(x, weight, bias, groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (x, weight, bias)]
+            y = group_norm_act_reference(*leaves, *ctx.args)
+        dx, dw, db = torch.autograd.grad(y, leaves, dy)
+        return dx, dw, db, None, None, None
+
+
+def group_norm_act(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    groups: int,
+    eps: float,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """GroupNorm(+SiLU) of x (B, C, *spatial); weight, bias (C,).
+
+    CUDA: x contiguous bf16 with H*W a multiple of 8 (as at every layer of
+    a 512x512 sample), weight and bias f32. Differentiable in x, weight and
+    bias; without autograd it is one kernel launch and saves nothing.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+        return _GroupNormAct.apply(x, weight, bias, groups, eps, act)
+    return _group_norm_act_fwd(x, weight, bias, groups, eps, act)
 
 
 group_norm_act.launches = 0

@@ -7,6 +7,9 @@ Counterpart of ``agenda_tpu/models/unet.py``. Notes carried over:
   probability map as (B, tokens, h, w), ordered down blocks, mid, up blocks.
 - The public layout is the JAX package's: sample (B, H, W, C) in, eps
   (B, H, W, C) f32 out. Inside, activations are NCHW in the compute dtype.
+- ``gradient_checkpointing = True`` recomputes each resnet and transformer
+  in the backward (``torch.utils.checkpoint``; the JAX package remats whole
+  blocks).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from agenda_tpu_torch.io.configs import UNetConfig
 from agenda_tpu_torch.models.layers import (
@@ -97,6 +101,7 @@ class UNet2DConditionModel(nn.Module):
 
         self.conv_norm_out = GroupNormAct(ch[0], eps=1e-5, act="silu")
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.gradient_checkpointing = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -124,9 +129,15 @@ class UNet2DConditionModel(nn.Module):
 
         maps: List[torch.Tensor] = []
         res = [x]
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
+
+        def run(module, *args):
+            if remat:
+                return checkpoint(module, *args, use_reentrant=False)
+            return module(*args)
 
         def transformer(attn, x):
-            x, m = attn(x, ctx, collect_attn)
+            x, m = run(attn, x, ctx, collect_attn)
             if m is not None:
                 maps.append(m)
             return x
@@ -134,7 +145,7 @@ class UNet2DConditionModel(nn.Module):
         for block in self.down_blocks:
             attns = getattr(block, "attentions", None)
             for i, resnet in enumerate(block.resnets):
-                x = resnet(x, temb)
+                x = run(resnet, x, temb)
                 if attns is not None:
                     x = transformer(attns[i], x)
                 res.append(x)
@@ -142,14 +153,14 @@ class UNet2DConditionModel(nn.Module):
                 x = block.downsamplers[0](x)
                 res.append(x)
 
-        x = self.mid_block.resnets[0](x, temb)
+        x = run(self.mid_block.resnets[0], x, temb)
         x = transformer(self.mid_block.attentions[0], x)
-        x = self.mid_block.resnets[1](x, temb)
+        x = run(self.mid_block.resnets[1], x, temb)
 
         for block in self.up_blocks:
             attns = getattr(block, "attentions", None)
             for i, resnet in enumerate(block.resnets):
-                x = resnet(torch.cat([x, res.pop()], dim=1), temb)
+                x = run(resnet, torch.cat([x, res.pop()], dim=1), temb)
                 if attns is not None:
                     x = transformer(attns[i], x)
             if hasattr(block, "upsamplers"):

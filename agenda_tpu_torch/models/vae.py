@@ -2,13 +2,14 @@
 
 Counterpart of ``agenda_tpu/models/vae.py``. The full encoder and decoder
 are here so that a diffusers VAE state dict loads strictly; generation only
-runs ``decode``. Public layout: latents (B, h, w, 4) in, images
-(B, H, W, 3) f32 out.
+runs ``decode``, training ``encode`` (with logvar clamped to [-30, 20], as
+``vae.py:112-118``) and ``sample_latents``. Public layout: latents
+(B, h, w, 4) in, images (B, H, W, 3) f32 out.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -124,3 +125,18 @@ class AutoencoderKL(nn.Module):
         """Latents (B, h, w, 4) -> images (B, H, W, 3) f32 in about [-1, 1]."""
         z = self.post_quant_conv(z.to(self.dtype).permute(0, 3, 1, 2).contiguous())
         return self.decoder(z).float().permute(0, 2, 3, 1).contiguous()
+
+
+def sample_latents(mean: torch.Tensor, logvar: torch.Tensor,
+                   eps: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Reparameterized sample mean + exp(logvar / 2) * eps (``vae.py:130-133``).
+
+    ``eps`` is the standard-normal draw; without it the port draws its own
+    from ``generator`` (a stream of its own: the JAX package draws from
+    threefry, so the parity tests pass the JAX draw in).
+    """
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                          device=mean.device)
+    return mean + torch.exp(0.5 * logvar) * eps

@@ -19,8 +19,23 @@ Phases, each fatal on failure:
                 with 3 word heatmaps at 512x512, 20 PLMS steps, batch 2; the
                 kernel launch counts must equal the counts from the config;
   6. profile -- torch.profiler breaks one more batch down by kernel group;
-  7. report  -- a `kernels` JSON line, the card's name and power limit, and
-                last the device JSON line.
+then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
+  8. train shapes -- one step through the trainer API (fused int8 AdamW +
+                EMA) records every flash shape and every quantized leaf, and
+                checks both against the counts derived from the config; then
+                warm s/step, images/s, peak memory and a profiled step;
+  9. K4 path  -- two steps through the trainer API without EMA on the same
+                model: the plain fused AdamW kernel, 293 launches a step;
+ 10. train parity -- flash backward (dK/dV, dQ) at every training shape (plus
+                ragged S) and fused AdamW (with and without EMA) at every
+                quantized leaf shape (plus a ragged leaf, and clipping
+                active) against their plain versions, with timing beside the
+                bound, the plain version and a PyTorch yardstick;
+ 11. train e2e -- cli/finetune_sd.main trains 6 steps on 8 fabricated PNG
+                tiles, writes checkpoint-3/ and the final export, which
+                loads back; the kernel launch counts must equal the config's;
+ 12. report  -- a `kernels` JSON line (six kernels), the card's name and power
+                limit, and last the device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. It imports nothing of JAX or agenda_tpu.
@@ -29,6 +44,7 @@ checkout of the repository. It imports nothing of JAX or agenda_tpu.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,6 +73,20 @@ E2E_ARGS = ["--resolution", "512", "--image-size", "112", "--num-inference-steps
 E2E_BATCH, E2E_IMAGES, E2E_STEPS, E2E_WORDS = 2, 4, 20, ("cars", "aerial", "utah")
 PROFILE_PROMPT = "an aerial view image with cars in utah"
 
+TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TILES, TILE = 4, 512, 6, 8, 112
+TRAIN_ARGS = ["--resolution", str(TRAIN_RES), "--train_batch_size", str(TRAIN_BATCH),
+              "--max_train_steps", str(TRAIN_STEPS), "--use_8bit_adam", "--use_ema",
+              "--snr_gamma", "5", "--learning_rate", "1e-6", "--checkpointing_steps", "3",
+              "--seed", "0", "--device", "cuda", "--report_to", "jsonl"]
+# Flash backward, elementwise as the forward: |grad - ref| <= FLASH_ATOL_RMS * rms(ref)
+# + FLASH_RTOL * |ref|. The kernels round P and dS to bf16 before their products
+# (2^-9 relative per term, errors of order 2^-9 rms(ref) after the f32 sums: the
+# absolute term) and store the gradient in bf16 (one ulp of |ref|: the relative term).
+EXTRA_FLASH_BWD = ((2, 1000, 8, 40),)  # off the path: a ragged S
+ADAMW_TOL_P = 1e-6  # params and EMA shadow, absolute: f32 rounding at |p| ~ 1
+ADAMW_TOL_SCALE = 1e-5  # row absmax scales, relative
+ADAMW_KW = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
+
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
@@ -69,12 +99,16 @@ def smi_name_power() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else "unknown"
 
 
-def time_ms(fn, target_ms: float = 40.0, max_iters: int = 200) -> Tuple[float, float]:
+def time_ms(fn, target_ms: float = 40.0, max_iters: int = 200,
+            stream=None) -> Tuple[float, float]:
     """(device ms, eager ms) per call of fn, both from CUDA events.
 
     Device time replays a CUDA graph of the calls, so the host's Python and
     ctypes overhead is excluded; eager time launches back to back, so for
     small shapes it is the host's enqueue rate rather than the card's.
+    ``stream`` is the side stream to warm up and capture on: an autograd
+    backward runs each node on its forward's stream, so a backward is timed
+    with the stream its forward ran on.
     """
     import torch
 
@@ -96,12 +130,12 @@ def time_ms(fn, target_ms: float = 40.0, max_iters: int = 200) -> Tuple[float, f
     eager_ms = timed(eager, iters) / iters
     graph_iters = min(iters, 20)
     graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream()
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         eager(1)
     torch.cuda.current_stream().wait_stream(side)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         eager(graph_iters)
     graph.replay()
     reps = max(1, iters // graph_iters)
@@ -171,7 +205,11 @@ def record_shapes(pipe, batch: int):
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
     ("flash_fwd (ours)", ("flash_fwd",)),
+    ("flash_bwd_dkv (ours)", ("flash_bwd_dkv",)),
+    ("flash_bwd_dq (ours)", ("flash_bwd_dq",)),
+    ("fused_adamw8bit (ours)", ("fused_adamw8bit",)),
     ("groupnorm (ours)", ("groupnorm_kernel",)),
+    ("foreach (optimizer, EMA)", ("multi_tensor", "foreach")),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma", "nvjet", "sm90_", "sm80_", "ampere")),
     ("softmax", ("softmax",)),
@@ -199,15 +237,15 @@ def time_batches(pipe, batch: int) -> Tuple[float, float]:
     return walls[0], walls[1]
 
 
-def profile_batch(pipe, batch: int, warm_s: float) -> None:
-    """torch.profiler breakdown of one batch by kernel group (last: the profiler's
-    CUPTI hooks can slow later launches)."""
+def profile_run(run, tag: str, what: str, warm_s: float) -> None:
+    """torch.profiler breakdown of one run() by kernel group (last in its path:
+    the profiler's CUPTI hooks can slow later launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.generate_async(PROFILE_PROMPT, list(range(batch)), **generate_kwargs())()
+        run()
         wall = time.perf_counter() - t0
     per_name = {}  # CUDA kernel (and memcpy/memset) events only: the ops' rows would double count
     for e in prof.events():
@@ -221,15 +259,15 @@ def profile_batch(pipe, batch: int, warm_s: float) -> None:
         group = next((g for g, subs in KERNEL_GROUPS if any(x in low for x in subs)), "other")
         ms, count = groups.get(group, (0.0, 0))
         groups[group] = (ms + us / 1e3, count + n)
-    print(f"[profile] batch {batch} at 512x512, {E2E_STEPS} steps: device busy "
-          f"{busy_ms / 1e3:.3f} s = {100.0 * busy_ms / (1e3 * wall):.1f}% of the profiled "
-          f"batch's {wall:.3f} s wall, {100.0 * busy_ms / (1e3 * warm_s):.1f}% of the "
-          f"unprofiled warm batch's {warm_s:.3f} s", flush=True)
+    print(f"[{tag}] {what}: device busy {busy_ms / 1e3:.3f} s = "
+          f"{100.0 * busy_ms / (1e3 * wall):.1f}% of the profiled run's {wall:.3f} s wall, "
+          f"{100.0 * busy_ms / (1e3 * warm_s):.1f}% of the unprofiled warm run's {warm_s:.3f} s",
+          flush=True)
     for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile]   {group:26s} {ms:9.2f} ms  {100.0 * ms / busy_ms:5.1f}% of busy  "
+        print(f"[{tag}]   {group:26s} {ms:9.2f} ms  {100.0 * ms / busy_ms:5.1f}% of busy  "
               f"{n} launches", flush=True)
     for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"[profile]   top: {us / 1e3:8.2f} ms  x{n:<5d} {name[:110]}", flush=True)
+        print(f"[{tag}]   top: {us / 1e3:8.2f} ms  x{n:<5d} {name[:110]}", flush=True)
 
 
 def flash_rows(per_batch):
@@ -326,10 +364,427 @@ def gn_rows(per_batch):
     return rows
 
 
+# -- the training path --------------------------------------------------------
+
+
+def n_transformers(unet_cfg) -> int:
+    n = unet_cfg.layers_per_block
+    return (n * sum(t == "CrossAttnDownBlock2D" for t in unet_cfg.down_block_types) + 1
+            + (n + 1) * sum(t == "CrossAttnUpBlock2D" for t in unet_cfg.up_block_types))
+
+
+def train_expected(unet_cfg, vae_cfg) -> dict:
+    """Per-step and per-run counts of the training path, from the configs."""
+    import torch
+
+    from agenda_tpu_torch.models.unet import UNet2DConditionModel
+    from agenda_tpu_torch.train.optim import MIN_QUANTIZE_SIZE
+
+    with torch.device("meta"):
+        sizes = [p.numel() for p in UNet2DConditionModel(unet_cfg).parameters()]
+    quantized = [n for n in sizes if n >= MIN_QUANTIZE_SIZE]
+    n = unet_cfg.layers_per_block
+    resnets = n * len(unet_cfg.down_block_types) + 2 + (n + 1) * len(unet_cfg.up_block_types)
+    enc_resnets = vae_cfg.layers_per_block * len(vae_cfg.block_out_channels) + 2
+    tf = n_transformers(unet_cfg)
+    return {"tensors": len(sizes), "quantized": len(quantized),
+            "quantized_elements": sum(quantized),
+            "ragged": sum(k % 256 != 0 for k in quantized),
+            "flash_per_step": tf,
+            "gn_per_step": 2 * resnets + tf + 1,  # + conv_norm_out
+            "gn_per_cache_batch": 2 * enc_resnets + 2}  # + mid attention, conv_norm_out
+
+
+def build_trainer(model_dir: str, dev):
+    """The full-width model through the trainer API, as cli/finetune_sd builds
+    it; returns (unet, make, vocab size) with make(use_ema) -> (state, step)."""
+    import torch
+
+    from agenda_tpu_torch.core.schedules import make_schedule
+    from agenda_tpu_torch.generate.pipeline import _build
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.models.clip_text import CLIPTextModel
+    from agenda_tpu_torch.models.unet import UNet2DConditionModel
+    from agenda_tpu_torch.models.vae import AutoencoderKL
+    from agenda_tpu_torch.train.finetune_sd import LossConfig, init_train_state, make_train_step
+    from agenda_tpu_torch.train.optim import lr_schedule, make_optimizer
+
+    bundle = load_pipeline(model_dir)
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(bundle.unet_config)
+    unet.load_state_dict({k: v.to(dev, torch.float32) for k, v in bundle.unet_state.items()},
+                         strict=True, assign=True)
+    frozen = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    vae = _build(AutoencoderKL, bundle.vae_config, bundle.vae_state, dev, frozen)
+    text = _build(CLIPTextModel, bundle.text_config, bundle.text_state, dev, frozen)
+    tx = make_optimizer(lr_schedule("constant", 1e-6, 0, 100), use_8bit_adam=True)
+
+    def make(use_ema: bool):
+        state = init_train_state(unet.train(), tx, use_ema)
+        return state, make_train_step(unet, vae, text, make_schedule(), tx,
+                                      LossConfig(snr_gamma=5.0), use_ema)
+
+    return unet, make, bundle.text_config.vocab_size
+
+
+def synthetic_batch(vae_cfg, vocab: int, dev, seed: int):
+    """Cached latent moments (as the CLI's default path gives) and token ids."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = TRAIN_RES // 2 ** (len(vae_cfg.block_out_channels) - 1)
+    mean = torch.randn(TRAIN_BATCH, h, h, vae_cfg.latent_channels, device=dev, generator=g)
+    logvar = torch.full_like(mean, -6.0)
+    ids = torch.randint(0, vocab, (TRAIN_BATCH, 77), device=dev, generator=g)
+    return {"latent_moments": torch.cat([mean, logvar], dim=-1), "input_ids": ids}
+
+
+def train_counters():
+    from agenda_tpu_torch.kernels.flash import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+    from agenda_tpu_torch.kernels.fused_adamw import fused_adamw8bit_leaf
+    from agenda_tpu_torch.kernels.groupnorm import group_norm_act
+
+    return {"flash_attention_fwd": (flash_attention_fwd, "launches"),
+            "flash_attention_bwd_dkv": (flash_attention_bwd_dkv, "launches"),
+            "flash_attention_bwd_dq": (flash_attention_bwd_dq, "launches"),
+            "fused_adamw8bit": (fused_adamw8bit_leaf, "launches"),
+            "fused_adamw8bit_ema": (fused_adamw8bit_leaf, "launches_ema"),
+            "group_norm_act": (group_norm_act, "launches")}
+
+
+def reset_counts() -> None:
+    for fn, attr in train_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in train_counters().items()}
+
+
+def record_train_step(unet, state, step, batch, dev):
+    """Flash shapes of one training step (forward hooks on attn1) and the
+    quantized leaves of the optimizer state."""
+    from agenda_tpu_torch.models.layers import Attention
+    from agenda_tpu_torch.train.optim import _Quantized
+
+    shapes = {}
+
+    def on_self_attn(m, args):
+        x = args[0]
+        if len(args) == 1:  # attn1: no context
+            key = (x.shape[0], x.shape[1], m.heads, x.shape[2] // m.heads)
+            shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(on_self_attn) for m in unet.modules()
+             if isinstance(m, Attention)]
+    step(state, batch, generator=torch_generator(dev, 0))
+    for h in hooks:
+        h.remove()
+    leaves = {}
+    for m in state.opt_state.mu.values():
+        if isinstance(m, _Quantized):
+            key = tuple(m.q.shape)
+            leaves[key] = leaves.get(key, 0) + 1
+    return shapes, leaves
+
+
+def torch_generator(dev, seed: int):
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def train_api_phase(model_dir, unet_cfg, vae_cfg, dev):
+    """Phases 8 and 9: shapes, warm timing, profile, then the no-EMA (K4) path."""
+    import torch
+
+    expected = train_expected(unet_cfg, vae_cfg)
+    unet, make, vocab = build_trainer(model_dir, dev)
+    state, step = make(True)
+    batch = synthetic_batch(vae_cfg, vocab, dev, 0)
+    reset_counts()
+    flash_shapes, leaves = record_train_step(unet, state, step, batch, dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_leaves = sum(leaves.values())
+    print(f"[train shapes] one step at batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}: flash "
+          f"(B,S,H,D) x per-step {flash_shapes}; {n_leaves} quantized leaves of "
+          f"{len(state.params)} tensors in {len(leaves)} shapes; launches {counts}", flush=True)
+    want = {"flash_attention_fwd": expected["flash_per_step"],
+            "flash_attention_bwd_dkv": expected["flash_per_step"],
+            "flash_attention_bwd_dq": expected["flash_per_step"],
+            "fused_adamw8bit": 0, "fused_adamw8bit_ema": expected["quantized"],
+            "group_norm_act": expected["gn_per_step"]}
+    print(f"[train shapes] from the config: {expected}", flush=True)
+    require(sum(flash_shapes.values()) == expected["flash_per_step"]
+            and n_leaves == expected["quantized"] and len(state.params) == expected["tensors"]
+            and expected["ragged"] == sum(n for s, n in leaves.items() if math.prod(s) % 256),
+            "recorded training shapes differ from the config's counts")
+    require(counts == want, f"training-step launches {counts} differ from the config's {want}")
+
+    # warm timing (host clock around synchronised steps), peak memory, a profiled step
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        _, m = step(state, batch, generator=torch_generator(dev, i + 1))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    warm_s = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses), f"non-finite training loss {losses}")
+    print(f"[train timing] warm {warm_s:.4f} s/step = {TRAIN_BATCH / warm_s:.3f} images/s "
+          f"(batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}, fused int8 AdamW + EMA, 3 steps); "
+          f"peak memory {peak / 2**30:.2f} GiB; losses {losses}", flush=True)
+    profile_run(lambda: (step(state, batch, generator=torch_generator(dev, 9)),
+                         torch.cuda.synchronize()),
+                "train profile", f"one step at batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}",
+                warm_s)
+
+    # 9. the K4 path: no EMA, a fresh optimizer state, the same model
+    del state, step
+    state, step = make(False)
+    before = {k: p.detach().clone() for k, p in list(state.params.items())[:4]}
+    reset_counts()
+    for i in range(2):
+        step(state, batch, generator=torch_generator(dev, 20 + i))
+    torch.cuda.synchronize()
+    k4 = read_counts()
+    changed = any(not torch.equal(before[k], state.params[k]) for k in before)
+    print(f"[K4 path] 2 steps without EMA through the trainer API: launches {k4}; params "
+          f"changed {changed}", flush=True)
+    require(k4["fused_adamw8bit"] == 2 * expected["quantized"] and k4["fused_adamw8bit_ema"] == 0
+            and changed, "the no-EMA path did not launch the fused AdamW kernel 293x a step")
+    del unet, make, state, step, batch
+    torch.cuda.empty_cache()
+    return flash_shapes, leaves, k4, {"warm_s": warm_s, "peak": peak}
+
+
+def flash_bwd_rows(per_step):
+    """Parity and timing of the dK/dV and dQ kernels at every training shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from agenda_tpu_torch.kernels import flash as fl
+
+    rows = {"dkv": [], "dq": []}
+    shapes = dict(per_step)
+    for shape in EXTRA_FLASH_BWD:
+        shapes.setdefault(shape, 0)
+    for shape, count in shapes.items():
+        b, s, h, d = shape
+        g = torch.Generator(device="cuda").manual_seed(b * 131 + s + h + d)
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = fl.flash_attention_fwd(q, k, v)
+        delta = fl.flash_delta(out, do)
+        got = {"dkv": fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+               "dq": (fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),)}
+        want = {"dkv": fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta),
+                "dq": (fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta),)}
+        torch.cuda.synchronize()
+        errs = {}
+        for kind in ("dkv", "dq"):
+            worst, err = 0.0, 0.0
+            for x, ref in zip(got[kind], want[kind]):
+                ref_f = ref.float()
+                diff = (x.float() - ref_f).abs()
+                rms = ref_f.square().mean().sqrt().item()
+                err = max(err, diff.max().item())
+                worst = max(worst, (diff / (FLASH_ATOL_RMS * rms + FLASH_RTOL * ref_f.abs()))
+                            .max().item())
+            require(worst <= 1.0, f"flash backward {kind} {shape}: max err {err}, {worst:.4g} "
+                    f"of the limit {FLASH_ATOL_RMS} rms(ref) + {FLASH_RTOL}|ref|")
+            errs[kind] = (err, worst)
+        # SDPA's backward (dQ, dK, dV in one call) as the yardstick the port never calls,
+        # timed as the kernels are (graph replay); its forward runs on the capture stream
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            o = F.scaled_dot_product_attention(qt, kt, vt)
+        torch.cuda.current_stream().wait_stream(side)
+        lib, lib_eager = time_ms(
+            lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True), stream=side)
+        flops1 = 2.0 * b * h * s * s * d  # one S x S x D product
+        io = 2.0 * b * s * h * d  # one bf16 (B, S, H, D) tensor, bytes
+        stats = 8.0 * b * h * s  # lse and delta, f32
+        specs = {  # kind: (call, plain, products, bytes moved: q, k, v, dO, stats in; grads out)
+            "dkv": (lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                    lambda: fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta),
+                    4, 4 * io + stats + 2 * io),
+            "dq": (lambda: fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                   lambda: fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta),
+                   3, 4 * io + stats + io),
+        }
+        for kind, (call, plain_fn, products, nbytes) in specs.items():
+            ms, eager = time_ms(call)
+            plain, _ = time_ms(plain_fn, max_iters=10)
+            flops = products * flops1
+            t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+            rows[kind].append(dict(shape=shape, per_batch=count, err=errs[kind][0], ms=ms,
+                                   plain_ms=plain, library_ms=lib,
+                                   bound_ms=1e3 * max(t_ops, t_bytes),
+                                   bound_by="operations" if t_ops >= t_bytes else "bytes"))
+            print(f"flash bwd {kind} (B,S,H,D)={shape} x{count}/step  err {errs[kind][0]:.3g}, "
+                  f"{errs[kind][1]:.4g} of the limit  kernel {ms:.4f} ms (eager {eager:.4f})  "
+                  f"plain {plain:.4f} ms  SDPA backward (dQ, dK, dV) {lib:.4f} ms (eager "
+                  f"{lib_eager:.4f})  bound "
+                  f"{rows[kind][-1]['bound_ms']:.4f} ms ({rows[kind][-1]['bound_by']}: "
+                  f"{products} x 2*B*H*S^2*D = {flops:.4g} ops over 989e12/s; {nbytes:.4g} "
+                  f"bytes over 3.35e12/s)", flush=True)
+        del q, k, v, do, out, lse, delta, got, want, qt, kt, vt, o, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
+def adamw_rows(leaves):
+    """Parity and timing of the fused AdamW kernel, with and without EMA, at
+    every quantized leaf shape of the UNet, plus a ragged leaf; clipping is
+    active (scale 0.4) in every call."""
+    import torch
+
+    from agenda_tpu_torch.kernels.fused_adamw import (
+        fused_adamw8bit_leaf,
+        fused_adamw8bit_leaf_reference,
+    )
+
+    rows = {False: [], True: []}
+    shapes = dict(leaves)
+    shapes.setdefault((1000, 77), 0)  # off the path: 77 000 % 256 != 0
+    for shape, count in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0])):
+        n = math.prod(shape)
+        nb = (n + 255) // 256
+        g = torch.Generator(device="cuda").manual_seed(n % 100003)
+        p = torch.randn(shape, device="cuda", generator=g)
+        grad = torch.randn(shape, device="cuda", generator=g) * 1e-3
+        qm = torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8)
+        qv = torch.randint(0, 128, shape, device="cuda", generator=g).to(torch.int8)
+        sm = torch.rand(nb, device="cuda", generator=g) * 1e-3
+        sv = torch.rand(nb, device="cuda", generator=g) * 1e-6
+        e = torch.randn(shape, device="cuda", generator=g)
+        scalars = torch.tensor([1e-4, 0.4, 0.271, 0.0029701, 0.97], device="cuda")
+        for ema in (False, True):
+            args = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
+            ref = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
+            ea, er = (e.clone(), e.clone()) if ema else (None, None)
+            fused_adamw8bit_leaf(*args, scalars, ema=ea, **ADAMW_KW)
+            fused_adamw8bit_leaf_reference(*ref, scalars, ema=er, **ADAMW_KW)
+            torch.cuda.synchronize()
+            err_p = (args[0] - ref[0]).abs().max().item()
+            err_e = (ea - er).abs().max().item() if ema else 0.0
+            codes = max((args[i].int() - ref[i].int()).abs().max().item() for i in (2, 4))
+            err_s = max(((args[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30)).max().item()
+                        for i in (3, 5))
+            require(err_p <= ADAMW_TOL_P and err_e <= ADAMW_TOL_P and codes <= 1
+                    and err_s <= ADAMW_TOL_SCALE,
+                    f"fused AdamW {shape} ema={ema}: param err {err_p}, shadow err {err_e}, "
+                    f"codes off by {codes}, scale rel err {err_s}")
+            work = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
+            ew = e.clone() if ema else None
+            ms, eager = time_ms(lambda: fused_adamw8bit_leaf(*work, scalars, ema=ew, **ADAMW_KW))
+            plain, _ = time_ms(lambda: fused_adamw8bit_leaf_reference(
+                *work, scalars, ema=ew, **ADAMW_KW), max_iters=10)
+            nbytes = n * (24.0 if ema else 16.0) + 16.0 * nb  # + the two scales read and written
+            flops = 60.0 * n
+            t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+            rows[ema].append(dict(shape=shape, per_batch=count, err=max(err_p, err_e), ms=ms,
+                                  plain_ms=plain, library_ms=None,
+                                  bound_ms=1e3 * max(t_ops, t_bytes),
+                                  bound_by="operations" if t_ops >= t_bytes else "bytes"))
+            print(f"fused adamw ema={ema} {shape} x{count}/step  param err {err_p:.3g} shadow err "
+                  f"{err_e:.3g} codes off by <= {codes} scale rel err {err_s:.3g}  kernel "
+                  f"{ms:.4f} ms (eager {eager:.4f})  plain {plain:.4f} ms  bound "
+                  f"{rows[ema][-1]['bound_ms']:.4f} ms ({rows[ema][-1]['bound_by']})", flush=True)
+            del args, ref, work
+        del p, grad, qm, qv, sm, sv, e
+    torch.cuda.empty_cache()
+    return rows[False], rows[True]
+
+
+def write_tiles(data_dir: str) -> None:
+    """TRAIN_TILES fabricated 112x112 RGB PNG tiles and their prompt JSON."""
+    import numpy as np
+
+    from agenda_tpu_torch.utils.png import write_png
+
+    os.makedirs(data_dir)
+    rng = np.random.RandomState(0)
+    ramp = np.add.outer(np.arange(TILE), np.arange(TILE)).astype(np.float32)
+    prompts = {}
+    for i in range(TRAIN_TILES):
+        img = np.stack([ramp * (1 + i % 3), ramp.T * 1.5, ramp * 0 + 40 * i], -1)
+        img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+        write_png(os.path.join(data_dir, f"tile_{i}.png"), img)
+        prompts[f"tile_{i}.png"] = "An aerial view image with cars in Utah"
+    with open(os.path.join(data_dir, "train.json"), "w") as f:
+        json.dump(prompts, f)
+
+
+def train_e2e(model_dir: str, tmp: str, unet_cfg, vae_cfg):
+    """Phase 11: cli/finetune_sd.main at full width; returns the launch counts."""
+    import torch
+
+    from agenda_tpu_torch.cli import finetune_sd
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+
+    data_dir, out_dir = os.path.join(tmp, "tiles"), os.path.join(tmp, "finetuned")
+    write_tiles(data_dir)
+    expected = train_expected(unet_cfg, vae_cfg)
+    cache_batches = math.ceil(TRAIN_TILES / TRAIN_BATCH)
+    want = {"flash_attention_fwd": expected["flash_per_step"] * TRAIN_STEPS + cache_batches,
+            "flash_attention_bwd_dkv": expected["flash_per_step"] * TRAIN_STEPS,
+            "flash_attention_bwd_dq": expected["flash_per_step"] * TRAIN_STEPS,
+            "fused_adamw8bit": 0,
+            "fused_adamw8bit_ema": expected["quantized"] * TRAIN_STEPS,
+            "group_norm_act": (expected["gn_per_step"] * TRAIN_STEPS
+                               + expected["gn_per_cache_batch"] * cache_batches)}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = finetune_sd.main(["--pretrained_model_name_or_path", model_dir,
+                              "--dataset_folder", data_dir, "--json_file_name", "train.json",
+                              "--output_dir", out_dir, *TRAIN_ARGS])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train e2e] cli/finetune_sd: {stats['steps']} steps in {stats['seconds']:.3f} s "
+          f"({stats['seconds'] / stats['steps']:.4f} s/step with the cold first step, the logging "
+          f"syncs of steps 1-3 and the checkpoint snapshots of steps 3 and 6); peak memory "
+          f"{peak / 2**30:.2f} GiB; losses {stats['losses']}; grad norms "
+          f"{stats['grad_norms']}", flush=True)
+    print(f"[train e2e] launches {launches} (expected {want})", flush=True)
+    require(launches == want, "training launch counts differ from the config's count")
+    require(len(stats["losses"]) == TRAIN_STEPS
+            and all(math.isfinite(x) for x in stats["losses"]), "non-finite training loss")
+    ckpt = os.path.join(out_dir, "checkpoint-3")
+    for sub in ("unet", "unet_ema", "train_state"):
+        require(os.path.isdir(os.path.join(ckpt, sub)), f"checkpoint-3/{sub} was not written")
+    fabricated = load_pipeline(model_dir)
+    exported = load_pipeline(out_dir)
+    changed = sum(not torch.equal(exported.unet_state[k], v)
+                  for k, v in fabricated.unet_state.items())
+    require(changed > 0, "the exported UNet equals the fabricated one: nothing was trained")
+    require(set(exported.vae_state) == set(fabricated.vae_state), "the export lacks the VAE")
+    print(f"[train e2e] checkpoint-3/ (unet, unet_ema, train_state) and the export written; "
+          f"the export loads back through load_pipeline; {changed} of "
+          f"{len(fabricated.unet_state)} UNet tensors changed", flush=True)
+    return launches
+
+
 def summarize(name, route, source, replaces, rows, launches):
-    """One `kernels` entry: times summed over one batch's main-path launches
-    (off-path rows count 0 times); the error is the largest of all rows."""
+    """One `kernels` entry: times summed over one batch's (or training step's)
+    main-path launches (off-path rows count 0 times); the error is the
+    largest of all rows."""
     def per_batch(key):
+        if any(r[key] is None for r in rows):
+            return None
         return sum(r[key] * r["per_batch"] for r in rows)
 
     by_ops = sum(r["bound_ms"] * r["per_batch"] for r in rows if r["bound_by"] == "operations")
@@ -389,6 +844,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} ({card})", flush=True)
 
     # 1. build
+    phase_s = {}
     t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"[build] {lib.path.name}: {time.perf_counter() - t0:.2f} s "
@@ -397,8 +853,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
+    phase_s["build (1)"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="agenda_chip_smoke_") as tmp:
         # 2. shapes of the main path
+        t_phase = time.perf_counter()
         model_dir = os.path.join(tmp, "sd14_fabricated")
         t0 = time.perf_counter()
         unet_cfg, vae_cfg, text_cfg = fabricate_pipeline(model_dir, seed=0)
@@ -456,15 +914,58 @@ def main() -> int:
               f"heatmaps 112x112 uint8 written; final latents finite", flush=True)
 
         # 6. where the time goes
-        profile_batch(pipe, E2E_BATCH, warm_s)
-        del pipe
+        profile_run(lambda: pipe.generate_async(PROFILE_PROMPT, list(range(E2E_BATCH)),
+                                                **generate_kwargs())(),
+                    "profile", f"batch {E2E_BATCH} at 512x512, {E2E_STEPS} steps", warm_s)
+        del pipe, latents
+        torch.cuda.empty_cache()
+        phase_s["generation (phases 2-6)"] = time.perf_counter() - t_phase
+
+        # 8 + 9. the training path through the trainer API, then the no-EMA (K4) path
+        t_phase = time.perf_counter()
+        dev = torch.device("cuda")
+        train_shapes, leaves, k4_launches, _ = train_api_phase(model_dir, unet_cfg, vae_cfg, dev)
+        phase_s["train shapes, timing, K4 path (8-9)"] = time.perf_counter() - t_phase
+
+        # 10. parity and timing of the training kernels
+        t_phase = time.perf_counter()
+        bwd = flash_bwd_rows(train_shapes)
+        adamw, adamw_ema = adamw_rows(leaves)
+        phase_s["train parity and timing (10)"] = time.perf_counter() - t_phase
+
+        # 11. the trainer's CLI end to end
+        t_phase = time.perf_counter()
+        train_launches = train_e2e(model_dir, tmp, unet_cfg, vae_cfg)
+        phase_s["train e2e (11)"] = time.perf_counter() - t_phase
 
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
                   "agenda_tpu/kernels/flash.py:55", flash, launches["flash_attention_fwd"]),
         summarize("group_norm_act", "cuda", "agenda_tpu_torch/csrc/groupnorm.cu",
                   "agenda_tpu/kernels/groupnorm.py:94", gn, launches["group_norm_act"]),
+        summarize("flash_attention_bwd_dkv", "cuda", "agenda_tpu_torch/csrc/flash_bwd.cu",
+                  "agenda_tpu/kernels/flash.py:153", bwd["dkv"],
+                  train_launches["flash_attention_bwd_dkv"]),
+        summarize("flash_attention_bwd_dq", "cuda", "agenda_tpu_torch/csrc/flash_bwd.cu",
+                  "agenda_tpu/kernels/flash.py:192", bwd["dq"],
+                  train_launches["flash_attention_bwd_dq"]),
+        summarize("fused_adamw8bit", "cuda", "agenda_tpu_torch/csrc/fused_adamw.cu",
+                  "agenda_tpu/kernels/fused_adamw.py:111", adamw,
+                  k4_launches["fused_adamw8bit"]),
+        summarize("fused_adamw8bit_ema", "cuda", "agenda_tpu_torch/csrc/fused_adamw.cu",
+                  "agenda_tpu/kernels/fused_adamw.py:118", adamw_ema,
+                  train_launches["fused_adamw8bit_ema"]),
     ]
+    for name, sec in phase_s.items():
+        print(f"[phases] {name}: {sec:.1f} s", flush=True)
+    print("[report] units: flash_attention_fwd and group_norm_act sum ms over one generation "
+          f"batch (batch {E2E_BATCH}, {E2E_STEPS} PLMS steps; launches from the generation "
+          "CLI run); flash_attention_bwd_dkv, flash_attention_bwd_dq and fused_adamw8bit_ema "
+          f"sum over one training step (batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}; launches "
+          f"from the trainer CLI's {TRAIN_STEPS} steps); fused_adamw8bit sums over one training "
+          "step without EMA (launches from the 2-step no-EMA path). library_ms of both flash "
+          "backward entries is SDPA's whole backward (dQ, dK, dV in one call); the fused AdamW "
+          "has no single-call PyTorch equivalent (library_ms null)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,12 @@ import pytest
 import torch
 
 import agenda_tpu_torch
+from agenda_tpu_torch.kernels import flash as fl
 from agenda_tpu_torch.kernels.flash import flash_attention_fwd, flash_attention_reference
+from agenda_tpu_torch.kernels.fused_adamw import (
+    fused_adamw8bit_leaf,
+    fused_adamw8bit_leaf_reference,
+)
 from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
 
 # flash output, elementwise: |out - ref| <= FLASH_ATOL_RMS * rms(ref) + FLASH_RTOL * |ref|
@@ -170,3 +175,115 @@ def test_groupnorm_wrapper_raises_instead_of_falling_back():
         group_norm_act(x.to(memory_format=torch.channels_last), w, b, 32, 1e-5)
     with pytest.raises(ValueError):  # H*W not a multiple of 8
         group_norm_act(x[:, :, :7, :7].contiguous(), w, b, 32, 1e-5)
+
+
+# -- training kernels: flash backward (dK/dV, dQ) and the fused int8 AdamW ---------
+
+# The backward's limit is the forward's: the kernels round P and dS to bf16
+# before their products and store the gradients in bf16 (chip_smoke.py).
+ADAMW_KW = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160),
+                                   (4, 64, 8, 160), (2, 1000, 8, 40), (1, 333, 2, 152),
+                                   (1, 77, 3, 24)])
+def test_flash_backward_kernels_match_plain(shape):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v)
+    delta = fl.flash_delta(out, do)
+    before = (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches)
+    dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    dq = fl.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    assert (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    rk, rv = fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta)
+    rq = fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta)
+    for got, ref in ((dk, rk), (dv, rv), (dq, rq)):
+        assert got.dtype == torch.bfloat16 and got.shape == shape
+        _assert_flash_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_reads_strided_views_both_ways():
+    """Gradients through ``flash_attention`` of head-split views of one packed
+    projection, against autograd through the plain attention in f32."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn(2, 256, 3, 4, 40, device="cuda", generator=g).bfloat16().requires_grad_()
+    do = torch.randn(2, 256, 4, 40, device="cuda", generator=g).bfloat16()
+    fl.flash_attention(*qkv.unbind(dim=2)).backward(do)
+    ref = qkv.detach().float().requires_grad_()
+    q, k, v = ref.unbind(dim=2)
+    probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) / 40 ** 0.5, dim=-1)
+    torch.einsum("bhqk,bkhd->bqhd", probs, v).backward(do.float())
+    _assert_flash_close(qkv.grad, ref.grad)
+
+
+@pytest.mark.cuda
+def test_flash_backward_wrapper_raises_instead_of_falling_back():
+    _need_cuda()
+    x = torch.randn(1, 64, 2, 40, device="cuda")
+    lse = torch.zeros(2, 64, device="cuda")
+    with pytest.raises(TypeError):
+        fl.flash_attention_bwd_dkv(x, x, x, x, lse, lse)  # f32 on the card
+    wide = torch.zeros(1, 64, 1, 168, device="cuda").bfloat16()
+    with pytest.raises(ValueError):  # D above the backward's 160
+        fl.flash_attention_bwd_dq(wide, wide, wide, wide, lse[:1], lse[:1])
+    xb = x.bfloat16()
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        fl.flash_attention_bwd_dq(xb, xb, xb, xb, lse[:1], lse[:1])
+
+
+def _adamw_inputs(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nb = (n + 255) // 256
+    return [torch.randn(n, device="cuda", generator=g),
+            torch.randn(n, device="cuda", generator=g) * 1e-3,
+            torch.randint(-127, 128, (n,), device="cuda", generator=g).to(torch.int8),
+            torch.rand(nb, device="cuda", generator=g) * 1e-3,
+            torch.randint(0, 128, (n,), device="cuda", generator=g).to(torch.int8),
+            torch.rand(nb, device="cuda", generator=g) * 1e-6,
+            torch.randn(n, device="cuda", generator=g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1280 * 1280 * 9, 4096, 77_000, 300])
+@pytest.mark.parametrize("ema", [False, True])
+@pytest.mark.parametrize("clip", [1.0, 0.25])
+def test_fused_adamw_kernel_matches_plain(n, ema, clip):
+    """Params and shadow to f32 rounding, codes within one, scales to 1e-5."""
+    _need_cuda()
+    p, grad, qm, sm, qv, sv, e = _adamw_inputs(n, n + ema)
+    scalars = torch.tensor([1e-4, clip, 0.271, 0.0029701, 0.97], device="cuda")
+    ours = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
+    ref = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
+    e_ours, e_ref = (e.clone(), e.clone()) if ema else (None, None)
+    counter = "launches_ema" if ema else "launches"
+    before = getattr(fused_adamw8bit_leaf, counter)
+    fused_adamw8bit_leaf(*ours, scalars, ema=e_ours, **ADAMW_KW)
+    fused_adamw8bit_leaf_reference(*ref, scalars, ema=e_ref, **ADAMW_KW)
+    assert getattr(fused_adamw8bit_leaf, counter) == before + 1
+    assert (ours[0] - ref[0]).abs().max().item() <= 1e-6
+    for i in (2, 4):
+        assert (ours[i].int() - ref[i].int()).abs().max().item() <= 1
+    for i in (3, 5):
+        assert ((ours[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30)).max().item() <= 1e-5
+    if ema:
+        assert (e_ours - e_ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_fused_adamw_wrapper_raises_instead_of_falling_back():
+    _need_cuda()
+    p, grad, qm, sm, qv, sv, _ = _adamw_inputs(1024, 0)
+    scalars = torch.tensor([1e-4, 1.0, 0.1, 0.001], device="cuda")
+    with pytest.raises(ValueError):  # f16 gradient
+        fused_adamw8bit_leaf(p, grad.half(), qm, sm, qv, sv, scalars, **ADAMW_KW)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        fused_adamw8bit_leaf(p[1:1000], grad[1:1000], qm[1:1000], sm[:4], qv[1:1000], sv[:4],
+                             scalars, **ADAMW_KW)
+    with pytest.raises(ValueError):  # the EMA needs its decay in scalars[4]
+        fused_adamw8bit_leaf(p, grad, qm, sm, qv, sv, scalars, ema=p.clone(), **ADAMW_KW)
