@@ -14,417 +14,547 @@
 // the store.
 //
 // What bounds it on the H100: dK/dV does four products of 2*S^2*D per head
-// (Q K^T, P^T dO, V dO^T, dS^T Q) and dQ three (Q K^T, dO V^T, dS K): 14 *
-// B*H*S^2*D operations in all on about 11 * B*S*H*D * 2 bytes, i.e. ~0.6 * S
-// bf16 operations per byte, far above the card's ~295 at S >= 1024, so the
-// tensor cores bound it.
+// (K Q^T, P^T dO, V dO^T, dS^T Q) and dQ three (Q K^T, dO V^T, dS K), on
+// about 11 * B*S*H*D * 2 bytes: ~0.6 * S bf16 operations per byte, far above
+// the card's ~295 at S >= 1024. Each kernel also takes B*H*S^2 exponentials
+// (P is recomputed in both), on the SFU at about 3.9e12/s; at D = 40 that
+// takes longer than dQ's three products at 989e12/s. So the tensor cores or
+// the exponentials bound it, never the bytes from device memory. In practice
+// the tiles' supply does: at D = 40 a tile row is 80 bytes, one per (s, h),
+// and a copy of the kernel with the dP product, the RS products and the
+// exponentials taken out still takes about 70% of the whole kernel's time.
 //
-// Design (FA2-style, mma.sync; wgmma and TMA are later work):
+// Design (wgmma and TMA; consumer warpgroups and one producer warp a block):
 // - Blocks run in parallel in no order, so the backward is split as on the
-//   TPU: one kernel owns a key tile (dK, dV) and loops over every query tile,
-//   the other owns a query tile (dQ) and loops over every key tile. Each
-//   output element has one owner: no atomics, and the sums are deterministic.
-// - 4 warps a block, 16 rows each. dK/dV: S^T = K Q^T, P^T, dP^T = V dO^T and
-//   dS^T are 16 x BQ register fragments of a warp's 16 keys; P^T and dS^T are
-//   rounded to bf16 and reused in registers as the A operand of P^T dO and
-//   dS^T Q. dQ: the same with queries as rows, dS K through ldmatrix.trans.
-// - The looped-over operands (Q and dO, or K and V) are double-buffered in
-//   shared memory with cp.async; the owned tile is loaded once, and its A
-//   fragments are re-read from shared memory at every k-step.
-// - Ragged S: rows past S are zero-filled; a query past S gets lse = +inf in
-//   the dK/dV kernel (P = 0), and a key past S gets P = 0 in the dQ kernel.
-//   D (a multiple of 8 up to 160) is zero-padded to the tile width DP = 48,
-//   80 or 160 only in shared memory.
-// - Tile widths: 64 keys by 64 queries, except dK/dV at DP = 160, which takes
-//   32-query tiles so that its two 16 x 160 accumulators fit in registers.
+//   TPU: one kernel owns keys (dK, dV) and loops over every query tile, the
+//   other owns queries (dQ) and loops over every key tile. Each output
+//   element has one owner: no atomics, and the sums are deterministic (two
+//   launches on the same inputs give bitwise-equal gradients).
+// - Each consumer warpgroup owns 64 rows; a block has one to three of them
+//   (Block, DkvTile, DqTile), which share the looped-over tiles, so each is
+//   read from L2 once for every 64 to 192 owned rows.
+// - The producer warp loads the owned tile once and keeps the looped-over
+//   tiles (K and V, or Q and dO with their lse and delta rows) in flight in a
+//   ring of two or three stages, by TMA (cp.async.bulk.tensor) under
+//   full/empty mbarriers; the consumers never run __syncthreads. The four
+//   tensor maps are encoded on every call from the caller's (B, S, H, D)
+//   strides; TMA zero-fills rows past S and columns past D in shared memory
+//   (128-byte swizzle). The dK/dV producer reads the next tile's lse and
+//   delta while it waits for a free stage.
+// - A consumer warpgroup runs every product as wgmma over its 64 rows:
+//   S = Q K^T and dP = dO V^T (or their transposes) with both operands in
+//   shared memory (SS), each group committed on its own so that exp(S)
+//   overlaps the dP product; P and dS are rounded to bf16 in registers and
+//   feed dQ += dS K, dV += P^T dO and dK += dS^T Q as the register A operand
+//   (RS), with K, dO and Q read MN-major from the same tiles. The last
+//   products of a tile are waited for only in the next one, after its S.
+// - Only ceil(D / 16) k-steps over D are issued, and the RS products are
+//   N = 40, 80 or 160 wide (D rounded up to the next of these).
+// - Ragged S: a query past S gets lse = +inf in the dK/dV kernel (P = 0), and
+//   a key past S gets P = 0 in the dQ kernel.
+// - Registers: dK/dV holds two 64 x N f32 accumulators, 160 registers a
+//   thread at N = 160, so there a block has one consumer warpgroup and its
+//   query tiles shrink to 32 rows (the scores then take 16 registers each).
+//   Blocks are sized for one an SM; the producer warp's spare registers
+//   would not buy another warpgroup, so no setmaxnreg.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using flash::a_frag;
-using flash::b_frag;
-using flash::b_frag_t;
-using flash::cp_async_commit;
-using flash::cp_async_wait;
-using flash::load_tile;
-using flash::mma_bf16;
-using flash::pack_bf16;
+using hopper::acc_to_a;
+using hopper::desc_k_major;
+using hopper::desc_mn_major;
+using hopper::exp2_ftz;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_expect_tx;
+using hopper::mbar_fence_init;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load_4d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
+using hopper::WgmmaRS;
+using hopper::WgmmaSS;
 
 constexpr int kMaxHeadDim = 160;
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kOwn = 64;       // rows a block owns (keys in dK/dV, queries in dQ)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* lse;    // (B*H, S) f32, contiguous
-  const float* delta;  // (B*H, S) f32, contiguous
-  __nv_bfloat16* dq;   // (B, S, H, D) bf16, contiguous
+  CUtensorMap tq, tk, tv, tdo;  // bf16 (D, H, S, B) maps, 64-column boxes, 128-byte swizzle
+  const float* lse;             // (B*H, S) f32, contiguous
+  const float* delta;           // (B*H, S) f32, contiguous
+  __nv_bfloat16* dq;            // (B, S, H, D) bf16, contiguous
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  int64_t q_sb, q_ss, q_sh;  // element strides of batch, seq, head; D is unit-stride
-  int64_t k_sb, k_ss, k_sh;
-  int64_t v_sb, v_ss, v_sh;
-  int64_t d_sb, d_ss, d_sh;
   int S, H, D;
   float scale;       // 1 / sqrt(D)
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
-template <int DP>
-struct DkvTile {
-  static constexpr int kRow = DP + 8;
-  static constexpr int kBQ = DP > 80 ? 32 : 64;  // queries per looped tile
-  static constexpr size_t kSmem =
-      (size_t)(2 * kOwn + 4 * kBQ) * kRow * 2 + 4 * kBQ * sizeof(float);
+// Block shape for an RS width ND (40, 80 or 160) and WGS consumer
+// warpgroups: tiles are kAtoms blocks of 64 columns (128 bytes a row), and
+// kKSteps k-steps of 16 cover ND. A block owns kOwn rows (keys in dK/dV,
+// queries in dQ), 64 for each consumer warpgroup; they share the looped-over
+// tiles, so more of them read those tiles fewer times a row.
+template <int ND, int WGS>
+struct Block {
+  static constexpr int kAtoms = (ND + 63) / 64;
+  static constexpr int kKSteps = (ND + 15) / 16;
+  static constexpr uint32_t kRowBytes = kAtoms * 128;
+  static constexpr int kOwn = 64 * WGS;
+  static constexpr int kConsumers = 128 * WGS;
+  static constexpr int kThreads = kConsumers + 32;  // + the producer warp
+  static constexpr uint32_t kOwnBytes = kOwn * kRowBytes;
 };
 
-template <int DP>
-struct DqTile {
-  static constexpr int kRow = DP + 8;
-  static constexpr int kBK = 64;  // keys per looped tile
-  static constexpr size_t kSmem = (size_t)(2 * kOwn + 4 * kBK) * kRow * 2;
+// dK/dV: two consumer warpgroups at ND <= 80; one at 160, where two 64 x 160
+// f32 accumulators take 160 registers a thread and query tiles shrink to 32
+constexpr int dkv_warpgroups(int nd) { return nd > 80 ? 1 : 2; }
+
+template <int ND>
+struct DkvTile : Block<ND, dkv_warpgroups(ND)> {
+  using B = Block<ND, dkv_warpgroups(ND)>;
+  static constexpr int kBQ = ND > 80 ? 32 : 64;  // queries per looped tile
+  static constexpr int kStages = 3;                // ring of looped-over tiles
+  static constexpr uint32_t kTileBytes = kBQ * B::kRowBytes;
+  // K, V; Q and dO per stage; lse and delta per stage; barriers; alignment slack
+  static constexpr size_t kSmem = 2 * B::kOwnBytes + 2 * kStages * kTileBytes +
+                                  2 * kStages * kBQ * sizeof(float) +
+                                  (2 * kStages + 1) * sizeof(uint64_t) + 1024;
 };
 
-// Store a warp's 16 x DP accumulator (times mul) as bf16 rows of a contiguous
+// dQ: three consumer warpgroups at ND = 40 (their registers allow it), two at
+// 80, one at 160
+constexpr int dq_warpgroups(int nd) { return nd > 80 ? 1 : nd > 40 ? 2 : 3; }
+
+template <int ND>
+struct DqTile : Block<ND, dq_warpgroups(ND)> {
+  using B = Block<ND, dq_warpgroups(ND)>;
+  static constexpr int kBK = 64;                   // keys per looped tile
+  static constexpr int kStages = ND > 80 ? 2 : 3;  // ring of looped-over tiles
+  static constexpr uint32_t kTileBytes = kBK * B::kRowBytes;
+  // Q, dO; K and V per stage; barriers; alignment slack
+  static constexpr size_t kSmem = 2 * B::kOwnBytes + 2 * kStages * kTileBytes +
+                                  (2 * kStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = smem_u32(p);
+  return p + (((s + 1023) & ~1023u) - s);
+}
+
+// rows [row0, row0 + ROWS) of one (batch, head), all kAtoms column blocks,
+// into a tile of ROWS rows
+template <int ATOMS, int ROWS>
+__device__ __forceinline__ void load_rows(unsigned char* tile, const CUtensorMap* map,
+                                          uint64_t* bar, int row0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < ATOMS; ++c) tma_load_4d(tile + c * ROWS * 128, map, bar, 64 * c, h, row0, b);
+}
+
+// Store a warpgroup's 64 x N f32 accumulator (N2 = N / 2 registers a
+// thread), times mul, as bf16 rows [row0, row0 + 64) of a contiguous
 // (B, S, H, D) tensor; rows past S and columns past D are dropped.
-template <int NT>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (*acc)[4], int row0,
-                                           float mul, const BwdParams& p) {
+template <int N2>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float* d, int row0,
+                                          float mul, const BwdParams& p) {
   const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
-  const int64_t ss = (int64_t)p.H * p.D;
+  const int64_t rs = (int64_t)p.H * p.D;
+  row0 += 16 * (threadIdx.x / 32 % 4) + gr;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gr + r * 8;
-    if (row >= p.S) continue;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = n * 8 + 2 * tq;
-      if (col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * ss + col) =
-            __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
-    }
+  for (int i = 0; i < N2; i += 2) {
+    const int row = row0 + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + 2 * tq;
+    if (row < p.S && col < p.D)
+      *reinterpret_cast<__nv_bfloat162*>(out + row * rs + col) =
+          __floats2bfloat162_rn(d[i] * mul, d[i + 1] * mul);
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
-  using T = DkvTile<DP>;
-  constexpr int ROW = T::kRow, BQ = T::kBQ, KT = DP / 16, NT = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kOwn * ROW;
-  __nv_bfloat16* Qs = Vs + kOwn * ROW;  // two stages
-  __nv_bfloat16* Ds = Qs + 2 * BQ * ROW;  // dO, two stages
-  float* Ls = reinterpret_cast<float*>(Ds + 2 * BQ * ROW);  // lse * log2(e), two stages
-  float* Es = Ls + 2 * BQ;                                  // delta, two stages
-
-  const int g = blockIdx.y;
-  const int b = g / p.H, h = g % p.H;
-  const int k0 = blockIdx.x * kOwn;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % 4;
-  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dg = p.dout + b * p.d_sb + h * p.d_sh;
-  const float* lse = p.lse + (int64_t)g * p.S;
-  const float* delta = p.delta + (int64_t)g * p.S;
-
-  // plain loads into the stage's row statistics; a query past S gets P = 0
-  auto load_stats = [&](int stage, int row0) {
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const int row = row0 + i;
-      Ls[stage * BQ + i] = row < p.S ? lse[row] * kLog2e : INFINITY;
-      Es[stage * BQ + i] = row < p.S ? delta[row] : 0.f;
-    }
-  };
-
-  load_tile<DP, kOwn, kThreads>(Ks, kg, p.k_ss, k0, p.S, p.D);
-  load_tile<DP, kOwn, kThreads>(Vs, vg, p.v_ss, k0, p.S, p.D);
-  load_tile<DP, BQ, kThreads>(Qs, qg, p.q_ss, 0, p.S, p.D);
-  load_tile<DP, BQ, kThreads>(Ds, dg, p.d_ss, 0, p.S, p.D);
-  cp_async_commit();
-  load_stats(0, 0);
-
-  float dk[NT][4], dv[NT][4];
+template <int N>
+__device__ __forceinline__ void zero(float* d) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
 
+template <int ND>
+__global__ void __launch_bounds__(DkvTile<ND>::kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
+  using T = DkvTile<ND>;
+  constexpr int A = T::kAtoms, KS = T::kKSteps, BQ = T::kBQ, OWN = T::kOwn;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + T::kOwnBytes;
+  unsigned char* Qs = Vs + T::kOwnBytes;          // kStages tiles
+  unsigned char* Ds = Qs + T::kStages * T::kTileBytes;  // dO, kStages tiles
+  float* Ls = reinterpret_cast<float*>(Ds + T::kStages * T::kTileBytes);  // lse * log2(e)
+  float* Es = Ls + T::kStages * BQ;                                       // delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(Es + T::kStages * BQ);
+  uint64_t* empty = full + T::kStages;
+  uint64_t* own = empty + T::kStages;
+
+  const int g = blockIdx.y, b = g / p.H, h = g % p.H;
+  const int k0 = blockIdx.x * OWN;
   const int n_tiles = (p.S + BQ - 1) / BQ;
-  for (int i = 0; i < n_tiles; ++i) {
-    const int stage = i & 1;
-    if (i + 1 < n_tiles) {  // prefetch the next Q/dO tile into the other stage
-      load_tile<DP, BQ, kThreads>(Qs + (stage ^ 1) * BQ * ROW, qg, p.q_ss, (i + 1) * BQ, p.S,
-                                  p.D);
-      load_tile<DP, BQ, kThreads>(Ds + (stage ^ 1) * BQ * ROW, dg, p.d_ss, (i + 1) * BQ, p.S,
-                                  p.D);
-      cp_async_commit();
-      load_stats(stage ^ 1, (i + 1) * BQ);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane arrives once its stats are written
+      mbar_init(&empty[s], T::kConsumers);
     }
-    __syncthreads();
-    const __nv_bfloat16* Qt = Qs + stage * BQ * ROW;
-    const __nv_bfloat16* Dt = Ds + stage * BQ * ROW;
-    const float* Lt = Ls + stage * BQ;
-    const float* Et = Es + stage * BQ;
-
-    // S^T = K Q^T on this warp's 16 keys x BQ queries
-    float s[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      uint32_t a[4];
-      a_frag<ROW>(Ks, warp * 16, kk, a);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; n += 2) {
-        uint32_t bq[4];
-        b_frag<ROW>(Qt, n, kk, bq);
-        mma_bf16(s[n], a, bq[0], bq[1]);
-        mma_bf16(s[n + 1], a, bq[2], bq[3]);
-      }
-    }
-    // P^T = exp(S^T * scale - lse[query]), in base 2
-    uint32_t pa[BQ / 16][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * tq + (e & 1);
-        s[n][e] = exp2f(s[n][e] * p.scale_log2 - Lt[col]);
-      }
-      pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(s[n][0], s[n][1]);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(s[n][2], s[n][3]);
-    }
-    // dV += P^T dO
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t bd[4];
-        b_frag_t<ROW>(Dt, n, kk, bd);
-        mma_bf16(dv[n], pa[kk], bd[0], bd[1]);
-        mma_bf16(dv[n + 1], pa[kk], bd[2], bd[3]);
-      }
-    }
-    // dP^T = V dO^T
-    float dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      uint32_t a[4];
-      a_frag<ROW>(Vs, warp * 16, kk, a);
-#pragma unroll
-      for (int n = 0; n < BQ / 8; n += 2) {
-        uint32_t bd[4];
-        b_frag<ROW>(Dt, n, kk, bd);
-        mma_bf16(dp[n], a, bd[0], bd[1]);
-        mma_bf16(dp[n + 1], a, bd[2], bd[3]);
-      }
-    }
-    // dS^T = P^T * (dP^T - delta[query]), rounded to bf16 as the next A operand
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * tq + (e & 1);
-        ds[e] = s[n][e] * (dp[n][e] - Et[col]);
-      }
-      pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    // dK += dS^T Q (times scale at the store)
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t bq[4];
-        b_frag_t<ROW>(Qt, n, kk, bq);
-        mma_bf16(dk[n], pa[kk], bq[0], bq[1]);
-        mma_bf16(dk[n + 1], pa[kk], bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    mbar_init(own, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  if (threadIdx.x >= T::kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - T::kConsumers;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(own, 2 * T::kOwnBytes);
+      load_rows<A, OWN>(Ks, &p.tk, own, k0, h, b);
+      load_rows<A, OWN>(Vs, &p.tv, own, k0, h, b);
+    }
+    // Each lane carries rows lane + 32 * r of a tile's lse and delta; the
+    // next tile's are read from global memory while this one's wait for a
+    // free stage, so that their latency is off the ring's critical path. A
+    // query past S gets lse = +inf (P = 0).
+    const float* lse = p.lse + (int64_t)g * p.S;
+    const float* delta = p.delta + (int64_t)g * p.S;
+    constexpr int R = BQ / 32;
+    float l[R], e[R];
+    auto read_stats = [&](int i) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = i * BQ + lane + 32 * r;
+        l[r] = row < p.S ? lse[row] * kLog2e : INFINITY;
+        e[r] = row < p.S ? delta[row] : 0.f;
+      }
+    };
+    read_stats(0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % T::kStages;
+      mbar_wait(&empty[s], ((i / T::kStages) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * T::kTileBytes);
+        load_rows<A, BQ>(Qs + s * T::kTileBytes, &p.tq, &full[s], i * BQ, h, b);
+        load_rows<A, BQ>(Ds + s * T::kTileBytes, &p.tdo, &full[s], i * BQ, h, b);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        Ls[s * BQ + lane + 32 * r] = l[r];
+        Es[s * BQ + lane + 32 * r] = e[r];
+      }
+      mbar_arrive(&full[s]);
+      if (i + 1 < n_tiles) read_stats(i + 1);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns keys k0 + 64 * wg + [0, 64); this thread's
+  // accumulator columns are 8 * j + 2 * tq (+1), its rows 16 * warp + gr (+8)
+  const int wg = threadIdx.x / 128, tq = threadIdx.x % 4;
+  const uint32_t k_s = smem_u32(Ks) + wg * 64 * 128, v_s = smem_u32(Vs) + wg * 64 * 128;
+  float dk[ND / 2], dv[ND / 2], st[BQ / 2], dpt[BQ / 2];
+  zero<ND / 2>(dk);
+  zero<ND / 2>(dv);
+  zero<BQ / 2>(st);
+  zero<BQ / 2>(dpt);
+  uint32_t pa[BQ / 16][4], pb[BQ / 16][4];  // P^T and dS^T as A operands
+  mbar_wait(own, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % T::kStages;
+    mbar_wait(&full[s], (i / T::kStages) & 1);
+    const uint32_t q_s = smem_u32(Qs + s * T::kTileBytes);
+    const uint32_t d_s = smem_u32(Ds + s * T::kTileBytes);
+    const float* Lt = Ls + s * BQ;
+    const float* Et = Es + s * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x BQ queries), two groups, while
+    // the previous tile's dV and dK products may still run
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      WgmmaSS<BQ>::run(st, desc_k_major<OWN>(k_s, kk), desc_k_major<BQ>(q_s, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      WgmmaSS<BQ>::run(dpt, desc_k_major<OWN>(v_s, kk), desc_k_major<BQ>(d_s, kk), kk > 0);
+    wgmma_commit();
+
+    // P^T = exp(S^T * scale - lse[query]), in base 2, while dP^T runs
+    wgmma_wait<1>();  // the previous dV and dK and this S^T are done
+    fence_regs<BQ / 2>(st);
+    if (i > 0) mbar_arrive(&empty[(i - 1) % T::kStages]);  // its Q, dO and stats are free
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * tq);
+      st[4 * j + 0] = exp2_ftz(st[4 * j + 0] * p.scale_log2 - l.x);
+      st[4 * j + 1] = exp2_ftz(st[4 * j + 1] * p.scale_log2 - l.y);
+      st[4 * j + 2] = exp2_ftz(st[4 * j + 2] * p.scale_log2 - l.x);
+      st[4 * j + 3] = exp2_ftz(st[4 * j + 3] * p.scale_log2 - l.y);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(st, kk, pa[kk]);
+
+    // dV += P^T dO
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      WgmmaRS<ND, 1>::run(dv, pa[kk], desc_mn_major<BQ>(d_s, kk), 1);
+    wgmma_commit();
+
+    // dS^T = P^T * (dP^T - delta[query]) while dV runs
+    wgmma_wait<1>();
+    fence_regs<BQ / 2>(dpt);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 e = *reinterpret_cast<const float2*>(Et + 8 * j + 2 * tq);
+      dpt[4 * j + 0] = st[4 * j + 0] * (dpt[4 * j + 0] - e.x);
+      dpt[4 * j + 1] = st[4 * j + 1] * (dpt[4 * j + 1] - e.y);
+      dpt[4 * j + 2] = st[4 * j + 2] * (dpt[4 * j + 2] - e.x);
+      dpt[4 * j + 3] = st[4 * j + 3] * (dpt[4 * j + 3] - e.y);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(dpt, kk, pb[kk]);
+
+    // dK += dS^T Q (times scale at the store); dV and dK are waited for in
+    // the next tile
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      WgmmaRS<ND, 1>::run(dk, pb[kk], desc_mn_major<BQ>(q_s, kk), 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<ND / 2>(dv);
+  fence_regs<ND / 2>(dk);
 
   const int64_t off = (int64_t)b * p.S * p.H * p.D + (int64_t)h * p.D;
-  store_rows<NT>(p.dk + off, dk, k0 + warp * 16, p.scale, p);
-  store_rows<NT>(p.dv + off, dv, k0 + warp * 16, 1.f, p);
+  store_acc<ND / 2>(p.dk + off, dk, k0 + 64 * wg, p.scale, p);
+  store_acc<ND / 2>(p.dv + off, dv, k0 + 64 * wg, 1.f, p);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
-  using T = DqTile<DP>;
-  constexpr int ROW = T::kRow, BK = T::kBK, KT = DP / 16, NT = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ds = Qs + kOwn * ROW;  // dO
-  __nv_bfloat16* Ks = Ds + kOwn * ROW;  // two stages
-  __nv_bfloat16* Vs = Ks + 2 * BK * ROW;  // two stages
+template <int ND>
+__global__ void __launch_bounds__(DqTile<ND>::kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
+  using T = DqTile<ND>;
+  constexpr int A = T::kAtoms, KS = T::kKSteps, BK = T::kBK, OWN = T::kOwn;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ds = Qs + T::kOwnBytes;             // dO
+  unsigned char* Ks = Ds + T::kOwnBytes;             // kStages tiles
+  unsigned char* Vs = Ks + T::kStages * T::kTileBytes;  // kStages tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + T::kStages * T::kTileBytes);
+  uint64_t* empty = full + T::kStages;
+  uint64_t* own = empty + T::kStages;
 
-  const int g = blockIdx.y;
-  const int b = g / p.H, h = g % p.H;
-  const int q0 = blockIdx.x * kOwn;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
-  const __nv_bfloat16* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dg = p.dout + b * p.d_sb + h * p.d_sh;
+  const int g = blockIdx.y, b = g / p.H, h = g % p.H;
+  const int q0 = blockIdx.x * OWN;
+  const int n_tiles = (p.S + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::kConsumers);
+    }
+    mbar_init(own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_tile<DP, kOwn, kThreads>(Qs, qg, p.q_ss, q0, p.S, p.D);
-  load_tile<DP, kOwn, kThreads>(Ds, dg, p.d_ss, q0, p.S, p.D);
-  load_tile<DP, BK, kThreads>(Ks, kg, p.k_ss, 0, p.S, p.D);
-  load_tile<DP, BK, kThreads>(Vs, vg, p.v_ss, 0, p.S, p.D);
-  cp_async_commit();
+  if (threadIdx.x >= T::kConsumers) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == T::kConsumers) {
+      mbar_arrive_expect_tx(own, 2 * T::kOwnBytes);
+      load_rows<A, OWN>(Qs, &p.tq, own, q0, h, b);
+      load_rows<A, OWN>(Ds, &p.tdo, own, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % T::kStages;
+        mbar_wait(&empty[s], ((j / T::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * T::kTileBytes);
+        load_rows<A, BK>(Ks + s * T::kTileBytes, &p.tk, &full[s], j * BK, h, b);
+        load_rows<A, BK>(Vs + s * T::kTileBytes, &p.tv, &full[s], j * BK, h, b);
+      }
+    }
+    return;
+  }
 
-  float lse2[2], dl[2];  // rows gr and gr + 8 of this warp's slice
+  // consumer warpgroup wg owns queries q0 + 64 * wg + [0, 64); this thread
+  // holds rows 16 * warp + gr (+8) of them
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + gr + r * 8;
+    const int row = q0 + 64 * wg + 16 * (threadIdx.x / 32 % 4) + gr + 8 * r;
     lse2[r] = row < p.S ? p.lse[(int64_t)g * p.S + row] * kLog2e : 0.f;
     dl[r] = row < p.S ? p.delta[(int64_t)g * p.S + row] : 0.f;
   }
-
-  float dq[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  const int n_tiles = (p.S + BK - 1) / BK;
+  const uint32_t q_s = smem_u32(Qs) + wg * 64 * 128, d_s = smem_u32(Ds) + wg * 64 * 128;
+  float dq[ND / 2], s[BK / 2], dp[BK / 2];
+  zero<ND / 2>(dq);
+  zero<BK / 2>(s);
+  zero<BK / 2>(dp);
+  uint32_t pa[BK / 16][4];
+  mbar_wait(own, 0);
   for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {  // prefetch the next K/V tile into the other stage
-      load_tile<DP, BK, kThreads>(Ks + (stage ^ 1) * BK * ROW, kg, p.k_ss, (j + 1) * BK, p.S,
-                                  p.D);
-      load_tile<DP, BK, kThreads>(Vs + (stage ^ 1) * BK * ROW, vg, p.v_ss, (j + 1) * BK, p.S,
-                                  p.D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + stage * BK * ROW;
-    const __nv_bfloat16* Vt = Vs + stage * BK * ROW;
-    const int k0 = j * BK;
+    const int st = j % T::kStages;
+    mbar_wait(&full[st], (j / T::kStages) & 1);
+    const uint32_t k_s = smem_u32(Ks + st * T::kTileBytes);
+    const uint32_t v_s = smem_u32(Vs + st * T::kTileBytes);
+    const int key0 = j * BK;
 
-    // S = Q K^T and dP = dO V^T on this warp's 16 queries x BK keys
-    float s[BK / 8][4], dp[BK / 8][4];
+    // S = Q K^T and dP = dO V^T (64 queries x BK keys), two groups, while the
+    // previous tile's dQ product may still run
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
+    for (int kk = 0; kk < KS; ++kk)
+      WgmmaSS<BK>::run(s, desc_k_major<OWN>(q_s, kk), desc_k_major<BK>(k_s, kk), kk > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int kk = 0; kk < KS; ++kk)
+      WgmmaSS<BK>::run(dp, desc_k_major<OWN>(d_s, kk), desc_k_major<BK>(v_s, kk), kk > 0);
+    wgmma_commit();
+
+    // P = exp(S * scale - lse), in base 2, and 0 past S, while dP runs
+    wgmma_wait<1>();  // the previous dQ and this S are done
+    fence_regs<BK / 2>(s);
+    if (j > 0) mbar_arrive(&empty[(j - 1) % T::kStages]);  // its K and V are free
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      uint32_t aq[4], ad[4];
-      a_frag<ROW>(Qs, warp * 16, kk, aq);
-      a_frag<ROW>(Ds, warp * 16, kk, ad);
+    for (int i = 0; i < BK / 2; ++i) s[i] = exp2_ftz(s[i] * p.scale_log2 - lse2[(i >> 1) & 1]);
+    if (key0 + BK > p.S) {
 #pragma unroll
-      for (int n = 0; n < BK / 8; n += 2) {
-        uint32_t bk[4], bv[4];
-        b_frag<ROW>(Kt, n, kk, bk);
-        b_frag<ROW>(Vt, n, kk, bv);
-        mma_bf16(s[n], aq, bk[0], bk[1]);
-        mma_bf16(s[n + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[n], ad, bv[0], bv[1]);
-        mma_bf16(dp[n + 1], ad, bv[2], bv[3]);
-      }
+      for (int i = 0; i < BK / 2; ++i)
+        if (key0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= p.S) s[i] = 0.f;
     }
-    // dS = P * (dP - delta), P = exp(S * scale - lse) and 0 past S
-    uint32_t pa[BK / 16][4];
+    // dS = P * (dP - delta), rounded to bf16 as the next A operand
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(dp);
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      float ds[4];
+    for (int i = 0; i < BK / 2; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * tq + (e & 1);
-        const float pr = key < p.S ? exp2f(s[n][e] * p.scale_log2 - lse2[e / 2]) : 0.f;
-        ds[e] = pr * (dp[n][e] - dl[e / 2]);
-      }
-      pa[n / 2][(n % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    // dQ += dS K (times scale at the store); K tiles are (key x d), read transposed
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(dp, kk, pa[kk]);
+
+    // dQ += dS K (times scale at the store), K read MN-major; waited for in
+    // the next tile
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t bk[4];
-        b_frag_t<ROW>(Kt, n, kk, bk);
-        mma_bf16(dq[n], pa[kk], bk[0], bk[1]);
-        mma_bf16(dq[n + 1], pa[kk], bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    for (int kk = 0; kk < BK / 16; ++kk)
+      WgmmaRS<ND, 1>::run(dq, pa[kk], desc_mn_major<BK>(k_s, kk), 1);
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_regs<ND / 2>(dq);
 
   const int64_t off = (int64_t)b * p.S * p.H * p.D + (int64_t)h * p.D;
-  store_rows<NT>(p.dq + off, dq, q0 + warp * 16, p.scale, p);
+  store_acc<ND / 2>(p.dq + off, dq, q0 + 64 * wg, p.scale, p);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const BwdParams& p, int batch_heads,
-                   cudaStream_t stream, bool* attr_set) {
+// -- host side ----------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+struct Inputs {
+  const void* ptr[4];        // q, k, v, dout
+  const long long* strides;  // 12 element strides: batch, seq, head of q, k, v, dout
+  int B;
+};
+
+// A (D, H, S, B) map of one bf16 input with boxes of 64 columns x `rows` rows
+bool encode(CUtensorMap* map, const Inputs& in, int t, const BwdParams& p, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const long long* st = in.strides + 3 * t;
+  const cuuint64_t dims[4] = {(cuuint64_t)p.D, (cuuint64_t)p.H, (cuuint64_t)p.S,
+                              (cuuint64_t)in.B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                               (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(in.ptr[t]), dims, bytes,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// q and dO in boxes of qd_rows rows, k and v in boxes of kv_rows rows
+bool encode_maps(BwdParams* p, const Inputs& in, int qd_rows, int kv_rows) {
+  return encode(&p->tq, in, 0, *p, qd_rows) && encode(&p->tk, in, 1, *p, kv_rows) &&
+         encode(&p->tv, in, 2, *p, kv_rows) && encode(&p->tdo, in, 3, *p, qd_rows);
+}
+
+template <typename Tile, typename Kernel>
+cudaError_t launch(Kernel kernel, const BwdParams& p, int batch_heads, cudaStream_t stream,
+                   bool* attr_set) {
+  const size_t smem = Tile::kSmem;
   if (!*attr_set) {  // opt in to > 48 KB of dynamic shared memory once
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     *attr_set = true;
   }
-  dim3 grid((p.S + kOwn - 1) / kOwn, batch_heads);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  dim3 grid((p.S + Tile::kOwn - 1) / Tile::kOwn, batch_heads);
+  kernel<<<grid, Tile::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_dkv(const BwdParams& p, int batch_heads, cudaStream_t stream) {
+template <int ND>
+cudaError_t launch_dkv(BwdParams* p, const Inputs& in, cudaStream_t stream) {
   static bool attr_set = false;
-  return launch(flash_bwd_dkv_kernel<DP>, DkvTile<DP>::kSmem, p, batch_heads, stream,
-                &attr_set);
+  using T = DkvTile<ND>;
+  if (!encode_maps(p, in, T::kBQ, T::kOwn)) return cudaErrorInvalidValue;
+  return launch<T>(flash_bwd_dkv_kernel<ND>, *p, in.B * p->H, stream, &attr_set);
 }
 
-template <int DP>
-cudaError_t launch_dq(const BwdParams& p, int batch_heads, cudaStream_t stream) {
+template <int ND>
+cudaError_t launch_dq(BwdParams* p, const Inputs& in, cudaStream_t stream) {
   static bool attr_set = false;
-  return launch(flash_bwd_dq_kernel<DP>, DqTile<DP>::kSmem, p, batch_heads, stream, &attr_set);
+  using T = DqTile<ND>;
+  if (!encode_maps(p, in, T::kOwn, T::kBK)) return cudaErrorInvalidValue;
+  return launch<T>(flash_bwd_dq_kernel<ND>, *p, in.B * p->H, stream, &attr_set);
 }
 
-// Checks shared by both entries; fills p. Returns cudaSuccess or
+// Checks shared by both entries; fills p's scalars. Returns cudaSuccess or
 // cudaErrorInvalidValue.
-cudaError_t make_params(BwdParams* p, const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta, int B, int S,
-                        int H, int D, const long long* strides) {
-  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D % 8 != 0 || D > kMaxHeadDim ||
-      B * H > 65535)
+cudaError_t make_params(BwdParams* p, const Inputs& in, const void* lse, const void* delta,
+                        int S, int H, int D) {
+  if (in.B <= 0 || S <= 0 || H <= 0 || D <= 0 || D % 8 != 0 || D > kMaxHeadDim ||
+      in.B * H > 65535)
     return cudaErrorInvalidValue;
   for (int i = 0; i < 12; ++i)
-    if (strides[i] % 8 != 0) return cudaErrorInvalidValue;
-  const void* ptrs[4] = {q, k, v, dout};
-  for (const void* ptr : ptrs)
+    if (in.strides[i] % 8 != 0) return cudaErrorInvalidValue;
+  for (const void* ptr : in.ptr)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorInvalidValue;
-  p->q = static_cast<const __nv_bfloat16*>(q);
-  p->k = static_cast<const __nv_bfloat16*>(k);
-  p->v = static_cast<const __nv_bfloat16*>(v);
-  p->dout = static_cast<const __nv_bfloat16*>(dout);
   p->lse = static_cast<const float*>(lse);
   p->delta = static_cast<const float*>(delta);
-  p->q_sb = strides[0]; p->q_ss = strides[1]; p->q_sh = strides[2];
-  p->k_sb = strides[3]; p->k_ss = strides[4]; p->k_sh = strides[5];
-  p->v_sb = strides[6]; p->v_ss = strides[7]; p->v_sh = strides[8];
-  p->d_sb = strides[9]; p->d_ss = strides[10]; p->d_sh = strides[11];
   p->S = S;
   p->H = H;
   p->D = D;
@@ -438,6 +568,15 @@ cudaError_t make_params(BwdParams* p, const void* q, const void* k, const void* 
 
 extern "C" int agenda_flash_bwd_max_head_dim() { return kMaxHeadDim; }
 
+// Dynamic shared memory of the instantiation that runs head dim D (dkv != 0:
+// the dK/dV kernel, else dQ), in bytes; 0 for a D the kernels do not take.
+extern "C" int agenda_flash_bwd_smem_bytes(int dkv, int D) {
+  if (D <= 0 || D > kMaxHeadDim) return 0;
+  if (D <= 40) return (int)(dkv ? DkvTile<40>::kSmem : DqTile<40>::kSmem);
+  if (D <= 80) return (int)(dkv ? DkvTile<80>::kSmem : DqTile<80>::kSmem);
+  return (int)(dkv ? DkvTile<160>::kSmem : DqTile<160>::kSmem);
+}
+
 // q, k, v, dout: (B, S, H, D) bf16 with the given element strides (q, k, v,
 // dout; batch, seq, head each; D unit-stride), 16-byte-aligned bases and
 // strides that are multiples of 8; D a multiple of 8 up to 160; lse, delta:
@@ -447,15 +586,16 @@ extern "C" int agenda_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, int B, int S, int H, int D,
                                     const long long* strides, void* stream) {
+  const Inputs in{{q, k, v, dout}, strides, B};
   BwdParams p;
-  cudaError_t err = make_params(&p, q, k, v, dout, lse, delta, B, S, H, D, strides);
+  cudaError_t err = make_params(&p, in, lse, delta, S, H, D);
   if (err != cudaSuccess) return (int)err;
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 48) return (int)launch_dkv<48>(p, B * H, st);
-  if (D <= 80) return (int)launch_dkv<80>(p, B * H, st);
-  return (int)launch_dkv<160>(p, B * H, st);
+  if (D <= 40) return (int)launch_dkv<40>(&p, in, st);
+  if (D <= 80) return (int)launch_dkv<80>(&p, in, st);
+  return (int)launch_dkv<160>(&p, in, st);
 }
 
 // As agenda_flash_bwd_dkv; dq: contiguous (B, S, H, D) bf16.
@@ -463,12 +603,13 @@ extern "C" int agenda_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, int B, int S, int H, int D,
                                    const long long* strides, void* stream) {
+  const Inputs in{{q, k, v, dout}, strides, B};
   BwdParams p;
-  cudaError_t err = make_params(&p, q, k, v, dout, lse, delta, B, S, H, D, strides);
+  cudaError_t err = make_params(&p, in, lse, delta, S, H, D);
   if (err != cudaSuccess) return (int)err;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 48) return (int)launch_dq<48>(p, B * H, st);
-  if (D <= 80) return (int)launch_dq<80>(p, B * H, st);
-  return (int)launch_dq<160>(p, B * H, st);
+  if (D <= 40) return (int)launch_dq<40>(&p, in, st);
+  if (D <= 80) return (int)launch_dq<80>(&p, in, st);
+  return (int)launch_dq<160>(&p, in, st);
 }

@@ -1,23 +1,15 @@
-// Warp-level building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): cp.async tile copies, ldmatrix, and the
-// mma.sync.m16n8k16 bf16 -> f32 product.
+// Warp-level building blocks of the flash-attention forward (flash_fwd.cu):
+// cp.async tile copies, ldmatrix, and the mma.sync.m16n8k16 bf16 -> f32
+// product. The backward's Hopper blocks (TMA, mbarriers, wgmma) are in
+// hopper_common.cuh.
 //
 // Fragment conventions (PTX ISA, mma.m16n8k16): lane = 4 * gr + tq. An f32
 // accumulator c[4] of a 16 x 8 tile holds rows gr (c[0], c[1]) and gr + 8
 // (c[2], c[3]) at columns 2 * tq and 2 * tq + 1. Two neighbouring 8-column
 // accumulator tiles, rounded to bf16 pairwise, are the A fragment of one
 // 16 x 16 tile (a[0] = tile 0 rows gr, a[1] = tile 0 rows gr + 8, a[2] =
-// tile 1 rows gr, a[3] = tile 1 rows gr + 8), which is how P and dS feed the
-// next product without leaving registers.
-//
-// Shared-memory tiles are row-major with a pitch of ROW = DP + 8 elements
-// (16 bytes of pad, so ldmatrix rows land in distinct banks). Three address
-// patterns read them:
-//   a_frag     A operand from rows [r0, r0 + 16) x k [kk*16, kk*16 + 16);
-//   b_frag     B operands of two 8-column tiles, from a tile whose rows are
-//              the product's N dimension and whose columns are K (as K in Q K^T);
-//   b_frag_t   the same from a tile whose rows are K and columns are N (as V in
-//              P V), through ldmatrix.trans.
+// tile 1 rows gr, a[3] = tile 1 rows gr + 8), which is how P feeds P V
+// without leaving registers.
 
 #pragma once
 
@@ -68,45 +60,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment of rows [r0, r0 + 16), k-step kk, of a row-major tile
-template <int ROW>
-__device__ __forceinline__ void a_frag(const __nv_bfloat16* tile, int r0, int kk, uint32_t* a) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(smem_u32(tile + (r0 + lane % 16) * ROW + kk * 16 + (lane / 16) * 8), a);
-}
-
-// B fragments of N tiles n and n + 1 at k-step kk; the tile's rows are N
-template <int ROW>
-__device__ __forceinline__ void b_frag(const __nv_bfloat16* tile, int n, int kk, uint32_t* b) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4(smem_u32(tile + (n * 8 + lane % 8 + (lane / 16) * 8) * ROW + kk * 16 +
-                       ((lane / 8) % 2) * 8),
-              b);
-}
-
-// B fragments of N tiles n and n + 1 at k-step kk; the tile's rows are K
-template <int ROW>
-__device__ __forceinline__ void b_frag_t(const __nv_bfloat16* tile, int n, int kk, uint32_t* b) {
-  const int lane = threadIdx.x % 32;
-  ldmatrix_x4_trans(smem_u32(tile + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ROW + n * 8 +
-                             (lane / 16) * 8),
-                    b);
-}
-
-// rows [row0, row0 + ROWS) of one (batch, head) slice of a (B, S, H, D) tensor
-// -> a (ROWS x DP) shared tile of pitch DP + 8, zero-filled past S and past D
-template <int DP, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride, int row0, int S, int D) {
-  constexpr int chunks = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * chunks; i += THREADS) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    const bool valid = row0 + r < S && c < D;
-    const __nv_bfloat16* g = valid ? src + (int64_t)(row0 + r) * row_stride + c : src;
-    cp_async16(smem_u32(dst + r * (DP + 8) + c), g, valid);
-  }
 }
 
 }  // namespace flash

@@ -30,7 +30,10 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 ragged S) and fused AdamW (with and without EMA) at every
                 quantized leaf shape (plus a ragged leaf, and clipping
                 active) against their plain versions, with timing beside the
-                bound, the plain version and a PyTorch yardstick;
+                bound, the plain version and a PyTorch yardstick; the flash
+                backward's bound counts its exponentials too, its pair is set
+                against SDPA's backward per shape and per step, and ptxas's
+                registers and spills of each of its instantiations are shown;
  11. train e2e -- cli/finetune_sd.main trains 6 steps on 8 fabricated PNG
                 tiles, writes checkpoint-3/ and the final export, which
                 loads back; the kernel launch counts must equal the config's;
@@ -56,6 +59,7 @@ from unittest import mock
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (SXM data sheet)
 H100_F32_FLOPS = 67e12  # CUDA-core f32 peak
 H100_BYTES_PER_S = 3.35e12  # HBM3
+H100_EXP_PER_S = 3.9e12  # SFU exponentials (FlashAttention-3, Shah et al. 2024)
 # Flash output, elementwise: |out - ref| <= FLASH_ATOL_RMS * rms(ref) + FLASH_RTOL * |ref|.
 # Both sides round the output to bf16 (up to one ulp of |ref| apart, covered by
 # the relative term); P is rounded to bf16 before P V, as on the TPU, an error of
@@ -566,14 +570,42 @@ def train_api_phase(model_dir, unet_cfg, vae_cfg, dev):
     return flash_shapes, leaves, k4, {"warm_s": warm_s, "peak": peak}
 
 
+def bwd_ptxas(log: str):
+    """(kernel, N) -> 'registers, spills' of each flash backward instantiation,
+    from the build's ptxas -v output."""
+    import re
+
+    found, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"flash_bwd_(dkv|dq)_kernelILi(\d+)E", line)
+        if m and ("Compiling entry function" in line or "Function properties" in line):
+            current = (m.group(1), int(m.group(2)))
+        elif current and "spill stores" in line:
+            found[current] = line.strip()
+        elif current and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            found[current] = f"{regs.group(1) if regs else '?'} registers, {found.get(current, '')}"
+            current = None
+    return found
+
+
 def flash_bwd_rows(per_step):
     """Parity and timing of the dK/dV and dQ kernels at every training shape."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
+    from agenda_tpu_torch.kernels import _build
     from agenda_tpu_torch.kernels import flash as fl
 
+    kernels = _build.load_library()
+    smem = kernels.function("agenda_flash_bwd_smem_bytes", [ctypes.c_int, ctypes.c_int])
+    for (kind, nd), text in sorted(bwd_ptxas(kernels.log).items()):
+        print(f"[ptxas] flash_bwd_{kind}_kernel<{nd}>: {text}; "
+              f"{smem(kind == 'dkv', nd)} bytes of dynamic shared memory", flush=True)
     rows = {"dkv": [], "dq": []}
+    pair = []  # (shape, launches a step, dK/dV + dQ ms, SDPA backward ms)
     shapes = dict(per_step)
     for shape in EXTRA_FLASH_BWD:
         shapes.setdefault(shape, 0)
@@ -616,6 +648,7 @@ def flash_bwd_rows(per_step):
         flops1 = 2.0 * b * h * s * s * d  # one S x S x D product
         io = 2.0 * b * s * h * d  # one bf16 (B, S, H, D) tensor, bytes
         stats = 8.0 * b * h * s  # lse and delta, f32
+        exps = float(b * h * s * s)  # P is recomputed in each kernel
         specs = {  # kind: (call, plain, products, bytes moved: q, k, v, dO, stats in; grads out)
             "dkv": (lambda: fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                     lambda: fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta),
@@ -628,20 +661,29 @@ def flash_bwd_rows(per_step):
             ms, eager = time_ms(call)
             plain, _ = time_ms(plain_fn, max_iters=10)
             flops = products * flops1
-            t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+            terms = {"tensor operations": flops / H100_BF16_FLOPS,
+                     "exponentials": exps / H100_EXP_PER_S, "bytes": nbytes / H100_BYTES_PER_S}
+            term = max(terms, key=terms.get)
             rows[kind].append(dict(shape=shape, per_batch=count, err=errs[kind][0], ms=ms,
                                    plain_ms=plain, library_ms=lib,
-                                   bound_ms=1e3 * max(t_ops, t_bytes),
-                                   bound_by="operations" if t_ops >= t_bytes else "bytes"))
+                                   bound_ms=1e3 * terms[term],
+                                   bound_by="bytes" if term == "bytes" else "operations"))
             print(f"flash bwd {kind} (B,S,H,D)={shape} x{count}/step  err {errs[kind][0]:.3g}, "
                   f"{errs[kind][1]:.4g} of the limit  kernel {ms:.4f} ms (eager {eager:.4f})  "
                   f"plain {plain:.4f} ms  SDPA backward (dQ, dK, dV) {lib:.4f} ms (eager "
-                  f"{lib_eager:.4f})  bound "
-                  f"{rows[kind][-1]['bound_ms']:.4f} ms ({rows[kind][-1]['bound_by']}: "
-                  f"{products} x 2*B*H*S^2*D = {flops:.4g} ops over 989e12/s; {nbytes:.4g} "
-                  f"bytes over 3.35e12/s)", flush=True)
+                  f"{lib_eager:.4f})  bound {1e3 * terms[term]:.4f} ms ({term}: {products} x "
+                  f"2*B*H*S^2*D = {flops:.4g} ops over 989e12/s = "
+                  f"{1e3 * terms['tensor operations']:.4f} ms; B*H*S^2 = {exps:.4g} exp over "
+                  f"3.9e12/s = {1e3 * terms['exponentials']:.4f} ms; {nbytes:.4g} bytes over "
+                  f"3.35e12/s = {1e3 * terms['bytes']:.4f} ms)", flush=True)
+        pair.append((shape, count, rows["dkv"][-1]["ms"] + rows["dq"][-1]["ms"], lib))
+        print(f"flash bwd pair (B,S,H,D)={shape}: dK/dV + dQ {pair[-1][2]:.4f} ms against SDPA's "
+              f"backward {lib:.4f} ms ({pair[-1][2] / lib:.2f}x)", flush=True)
         del q, k, v, do, out, lse, delta, got, want, qt, kt, vt, o, dot
         torch.cuda.empty_cache()
+    ours, sdpa = (sum(n * x[i] for _, n, *x in pair) for i in (0, 1))
+    print(f"flash bwd pair per training step: dK/dV + dQ {ours:.4f} ms against SDPA's backward "
+          f"{sdpa:.4f} ms ({ours / sdpa:.2f}x)", flush=True)
     return rows
 
 

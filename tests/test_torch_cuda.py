@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Every test here is marked ``cuda`` and skips without a GPU. The file imports
+Every test here that launches a kernel is marked ``cuda`` and skips without a
+GPU; two checks of the sources (the broken copies' edits, chip_smoke.py's
+ptxas report) run anywhere. The file imports
 neither jax nor agenda_tpu, so it also runs on the card's machine, where
 JAX is not installed (``tests/conftest.py`` imports jax, hence
 ``--noconftest``)::
@@ -8,6 +10,7 @@ JAX is not installed (``tests/conftest.py`` imports jax, hence
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import importlib.util
 import json
 import os
 import shutil
@@ -207,6 +210,127 @@ def test_flash_backward_kernels_match_plain(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 333, 2, 152)])
+def test_flash_backward_kernels_are_deterministic(shape):
+    """Each gradient element has one owner and a fixed summation order: two
+    launches on the same inputs give bitwise-equal dK, dV and dQ."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v)
+    delta = fl.flash_delta(out, do)
+    first = (*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+    second = (*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+              fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# Broken copies of csrc/flash_bwd.cu that the backward's limit must fail at
+# every shape of test_flash_backward_kernels_match_plain.
+FLASH_BWD_MUTATIONS = {
+    "q_tile_from_wrong_ring_stage": (
+        "const uint32_t q_s = smem_u32(Qs + s * T::kTileBytes);",
+        "const uint32_t q_s = smem_u32(Qs + (s + 1) % T::kStages * T::kTileBytes);"),
+    "drop_first_k_step_of_dk": (
+        "WgmmaRS<ND, 1>::run(dk, pb[kk], desc_mn_major<BQ>(q_s, kk), 1);",
+        "if (kk > 0) WgmmaRS<ND, 1>::run(dk, pb[kk], desc_mn_major<BQ>(q_s, kk), 1);"),
+    "skip_last_query_tile_of_dkv": (
+        "    mbar_wait(&full[s], (i / T::kStages) & 1);\n",
+        "    mbar_wait(&full[s], (i / T::kStages) & 1);\n    if (i + 1 == n_tiles) break;\n"),
+    "skip_last_key_tile_of_dq": (
+        "    mbar_wait(&full[st], (j / T::kStages) & 1);\n",
+        "    mbar_wait(&full[st], (j / T::kStages) & 1);\n    if (j + 1 == n_tiles) break;\n"),
+}
+FLASH_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
+                    (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24)]
+_WORST_BWD_ERROR_OVER_LIMIT = """
+import json, torch
+from agenda_tpu_torch.kernels import flash as fl
+worst = {}
+for shape in %r:
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(4))
+    out, lse = fl.flash_attention_fwd(q, k, v)
+    delta = fl.flash_delta(out, do)
+    got = (*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+           fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+    want = (*fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta),
+            fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta))
+    ratio = 0.0
+    for x, ref in zip(got, want):
+        ref = ref.float()
+        limit = %r * ref.square().mean().sqrt() + %r * ref.abs()
+        r = ((x.float() - ref).abs() / limit).max().item()
+        ratio = r if r != r else max(ratio, r)  # NaN stays NaN
+    worst[str(shape)] = ratio
+print(json.dumps(worst))
+"""
+
+
+@pytest.mark.parametrize("mutation", sorted(FLASH_BWD_MUTATIONS))
+def test_flash_backward_mutations_apply_to_the_source(mutation):
+    """Runs anywhere: each broken copy above edits exactly one place of the
+    backward's source, so the card test keeps testing what it names."""
+    src = (Path(agenda_tpu_torch.__file__).parent / "csrc" / "flash_bwd.cu").read_text()
+    old, new = FLASH_BWD_MUTATIONS[mutation]
+    assert src.count(old) == 1 and new not in src
+
+
+def test_chip_smoke_reads_ptxas_registers_and_spills():
+    """Runs anywhere: chip_smoke.py's report of each backward instantiation."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    name = "_ZN45_GLOBAL__N__c8e2eb60_12_flash_bwd_cu_2c9866a3{}ILi{}EEEvNS_9BwdParamsE"
+    log = "\n".join([
+        "== flash_bwd.cu",
+        f"ptxas info    : Compiling entry function '{name.format('19flash_bwd_dq_kernel', 40)}' "
+        "for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('19flash_bwd_dq_kernel', 40)}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 113 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{name.format('20flash_bwd_dkv_kernel', 80)}' "
+        "for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('20flash_bwd_dkv_kernel', 80)}",
+        "    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 24 bytes cumulative stack size",
+        "== groupnorm.cu",
+        "    8 bytes stack frame, 12 bytes spill stores, 32 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 1 barriers, 132 bytes smem",
+    ])
+    assert chip_smoke.bwd_ptxas(log) == {
+        ("dq", 40): "113 registers, 0 bytes stack frame, 0 bytes spill stores, "
+                    "0 bytes spill loads",
+        ("dkv", 80): "168 registers, 24 bytes stack frame, 20 bytes spill stores, "
+                     "20 bytes spill loads"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutation", sorted(FLASH_BWD_MUTATIONS))
+def test_flash_backward_limit_fails_broken_kernels(mutation, tmp_path):
+    """Build a broken copy of the backward in tmp_path; the limit must fail it
+    at every shape (the sound kernels stay within it: the test above)."""
+    _need_cuda()
+    copy = tmp_path / "agenda_tpu_torch"
+    shutil.copytree(Path(agenda_tpu_torch.__file__).parent, copy,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    src = copy / "csrc" / "flash_bwd.cu"
+    old, new = FLASH_BWD_MUTATIONS[mutation]
+    text = src.read_text()
+    assert text.count(old) == 1
+    src.write_text(text.replace(old, new))
+    script = _WORST_BWD_ERROR_OVER_LIMIT % (FLASH_BWD_SHAPES, FLASH_ATOL_RMS, FLASH_RTOL)
+    run = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(tmp_path)})
+    assert run.returncode == 0, run.stderr
+    worst = json.loads(run.stdout.splitlines()[-1])
+    print(f"{mutation}: worst |grad - ref| / limit per shape {worst}")
+    assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
+
+
+@pytest.mark.cuda
 def test_flash_autograd_reads_strided_views_both_ways():
     """Gradients through ``flash_attention`` of head-split views of one packed
     projection, against autograd through the plain attention in f32."""
@@ -287,3 +411,15 @@ def test_fused_adamw_wrapper_raises_instead_of_falling_back():
                              scalars, **ADAMW_KW)
     with pytest.raises(ValueError):  # the EMA needs its decay in scalars[4]
         fused_adamw8bit_leaf(p, grad, qm, sm, qv, sv, scalars, ema=p.clone(), **ADAMW_KW)
+
+
+@pytest.mark.parametrize("variant", ["no_exp", "loads_and_s_only", "one_warpgroup", "two_stages"])
+def test_flash_bwd_variants_apply_to_the_source(variant):
+    """Runs anywhere: every edit of flash_bwd_variants.py's variants finds its
+    line in the backward's source, so the tool keeps measuring what it names."""
+    spec = importlib.util.spec_from_file_location(
+        "flash_bwd_variants", Path(__file__).resolve().parent.parent / "flash_bwd_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (Path(agenda_tpu_torch.__file__).parent / "csrc" / "flash_bwd.cu").read_text()
+    assert tool.VARIANTS[variant] and all(old in src for old, _ in tool.VARIANTS[variant])
