@@ -69,10 +69,12 @@
 namespace {
 
 using hopper::acc_to_a;
+using hopper::align1024;
 using hopper::desc_k_major;
 using hopper::desc_mn_major;
 using hopper::exp2_ftz;
 using hopper::fence_regs;
+using hopper::load_rows;
 using hopper::mbar_arrive;
 using hopper::mbar_arrive_expect_tx;
 using hopper::mbar_expect_tx;
@@ -80,7 +82,6 @@ using hopper::mbar_fence_init;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_u32;
-using hopper::tma_load_4d;
 using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_wait;
@@ -148,21 +149,6 @@ struct DqTile : Block<ND, dq_warpgroups(ND)> {
   static constexpr size_t kSmem = 2 * B::kOwnBytes + 2 * kStages * kTileBytes +
                                   (2 * kStages + 1) * sizeof(uint64_t) + 1024;
 };
-
-// The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t s = smem_u32(p);
-  return p + (((s + 1023) & ~1023u) - s);
-}
-
-// rows [row0, row0 + ROWS) of one (batch, head), all kAtoms column blocks,
-// into a tile of ROWS rows
-template <int ATOMS, int ROWS>
-__device__ __forceinline__ void load_rows(unsigned char* tile, const CUtensorMap* map,
-                                          uint64_t* bar, int row0, int h, int b) {
-#pragma unroll
-  for (int c = 0; c < ATOMS; ++c) tma_load_4d(tile + c * ROWS * 128, map, bar, 64 * c, h, row0, b);
-}
 
 // Store a warpgroup's 64 x N f32 accumulator (N2 = N / 2 registers a
 // thread), times mul, as bf16 rows [row0, row0 + 64) of a contiguous
@@ -459,50 +445,15 @@ __global__ void __launch_bounds__(DqTile<ND>::kThreads, 1)
 
 // -- host side ----------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 struct Inputs {
   const void* ptr[4];        // q, k, v, dout
   const long long* strides;  // 12 element strides: batch, seq, head of q, k, v, dout
   int B;
 };
 
-// A (D, H, S, B) map of one bf16 input with boxes of 64 columns x `rows` rows
+// A (D, H, S, B) map of input t with boxes of 64 columns x `rows` rows
 bool encode(CUtensorMap* map, const Inputs& in, int t, const BwdParams& p, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const long long* st = in.strides + 3 * t;
-  const cuuint64_t dims[4] = {(cuuint64_t)p.D, (cuuint64_t)p.H, (cuuint64_t)p.S,
-                              (cuuint64_t)in.B};
-  const cuuint64_t bytes[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                               (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(in.ptr[t]), dims, bytes,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::encode_bshd(map, in.ptr[t], in.strides + 3 * t, in.B, p.S, p.H, p.D, rows);
 }
 
 // q and dO in boxes of qd_rows rows, k and v in boxes of kv_rows rows

@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward
-// (flash_bwd.cu), in raw PTX: mbarriers, TMA tile loads, the wgmma
-// shared-memory matrix descriptor, and wgmma.mma_async in its SS form (A and
-// B from shared memory) and RS form (A from registers).
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu) and the GroupNorm (groupnorm.cu), in raw PTX:
+// mbarriers, TMA tile loads, thread-block clusters and their distributed
+// shared memory, the wgmma shared-memory matrix descriptor, and
+// wgmma.mma_async in its SS form (A and B from shared memory) and RS form (A
+// from registers); and, on the host, the card's SM count and the (D, H, S, B)
+// tensor maps that the flash kernels' TMA loads read.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: a tile of R rows (R a multiple of 8) and up to 64 * A bf16 columns
@@ -13,7 +16,8 @@
 //   K-major (rows are M or N, columns are K), as Q, K, V and dO in Q K^T:
 //     k-step kk (16 columns) starts at (kk / 4) * R * 128 + (kk % 4) * 32;
 //     SBO = 1024 bytes between 8-row groups, LBO unused;
-//   MN-major (rows are K, columns are N), as K in dS K or dO in P^T dO:
+//   MN-major (rows are K, columns are N), as K in dS K, V in P V or dO in
+//   P^T dO:
 //     k-step kk (16 rows) starts at kk * 2048; SBO = 1024 bytes between
 //     8-row groups of K, LBO = R * 128 bytes between 64-column blocks of N.
 //
@@ -103,6 +107,61 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = smem_u32(p);
+  return p + (((s + 1023) & ~1023u) - s);
+}
+
+// rows [row0, row0 + ROWS) of one (batch, head) of a (D, H, S, B) map, all
+// ATOMS column blocks of 64, into a tile of ROWS rows
+template <int ATOMS, int ROWS>
+__device__ __forceinline__ void load_rows(unsigned char* tile, const CUtensorMap* map,
+                                          uint64_t* bar, int row0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < ATOMS; ++c) tma_load_4d(tile + c * ROWS * 128, map, bar, 64 * c, h, row0, b);
+}
+
+// -- thread-block clusters ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives (its shared-memory
+// writes released) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// ... and waits for all the others (their writes acquired)
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float2 at `p` in this block's shared memory, read from the same
+// address in the shared memory of cluster block `rank`
+__device__ __forceinline__ float2 ld_cluster_f2(const float2* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // -- wgmma --------------------------------------------------------------------
@@ -211,6 +270,21 @@ struct WgmmaSS<64> {
   }
 };
 
+template <>
+struct WgmmaSS<128> {
+  __device__ __forceinline__ static void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+#ifdef __CUDA_ARCH__  // the host compiler caps asm operands at 30
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" WG_R10() ", " WG_R10(1) ", " WG_R10(2) ", " WG_R10(3) ", " WG_R10(4) ", " WG_R10(5)
+        ", %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_F40(0), WG_F20(40), WG_F4(60)
+        : "l"(a), "l"(b), "r"(scale_d));
+#endif
+  }
+};
+
 // RS: A (64 x 16 bf16) from registers, B from shared memory; TRANS_B = 1
 // reads B MN-major.
 template <int N, int TRANS_B>
@@ -269,5 +343,61 @@ struct WgmmaRS<160, TRANS_B> {
 #undef WG_F16
 #undef WG_F20
 #undef WG_F40
+
+// -- host side ------------------------------------------------------------------
+
+// SMs of the current device, read once a device (launch plans size their
+// grids by it); 0 if the runtime cannot say
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] <= 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found once through the runtime (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A (D, H, S, B) map of a bf16 (B, S, H, D) tensor at `ptr` with element
+// strides {batch, seq, head} (D unit-stride), in boxes of 64 columns x `rows`
+// rows of one head, 128-byte swizzle; TMA zero-fills rows past S and columns
+// past D. False if cuTensorMapEncodeTiled refuses it.
+inline bool encode_bshd(CUtensorMap* map, const void* ptr, const long long* strides, int B,
+                        int S, int H, int D, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)strides[2] * 2, (cuuint64_t)strides[1] * 2,
+                               (cuuint64_t)strides[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace hopper

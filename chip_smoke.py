@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   -- compile agenda_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+  1. build   -- compile agenda_tpu_torch/csrc/*.cu with nvcc for sm_90a, and
+                show ptxas's registers and spills of each instantiation of the
+                flash forward and the group norm;
   2. shapes  -- write a full-width SD-1.4-shaped pipeline with seeded random
                 weights, load it, record the shape of every kernel call of
                 one UNet call (CFG batch) and one VAE decode, and time a cold
@@ -14,7 +16,11 @@ Phases, each fatal on failure:
                 zero-padded head dim);
   4. timing  -- kernel, plain version and a PyTorch yardstick the port never
                 calls (SDPA; F.group_norm + F.silu), beside the H100 bound;
-                device times replay a CUDA graph of the calls;
+                device times replay a CUDA graph of the calls, eager times
+                launch them back to back (the host's cost shows in the
+                gap, and the forward's tensor-map encodes are timed on the
+                host); the forward's bound counts its exponentials too, and
+                each group-norm launch's plan is shown;
   5. e2e     -- the port's CLI (cli/data_generation.main) generates 4 images
                 with 3 word heatmaps at 512x512, 20 PLMS steps, batch 2; the
                 kernel launch counts must equal the counts from the config;
@@ -68,8 +74,9 @@ H100_EXP_PER_S = 3.9e12  # SFU exponentials (FlashAttention-3, Shah et al. 2024)
 FLASH_ATOL_RMS, FLASH_RTOL = 0.05, 1.6e-2
 FLASH_TOL_LSE = 1e-3  # f32 logsumexp from bf16 q, k with f32 accumulation
 GN_ATOL, GN_RTOL = 2e-2, 1.6e-2  # about two bf16 ulps of the output
-# off the main path: a ragged S, and a ragged S with D zero-padded to the wide tiles' 512
-EXTRA_FLASH = ((2, 1000, 8, 40), (1, 333, 2, 264))
+# off the main path, ragged S: one warpgroup a block at D = 40 and at D = 80, and D
+# zero-padded to the wide tiles' 512
+EXTRA_FLASH = ((2, 1000, 8, 40), (2, 300, 4, 80), (1, 333, 2, 264))
 
 E2E_ARGS = ["--resolution", "512", "--image-size", "112", "--num-inference-steps", "20",
             "--batch-size", "2", "--num-images", "4",
@@ -275,11 +282,17 @@ def profile_run(run, tag: str, what: str, warm_s: float) -> None:
 
 
 def flash_rows(per_batch):
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
+    from agenda_tpu_torch.kernels import _build
     from agenda_tpu_torch.kernels.flash import flash_attention_fwd, flash_attention_reference
 
+    encode_ns = _build.load_library().function(
+        "agenda_flash_fwd_encode_ns",
+        [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int])
     rows = []
     shapes = dict(per_batch)
     for shape in EXTRA_FLASH:
@@ -304,30 +317,49 @@ def flash_rows(per_batch):
                 f"(tol {FLASH_TOL_LSE})")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms, eager = time_ms(lambda: flash_attention_fwd(q, k, v))
+        maps = ""
+        if d <= 160:  # the wgmma kernel encodes three tensor maps a launch
+            ns = encode_ns(q.data_ptr(), b, s, h, d, *q.stride()[:3], 1000)
+            require(ns >= 0, f"flash {shape}: cuTensorMapEncodeTiled refused a tensor map")
+            maps = f", of which tensor maps {ns / 1e6:.3f} us"
         plain, _ = time_ms(lambda: flash_attention_reference(q, k, v), max_iters=20)
         lib, _ = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * b * h * s * s * d
         nbytes = 4.0 * b * s * h * d * 2 + 4.0 * b * h * s
+        exps = float(b * h * s * s)
+        terms = {"tensor operations": flops / H100_BF16_FLOPS,
+                 "exponentials": exps / H100_EXP_PER_S, "bytes": nbytes / H100_BYTES_PER_S}
+        term = max(terms, key=terms.get)
         rows.append(dict(shape=shape, per_batch=count, err=max(err, err_lse), ms=ms,
-                         plain_ms=plain, library_ms=lib,
-                         bound_ms=1e3 * max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S),
-                         bound_by="operations" if flops / H100_BF16_FLOPS
-                         >= nbytes / H100_BYTES_PER_S else "bytes"))
+                         plain_ms=plain, library_ms=lib, bound_ms=1e3 * terms[term],
+                         bound_by="bytes" if term == "bytes" else "operations"))
         print(f"flash (B,S,H,D)={shape} x{count}/batch  out err {err:.3g}, {of_limit:.4g} of the "
               f"limit {FLASH_ATOL_RMS} rms(ref) + {FLASH_RTOL}|ref| (rms {rms:.4g})  lse err "
               f"{err_lse:.3g} (tol {FLASH_TOL_LSE})  kernel {ms:.4f} ms "
-              f"(eager {eager:.4f})  plain {plain:.4f} ms  SDPA {lib:.4f} ms  bound "
-              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})", flush=True)
+              f"(eager {eager:.4f}{maps})  plain {plain:.4f} ms  SDPA {lib:.4f} ms  bound "
+              f"{1e3 * terms[term]:.4f} ms ({term}: 4*B*H*S^2*D = {flops:.4g} ops over 989e12/s "
+              f"= {1e3 * terms['tensor operations']:.4f} ms; B*H*S^2 = {exps:.4g} exp over "
+              f"3.9e12/s = {1e3 * terms['exponentials']:.4f} ms; {nbytes:.4g} bytes over "
+              f"3.35e12/s = {1e3 * terms['bytes']:.4f} ms)", flush=True)
         del q, k, v, out, lse, ref_out, ref_lse, ref_f, diff
+    ours, sdpa, bound = (sum(r[key] * r["per_batch"] for r in rows)
+                         for key in ("ms", "library_ms", "bound_ms"))
+    print(f"flash forward per generation batch: {ours:.4f} ms against SDPA {sdpa:.4f} ms "
+          f"({ours / sdpa:.2f}x) and the bound {bound:.4f} ms", flush=True)
     return rows
 
 
 def gn_rows(per_batch):
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
+    from agenda_tpu_torch.kernels import _build
     from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
 
+    plan_fn = _build.load_library().function("agenda_groupnorm_plan",
+                                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
     rows = []
     for (shape, groups, eps, act), count in per_batch.items():
         c = shape[1]
@@ -353,6 +385,8 @@ def gn_rows(per_batch):
         plain, _ = time_ms(lambda: group_norm_act_reference(x, w, bias, groups, eps, act))
         lib, _ = time_ms(library)
         n = x.numel()
+        plan = (ctypes.c_longlong * 4)()
+        plan_fn(shape[0], c, n // (shape[0] * c), groups, plan)
         nbytes = 2.0 * n * 2 + 2.0 * c * 4
         flops = n * (8.0 if act == "silu" else 4.0)
         rows.append(dict(shape=(shape, eps, act), per_batch=count, err=err, ms=ms,
@@ -363,8 +397,15 @@ def gn_rows(per_batch):
         print(f"groupnorm {shape} eps {eps:g} act {act} x{count}/batch  err {err:.3g} "
               f"(tol {GN_ATOL}+{GN_RTOL}|ref|)  kernel {ms:.4f} ms (eager {eager:.4f})  "
               f"plain {plain:.4f} ms  F.group_norm {lib:.4f} ms  bound "
-              f"{rows[-1]['bound_ms']:.4f} ms", flush=True)
+              f"{rows[-1]['bound_ms']:.4f} ms  (cluster of {plan[0]}, {plan[1]} threads, "
+              f"{plan[2]} chunks a thread in shared memory; "
+              + ("x read once)" if plan[3] == 0 else f"{plan[3]} of each block's chunks "
+                 "read twice)"), flush=True)
         del x, y, ref, diff
+    ours, lib, bound = (sum(r[key] * r["per_batch"] for r in rows)
+                        for key in ("ms", "library_ms", "bound_ms"))
+    print(f"groupnorm per generation batch: {ours:.4f} ms against F.group_norm + F.silu "
+          f"{lib:.4f} ms and the bound {bound:.4f} ms", flush=True)
     return rows
 
 
@@ -570,16 +611,18 @@ def train_api_phase(model_dir, unet_cfg, vae_cfg, dev):
     return flash_shapes, leaves, k4, {"warm_s": warm_s, "peak": peak}
 
 
-def bwd_ptxas(log: str):
-    """(kernel, N) -> 'registers, spills' of each flash backward instantiation,
-    from the build's ptxas -v output."""
+def ptxas_report(log: str):
+    """'kernel<template args>' -> 'registers, stack, spills' of each instantiation
+    of the port's kernels, from the build's ptxas -v output."""
     import re
 
+    names = "flash_fwd_wgmma|flash_fwd_wide|flash_bwd_dkv|flash_bwd_dq|groupnorm"
     found, current = {}, None
     for line in log.splitlines():
-        m = re.search(r"flash_bwd_(dkv|dq)_kernelILi(\d+)E", line)
+        m = re.search(rf"({names})_kernel(?:I((?:Li\d+E)+)E)?", line)
         if m and ("Compiling entry function" in line or "Function properties" in line):
-            current = (m.group(1), int(m.group(2)))
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            current = f"{m.group(1)}_kernel" + (f"<{', '.join(args)}>" if args else "")
         elif current and "spill stores" in line:
             found[current] = line.strip()
         elif current and "registers" in line:
@@ -601,9 +644,11 @@ def flash_bwd_rows(per_step):
 
     kernels = _build.load_library()
     smem = kernels.function("agenda_flash_bwd_smem_bytes", [ctypes.c_int, ctypes.c_int])
-    for (kind, nd), text in sorted(bwd_ptxas(kernels.log).items()):
-        print(f"[ptxas] flash_bwd_{kind}_kernel<{nd}>: {text}; "
-              f"{smem(kind == 'dkv', nd)} bytes of dynamic shared memory", flush=True)
+    for name, text in sorted(ptxas_report(kernels.log).items()):
+        if name.startswith("flash_bwd_"):
+            nd = int(name[name.index("<") + 1:-1])
+            print(f"[ptxas] {name}: {text}; {smem('dkv' in name, nd)} bytes of dynamic shared "
+                  "memory", flush=True)
     rows = {"dkv": [], "dq": []}
     pair = []  # (shape, launches a step, dK/dV + dQ ms, SDPA backward ms)
     shapes = dict(per_step)
@@ -891,9 +936,9 @@ def main() -> int:
     lib = _build.load_library()
     print(f"[build] {lib.path.name}: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s)", flush=True)
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip())
+    for name, text in sorted(ptxas_report(lib.log).items()):
+        if not name.startswith("flash_bwd_"):  # the backward's: phase 10
+            print(f"[ptxas] {name}: {text}", flush=True)
 
     phase_s["build (1)"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="agenda_chip_smoke_") as tmp:

@@ -13,7 +13,6 @@ JAX is not installed (``tests/conftest.py`` imports jax, hence
 import importlib.util
 import json
 import os
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -37,6 +36,19 @@ FLASH_ATOL_RMS, FLASH_RTOL = 0.05, 1.6e-2
 FLASH_TOL_LSE = 1e-3  # f32 logsumexp from bf16 q, k
 GN_ATOL, GN_RTOL = 2e-2, 1.6e-2  # about two bf16 ulps of the output
 
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _root_module(name):
+    spec = importlib.util.spec_from_file_location(name, REPO / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the variant timer at the root; its copy_package makes the broken copies below
+kernel_variants = _root_module("kernel_variants")
+
 
 def _assert_flash_close(out, ref):
     ref = ref.float()
@@ -51,6 +63,8 @@ def _need_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 77, 3, 24),
+                                   (4, 1700, 8, 40),  # a block pair past S, a ragged last tile
+                                   (2, 300, 4, 80),  # one warpgroup a block at D = 80
                                    (2, 300, 2, 200),  # D padded to 512 in shared memory
                                    (1, 4096, 1, 512), (1, 333, 2, 264)])
 def test_flash_kernel_matches_plain(shape):
@@ -78,20 +92,40 @@ def test_flash_kernel_reads_strided_views():
     assert (lse - ref_lse).abs().max().item() <= FLASH_TOL_LSE
 
 
-# Broken copies of csrc/flash_fwd.cu that the flash limit must fail: each
-# touches only P V, which the logsumexp check cannot see.
+# Broken copies of csrc/flash_fwd.cu that the flash limit (the output's and
+# the logsumexp's) must fail; each breaks the wgmma kernel (D <= 160) and the
+# mma.sync one (D = 512, 264) alike.
 FLASH_MUTATIONS = {
-    "v_from_other_stage": ("const __nv_bfloat16* Vt = Vs + stage * BK * ROW;",
-                           "const __nv_bfloat16* Vt = Vs + (stage ^ 1) * BK * ROW;"),
-    "drop_16_keys_of_a_column_tile": (
-        "mma_bf16(o[n + 1], pa[kk], bv[2], bv[3]);",
-        "if (kk + n > 0) mma_bf16(o[n + 1], pa[kk], bv[2], bv[3]);"),
-    "drop_last_key_tile": ("    // O += P V on this warp's columns;",
-                           "    if (j + 1 == n_tiles) continue;\n    // O += P V on this warp's columns;"),
+    "v_from_wrong_ring_stage": [
+        ("Vs + (j + T::kStages - 1) % T::kStages * T::kTileBytes",
+         "Vs + (j + T::kStages - 2) % T::kStages * T::kTileBytes"),
+        ("Vs + (n_tiles - 1) % T::kStages * T::kTileBytes",
+         "Vs + n_tiles % T::kStages * T::kTileBytes"),
+        ("const __nv_bfloat16* Vt = Vs + stage * BK * ROW;",
+         "const __nv_bfloat16* Vt = Vs + (stage ^ 1) * BK * ROW;")],
+    "o_rescale_skipped": [
+        ("    for (int i = 0; i < ND / 2; ++i) o[i] *= alpha[(i >> 1) & 1];\n", ""),
+        ("      o[n][0] *= alpha[0];\n      o[n][1] *= alpha[0];\n"
+         "      o[n][2] *= alpha[1];\n      o[n][3] *= alpha[1];\n", "")],
+    "last_tile_mask_dropped": [
+        ("if (key0 + BK > p.S) {  // the last tile", "if (false) {  // the last tile"),
+        ("const float v = key < p.S ? s[n][e] * p.scale_log2 : -INFINITY;",
+         "const float v = s[n][e] * p.scale_log2;")],
 }
-# the main path's flash shapes and chip_smoke.py's two ragged ones
+# the main path's flash shapes and chip_smoke.py's three ragged ones, which
+# reach every instantiation of the wgmma kernel: (2, 1000, 8, 40) one
+# warpgroup a block at D = 40, (2, 300, 4, 80) one at D = 80
 FLASH_LIMIT_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
-                      (2, 4096, 1, 512), (2, 1000, 8, 40), (1, 333, 2, 264)]
+                      (2, 4096, 1, 512), (2, 1000, 8, 40), (2, 300, 4, 80), (1, 333, 2, 264)]
+# Each broken copy is held to every one of them where the code it breaks runs:
+# O is rescaled only from a second key tile on ((4, 64, 8, 160) has one), and
+# the mask only acts on a ragged last tile.
+FLASH_MUTATION_SHAPES = {
+    "v_from_wrong_ring_stage": FLASH_LIMIT_SHAPES,
+    "o_rescale_skipped": [s for s in FLASH_LIMIT_SHAPES if s != (4, 64, 8, 160)],
+    "last_tile_mask_dropped": [(2, 1000, 8, 40), (2, 300, 4, 80), (1, 333, 2, 264),
+                               (4, 1700, 8, 40)],
+}
 _WORST_ERROR_OVER_LIMIT = """
 import json, torch
 from agenda_tpu_torch.kernels.flash import flash_attention_fwd, flash_attention_reference
@@ -99,12 +133,27 @@ worst = {}
 for shape in %r:
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
     q, k, v = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(3))
-    ref = flash_attention_reference(q, k, v)[0].float()
-    diff = (flash_attention_fwd(q, k, v)[0].float() - ref).abs()
+    ref, ref_lse = flash_attention_reference(q, k, v)
+    out, lse = flash_attention_fwd(q, k, v)
+    ref = ref.float()
     limit = %r * ref.square().mean().sqrt() + %r * ref.abs()
-    worst[str(shape)] = (diff / limit).max().item()
+    ratio = ((out.float() - ref).abs() / limit).max().item()
+    lse_ratio = (lse - ref_lse).abs().max().item() / %r
+    worst[str(shape)] = ratio if ratio != ratio else max(ratio, lse_ratio)  # NaN stays NaN
 print(json.dumps(worst))
 """
+
+
+def _broken_copy(tmp_path, source, edits):
+    """agenda_tpu_torch copied into tmp_path with `edits` (old, new) made to csrc/<source>."""
+    kernel_variants.copy_package(tmp_path, [(source, old, new) for old, new in edits])
+
+
+def _worst_over_limit(tmp_path, script):
+    run = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(tmp_path)})
+    assert run.returncode == 0, run.stderr
+    return json.loads(run.stdout.splitlines()[-1])
 
 
 @pytest.mark.cuda
@@ -112,21 +161,33 @@ print(json.dumps(worst))
 def test_flash_limit_fails_broken_kernels(mutation, tmp_path):
     """Build a broken copy of the package in tmp_path; the limit must fail it at every shape."""
     _need_cuda()
-    copy = tmp_path / "agenda_tpu_torch"
-    shutil.copytree(Path(agenda_tpu_torch.__file__).parent, copy,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = copy / "csrc" / "flash_fwd.cu"
-    old, new = FLASH_MUTATIONS[mutation]
-    text = src.read_text()
-    assert text.count(old) == 1
-    src.write_text(text.replace(old, new))
-    script = _WORST_ERROR_OVER_LIMIT % (FLASH_LIMIT_SHAPES, FLASH_ATOL_RMS, FLASH_RTOL)
-    run = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
-                         text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(tmp_path)})
-    assert run.returncode == 0, run.stderr
-    worst = json.loads(run.stdout.splitlines()[-1])
-    print(f"{mutation}: worst |out - ref| / limit per shape {worst}")
+    _broken_copy(tmp_path, "flash_fwd.cu", FLASH_MUTATIONS[mutation])
+    worst = _worst_over_limit(tmp_path, _WORST_ERROR_OVER_LIMIT % (
+        FLASH_MUTATION_SHAPES[mutation], FLASH_ATOL_RMS, FLASH_RTOL, FLASH_TOL_LSE))
+    print(f"{mutation}: worst error over the limit (output or lse) per shape {worst}")
     assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
+
+
+@pytest.mark.parametrize("mutation", sorted(FLASH_MUTATIONS))
+def test_flash_forward_mutations_apply_to_the_source(mutation):
+    """Runs anywhere: each edit of each broken forward copy above finds exactly
+    one place in the source, so the card test keeps testing what it names."""
+    src = (Path(agenda_tpu_torch.__file__).parent / "csrc" / "flash_fwd.cu").read_text()
+    assert all(src.count(old) == 1 and (not new or new not in src)
+               for old, new in FLASH_MUTATIONS[mutation])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 4096, 8, 40), (4, 256, 8, 160), (2, 1000, 8, 40),
+                                   (4, 1700, 8, 40), (2, 300, 4, 80), (1, 333, 2, 264)])
+def test_flash_forward_is_deterministic(shape):
+    """Each output element has one owner and a fixed summation order: two
+    launches on the same inputs give bitwise-equal outputs and lse."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(3))
+    first, second = flash_attention_fwd(q, k, v), flash_attention_fwd(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -151,6 +212,8 @@ def test_flash_wrapper_raises_instead_of_falling_back():
 @pytest.mark.parametrize("shape,eps,act", [((4, 320, 64, 64), 1e-5, "silu"),
                                            ((2, 512, 64, 64), 1e-6, None),
                                            ((2, 128, 512, 512), 1e-6, "silu"),
+                                           ((2, 256, 512, 512), 1e-6, "silu"),
+                                           ((4, 1280, 8, 8), 1e-5, "silu"),
                                            ((1, 96, 8, 9), 1e-6, "silu")])
 def test_groupnorm_kernel_matches_plain(shape, eps, act):
     _need_cuda()
@@ -178,6 +241,72 @@ def test_groupnorm_wrapper_raises_instead_of_falling_back():
         group_norm_act(x.to(memory_format=torch.channels_last), w, b, 32, 1e-5)
     with pytest.raises(ValueError):  # H*W not a multiple of 8
         group_norm_act(x[:, :, :7, :7].contiguous(), w, b, 32, 1e-5)
+
+
+# Broken copies of csrc/groupnorm.cu that the group-norm tolerance must fail
+# at every shape below: the VAE's, where a cluster of two blocks shares each
+# span (the inputs' mean varies across the channels of a group, so each
+# block's slice has its own).
+GN_MUTATIONS = {
+    "cluster_rank_dropped": [
+        ("sum = lane < (int)cs ? hopper::ld_cluster_f2(&total, lane)",
+         "sum = lane < (int)cs && lane != 1 ? hopper::ld_cluster_f2(&total, lane)")],
+    "mean_over_one_block": [
+        ("sum = lane < (int)cs ? hopper::ld_cluster_f2(&total, lane) : make_float2(0.f, 0.f);",
+         "sum = lane == 0 ? make_float2(sum.x * cs, sum.y * cs) : make_float2(0.f, 0.f);")],
+}
+GN_MUTATION_SHAPES = [(2, 512, 64, 64), (2, 256, 256, 256), (2, 128, 512, 512),
+                      (2, 256, 512, 512)]
+_GN_WORST_ERROR_OVER_LIMIT = """
+import json, torch
+from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
+worst = {}
+for shape in %r:
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    c = shape[1]
+    offset = 4.0 * (torch.arange(c, device="cuda") %% (c // 32)) / (c // 32)
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + offset[:, None, None]).bfloat16()
+    w = torch.randn(c, device="cuda", generator=g)
+    b = torch.randn(c, device="cuda", generator=g)
+    ref = group_norm_act_reference(x, w, b, 32, 1e-6, "silu").float()
+    diff = (group_norm_act(x, w, b, 32, 1e-6, "silu").float() - ref).abs()
+    worst[str(shape)] = (diff / (%r + %r * ref.abs())).max().item()
+print(json.dumps(worst))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutation", sorted(GN_MUTATIONS))
+def test_groupnorm_tolerance_fails_broken_kernels(mutation, tmp_path):
+    """Build a broken copy of the group norm in tmp_path; its tolerance must
+    fail it at every shape (the sound kernel stays within it, as these
+    inputs show in test_groupnorm_kernel_matches_plain's shapes)."""
+    _need_cuda()
+    _broken_copy(tmp_path, "groupnorm.cu", GN_MUTATIONS[mutation])
+    worst = _worst_over_limit(tmp_path, _GN_WORST_ERROR_OVER_LIMIT % (
+        GN_MUTATION_SHAPES, GN_ATOL, GN_RTOL))
+    print(f"{mutation}: worst |y - ref| / tolerance per shape {worst}")
+    assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
+
+
+@pytest.mark.parametrize("mutation", sorted(GN_MUTATIONS))
+def test_groupnorm_mutations_apply_to_the_source(mutation):
+    """Runs anywhere: each broken group-norm copy above edits exactly one place."""
+    src = (Path(agenda_tpu_torch.__file__).parent / "csrc" / "groupnorm.cu").read_text()
+    assert all(src.count(old) == 1 and new not in src for old, new in GN_MUTATIONS[mutation])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 512, 512), (4, 320, 64, 64), (4, 1280, 8, 8)])
+def test_groupnorm_is_deterministic(shape):
+    """Every block of a cluster sums the cluster's pairs in rank order: two
+    launches give bitwise-equal outputs."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).bfloat16()
+    w, b = torch.randn(shape[1], device="cuda", generator=g), torch.zeros(shape[1], device="cuda")
+    assert torch.equal(group_norm_act(x, w, b, 32, 1e-6, "silu"),
+                       group_norm_act(x, w, b, 32, 1e-6, "silu"))
 
 
 # -- training kernels: flash backward (dK/dV, dQ) and the fused int8 AdamW ---------
@@ -278,12 +407,10 @@ def test_flash_backward_mutations_apply_to_the_source(mutation):
 
 
 def test_chip_smoke_reads_ptxas_registers_and_spills():
-    """Runs anywhere: chip_smoke.py's report of each backward instantiation."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    """Runs anywhere: chip_smoke.py's report of each kernel instantiation."""
+    chip_smoke = _root_module("chip_smoke")
     name = "_ZN45_GLOBAL__N__c8e2eb60_12_flash_bwd_cu_2c9866a3{}ILi{}EEEvNS_9BwdParamsE"
+    fwd = "_ZN45_GLOBAL__N__0d1c2e3f_12_flash_fwd_cu_1a2b3c4d22flash_fwd_wgmma_kernelILi40ELi3EEEvNS_9FwdParamsE"
     log = "\n".join([
         "== flash_bwd.cu",
         f"ptxas info    : Compiling entry function '{name.format('19flash_bwd_dq_kernel', 40)}' "
@@ -296,15 +423,22 @@ def test_chip_smoke_reads_ptxas_registers_and_spills():
         f"ptxas info    : Function properties for {name.format('20flash_bwd_dkv_kernel', 80)}",
         "    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers, 24 bytes cumulative stack size",
+        "== flash_fwd.cu",
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 150 registers, used 4 barriers",
         "== groupnorm.cu",
         "    8 bytes stack frame, 12 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 32 registers, used 1 barriers, 132 bytes smem",
     ])
-    assert chip_smoke.bwd_ptxas(log) == {
-        ("dq", 40): "113 registers, 0 bytes stack frame, 0 bytes spill stores, "
-                    "0 bytes spill loads",
-        ("dkv", 80): "168 registers, 24 bytes stack frame, 20 bytes spill stores, "
-                     "20 bytes spill loads"}
+    assert chip_smoke.ptxas_report(log) == {
+        "flash_bwd_dq_kernel<40>": "113 registers, 0 bytes stack frame, 0 bytes spill stores, "
+                                   "0 bytes spill loads",
+        "flash_bwd_dkv_kernel<80>": "168 registers, 24 bytes stack frame, 20 bytes spill "
+                                    "stores, 20 bytes spill loads",
+        "flash_fwd_wgmma_kernel<40, 3>": "150 registers, 0 bytes stack frame, 0 bytes spill "
+                                         "stores, 0 bytes spill loads"}
 
 
 @pytest.mark.cuda
@@ -313,19 +447,9 @@ def test_flash_backward_limit_fails_broken_kernels(mutation, tmp_path):
     """Build a broken copy of the backward in tmp_path; the limit must fail it
     at every shape (the sound kernels stay within it: the test above)."""
     _need_cuda()
-    copy = tmp_path / "agenda_tpu_torch"
-    shutil.copytree(Path(agenda_tpu_torch.__file__).parent, copy,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = copy / "csrc" / "flash_bwd.cu"
-    old, new = FLASH_BWD_MUTATIONS[mutation]
-    text = src.read_text()
-    assert text.count(old) == 1
-    src.write_text(text.replace(old, new))
-    script = _WORST_BWD_ERROR_OVER_LIMIT % (FLASH_BWD_SHAPES, FLASH_ATOL_RMS, FLASH_RTOL)
-    run = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
-                         text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(tmp_path)})
-    assert run.returncode == 0, run.stderr
-    worst = json.loads(run.stdout.splitlines()[-1])
+    _broken_copy(tmp_path, "flash_bwd.cu", [FLASH_BWD_MUTATIONS[mutation]])
+    worst = _worst_over_limit(tmp_path, _WORST_BWD_ERROR_OVER_LIMIT % (
+        FLASH_BWD_SHAPES, FLASH_ATOL_RMS, FLASH_RTOL))
     print(f"{mutation}: worst |grad - ref| / limit per shape {worst}")
     assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
 
@@ -413,13 +537,22 @@ def test_fused_adamw_wrapper_raises_instead_of_falling_back():
         fused_adamw8bit_leaf(p, grad, qm, sm, qv, sv, scalars, ema=p.clone(), **ADAMW_KW)
 
 
+def _variant_applies(name):
+    csrc = Path(agenda_tpu_torch.__file__).parent / "csrc"
+    edits = kernel_variants.VARIANTS[name]
+    return bool(edits) and all(old in (csrc / source).read_text() for source, old, _ in edits)
+
+
 @pytest.mark.parametrize("variant", ["no_exp", "loads_and_s_only", "one_warpgroup", "two_stages"])
 def test_flash_bwd_variants_apply_to_the_source(variant):
-    """Runs anywhere: every edit of flash_bwd_variants.py's variants finds its
-    line in the backward's source, so the tool keeps measuring what it names."""
-    spec = importlib.util.spec_from_file_location(
-        "flash_bwd_variants", Path(__file__).resolve().parent.parent / "flash_bwd_variants.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    src = (Path(agenda_tpu_torch.__file__).parent / "csrc" / "flash_bwd.cu").read_text()
-    assert tool.VARIANTS[variant] and all(old in src for old, _ in tool.VARIANTS[variant])
+    """Runs anywhere: every edit of kernel_variants.py's backward variants
+    finds its line in the backward's source, so the tool keeps measuring what
+    it names."""
+    assert _variant_applies(f"bwd_{variant}")
+
+
+@pytest.mark.parametrize("variant", sorted(
+    name for name in kernel_variants.VARIANTS if name.startswith(("fwd_", "gn_"))))
+def test_kernel_variants_apply_to_the_source(variant):
+    """Runs anywhere: the same for the forward's and the group norm's variants."""
+    assert _variant_applies(variant)

@@ -3,7 +3,8 @@
 - A fresh interpreter imports the port, writes a tiny pipeline with the
   port's own fabricator and runs the port's CLI on the CPU; afterwards
   ``jax``, ``flax`` and ``agenda_tpu`` are absent from ``sys.modules``.
-- No source file of the port, nor ``chip_smoke.py``, imports them.
+- No source file of the port, nor the tools at the root of the repo
+  (``chip_smoke.py`` and the kernel-variant timer), imports them.
 - Asking for CUDA without a GPU raises; ``chip_smoke.py`` exits non-zero and
   prints no result without a card, and outside a checkout.
 """
@@ -64,7 +65,8 @@ def _imports(path: Path):
 
 
 def test_no_source_file_imports_jax_flax_or_agenda_tpu():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / name for name in ("chip_smoke.py", "kernel_variants.py")]
     assert len(files) > 20
     for path in files:
         for name in _imports(path):
