@@ -11,9 +11,10 @@ Counterpart of ``agenda_tpu/train/optim.py``:
   elements keep f32 moments (``optim.py:144-199``).
 - ``make_fused_adamw_8bit``: the one-pass int8 AdamW (``optim.py:218-301``):
   the global norm and clip scale are computed on the device, lr from the
-  count before its increment, c1 and c2 from count + 1; every quantized leaf
-  goes through ``kernels.fused_adamw.fused_adamw8bit_leaf`` (the CUDA kernel
-  on the card), the small leaves through the same math in plain torch.
+  count before its increment, c1 and c2 from count + 1; all quantized
+  leaves go through ``kernels.fused_adamw.FusedLeaves`` together (one launch
+  of the CUDA kernel a step on the card), the small leaves through the same
+  math in plain torch.
 - ``make_adamw``: f32 AdamW with optax ``clip_by_global_norm`` + ``adamw``
   semantics, the default of ``scripts/finetune_sd.sh``.
 - ``make_optimizer``: the dispatch (``optim.py:381-395``); ``use_8bit_adam``
@@ -34,7 +35,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
-from agenda_tpu_torch.kernels.fused_adamw import BLOCK, SPAN, fused_adamw8bit_leaf
+from agenda_tpu_torch.kernels.fused_adamw import BLOCK, SPAN, FusedLeaves
 
 Tensors = Dict[str, torch.Tensor]
 MIN_QUANTIZE_SIZE = 4096
@@ -181,11 +182,15 @@ def make_fused_adamw_8bit(learning_rate_fn, b1: float = 0.9, b2: float = 0.999,
                           eps: float = 1e-8, weight_decay: float = 1e-2,
                           max_grad_norm: Optional[float] = 1.0,
                           min_quantize_size: int = MIN_QUANTIZE_SIZE) -> Optimizer:
-    """Fused clip + int8 AdamW + apply, one kernel launch per quantized leaf.
+    """Fused clip + int8 AdamW + apply, one kernel launch a step for all
+    quantized leaves.
 
     lr = learning_rate_fn(count) before the increment; c1, c2 = 1 - b^(count+1);
-    p' = p - lr (adam_update + weight_decay p).
+    p' = p - lr (adam_update + weight_decay p). The leaves' checked pointers
+    are kept while the parameter, moment and EMA tensors stay the same
+    objects; a step checks and packs only its gradients.
     """
+    cached = []  # the last step's FusedLeaves
 
     @torch.no_grad()
     def apply(grads: Tensors, state: ScaleByAdam8bitState, params: Tensors,
@@ -200,16 +205,17 @@ def make_fused_adamw_8bit(learning_rate_fn, b1: float = 0.9, b2: float = 0.999,
         with_ema = ema is not None
         terms = [lr, gscale, c1, c2] + ([ema_decay.float()] if with_ema else [])
         scalars = torch.stack(terms).to(gnorm.device)
-        small = []
-        for name, p in params.items():
-            m_z, v_z = state.mu[name], state.nu[name]
-            e = ema[name] if with_ema else None
-            if isinstance(m_z, _Quantized):
-                fused_adamw8bit_leaf(p, grads[name].float().contiguous(), m_z.q, m_z.scale,
-                                     v_z.q, v_z.scale, scalars, b1=b1, b2=b2, eps=eps,
-                                     weight_decay=weight_decay, ema=e)
-            else:
-                small.append(name)
+        small, big = [], []
+        for name in params:
+            (big if isinstance(state.mu[name], _Quantized) else small).append(name)
+        if big:
+            statics = [(params[k], state.mu[k].q, state.mu[k].scale, state.nu[k].q,
+                        state.nu[k].scale) for k in big]
+            emas = [ema[k] for k in big] if with_ema else None
+            if not (cached and cached[0].matches(statics, emas)):
+                cached[:] = [FusedLeaves(statics, emas)]
+            cached[0]([grads[k].float().contiguous() for k in big], scalars, b1=b1, b2=b2,
+                      eps=eps, weight_decay=weight_decay)
         if small:  # the same math in plain torch, on all small leaves at once
             ps = [params[k] for k in small]
             g = torch._foreach_mul([grads[k].float() for k in small], gscale)

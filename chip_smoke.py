@@ -28,15 +28,20 @@ Phases, each fatal on failure:
 then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
   8. train shapes -- one step through the trainer API (fused int8 AdamW +
                 EMA) records every flash shape and every quantized leaf, and
-                checks both against the counts derived from the config; then
-                warm s/step, images/s, peak memory and a profiled step;
+                checks both against the counts derived from the config (the
+                AdamW: one launch a step updating 293 leaves); then warm
+                s/step, images/s, peak memory and a profiled step;
   9. K4 path  -- two steps through the trainer API without EMA on the same
-                model: the plain fused AdamW kernel, 293 launches a step;
+                model: the plain fused AdamW kernel, one launch and 293
+                leaves a step;
  10. train parity -- flash backward (dK/dV, dQ) at every training shape (plus
                 ragged S) and fused AdamW (with and without EMA) at every
                 quantized leaf shape (plus a ragged leaf, and clipping
-                active) against their plain versions, with timing beside the
-                bound, the plain version and a PyTorch yardstick; the flash
+                active) against their plain versions, one leaf a launch and
+                the whole step's leaves (plus the ragged one) in one launch,
+                with timing beside the bound, the plain version and a
+                PyTorch yardstick (the AdamW: the step's one launch, with its
+                TB/s, and the host's time to enqueue it); the flash
                 backward's bound counts its exponentials too, its pair is set
                 against SDPA's backward per shape and per step, and ptxas's
                 registers and spills of each of its instantiations are shown;
@@ -97,6 +102,7 @@ EXTRA_FLASH_BWD = ((2, 1000, 8, 40),)  # off the path: a ragged S
 ADAMW_TOL_P = 1e-6  # params and EMA shadow, absolute: f32 rounding at |p| ~ 1
 ADAMW_TOL_SCALE = 1e-5  # row absmax scales, relative
 ADAMW_KW = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
+RAGGED_LEAF = (1000, 77)  # off the path: 77 000 % 256 != 0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -422,6 +428,7 @@ def train_expected(unet_cfg, vae_cfg) -> dict:
     """Per-step and per-run counts of the training path, from the configs."""
     import torch
 
+    from agenda_tpu_torch.kernels.fused_adamw import capacity, leaf_plan
     from agenda_tpu_torch.models.unet import UNet2DConditionModel
     from agenda_tpu_torch.train.optim import MIN_QUANTIZE_SIZE
 
@@ -435,6 +442,7 @@ def train_expected(unet_cfg, vae_cfg) -> dict:
     return {"tensors": len(sizes), "quantized": len(quantized),
             "quantized_elements": sum(quantized),
             "ragged": sum(k % 256 != 0 for k in quantized),
+            "adamw_per_step": len(leaf_plan(quantized, capacity())),  # launches
             "flash_per_step": tf,
             "gn_per_step": 2 * resnets + tf + 1,  # + conv_norm_out
             "gn_per_cache_batch": 2 * enc_resnets + 2}  # + mid attention, conv_norm_out
@@ -490,14 +498,16 @@ def train_counters():
         flash_attention_bwd_dq,
         flash_attention_fwd,
     )
-    from agenda_tpu_torch.kernels.fused_adamw import fused_adamw8bit_leaf
+    from agenda_tpu_torch.kernels.fused_adamw import fused_adamw8bit_leaves
     from agenda_tpu_torch.kernels.groupnorm import group_norm_act
 
     return {"flash_attention_fwd": (flash_attention_fwd, "launches"),
             "flash_attention_bwd_dkv": (flash_attention_bwd_dkv, "launches"),
             "flash_attention_bwd_dq": (flash_attention_bwd_dq, "launches"),
-            "fused_adamw8bit": (fused_adamw8bit_leaf, "launches"),
-            "fused_adamw8bit_ema": (fused_adamw8bit_leaf, "launches_ema"),
+            "fused_adamw8bit": (fused_adamw8bit_leaves, "launches"),
+            "fused_adamw8bit_ema": (fused_adamw8bit_leaves, "launches_ema"),
+            "fused_adamw8bit_leaves": (fused_adamw8bit_leaves, "leaves"),
+            "fused_adamw8bit_leaves_ema": (fused_adamw8bit_leaves, "leaves_ema"),
             "group_norm_act": (group_norm_act, "launches")}
 
 
@@ -562,7 +572,8 @@ def train_api_phase(model_dir, unet_cfg, vae_cfg, dev):
     want = {"flash_attention_fwd": expected["flash_per_step"],
             "flash_attention_bwd_dkv": expected["flash_per_step"],
             "flash_attention_bwd_dq": expected["flash_per_step"],
-            "fused_adamw8bit": 0, "fused_adamw8bit_ema": expected["quantized"],
+            "fused_adamw8bit": 0, "fused_adamw8bit_ema": expected["adamw_per_step"],
+            "fused_adamw8bit_leaves": 0, "fused_adamw8bit_leaves_ema": expected["quantized"],
             "group_norm_act": expected["gn_per_step"]}
     print(f"[train shapes] from the config: {expected}", flush=True)
     require(sum(flash_shapes.values()) == expected["flash_per_step"]
@@ -604,8 +615,11 @@ def train_api_phase(model_dir, unet_cfg, vae_cfg, dev):
     changed = any(not torch.equal(before[k], state.params[k]) for k in before)
     print(f"[K4 path] 2 steps without EMA through the trainer API: launches {k4}; params "
           f"changed {changed}", flush=True)
-    require(k4["fused_adamw8bit"] == 2 * expected["quantized"] and k4["fused_adamw8bit_ema"] == 0
-            and changed, "the no-EMA path did not launch the fused AdamW kernel 293x a step")
+    require(k4["fused_adamw8bit"] == 2 * expected["adamw_per_step"]
+            and k4["fused_adamw8bit_leaves"] == 2 * expected["quantized"]
+            and k4["fused_adamw8bit_ema"] == 0 and k4["fused_adamw8bit_leaves_ema"] == 0
+            and changed, f"the no-EMA path did not launch the fused AdamW kernel "
+            f"{expected['adamw_per_step']}x for {expected['quantized']} leaves a step")
     del unet, make, state, step, batch
     torch.cuda.empty_cache()
     return flash_shapes, leaves, k4, {"warm_s": warm_s, "peak": peak}
@@ -616,12 +630,12 @@ def ptxas_report(log: str):
     of the port's kernels, from the build's ptxas -v output."""
     import re
 
-    names = "flash_fwd_wgmma|flash_fwd_wide|flash_bwd_dkv|flash_bwd_dq|groupnorm"
+    names = "flash_fwd_wgmma|flash_fwd_wide|flash_bwd_dkv|flash_bwd_dq|groupnorm|fused_adamw8bit"
     found, current = {}, None
     for line in log.splitlines():
-        m = re.search(rf"({names})_kernel(?:I((?:Li\d+E)+)E)?", line)
+        m = re.search(rf"({names})_kernel(?:I((?:L[ib]\d+E)+)E)?", line)
         if m and ("Compiling entry function" in line or "Function properties" in line):
-            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
             current = f"{m.group(1)}_kernel" + (f"<{', '.join(args)}>" if args else "")
         elif current and "spill stores" in line:
             found[current] = line.strip()
@@ -732,66 +746,159 @@ def flash_bwd_rows(per_step):
     return rows
 
 
+def adamw_inputs(shape, seed: int):
+    """p, g, qm, sm, qv, sv and an EMA shadow of one leaf, seeded."""
+    import torch
+
+    n = math.prod(shape)
+    nb = (n + 255) // 256
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, device="cuda", generator=g),
+            torch.randn(shape, device="cuda", generator=g) * 1e-3,
+            torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8),
+            torch.rand(nb, device="cuda", generator=g) * 1e-3,
+            torch.randint(0, 128, shape, device="cuda", generator=g).to(torch.int8),
+            torch.rand(nb, device="cuda", generator=g) * 1e-6,
+            torch.randn(shape, device="cuda", generator=g)]
+
+
+def adamw_errors(ours, ref, e_ours=None, e_ref=None):
+    """(param err, shadow err, codes off by, scale rel err) of one leaf."""
+    err_p = (ours[0] - ref[0]).abs().max().item()
+    err_e = (e_ours - e_ref).abs().max().item() if e_ours is not None else 0.0
+    codes = max((ours[i].int() - ref[i].int()).abs().max().item() for i in (2, 4))
+    err_s = max(((ours[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30)).max().item()
+                for i in (3, 5))
+    return err_p, err_e, codes, err_s
+
+
+def adamw_ok(errs) -> bool:
+    err_p, err_e, codes, err_s = errs
+    return (err_p <= ADAMW_TOL_P and err_e <= ADAMW_TOL_P and codes <= 1
+            and err_s <= ADAMW_TOL_SCALE)
+
+
+def adamw_bound(n: int, ema: bool) -> Tuple[float, str]:
+    """(ms, term): 16 or 24 bytes an element plus the two scales read and
+    written, over 3.35e12/s, against 60 f32 operations an element."""
+    nb = (n + 255) // 256
+    t_ops = 60.0 * n / H100_F32_FLOPS
+    t_bytes = (n * (24.0 if ema else 16.0) + 16.0 * nb) / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def adamw_rows(leaves):
-    """Parity and timing of the fused AdamW kernel, with and without EMA, at
-    every quantized leaf shape of the UNet, plus a ragged leaf; clipping is
-    active (scale 0.4) in every call."""
+    """Parity and timing of the fused AdamW kernel, with and without EMA: one
+    leaf a launch at every quantized leaf shape of the UNet, plus a ragged
+    leaf; then the whole step's leaves (plus the ragged one, for parity) in
+    one launch, as the optimizer launches it. Clipping is active (scale 0.4)
+    in every call. Returns the rows of each: the step's first, counted once
+    a step; the one-leaf rows are off the main path now."""
     import torch
 
     from agenda_tpu_torch.kernels.fused_adamw import (
+        FusedLeaves,
         fused_adamw8bit_leaf,
         fused_adamw8bit_leaf_reference,
+        fused_adamw8bit_leaves,
     )
 
+    scalars = torch.tensor([1e-4, 0.4, 0.271, 0.0029701, 0.97], device="cuda")
     rows = {False: [], True: []}
+    plain_step = {False: 0.0, True: 0.0}  # the plain version a leaf, summed over a step
     shapes = dict(leaves)
-    shapes.setdefault((1000, 77), 0)  # off the path: 77 000 % 256 != 0
+    shapes.setdefault(RAGGED_LEAF, 0)  # off the path: 77 000 % 256 != 0
     for shape, count in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0])):
         n = math.prod(shape)
-        nb = (n + 255) // 256
-        g = torch.Generator(device="cuda").manual_seed(n % 100003)
-        p = torch.randn(shape, device="cuda", generator=g)
-        grad = torch.randn(shape, device="cuda", generator=g) * 1e-3
-        qm = torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8)
-        qv = torch.randint(0, 128, shape, device="cuda", generator=g).to(torch.int8)
-        sm = torch.rand(nb, device="cuda", generator=g) * 1e-3
-        sv = torch.rand(nb, device="cuda", generator=g) * 1e-6
-        e = torch.randn(shape, device="cuda", generator=g)
-        scalars = torch.tensor([1e-4, 0.4, 0.271, 0.0029701, 0.97], device="cuda")
+        *leaf, e = adamw_inputs(shape, n % 100003)
         for ema in (False, True):
-            args = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
-            ref = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
+            args = [t.clone() for t in leaf]
+            ref = [t.clone() for t in leaf]
             ea, er = (e.clone(), e.clone()) if ema else (None, None)
             fused_adamw8bit_leaf(*args, scalars, ema=ea, **ADAMW_KW)
             fused_adamw8bit_leaf_reference(*ref, scalars, ema=er, **ADAMW_KW)
             torch.cuda.synchronize()
-            err_p = (args[0] - ref[0]).abs().max().item()
-            err_e = (ea - er).abs().max().item() if ema else 0.0
-            codes = max((args[i].int() - ref[i].int()).abs().max().item() for i in (2, 4))
-            err_s = max(((args[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30)).max().item()
-                        for i in (3, 5))
-            require(err_p <= ADAMW_TOL_P and err_e <= ADAMW_TOL_P and codes <= 1
-                    and err_s <= ADAMW_TOL_SCALE,
-                    f"fused AdamW {shape} ema={ema}: param err {err_p}, shadow err {err_e}, "
-                    f"codes off by {codes}, scale rel err {err_s}")
-            work = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
+            errs = adamw_errors(args, ref, ea, er)
+            require(adamw_ok(errs), f"fused AdamW {shape} ema={ema}: param err {errs[0]}, "
+                    f"shadow err {errs[1]}, codes off by {errs[2]}, scale rel err {errs[3]}")
+            work = [t.clone() for t in leaf]
             ew = e.clone() if ema else None
             ms, eager = time_ms(lambda: fused_adamw8bit_leaf(*work, scalars, ema=ew, **ADAMW_KW))
             plain, _ = time_ms(lambda: fused_adamw8bit_leaf_reference(
                 *work, scalars, ema=ew, **ADAMW_KW), max_iters=10)
-            nbytes = n * (24.0 if ema else 16.0) + 16.0 * nb  # + the two scales read and written
-            flops = 60.0 * n
-            t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-            rows[ema].append(dict(shape=shape, per_batch=count, err=max(err_p, err_e), ms=ms,
-                                  plain_ms=plain, library_ms=None,
-                                  bound_ms=1e3 * max(t_ops, t_bytes),
-                                  bound_by="operations" if t_ops >= t_bytes else "bytes"))
-            print(f"fused adamw ema={ema} {shape} x{count}/step  param err {err_p:.3g} shadow err "
-                  f"{err_e:.3g} codes off by <= {codes} scale rel err {err_s:.3g}  kernel "
-                  f"{ms:.4f} ms (eager {eager:.4f})  plain {plain:.4f} ms  bound "
-                  f"{rows[ema][-1]['bound_ms']:.4f} ms ({rows[ema][-1]['bound_by']})", flush=True)
+            plain_step[ema] += count * plain
+            bound, term = adamw_bound(n, ema)
+            rows[ema].append(dict(shape=shape, per_batch=0, err=max(errs[0], errs[1]), ms=ms,
+                                  plain_ms=plain, library_ms=None, bound_ms=bound,
+                                  bound_by=term))
+            print(f"fused adamw ema={ema} {shape} x{count}/step, one leaf a launch  param err "
+                  f"{errs[0]:.3g} shadow err {errs[1]:.3g} codes off by <= {errs[2]} scale rel "
+                  f"err {errs[3]:.3g}  kernel {ms:.4f} ms (eager {eager:.4f})  plain "
+                  f"{plain:.4f} ms  bound {bound:.4f} ms ({term})", flush=True)
             del args, ref, work
-        del p, grad, qm, qv, sm, sv, e
+        del leaf, e
+    torch.cuda.empty_cache()
+
+    # the step's leaves in one launch: parity at every leaf (with the ragged
+    # one), then the 293 timed as the optimizer launches them
+    step_shapes = [s for s, c in sorted(leaves.items()) for _ in range(c)]
+    inputs = [adamw_inputs(s, i) for i, s in enumerate(step_shapes + [RAGGED_LEAF])]
+    n_step = sum(math.prod(s) for s in step_shapes)
+    for ema in (False, True):
+        ours = [[t.clone() for t in x[:6]] for x in inputs]
+        e_ours = [x[6].clone() for x in inputs] if ema else None
+        fused_adamw8bit_leaves(ours, scalars, emas=e_ours, **ADAMW_KW)
+        worst, err = (0.0, 0.0, 0, 0.0), 0.0
+        for i, x in enumerate(inputs):  # the plain version a leaf, from the same inputs
+            ref = [t.clone() for t in x[:6]]
+            e_ref = x[6].clone() if ema else None
+            fused_adamw8bit_leaf_reference(*ref, scalars, ema=e_ref, **ADAMW_KW)
+            errs = adamw_errors(ours[i], ref, e_ours[i] if ema else None, e_ref)
+            require(adamw_ok(errs), f"fused AdamW in one launch, leaf {i} "
+                    f"{tuple(ours[i][0].shape)} ema={ema}: param err {errs[0]}, shadow err "
+                    f"{errs[1]}, codes off by {errs[2]}, scale rel err {errs[3]}")
+            worst = tuple(max(a, b) for a, b in zip(worst, errs))
+            err = max(err, errs[0], errs[1])
+            del ref, e_ref
+        del ours, e_ours
+        torch.cuda.empty_cache()
+        k = len(step_shapes)
+        statics = [(x[0], *x[2:6]) for x in inputs[:k]]
+        grads = [x[1] for x in inputs[:k]]
+        table = FusedLeaves(statics, [x[6] for x in inputs[:k]] if ema else None)
+        ms, eager = time_ms(lambda: table(grads, scalars, **ADAMW_KW))
+        host = []
+        for _ in range(7):  # the host's time to enqueue the step's update, eager
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table(grads, scalars, **ADAMW_KW)
+            host.append(time.perf_counter() - t0)
+        loop = []
+        for _ in range(3):  # the same leaves as 293 one-leaf calls, one launch a leaf
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for st, gr, x in zip(statics, grads, inputs):
+                fused_adamw8bit_leaf(st[0], gr, *st[1:], scalars, ema=x[6] if ema else None,
+                                     **ADAMW_KW)
+            loop.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        bound, term = adamw_bound(n_step, ema)
+        nbytes = n_step * (24.0 if ema else 16.0) + 16.0 * ((n_step + 255) // 256)
+        rows[ema].insert(0, dict(shape=f"{k} leaves", per_batch=1, err=err, ms=ms,
+                                 plain_ms=plain_step[ema], library_ms=None, bound_ms=bound,
+                                 bound_by=term))
+        print(f"fused adamw ema={ema}, the step's {k} leaves ({n_step} elements) in "
+              f"{table.launches} launch(es): kernel {ms:.4f} ms (eager {eager:.4f}) = "
+              f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, bound {bound:.4f} ms ({term}: "
+              f"{nbytes:.4g} bytes over 3.35e12/s; {bound / ms:.1%} of it), plain version "
+              f"{plain_step[ema]:.4f} ms (the one-leaf rows' sum); parity at all {k + 1} leaves "
+              f"(the ragged one too): param err {worst[0]:.3g} shadow err {worst[1]:.3g} "
+              f"codes off by <= {worst[2]} scale rel err {worst[3]:.3g}", flush=True)
+        print(f"fused adamw ema={ema}: host time to enqueue the step's update, eager: one "
+              f"FusedLeaves call {1e6 * sorted(host)[3]:.1f} us (median of 7), {k} one-leaf "
+              f"calls {1e6 * sorted(loop)[1]:.1f} us (median of 3)", flush=True)
+        del table
+    del inputs
     torch.cuda.empty_cache()
     return rows[False], rows[True]
 
@@ -830,7 +937,9 @@ def train_e2e(model_dir: str, tmp: str, unet_cfg, vae_cfg):
             "flash_attention_bwd_dkv": expected["flash_per_step"] * TRAIN_STEPS,
             "flash_attention_bwd_dq": expected["flash_per_step"] * TRAIN_STEPS,
             "fused_adamw8bit": 0,
-            "fused_adamw8bit_ema": expected["quantized"] * TRAIN_STEPS,
+            "fused_adamw8bit_ema": expected["adamw_per_step"] * TRAIN_STEPS,
+            "fused_adamw8bit_leaves": 0,
+            "fused_adamw8bit_leaves_ema": expected["quantized"] * TRAIN_STEPS,
             "group_norm_act": (expected["gn_per_step"] * TRAIN_STEPS
                                + expected["gn_per_cache_batch"] * cache_batches)}
     torch.cuda.reset_peak_memory_stats()
@@ -1045,14 +1154,23 @@ def main() -> int:
     ]
     for name, sec in phase_s.items():
         print(f"[phases] {name}: {sec:.1f} s", flush=True)
+    print(f"[report] fused AdamW launches and leaf updates: K4 path {k4_launches['fused_adamw8bit']} "
+          f"launches, {k4_launches['fused_adamw8bit_leaves']} leaves in 2 steps; trainer CLI "
+          f"{train_launches['fused_adamw8bit_ema']} launches, "
+          f"{train_launches['fused_adamw8bit_leaves_ema']} leaves in {TRAIN_STEPS} steps "
+          f"({train_launches['fused_adamw8bit_ema'] // TRAIN_STEPS} launch(es) and "
+          f"{train_launches['fused_adamw8bit_leaves_ema'] // TRAIN_STEPS} leaves a step)",
+          flush=True)
     print("[report] units: flash_attention_fwd and group_norm_act sum ms over one generation "
           f"batch (batch {E2E_BATCH}, {E2E_STEPS} PLMS steps; launches from the generation "
           "CLI run); flash_attention_bwd_dkv, flash_attention_bwd_dq and fused_adamw8bit_ema "
           f"sum over one training step (batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}; launches "
-          f"from the trainer CLI's {TRAIN_STEPS} steps); fused_adamw8bit sums over one training "
-          "step without EMA (launches from the 2-step no-EMA path). library_ms of both flash "
-          "backward entries is SDPA's whole backward (dQ, dK, dV in one call); the fused AdamW "
-          "has no single-call PyTorch equivalent (library_ms null)", flush=True)
+          f"from the trainer CLI's {TRAIN_STEPS} steps); fused_adamw8bit is one training step "
+          "without EMA (launches from the 2-step no-EMA path); both AdamW entries time the "
+          "step's one launch over all quantized leaves, and their plain_ms sums the plain "
+          "version a leaf. library_ms of both flash backward entries is SDPA's whole backward "
+          "(dQ, dK, dV in one call); the fused AdamW has no single-call PyTorch equivalent "
+          "(library_ms null)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

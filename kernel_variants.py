@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time edited copies of the port's flash and group-norm kernels on one NVIDIA H100.
+"""Time edited copies of the port's kernels on one NVIDIA H100.
 
     python3 kernel_variants.py [--tree DIR] [--batch N] [variant ...]
 
@@ -12,9 +12,12 @@ chip_smoke.py does, and reports the worst error over each kernel's limit (a
 variant that drops work fails it) and the sums over one generation batch of
 N images (flash forward and group norm; N = 2 by default, as chip_smoke.py
 runs it; the UNet's batch is 2N under classifier-free guidance) or over one
-training step at batch 4 (flash backward, dK/dV and dQ):
+training step at batch 4 (flash backward, dK/dV and dQ; the fused int8 AdamW
+over the UNet's 293 quantized leaves, without and with the EMA shadow, as
+the trainer launches it: one launch a step where the package has
+fused_adamw8bit_leaves, else one a leaf):
 
-  base                   the kernels as they are;
+  base                   the kernels as they are (adamw_base: the AdamW alone);
   fwd_no_exp             exponentials replaced by the identity;
   fwd_loads_and_s_only   only the tile loads and S = Q K^T left (no P V, no
                          exponentials);
@@ -36,12 +39,35 @@ training step at batch 4 (flash backward, dK/dV and dQ):
   bwd_loads_and_s_only   only its tile loads and S product left (no dP, no RS
                          products, no exponentials): the supply floor;
   bwd_one_warpgroup      one consumer warpgroup a block in both backward kernels;
-  bwd_two_stages         a ring of two stages in both.
+  bwd_two_stages         a ring of two stages in both;
+  adamw_no_transcendentals  the AdamW's exponentials and logarithms (or their
+                         table lookups and lg2) replaced by the identity;
+  adamw_no_div           its divisions (and its reciprocals) turned into products;
+  adamw_loads_only       every stream read and written once with no math: the
+                         supply floor;
+  adamw_streaming        every stream loaded and stored with the evict-first
+                         cache hint (__ldcs, __stcs);
+  adamw_three_blocks_an_sm  registers capped for three blocks an SM, not two;
+  adamw_three_blocks_an_sm_without_ema  the same for the kernel without EMA only.
+
+A variant may hold alternative edit lists, one for this tree's AdamW source
+and one for the earlier kernel's (one warp a row), so that --tree DIR on a
+checkout of that kernel times the same variant; the first list whose edits
+all apply is made.
 
 One JSON line per variant: {"variant": ..., "fwd": {shape: ms}, "fwd_batch_ms",
 "fwd_worst", "gn": {shape: ms}, "gn_batch_ms", "gn_worst", "bwd": {shape:
-[dK/dV ms, dQ ms]}, "bwd_step_ms", "bwd_worst", "build_s", "spills", "warnings"}
-(the keys of the kernels it times).
+[dK/dV ms, dQ ms]}, "bwd_step_ms", "bwd_worst", "adamw_step_ms",
+"adamw_ema_step_ms" (with their TB/s), "adamw_host_us" (the host's time to
+enqueue one step's update with the EMA, eager, as the optimizer calls it:
+one FusedLeaves call, or a wrapper call a leaf), "adamw_worst", "copy_tbps"
+and "add_tbps" (what a PyTorch copy_ and an in-place add_ over as many f32
+elements reach: the supply one library kernel gets), "adamw_sass",
+"build_s", "spills", "warnings"} (the keys of the kernels it times).
+"adamw_sass" counts, for each instantiation of the AdamW kernel, the SASS
+instructions and MUFU operations of `cuobjdump -sass` of the built library
+(static: the whole function, its ragged-row and loop code included) and
+divides them by the elements a thread updates a row.
 """
 
 from __future__ import annotations
@@ -77,8 +103,8 @@ GN_SHAPES = [  # (B, C, H, W), eps, act, launches a batch
 BWD_SHAPES = [((4, 4096, 8, 40), 5), ((4, 1024, 8, 80), 5), ((4, 256, 8, 160), 5),
               ((4, 64, 8, 160), 1)]
 
-_FWD, _GN, _BWD = "flash_fwd.cu", "groupnorm.cu", "flash_bwd.cu"
-KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd"}
+_FWD, _GN, _BWD, _ADAMW = "flash_fwd.cu", "groupnorm.cu", "flash_bwd.cu", "fused_adamw.cu"
+KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd", _ADAMW: "adamw"}
 _OFF = "if (p.S < 0) "  # a condition that is false at run time keeps the operands live
 _WGS = "constexpr int fwd_warpgroups(int nd) { return nd == 40 ? 4 : nd == 80 ? 2 : 1; }"
 _BK = "static constexpr int kBK = ND == 80 ? 128 : 64;"
@@ -92,13 +118,61 @@ _S_ONLY = [  # only the tile loads and S = Q K^T: no exponentials, no P V
 _BWD_NO_EXP = (_BWD, "exp2_ftz(s", "(s")
 
 
+_ADAMW_NO_TRANSCENDENTALS = [
+    (_ADAMW, "__fmul_rn(deq[(word >> (8 * t)) & 0xffu], scale)",
+     "__fmul_rn((float)(int8_t)(word >> (8 * t)), scale)"),
+    (_ADAMW, "fmaf(__log2f(r), kQuantLog2, 127.f)", "fmaf(r, kQuantLog2, 127.f)")]
+_ADAMW_NO_DIV = [
+    (_ADAMW, "const float ic1 = 1.f / c1, ic2 = 1.f / c2;", "const float ic1 = c1, ic2 = c2;"),
+    (_ADAMW, "const float u = div_by(m[i], c1, ic1) / __fadd_rn(sqrtf(div_by(v[i], c2, ic2)), a.eps);",
+     "const float u = __fmul_rn(m[i], ic1) * __fadd_rn(sqrtf(__fmul_rn(v[i], ic2)), a.eps);"),
+    (_ADAMW, "minv = 1.f / fmaxf(mmax, 1e-30f), vinv = 1.f / fmaxf(vmax, 1e-30f);",
+     "minv = fmaxf(mmax, 1e-30f), vinv = fmaxf(vmax, 1e-30f);")]
+_ADAMW_LOADS_ONLY = [
+    (_ADAMW, "m[i] = __fadd_rn(__fmul_rn(a.b1, dequant(deq, wm[i / 4], i % 4, sm)),\n"
+     "                       __fmul_rn(a.omb1, gi));",
+     "m[i] = (float)(int8_t)(wm[i / 4] >> (8 * (i % 4))) + gi;"),
+    (_ADAMW, "v[i] = __fadd_rn(__fmul_rn(a.b2, dequant(deq, wv[i / 4], i % 4, sv)),\n"
+     "                       __fmul_rn(__fmul_rn(a.omb2, gi), gi));",
+     "v[i] = (float)(int8_t)(wv[i / 4] >> (8 * (i % 4)));"),
+    (_ADAMW, "const float u = div_by(m[i], c1, ic1) / __fadd_rn(sqrtf(div_by(v[i], c2, ic2)), a.eps);",
+     "const float u = 0.f;"),
+    (_ADAMW, "p[i] = __fsub_rn(p[i], __fmul_rn(lr, __fadd_rn(u, __fmul_rn(a.wd, p[i]))));",
+     "p[i] = p[i] + u;"),
+    (_ADAMW, "wm[j] |= quantize(edge, m[4 * j + t], minv) << (8 * t);",
+     "wm[j] |= ((uint32_t)(int)m[4 * j + t] & 0xffu) << (8 * t);"),
+    (_ADAMW, "wv[j] |= quantize(edge, v[4 * j + t], vinv) << (8 * t);",
+     "wv[j] |= ((uint32_t)(int)v[4 * j + t] & 0xffu) << (8 * t);")]
+# the earlier AdamW (one launch a leaf, one warp a row, 8 values a lane), for --tree
+_ADAMW_PARENT_NO_TRANSCENDENTALS = [
+    (_ADAMW, "expf(__fmul_rn(kDeqK, mag - 127.f))", "(__fmul_rn(kDeqK, mag - 127.f))"),
+    (_ADAMW, "logf(fmaxf(ratio, 1e-30f))", "(fmaxf(ratio, 1e-30f))")]
+_ADAMW_PARENT_NO_DIV = [
+    (_ADAMW, "const float ratio = fabsf(x) / safe;", "const float ratio = fabsf(x) * safe;"),
+    (_ADAMW, "logf(fmaxf(ratio, 1e-30f)) / kLn10", "logf(fmaxf(ratio, 1e-30f)) * kLn10"),
+    (_ADAMW, "const float u = (m[j] / c1) / __fadd_rn(sqrtf(v[j] / c2), a.eps);",
+     "const float u = (m[j] * c1) * __fadd_rn(sqrtf(v[j] * c2), a.eps);")]
+_ADAMW_PARENT_LOADS_ONLY = [
+    (_ADAMW, "m[j] = __fadd_rn(__fmul_rn(a.b1, dequant(qm[j], sm)), __fmul_rn(a.omb1, gj));",
+     "m[j] = (float)qm[j] + gj;"),
+    (_ADAMW, "v[j] = __fadd_rn(__fmul_rn(a.b2, dequant(qv[j], sv)), "
+     "__fmul_rn(__fmul_rn(a.omb2, gj), gj));", "v[j] = (float)qv[j];"),
+    (_ADAMW, "const float u = (m[j] / c1) / __fadd_rn(sqrtf(v[j] / c2), a.eps);",
+     "const float u = 0.f;"),
+    (_ADAMW, "p2[j] = __fsub_rn(p[j], __fmul_rn(lr, __fadd_rn(u, __fmul_rn(a.wd, p[j]))));",
+     "p2[j] = p[j] + u;"),
+    (_ADAMW, "cm[t] = quantize(m[4 * h + t], msafe);", "cm[t] = (int8_t)m[4 * h + t];"),
+    (_ADAMW, "cv[t] = quantize(v[4 * h + t], vsafe);", "cv[t] = (int8_t)v[4 * h + t];")]
+
+
 def _warpgroups(at40, at80):
     """The forward with `at40` and `at80` consumer warpgroups a block at D = 40 and 80."""
     return (_FWD, _WGS, _WGS.replace("nd == 40 ? 4 : nd == 80 ? 2",
                                      f"nd == 40 ? {at40} : nd == 80 ? {at80}"))
 
 
-VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replaced
+VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replaced.
+    # A tuple of such lists holds alternatives: the first that applies is made.
     "base": [],
     "fwd_no_exp": _S_ONLY[:1],
     "fwd_loads_and_s_only": _S_ONLY,
@@ -135,16 +209,50 @@ VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replace
          "static constexpr int kStages = 2;                // ring"),
         (_BWD, "static constexpr int kStages = ND > 80 ? 2 : 3;  // ring",
          "static constexpr int kStages = 2;  // ring")],
+    "adamw_base": [],  # the AdamW alone, as it is
+    "adamw_no_transcendentals": (_ADAMW_NO_TRANSCENDENTALS, _ADAMW_PARENT_NO_TRANSCENDENTALS),
+    "adamw_no_div": (_ADAMW_NO_DIV, _ADAMW_PARENT_NO_DIV),
+    "adamw_loads_only": (_ADAMW_LOADS_ONLY, _ADAMW_PARENT_LOADS_ONLY),
+    "adamw_streaming": [
+        (_ADAMW, "return *reinterpret_cast<const T*>(p);",
+         "return __ldcs(reinterpret_cast<const T*>(p));"),
+        (_ADAMW, "*reinterpret_cast<T*>(p) = v;", "__stcs(reinterpret_cast<T*>(p), v);")],
+    "adamw_three_blocks_an_sm": [
+        (_ADAMW, "__launch_bounds__(kThreads) fused", "__launch_bounds__(kThreads, 3) fused")],
+    "adamw_three_blocks_an_sm_without_ema": [
+        (_ADAMW, "__launch_bounds__(kThreads) fused",
+         "__launch_bounds__(kThreads, kEma ? 2 : 3) fused")],
 }
+
+
+def _source(package: str, source: str) -> str:
+    with open(os.path.join(package, "csrc", source)) as f:
+        return f.read()
+
+
+def applicable(edits, package: str = os.path.join(REPO, "agenda_tpu_torch")):
+    """The edit list of a variant that applies to `package`'s sources: the list
+    itself, or the first of its alternatives whose every `old` is found; None
+    if none applies."""
+    for alt in (edits if isinstance(edits, tuple) else (edits,)):
+        if all(old in _source(package, source) for source, old, _ in alt):
+            return alt
+    return None
 
 
 def copy_package(dest, edits, tree: str = REPO) -> str:
     """Copy agenda_tpu_torch/ of `tree` into `dest` (without its build) and make
     each edit (source in csrc/, old, new) there, replacing every `old`; raise
-    if an `old` is not in its source. Returns the package's copy."""
+    if an `old` is not in its source. `edits` may be a tuple of alternative
+    lists (the first that applies is made). Returns the package's copy."""
     copy = os.path.join(str(dest), "agenda_tpu_torch")
     shutil.copytree(os.path.join(tree, "agenda_tpu_torch"), copy,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    if isinstance(edits, tuple):
+        chosen = applicable(edits, copy)
+        if chosen is None:
+            raise ValueError(f"no alternative of {edits!r} applies to {tree}")
+        edits = chosen
     for source, old, new in edits:
         path = os.path.join(copy, "csrc", source)
         with open(path) as f:
@@ -231,8 +339,115 @@ if "bwd" in kernels:
         out["bwd"][str(shape)] = [round(a, 4), round(b, 4)]
         total += count * (a + b)
     out["bwd_step_ms"], out["bwd_worst"] = round(total, 3), round(worst, 4)
+if "adamw" in kernels:
+    import math, time
+    from agenda_tpu_torch.kernels import fused_adamw as fa
+    from chip_smoke import ADAMW_KW, ADAMW_TOL_P, ADAMW_TOL_SCALE, H100_BYTES_PER_S
+    from kernel_variants import sass_counts
+    shapes_a = [tuple(s) for s in shapes["adamw"]]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    leaves, emas = [], []
+    for shape in shapes_a:
+        nb = (math.prod(shape) + 255) // 256
+        leaves.append([torch.randn(shape, device="cuda", generator=g),
+                       torch.randn(shape, device="cuda", generator=g) * 1e-3,
+                       torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8),
+                       torch.rand(nb, device="cuda", generator=g) * 1e-3,
+                       torch.randint(0, 128, shape, device="cuda", generator=g).to(torch.int8),
+                       torch.rand(nb, device="cuda", generator=g) * 1e-6])
+        emas.append(torch.randn(shape, device="cuda", generator=g))
+    scalars = torch.tensor([1e-4, 0.4, 0.271, 0.0029701, 0.97], device="cuda")
+    one_launch = hasattr(fa, "fused_adamw8bit_leaves")
+
+    def step(ema):
+        if one_launch:
+            fa.fused_adamw8bit_leaves(leaves, scalars, emas=emas if ema else None, **ADAMW_KW)
+        else:
+            for leaf, e in zip(leaves, emas):
+                fa.fused_adamw8bit_leaf(*leaf, scalars, ema=e if ema else None, **ADAMW_KW)
+
+    sizes = [math.prod(s) for s in shapes_a]
+    check = sorted({sizes.index(max(sizes)), sizes.index(min(sizes)), len(sizes) // 2})
+    worst = 0.0
+    for ema in (False, True):  # the step against the plain version at three leaves
+        want = {i: ([t.clone() for t in leaves[i]], emas[i].clone()) for i in check}
+        step(ema)
+        for i, (ref, e_ref) in want.items():
+            fa.fused_adamw8bit_leaf_reference(*ref, scalars, ema=e_ref if ema else None,
+                                              **ADAMW_KW)
+            got = leaves[i]
+            ratios = [(got[0] - ref[0]).abs().max().item() / ADAMW_TOL_P,
+                      max((got[k].int() - ref[k].int()).abs().max().item() for k in (2, 4)),
+                      max(((got[k] - ref[k]).abs() / ref[k].abs().clamp(min=1e-30)).max().item()
+                          for k in (3, 5)) / ADAMW_TOL_SCALE]
+            if ema:
+                ratios.append((emas[i] - e_ref).abs().max().item() / ADAMW_TOL_P)
+            for r in ratios:
+                worst = worse(worst, r)
+        del want
+    n_all, rows_all = sum(sizes), sum((n + 255) // 256 for n in sizes)
+    for ema, key in ((False, "adamw_step_ms"), (True, "adamw_ema_step_ms")):
+        ms = time_ms(lambda: step(ema))[0]
+        nbytes = n_all * (24.0 if ema else 16.0) + 16.0 * rows_all
+        out[key] = round(ms, 4)
+        out[key.replace("_ms", "_tbps")] = round(nbytes / (ms * 1e-3) / 1e12, 3)
+    if one_launch:  # as the optimizer calls it: pointers packed once, gradients each step
+        table = fa.FusedLeaves([(leaf[0], *leaf[2:]) for leaf in leaves], emas)
+        call = lambda: table([leaf[1] for leaf in leaves], scalars, **ADAMW_KW)
+    else:
+        call = lambda: step(True)
+    host = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        host.append(time.perf_counter() - t0)
+    out["adamw_host_us"] = round(1e6 * sorted(host)[3], 1)  # the median, EMA path
+    out["adamw_worst"] = round(worst, 4)
+    # what one PyTorch elementwise kernel reaches over as many elements: a copy
+    # (read 4, write 4 bytes an element) and an in-place add (read 8, write 4)
+    a_, b_ = torch.zeros(n_all, device="cuda"), torch.ones(n_all, device="cuda")
+    out["copy_tbps"] = round(8.0 * n_all / (time_ms(lambda: a_.copy_(b_))[0] * 1e-3) / 1e12, 3)
+    out["add_tbps"] = round(12.0 * n_all / (time_ms(lambda: a_.add_(b_))[0] * 1e-3) / 1e12, 3)
+    del a_, b_
+    out["adamw_sass"] = sass_counts(str(lib.path), _build.CSRC_DIR / "fused_adamw.cu")
 print(json.dumps(out))
 """
+
+
+def sass_counts(lib_path: str, source) -> dict:
+    """{AdamW kernel instantiation: SASS instructions and MUFU operations, and
+    both per element} from `cuobjdump -sass` of the library at `lib_path`;
+    `source` (its fused_adamw.cu) gives the elements a thread updates a row
+    (kPerLane, or 8 in the earlier kernel, which lacks it)."""
+    import re
+
+    from agenda_tpu_torch.kernels import _build
+
+    text = open(source).read()
+    m = re.search(r"constexpr int kPerLane = (\d+);", text)
+    per_lane = int(m.group(1)) if m else 8
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        f = re.search(r"Function : (\S+)", line)
+        if f:
+            name = f.group(1)
+            current = None
+            if "fused_adamw8bit" in name:
+                current = "ema" if "ILb1E" in name else "no_ema"
+                counts[current] = {"instructions": 0, "mufu": 0}
+            continue
+        ins = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if current and ins and not ins.group(2).startswith("NOP"):
+            counts[current]["instructions"] += 1
+            counts[current]["mufu"] += ins.group(2).startswith("MUFU")
+    for c in counts.values():
+        c["per_element"] = round(c["instructions"] / per_lane, 2)
+        c["mufu_per_element"] = round(c["mufu"] / per_lane, 2)
+    return counts
 
 
 def generation_shapes(images: int) -> dict:
@@ -242,12 +457,27 @@ def generation_shapes(images: int) -> dict:
 
     return {"fwd": [(scale(s), n) for s, n in FWD_SHAPES],
             "gn": [(scale(s), eps, act, n) for s, eps, act, n in GN_SHAPES],
-            "bwd": BWD_SHAPES}
+            "bwd": BWD_SHAPES, "adamw": adamw_leaf_shapes()}
+
+
+def adamw_leaf_shapes() -> list:
+    """The shapes of the full-width UNet's quantized leaves (293), in order."""
+    import torch
+
+    from agenda_tpu_torch.io.configs import UNetConfig
+    from agenda_tpu_torch.models.unet import UNet2DConditionModel
+    from agenda_tpu_torch.train.optim import MIN_QUANTIZE_SIZE
+
+    with torch.device("meta"):
+        params = list(UNet2DConditionModel(UNetConfig()).parameters())
+    return [list(p.shape) for p in params if p.numel() >= MIN_QUANTIZE_SIZE]
 
 
 def run_variant(name: str, tree: str, images: int) -> dict:
     edits = VARIANTS[name]
-    kernels = sorted({KERNELS[src] for src, _, _ in edits}) or sorted(KERNELS.values())
+    first = edits[0] if isinstance(edits, tuple) else edits
+    kernels = (sorted({KERNELS[src] for src, _, _ in first})
+               or ([name[:-len("_base")]] if name.endswith("_base") else sorted(KERNELS.values())))
     with tempfile.TemporaryDirectory(prefix=f"variant_{name}_") as tmp:
         copy_package(tmp, edits, tree)
         run = subprocess.run([sys.executable, "-c", CHILD, tmp, REPO, json.dumps(kernels),

@@ -26,6 +26,8 @@ from agenda_tpu_torch.kernels.flash import flash_attention_fwd, flash_attention_
 from agenda_tpu_torch.kernels.fused_adamw import (
     fused_adamw8bit_leaf,
     fused_adamw8bit_leaf_reference,
+    fused_adamw8bit_leaves,
+    fused_adamw8bit_leaves_reference,
 )
 from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
 
@@ -454,6 +456,24 @@ def test_flash_backward_limit_fails_broken_kernels(mutation, tmp_path):
     assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
 
 
+def test_chip_smoke_reads_adamw_ptxas():
+    """Runs anywhere: both AdamW instantiations (without and with the EMA
+    shadow) in chip_smoke.py's ptxas report, named by their bool argument."""
+    chip_smoke = _root_module("chip_smoke")
+    name = ("_ZN47_GLOBAL__N__da3835c9_14_fused_adamw_cu_1d39184e22fused_adamw8bit_kernel"
+            "ILb{}EEEvNS_12LeavesParamsE")
+    lines = ["== fused_adamw.cu", "ptxas info    : 0 bytes gmem"]
+    for ema, regs in ((0, 96), (1, 121)):
+        lines += [f"ptxas info    : Compiling entry function '{name.format(ema)}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {name.format(ema)}",
+                  "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, used 1 barriers, 1032 bytes smem"]
+    assert chip_smoke.ptxas_report("\n".join(lines)) == {
+        f"fused_adamw8bit_kernel<{ema}>": f"{regs} registers, 0 bytes stack frame, 0 bytes "
+                                          "spill stores, 0 bytes spill loads"
+        for ema, regs in ((0, 96), (1, 121))}
+
+
 @pytest.mark.cuda
 def test_flash_autograd_reads_strided_views_both_ways():
     """Gradients through ``flash_attention`` of head-split views of one packed
@@ -510,10 +530,10 @@ def test_fused_adamw_kernel_matches_plain(n, ema, clip):
     ref = [t.clone() for t in (p, grad, qm, sm, qv, sv)]
     e_ours, e_ref = (e.clone(), e.clone()) if ema else (None, None)
     counter = "launches_ema" if ema else "launches"
-    before = getattr(fused_adamw8bit_leaf, counter)
+    before = getattr(fused_adamw8bit_leaves, counter)
     fused_adamw8bit_leaf(*ours, scalars, ema=e_ours, **ADAMW_KW)
     fused_adamw8bit_leaf_reference(*ref, scalars, ema=e_ref, **ADAMW_KW)
-    assert getattr(fused_adamw8bit_leaf, counter) == before + 1
+    assert getattr(fused_adamw8bit_leaves, counter) == before + 1
     assert (ours[0] - ref[0]).abs().max().item() <= 1e-6
     for i in (2, 4):
         assert (ours[i].int() - ref[i].int()).abs().max().item() <= 1
@@ -521,6 +541,153 @@ def test_fused_adamw_kernel_matches_plain(n, ema, clip):
         assert ((ours[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30)).max().item() <= 1e-5
     if ema:
         assert (e_ours - e_ref).abs().max().item() <= 1e-6
+
+
+def _assert_adamw_close(ours, ref, e_ours=None, e_ref=None):
+    """Params and shadow to f32 rounding, codes within one, scales to 1e-5."""
+    assert (ours[0] - ref[0]).abs().max().item() <= 1e-6
+    for i in (2, 4):
+        assert (ours[i].int() - ref[i].int()).abs().max().item() <= 1
+    for i in (3, 5):
+        assert ((ours[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30)).max().item() <= 1e-5
+    if e_ours is not None:
+        assert (e_ours - e_ref).abs().max().item() <= 1e-6
+
+
+# one launch over leaves of every kind: a ragged one-row leaf, a small one, a
+# ragged many-row one and the largest leaf shape of the UNet
+ADAMW_LIST = [300, 4096, 77_000, 1280 * 1280 * 9]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ema", [False, True])
+@pytest.mark.parametrize("clip", [1.0, 0.25])
+def test_fused_adamw_leaves_one_launch_matches_plain(ema, clip):
+    """All leaves in one launch, held leaf by leaf to the plain version."""
+    _need_cuda()
+    leaves = [_adamw_inputs(n, i) for i, n in enumerate(ADAMW_LIST)]
+    scalars = torch.tensor([1e-4, clip, 0.271, 0.0029701, 0.97], device="cuda")
+    ours = [[t.clone() for t in leaf[:6]] for leaf in leaves]
+    ref = [[t.clone() for t in leaf[:6]] for leaf in leaves]
+    e_ours = [leaf[6].clone() for leaf in leaves] if ema else None
+    e_ref = [leaf[6].clone() for leaf in leaves] if ema else None
+    counter = "launches_ema" if ema else "launches"
+    before = (getattr(fused_adamw8bit_leaves, counter),
+              getattr(fused_adamw8bit_leaves, "leaves_ema" if ema else "leaves"))
+    fused_adamw8bit_leaves(ours, scalars, emas=e_ours, **ADAMW_KW)
+    fused_adamw8bit_leaves_reference(ref, scalars, emas=e_ref, **ADAMW_KW)
+    assert (getattr(fused_adamw8bit_leaves, counter),
+            getattr(fused_adamw8bit_leaves, "leaves_ema" if ema else "leaves")) == (
+        before[0] + 1, before[1] + len(ADAMW_LIST))
+    for i in range(len(ADAMW_LIST)):
+        _assert_adamw_close(ours[i], ref[i], *((e_ours[i], e_ref[i]) if ema else ()))
+
+
+@pytest.mark.cuda
+def test_fused_adamw_kernel_does_not_drift_from_plain():
+    """20 updates of one leaf from zero moments, each side feeding its own
+    codes and scales into its next update, with fresh gradients each step.
+    A code differs from the plain version's only where a ratio lies within an
+    ulp of a bin edge; such an element's moment is then a bin (14%) apart on
+    the two sides until it decays, which moves its update by a fraction of
+    lr * |u| a step (|u| <= (1 - b1) / sqrt(1 - b2) ~ 3.2 for Adam). So: every
+    param within 20 steps x lr x 3.2 x 0.3, and all but 0.1% of params within
+    20 x 1e-6 (f32 rounding a step) and of codes equal."""
+    _need_cuda()
+    n, lr, steps = 1280 * 1280 * 3, 1e-4, 20
+    g = torch.Generator(device="cuda").manual_seed(20)
+    p = torch.randn(n, device="cuda", generator=g)
+    nb = n // 256
+    ours = [p.clone(), None, torch.zeros(n, dtype=torch.int8, device="cuda"),
+            torch.zeros(nb, device="cuda"), torch.zeros(n, dtype=torch.int8, device="cuda"),
+            torch.zeros(nb, device="cuda")]
+    ref = [t.clone() if t is not None else None for t in ours]
+    for step in range(1, steps + 1):
+        grad = torch.randn(n, device="cuda", generator=g) * 1e-3
+        scalars = torch.tensor([lr, 1.0, 1 - 0.9 ** step, 1 - 0.999 ** step], device="cuda")
+        ours[1], ref[1] = grad, grad.clone()
+        fused_adamw8bit_leaf(*ours, scalars, **ADAMW_KW)
+        fused_adamw8bit_leaf_reference(*ref, scalars, **ADAMW_KW)
+    diff = (ours[0] - ref[0]).abs()
+    print(f"after {steps} updates: max |p - ref| {diff.max().item():.3g}, share past "
+          f"{steps}e-6 {(diff > steps * 1e-6).float().mean().item():.3g}, codes differing "
+          f"{[(ours[i] != ref[i]).float().mean().item() for i in (2, 4)]}")
+    assert diff.max().item() <= steps * lr * 3.2 * 0.3
+    assert (diff > steps * 1e-6).float().mean().item() <= 1e-3
+    for i in (2, 4):
+        assert (ours[i] != ref[i]).float().mean().item() <= 1e-3
+
+
+# Broken copies of csrc/fused_adamw.cu that the AdamW limits must fail on
+# ADAMW_LIST in one launch, with and without EMA (the sound kernel stays
+# within them: test_fused_adamw_leaves_one_launch_matches_plain).
+ADAMW_MUTATIONS = {
+    # the table's largest magnitudes (the row absmax's) one place down
+    "deq_table_entry_off_by_one": (
+        "expf(__fmul_rn(kDeqK, mag - 127.f))",
+        "expf(__fmul_rn(kDeqK, (mag == 127.f ? 126.f : mag) - 127.f))"),
+    # the first row of every leaf after the first is taken as a row of the
+    # leaf before (past its end: nothing is loaded or stored but a scale)
+    "row_given_the_leaf_before": (
+        "while (r >= a.row0[leaf + 1]) ++leaf;", "while (r > a.row0[leaf + 1]) ++leaf;"),
+    "row_absmax_dropped": ("    mmax = half_max(mmax);\n", ""),
+}
+_ADAMW_WORST_OVER_LIMIT = """
+import json, torch
+from agenda_tpu_torch.kernels.fused_adamw import fused_adamw8bit_leaves, fused_adamw8bit_leaves_reference
+kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
+worst = {}
+for ema in (False, True):
+    g = torch.Generator(device="cuda").manual_seed(7)
+    leaves, emas = [], []
+    for n in %r:
+        nb = (n + 255) // 256
+        leaves.append([torch.randn(n, device="cuda", generator=g),
+                       torch.randn(n, device="cuda", generator=g) * 1e-3,
+                       torch.randint(-127, 128, (n,), device="cuda", generator=g).to(torch.int8),
+                       torch.rand(nb, device="cuda", generator=g) * 1e-3,
+                       torch.randint(0, 128, (n,), device="cuda", generator=g).to(torch.int8),
+                       torch.rand(nb, device="cuda", generator=g) * 1e-6])
+        emas.append(torch.randn(n, device="cuda", generator=g))
+    ref = [[t.clone() for t in leaf] for leaf in leaves]
+    e_ref = [e.clone() for e in emas]
+    scalars = torch.tensor([1e-4, 0.25, 0.271, 0.0029701, 0.97], device="cuda")
+    fused_adamw8bit_leaves(leaves, scalars, emas=emas if ema else None, **kw)
+    fused_adamw8bit_leaves_reference(ref, scalars, emas=e_ref if ema else None, **kw)
+    ratio = 0.0
+    for ours, want, e1, e2 in zip(leaves, ref, emas, e_ref):
+        parts = [(ours[0] - want[0]).abs().max().item() / 1e-6,
+                 max((ours[i].int() - want[i].int()).abs().max().item() for i in (2, 4)),
+                 max(((ours[i] - want[i]).abs() / want[i].abs().clamp(min=1e-30)).max().item()
+                     for i in (3, 5)) / 1e-5]
+        if ema:
+            parts.append((e1 - e2).abs().max().item() / 1e-6)
+        for r in parts:
+            ratio = r if r != r else max(ratio, r)  # NaN stays NaN
+    worst["ema" if ema else "no_ema"] = ratio
+print(json.dumps(worst))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutation", sorted(ADAMW_MUTATIONS))
+def test_fused_adamw_limits_fail_broken_kernels(mutation, tmp_path):
+    """Build a broken copy of the AdamW in tmp_path; its limits (params and
+    shadow 1e-6, codes within one, scales 1e-5 relative) must fail it with
+    and without the EMA shadow."""
+    _need_cuda()
+    _broken_copy(tmp_path, "fused_adamw.cu", [ADAMW_MUTATIONS[mutation]])
+    worst = _worst_over_limit(tmp_path, _ADAMW_WORST_OVER_LIMIT % (ADAMW_LIST,))
+    print(f"{mutation}: worst error over its limit {worst}")
+    assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
+
+
+@pytest.mark.parametrize("mutation", sorted(ADAMW_MUTATIONS))
+def test_fused_adamw_mutations_apply_to_the_source(mutation):
+    """Runs anywhere: each broken AdamW copy above edits exactly one place."""
+    src = (Path(agenda_tpu_torch.__file__).parent / "csrc" / "fused_adamw.cu").read_text()
+    old, new = ADAMW_MUTATIONS[mutation]
+    assert src.count(old) == 1 and (not new or new not in src)
 
 
 @pytest.mark.cuda
@@ -535,12 +702,21 @@ def test_fused_adamw_wrapper_raises_instead_of_falling_back():
                              scalars, **ADAMW_KW)
     with pytest.raises(ValueError):  # the EMA needs its decay in scalars[4]
         fused_adamw8bit_leaf(p, grad, qm, sm, qv, sv, scalars, ema=p.clone(), **ADAMW_KW)
+    with pytest.raises(ValueError):  # int8 codes at an 8-byte offset: not 16-byte aligned
+        fused_adamw8bit_leaves([(p[:512], grad[:512], qm[8:520], sm[:2], qv[:512], sv[:2])],
+                               scalars, **ADAMW_KW)
+
+
+def _variant_applies_edits(edits):
+    csrc = Path(agenda_tpu_torch.__file__).parent / "csrc"
+    return bool(edits) and all(old in (csrc / source).read_text() for source, old, _ in edits)
 
 
 def _variant_applies(name):
-    csrc = Path(agenda_tpu_torch.__file__).parent / "csrc"
+    """The variant's edits (for a variant with alternatives, the first: this
+    tree's) all find their lines in this tree's sources."""
     edits = kernel_variants.VARIANTS[name]
-    return bool(edits) and all(old in (csrc / source).read_text() for source, old, _ in edits)
+    return _variant_applies_edits(edits[0] if isinstance(edits, tuple) else edits)
 
 
 @pytest.mark.parametrize("variant", ["no_exp", "loads_and_s_only", "one_warpgroup", "two_stages"])
@@ -552,7 +728,10 @@ def test_flash_bwd_variants_apply_to_the_source(variant):
 
 
 @pytest.mark.parametrize("variant", sorted(
-    name for name in kernel_variants.VARIANTS if name.startswith(("fwd_", "gn_"))))
+    name for name in kernel_variants.VARIANTS
+    if name.startswith(("fwd_", "gn_", "adamw_")) and name != "adamw_base"))
 def test_kernel_variants_apply_to_the_source(variant):
-    """Runs anywhere: the same for the forward's and the group norm's variants."""
+    """Runs anywhere: the same for the forward's, the group norm's and the
+    AdamW's variants (for the AdamW, the alternative for this tree's source)."""
     assert _variant_applies(variant)
+

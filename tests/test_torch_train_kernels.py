@@ -27,6 +27,7 @@ from agenda_tpu_torch.kernels.flash import (
     flash_attention_bwd_reference,
     flash_attention_fwd,
 )
+from agenda_tpu_torch.kernels import fused_adamw as tfa
 from agenda_tpu_torch.kernels.fused_adamw import fused_adamw8bit_leaf
 from agenda_tpu_torch.kernels.groupnorm import group_norm_act
 from agenda_tpu_torch.train import optim as toptim
@@ -160,6 +161,98 @@ def test_fused_adamw_plain_matches_pallas_kernel(n, ema):
         np.testing.assert_allclose(got[i], want[i], rtol=1e-6)
     if ema:
         np.testing.assert_allclose(got[5], want[5], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("ema", [False, True])
+def test_fused_adamw_leaves_plain_matches_pallas_kernel(ema):
+    """fused_adamw8bit_leaves over a ragged list (its plain path on the CPU)
+    against the Pallas kernel (interpret mode) leaf by leaf, clipping active,
+    within the one-leaf test's limits."""
+    rng = np.random.RandomState(11 + ema)
+    sizes = [4096, 3 * 256 + 77, 5 * 256, 300]
+    inputs = [_leaf_inputs(rng, n) for n in sizes]
+    scal = np.array([1e-3, 0.5, 0.271, 0.0029701, 0.97][: 5 if ema else 4], np.float32)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
+    leaves = [[torch.from_numpy(x.copy()) for x in leaf[:6]] for leaf in inputs]
+    emas = [torch.from_numpy(leaf[6].copy()) for leaf in inputs] if ema else None
+    tfa.fused_adamw8bit_leaves(leaves, torch.from_numpy(scal), emas=emas, **kw)
+    for i, (p, g, qm, sm, qv, sv, e) in enumerate(inputs):
+        want = [np.asarray(x) for x in jax_fused_leaf(
+            *(jnp.asarray(x) for x in (p, g, qm, sm, qv, sv)), jnp.asarray(scal[None]),
+            ema=jnp.asarray(e) if ema else None, **kw)]
+        got = [leaves[i][k].numpy() for k in (0, 2, 3, 4, 5)]
+        np.testing.assert_allclose(got[0], want[0], atol=1e-6, rtol=1e-6)
+        for k in (1, 3):
+            assert np.abs(got[k].astype(int) - want[k].astype(int)).max() <= 1
+        for k in (2, 4):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6)
+        if ema:
+            np.testing.assert_allclose(emas[i].numpy(), want[5], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("sizes,capacity,want", [
+    ([256, 300, 4096], 440, [(0, [0, 1, 3, 19])]),
+    ([512] * 5, 2, [(0, [0, 2, 4]), (2, [0, 2, 4]), (4, [0, 2])]),
+    ([1280 * 1280 * 9] * 3 + [5120], 3, [(0, [0, 57600, 115200, 172800]), (3, [0, 20])]),
+])
+def test_leaf_plan_rows_and_split(sizes, capacity, want):
+    """The kernel's launches for a leaf list: runs of at most `capacity`
+    leaves, each with its leaves' first rows and its row count."""
+    assert tfa.leaf_plan(sizes, capacity) == want
+
+
+def test_leaf_plan_at_the_step_size_and_its_refusals():
+    """The UNet's 293 quantized leaves fit one launch of the kernel's 440;
+    an empty leaf, or 2^31 - 17 rows in one launch, is refused."""
+    rows = [(n + 255) // 256 for n in [1280 * 1280 * 9] * 293]
+    plan = tfa.leaf_plan([1280 * 1280 * 9] * 293, 440)
+    assert len(plan) == 1 and plan[0][1][-1] == sum(rows)
+    with pytest.raises(ValueError):
+        tfa.leaf_plan([256, 0], 440)
+    with pytest.raises(ValueError):
+        tfa.leaf_plan([256 * (2 ** 31 - 17)], 440)
+    assert tfa.leaf_plan([256 * (2 ** 31 - 18)], 440) == [(0, [0, 2 ** 31 - 18])]
+
+
+def test_fused_leaves_check_gradients_every_step():
+    rng = np.random.RandomState(12)
+    p, g, qm, sm, qv, sv, _ = (torch.from_numpy(x) for x in _leaf_inputs(rng, 600))
+    table = tfa.FusedLeaves([(p, qm, sm, qv, sv)])
+    scal = torch.tensor([1e-3, 1.0, 0.1, 0.001])
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
+    for bad in (g.double(), g[:599], g.reshape(2, 300).t()):
+        with pytest.raises(ValueError):
+            table([bad], scal, **kw)
+    with pytest.raises(ValueError):  # a second gradient for a one-leaf list
+        table([g, g], scal, **kw)
+    with pytest.raises(ValueError):  # codes of the wrong type
+        tfa.FusedLeaves([(p, qm.float(), sm, qv, sv)])
+    assert table.matches([(p, qm, sm, qv, sv)])
+    assert not table.matches([(p, qm.clone(), sm, qv, sv)])
+    assert not table.matches([(p, qm, sm, qv, sv)], emas=[p])
+
+
+def test_fused_optimizer_packs_its_leaves_once(monkeypatch):
+    """The optimizer builds its FusedLeaves on the first step and keeps it
+    while the params and moments are the same tensors; a new state (as a
+    resume gives) gets a new one."""
+    built = []
+
+    class Counting(toptim.FusedLeaves):
+        def __init__(self, *args, **kwargs):
+            built.append(1)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(toptim, "FusedLeaves", Counting)
+    rng = np.random.RandomState(13)
+    params = {k: _t(v) for k, v in _tree(rng).items()}
+    tx = toptim.make_optimizer(toptim.lr_schedule("constant", 1e-3, 0, 10), use_8bit_adam=True)
+    state = tx.init(params)
+    for g in _grads(rng, 1.0):
+        tx.apply({k: _t(v) for k, v in g.items()}, state, params)
+    assert len(built) == 1
+    tx.apply({k: _t(v) for k, v in _grads(rng, 1.0)[0].items()}, tx.init(params), params)
+    assert len(built) == 2
 
 
 def _tree(rng):
