@@ -7,7 +7,9 @@ the same output tree, ``images/<seed>.png`` and
 padding to a fixed batch and one batch in flight (the card samples batch
 i+1 while the host writes batch i's PNGs). The word maps are upscaled to
 ``--image-size`` on the card with Pillow's bicubic kernel; PNGs are written
-with the port's stdlib writer.
+with the port's stdlib writer. Any ``--resolution`` the UNet takes (a
+multiple of 64) runs on the card, 384 and 640 included: the GroupNorm
+kernel takes their 6x6 and 10x10 levels (H*W % 8 != 0) as any other.
 
     python -m agenda_tpu_torch.cli.data_generation --pretrained-model-path <dir> \\
         --learnable-tokens-embedding-path <embeds.bin> --save-dir out \\

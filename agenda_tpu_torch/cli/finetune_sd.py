@@ -7,16 +7,19 @@ from the EMA shadow through the port's pipeline, and the final diffusers
 export. What differs:
 
 - one process drives one card; ``--fsdp`` above 1 raises (multi-GPU is not
-  ported yet), as does ``--gradient_accumulation_steps`` above 1;
+  ported yet);
+- ``--gradient_accumulation_steps`` k averages k micro-batches' gradients
+  into one update (optax ``MultiSteps`` semantics); the global step counts
+  updates, and every cadence keys off it;
 - bf16 compute under autocast on the card, f32 on the CPU; the kernels take
   bf16, so ``--mixed_precision no`` raises on the card;
 - ``--use_8bit_adam`` selects the fused int8 AdamW kernel;
   the JAX package's TPU opt-outs (AGENDA_TPU_NO_FUSED_ADAMW,
   AGENDA_TPU_NO_DONATE) are not inherited;
-- each step's draws come from a ``torch.Generator`` seeded with (seed, step),
-  so a resumed run draws what an uninterrupted one would (the JAX package
-  folds the step into its key the same way); the stream itself is the
-  port's own;
+- each micro-batch's draws come from a ``torch.Generator`` seeded with
+  (seed, micro-batch count), so a resumed run draws what an uninterrupted
+  one would (the JAX package folds its step into its key the same way);
+  the stream itself is the port's own;
 - training images are PNG (read without Pillow).
 
     python -m agenda_tpu_torch.cli.finetune_sd --pretrained_model_name_or_path <dir> \\
@@ -112,6 +115,19 @@ def parse_args(argv=None):
 def _seed_for(seed: int, step: int) -> int:
     """The generator seed of one step: a function of (seed, step) only."""
     return (seed * 1_000_003 + step) % (2 ** 63)
+
+
+def batch_to_device(batch, dev):
+    """A host numpy batch -> device tensors (token ids as int64)."""
+    import torch
+
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if k == "input_ids":
+            t = t.long()
+        out[k] = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+    return out
 
 
 def main(argv=None):
@@ -261,36 +277,39 @@ def main(argv=None):
             tracker.log_images(f"validation/{prompt}", imgs, step)
         del pipe, val_unet
 
-    def to_device(batch):
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if k == "input_ids":
-                t = t.long()
-            out[k] = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
-        return out
-
+    # global_step counts optimizer updates: with --gradient_accumulation_steps
+    # k, k micro-batches advance it once, and the checkpoint, validation and
+    # max_train_steps cadences key off it (agenda_tpu/cli/finetune_sd.py:315-342)
     global_step = initial_step
+    accum = args.gradient_accumulation_steps
+    micro_in_step = 0
     losses, grad_norms = [], []
     timer = StepTimer()
     t0 = time.perf_counter()
     with maybe_profile(args.profile_dir), AsyncCheckpointer() as ckpt_writer:
         done = False
-        for _ in range(args.num_train_epochs):
+        # a resumed run goes on where checkpoint-N left the data
+        first_epoch, skip = divmod(initial_step * accum, len(loader))
+        for epoch in range(first_epoch, args.num_train_epochs):
             if done:
                 break
-            for batch in loader:
-                generator.manual_seed(_seed_for(seed, global_step))
-                state, metrics = step_fn(state, to_device(batch), generator=generator)
+            for batch in loader.iter_from(epoch, skip if epoch == first_epoch else 0):
+                generator.manual_seed(_seed_for(seed, state.step))
+                state, metrics = step_fn(state, batch_to_device(batch, dev),
+                                         generator=generator)
                 losses.append(metrics["loss"])
                 grad_norms.append(metrics["grad_norm"])
+                micro_in_step += 1
+                if micro_in_step < accum:
+                    continue  # mid-accumulation: no update happened
+                micro_in_step = 0
                 global_step += 1
                 sps = timer.tick()
                 if global_step % 10 == 0 or global_step <= 3:
                     m = {k: float(v) for k, v in metrics.items()}
                     m["lr"] = float(lr_fn(global_step))
                     m["steps_per_sec"] = sps
-                    m["images_per_sec"] = sps * global_bs
+                    m["images_per_sec"] = sps * global_bs * accum
                     tracker.log(m, global_step)
                     logger.info("step %d: loss=%.5f (%.2f img/s)", global_step, m["loss"],
                                 m["images_per_sec"])
@@ -314,9 +333,10 @@ def main(argv=None):
     logger.info("Saved pipeline to %s", args.output_dir)
     tracker.close()
     steps = global_step - initial_step
-    return {"steps": steps, "seconds": seconds, "images": steps * global_bs,
+    return {"steps": steps, "seconds": seconds, "images": steps * global_bs * accum,
             "losses": [float(x) for x in losses], "grad_norms": [float(x) for x in grad_norms],
-            "device": str(dev)}
+            "device": str(dev), "global_step": global_step, "micro_batches": state.step,
+            "ema_step": None if state.ema is None else int(state.ema.step)}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """The SD fine-tune's dataset and batch loader, as numpy batches.
 
-Counterpart of ``agenda_tpu/data/datasets.py:30-89,148-241``:
+Counterpart of ``agenda_tpu/data/datasets.py:30-241``:
 
 - ``BaseDataset``: a {image_path: prompt} JSON -> token ids and the image.
+- ``TokenDataset``: the same with the learnable tokens spliced into each
+  prompt and their start positions, for the token fine-tune.
   When every tile has one size (probed from the PNG headers), the tile
   travels as uint8 (``pixel_u8``) and is resized on the device in the step
   (``data/device_resize.py``), as the JAX package's uniform-tile path does;
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from agenda_tpu_torch.data.device_resize import apply_resize, resize_weights
+from agenda_tpu_torch.data.tokens import insert_new_tokens
 from agenda_tpu_torch.utils.png import png_size, read_rgb
 
 
@@ -46,12 +49,13 @@ def load_image_u8(path: str) -> np.ndarray:
     return read_rgb(_png_path(path))
 
 
-def load_image(path: str, resolution: int) -> np.ndarray:
-    """f32 (resolution, resolution, 3) in [-1, 1], Lanczos-resized on the host."""
+def load_image(path: str, resolution: int, filt: str = "lanczos") -> np.ndarray:
+    """f32 (resolution, resolution, 3) in [-1, 1], resized on the host with
+    Pillow's ``filt`` ("lanczos" or "bilinear") and Pillow's rounding."""
     u8 = load_image_u8(path)
     h, w = u8.shape[:2]
-    out = apply_resize(torch.from_numpy(u8)[None], resize_weights(h, resolution),
-                       resize_weights(w, resolution))
+    out = apply_resize(torch.from_numpy(u8)[None], resize_weights(h, resolution, filt),
+                       resize_weights(w, resolution, filt), half_up=True)
     return out[0].numpy()
 
 
@@ -89,6 +93,49 @@ class BaseDataset:
         return {"pixel_values": load_image(path, self.resolution), "input_ids": ids}
 
 
+class TokenDataset:
+    """The token fine-tune's dataset (``agenda_tpu/data/datasets.py:92-150``):
+    each prompt gets the new tokens spliced in before their trigger words
+    (``data/tokens.insert_new_tokens``), and ``new_tokens_start`` (int32,
+    ``starts_width`` = one slot a trigger word, padded with -1) says where.
+    Images are resized bilinear, as the reference's token fine-tune does
+    (``finetune_sd_token.py:816``): uniform tiles travel as uint8 and the
+    step resizes them with ``resize_weights(..., "bilinear")``."""
+
+    def __init__(self, dataset_folder: str, json_file_name: str, resolution: int, tokenizer,
+                 word_tokens: Optional[Sequence[str]] = None,
+                 new_tokens: Optional[Sequence[str]] = None):
+        self.dataset_folder = dataset_folder
+        self.data = load_prompt_json(dataset_folder, json_file_name)
+        self.resolution = resolution
+        self.tokenizer = tokenizer
+        self.word_tokens = list(word_tokens or [])
+        self.new_tokens = list(new_tokens or [])
+        self.starts_width = max(1, len(self.word_tokens))
+        self.source_size = probe_uniform_size(
+            [os.path.join(dataset_folder, p) for p, _ in self.data])
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        img_path, prompt = self.data[index]
+        starts: List[int] = []
+        if self.word_tokens and self.new_tokens:
+            prompt, starts = insert_new_tokens(self.tokenizer, prompt, self.word_tokens,
+                                               self.new_tokens)
+        starts = starts[: self.starts_width]
+        starts = starts + [-1] * (self.starts_width - len(starts))
+        out = {"input_ids": self.tokenizer(prompt),
+               "new_tokens_start": np.asarray(starts, dtype=np.int32)}
+        path = os.path.join(self.dataset_folder, img_path)
+        if self.source_size is not None:
+            out["pixel_u8"] = load_image_u8(path)
+        else:
+            out["pixel_values"] = load_image(path, self.resolution, "bilinear")
+        return out
+
+
 def _stack(batch: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([b[k] for b in batch]) for k in batch[0]}
 
@@ -108,6 +155,7 @@ class DataLoader:
         # pad_to_full cycles indices so that every batch has batch_size rows
         self.pad_to_full = pad_to_full
         self.epoch = 0
+        self._start = 0  # batches of the next epoch to leave out (iter_from)
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
@@ -124,8 +172,16 @@ class DataLoader:
                    for b in out]
         return out
 
+    def iter_from(self, epoch: int, start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """The batches of ``epoch`` from its ``start``-th on: where a resumed
+        run left its epoch (the skipped batches are not read)."""
+        self.epoch = epoch
+        self._start = start
+        return iter(self)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        batches = self.batches_for_epoch(self.epoch)
+        batches = self.batches_for_epoch(self.epoch)[self._start:]
+        self._start = 0
         self.epoch += 1
         if self.num_workers == 0:
             for b in batches:

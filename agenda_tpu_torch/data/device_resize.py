@@ -45,17 +45,24 @@ def resize_weights(src: int, dst: int, filt: str = "lanczos") -> np.ndarray:
     return w.astype(np.float32)
 
 
-def apply_resize(pixels_u8: torch.Tensor, wy, wx) -> torch.Tensor:
+def apply_resize(pixels_u8: torch.Tensor, wy, wx, half_up: bool = False) -> torch.Tensor:
     """(B, h, w, 3) uint8 -> (B, H, W, 3) f32 in [-1, 1], on pixels_u8's device.
 
-    The width pass runs first, then the height pass, as in Pillow.
+    The width pass runs first, then the height pass, as in Pillow. Each pass
+    rounds half to even, as the JAX package's device resize does;
+    ``half_up`` rounds ties up, as Pillow's 8-bit resample does (a bilinear
+    upscale lands on ties at most pixels), for the host path that stands in
+    for Pillow.
     """
     dev = pixels_u8.device
     wy = torch.as_tensor(np.asarray(wy), dtype=torch.float32).to(dev)
     wx = torch.as_tensor(np.asarray(wx), dtype=torch.float32).to(dev)
+
+    def to_level(v):
+        v = torch.clamp(v, 0.0, 255.0)
+        return torch.floor(v + 0.5) if half_up else torch.round(v)
+
     x = pixels_u8.float()
-    x = torch.einsum("Ww,bhwc->bhWc", wx, x)
-    x = torch.round(torch.clamp(x, 0.0, 255.0))
-    x = torch.einsum("Hh,bhwc->bHwc", wy, x)
-    x = torch.round(torch.clamp(x, 0.0, 255.0))
+    x = to_level(torch.einsum("Ww,bhwc->bhWc", wx, x))
+    x = to_level(torch.einsum("Hh,bhwc->bHwc", wy, x))
     return x / 255.0 * 2.0 - 1.0

@@ -94,6 +94,14 @@ class PipelineBundle:
     scheduler_config: dict
 
 
+def load_unet(model_dir: str) -> Tuple[UNetConfig, StateDict]:
+    """(config, f32 state dict) of ``<model_dir>/unet``: a pipeline export or
+    a training checkpoint (``--load_from_checkpoint``, resume)."""
+    d = os.path.join(model_dir, "unet")
+    return (unet_config_from_json(_load_json(os.path.join(d, "config.json"))),
+            _read_tensor_file(os.path.join(d, "diffusion_pytorch_model")))
+
+
 def load_pipeline(model_dir: str) -> PipelineBundle:
     def sub(name):
         return os.path.join(model_dir, name)
@@ -101,9 +109,10 @@ def load_pipeline(model_dir: str) -> PipelineBundle:
     text_state = _read_tensor_file(os.path.join(sub("text_encoder"), "model"))
     text_state = {k: v for k, v in text_state.items() if not k.endswith("position_ids")}
     sched_path = os.path.join(sub("scheduler"), "scheduler_config.json")
+    unet_config, unet_state = load_unet(model_dir)
     return PipelineBundle(
-        unet_config=unet_config_from_json(_load_json(os.path.join(sub("unet"), "config.json"))),
-        unet_state=_read_tensor_file(os.path.join(sub("unet"), "diffusion_pytorch_model")),
+        unet_config=unet_config,
+        unet_state=unet_state,
         vae_config=vae_config_from_json(_load_json(os.path.join(sub("vae"), "config.json"))),
         vae_state=rename_legacy_vae_keys(
             _read_tensor_file(os.path.join(sub("vae"), "diffusion_pytorch_model"))),
@@ -139,10 +148,14 @@ def save_pipeline(
     text_state: StateDict,
     tokenizer_dir: str,
     scheduler_config: Optional[dict] = None,
+    tokenizer=None,
 ) -> None:
     """Write a diffusers-layout pipeline directory with ``scheduler_config``
-    (default: SD-1.x's PNDM scheduler); the tokenizer files are copied from
-    ``tokenizer_dir`` unless they are already in place."""
+    (default: SD-1.x's PNDM scheduler). The tokenizer files are copied from
+    ``tokenizer_dir`` unless they are already in place; a ``tokenizer``
+    (a ``CLIPTokenizer`` with added tokens) is then written over them, so
+    that an export whose token table was extended (``text_config.vocab_size``
+    and the table in ``text_state``) reads its new tokens back."""
     sched = dict(scheduler_config or _SCHEDULER_CONFIG)
     os.makedirs(out_dir, exist_ok=True)
 
@@ -160,6 +173,8 @@ def save_pipeline(
     dst = os.path.join(out_dir, "tokenizer")
     if os.path.abspath(tokenizer_dir) != os.path.abspath(dst):
         shutil.copytree(tokenizer_dir, dst, dirs_exist_ok=True)
+    if tokenizer is not None:
+        tokenizer.save_pretrained(dst)
     os.makedirs(os.path.join(out_dir, "scheduler"), exist_ok=True)
     with open(os.path.join(out_dir, "scheduler", "scheduler_config.json"), "w") as f:
         json.dump(sched, f, indent=2)

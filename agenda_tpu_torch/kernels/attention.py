@@ -26,13 +26,20 @@ from agenda_tpu_torch.kernels.flash import flash_attention
 
 
 def _probs(q: torch.Tensor, k: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, H, Sq, Sk) f32 softmax of Q K^T / sqrt(D) (+ mask)."""
-    qf = q.float().permute(0, 2, 1, 3)
-    kf = k.float().permute(0, 2, 3, 1)
-    logits = torch.matmul(qf, kf) * (1.0 / math.sqrt(q.shape[-1]))
-    if mask is not None:
-        logits = logits + mask
-    return torch.softmax(logits, dim=-1)
+    """(B, H, Sq, Sk) f32 softmax of Q K^T / sqrt(D) (+ mask).
+
+    The logits are f32 whatever the autocast state, as the JAX package's
+    ``preferred_element_type=f32`` gives: autocast would run the matmul in
+    bf16 and round the logits to bf16 before the softmax. The products of
+    bf16 inputs are exact in f32.
+    """
+    with torch.autocast(device_type=q.device.type, enabled=False):
+        qf = q.float().permute(0, 2, 1, 3)
+        kf = k.float().permute(0, 2, 3, 1)
+        logits = torch.matmul(qf, kf) * (1.0 / math.sqrt(q.shape[-1]))
+        if mask is not None:
+            logits = logits + mask
+        return torch.softmax(logits, dim=-1)
 
 
 def _apply(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

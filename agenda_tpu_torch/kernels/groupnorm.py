@@ -50,6 +50,16 @@ def group_norm_act_reference(
     return y.reshape(x.shape).to(x.dtype)
 
 
+def _empty_aligned_as(x: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor like x whose address agrees with x's mod
+    16: the kernel moves 16-byte chunks from the same offsets of both."""
+    off = (x.data_ptr() % 16) // x.element_size()
+    if off == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    buf = torch.empty(x.numel() + 16 // x.element_size(), dtype=x.dtype, device=x.device)
+    return buf[off:off + x.numel()].view(x.shape)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return _build.load_library().function(
@@ -87,10 +97,7 @@ def _group_norm_act_fwd(
         raise ValueError("x, weight and bias must be on one device")
     b = x.shape[0]
     hw = x[0, 0].numel()
-    if hw % 8 or x.data_ptr() % 16:
-        raise ValueError(f"the group-norm kernel moves 8 elements at a time: it needs "
-                         f"H*W % 8 == 0 (got {hw}) and a 16-byte-aligned input")
-    y = torch.empty_like(x)
+    y = _empty_aligned_as(x)
     rc = _kernel()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
                    b, c, hw, groups, float(eps), 1 if act == "silu" else 0,
                    _build.stream_ptr(x.device))
@@ -126,9 +133,11 @@ def group_norm_act(
 ) -> torch.Tensor:
     """GroupNorm(+SiLU) of x (B, C, *spatial); weight, bias (C,).
 
-    CUDA: x contiguous bf16 with H*W a multiple of 8 (as at every layer of
-    a 512x512 sample), weight and bias f32. Differentiable in x, weight and
-    bias; without autograd it is one kernel launch and saves nothing.
+    CUDA: x contiguous bf16 of any H*W and offset (the kernel moves each
+    span's unaligned head and tail one element at a time and maps each
+    element to its channel), weight and bias f32. Differentiable in x,
+    weight and bias; without autograd it is one kernel launch and saves
+    nothing.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
         return _GroupNormAct.apply(x, weight, bias, groups, eps, act)

@@ -7,7 +7,7 @@ quick-GELU MLP, final LayerNorm, f32 output, pooled output at the argmax
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,14 +93,23 @@ class CLIPTextModel(nn.Module):
         self.config = config
         self.text_model = _TextTransformer(config)
 
-    def forward(self, input_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ids (B, S) -> (last hidden state (B, S, C) f32, pooled (B, C) at EOS)."""
+    def forward(self, input_ids: torch.Tensor,
+                inputs_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ids (B, S) -> (last hidden state (B, S, C) f32, pooled (B, C) at EOS).
+
+        ``inputs_embeds`` (B, S, C) replaces the token-table lookup: they are
+        the pre-position embeddings (the token fine-tune splices its learned
+        rows into them). Position is added in f32 and the sum cast to the
+        layers' dtype, as for the lookup; the gradient reaches
+        ``inputs_embeds`` whether or not the weights take one.
+        """
         tm = self.text_model
         emb = tm.embeddings
         dtype = tm.final_layer_norm.weight.dtype
         s = input_ids.shape[1]
-        x = (emb.token_embedding(input_ids).float()
-             + emb.position_embedding.weight[:s].float()).to(dtype)
+        if inputs_embeds is None:
+            inputs_embeds = emb.token_embedding(input_ids)
+        x = (inputs_embeds.float() + emb.position_embedding.weight[:s].float()).to(dtype)
         causal = torch.triu(torch.full((s, s), -1e9, dtype=torch.float32,
                                        device=input_ids.device), diagonal=1)[None, None]
         for layer in tm.encoder.layers:

@@ -39,7 +39,7 @@ from agenda_tpu_torch.core.schedules import (
 )
 from agenda_tpu_torch.data.device_resize import apply_resize
 from agenda_tpu_torch.models.vae import sample_latents
-from agenda_tpu_torch.train.optim import Optimizer
+from agenda_tpu_torch.train.optim import Optimizer, updated
 
 
 @dataclasses.dataclass
@@ -146,8 +146,10 @@ def make_train_step(
     ``latent_moments`` (B, h, w, 2C) f32, ``pixel_u8`` (B, h0, w0, 3) uint8
     (resized on the device with ``resize_weights``) or ``pixel_values``
     (B, H, W, 3) in [-1, 1]. The parameters, optimizer state and EMA shadow
-    are updated in place; ``metrics`` holds device scalars (loss, grad_norm),
-    so the step never waits on the host.
+    are updated in place; ``metrics`` holds device scalars (loss, grad_norm
+    of this micro-batch's gradient), so the step never waits on the host.
+    ``state.step`` counts micro-batches; with ``tx`` accumulating (``multi_steps``)
+    the parameters, the optimizer count and the EMA move on every k-th.
     """
     scaling = vae.config.scaling_factor
     device = next(unet.parameters()).device
@@ -172,15 +174,18 @@ def make_train_step(
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
+        # under gradient accumulation only the update micro-batch moves the
+        # parameters and blends the EMA (finetune_sd.py:211-217)
         if tx.fused and use_ema and state.ema is not None:
             # the shadow is blended inside the kernel, from the new params in registers
             decay = ema_decay_at(state.ema.step, ema_decay)
             _, _, grad_norm, _ = tx.apply(grads, state.opt_state, state.params,
                                           ema=state.ema.params, ema_decay=decay)
-            state.ema.step += 1
+            if updated(state.opt_state):
+                state.ema.step += 1
         else:
             _, _, grad_norm = tx.apply(grads, state.opt_state, state.params)
-            if use_ema and state.ema is not None:
+            if use_ema and state.ema is not None and updated(state.opt_state):
                 ema_update(state.ema, state.params, ema_decay)
         for p in state.params.values():
             p.grad = None

@@ -17,7 +17,9 @@ Counterpart of ``agenda_tpu/train/optim.py``:
   math in plain torch.
 - ``make_adamw``: f32 AdamW with optax ``clip_by_global_norm`` + ``adamw``
   semantics, the default of ``scripts/finetune_sd.sh``.
-- ``make_optimizer``: the dispatch (``optim.py:381-395``); ``use_8bit_adam``
+- ``multi_steps``: gradient accumulation, optax ``MultiSteps``
+  (``optim.py:415-416``) around either optimizer.
+- ``make_optimizer``: the dispatch (``optim.py:381-416``); ``use_8bit_adam``
   selects the fused kernel optimizer.
 
 Parameters, gradients and states are dicts keyed by parameter name. Every
@@ -31,7 +33,7 @@ a device int32 tensor, so no step waits on the host.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -292,22 +294,88 @@ def make_adamw(learning_rate_fn, b1: float = 0.9, b2: float = 0.999, eps: float 
     return Optimizer(init=init, apply=apply)
 
 
+class MultiStepsState:
+    """The accumulation state: the inner optimizer's state, the running mean
+    of this update's micro-batch gradients (f32, by name) and how many
+    micro-batches it holds (a host int: the loop counts them anyway)."""
+
+    def __init__(self, inner: Any, acc: Tensors, mini_step: int = 0):
+        self.inner = inner
+        self.acc = acc
+        self.mini_step = mini_step
+
+    @property
+    def count(self) -> torch.Tensor:
+        """The inner optimizer's count: updates, not micro-batches."""
+        return self.inner.count
+
+
+def multi_steps(inner: Optimizer, every_k: int) -> Optimizer:
+    """Gradient accumulation with optax ``MultiSteps`` semantics
+    (``use_grad_mean``): each micro-batch folds its gradient into the running
+    mean acc + (g - acc) / (n + 1); the k-th runs ``inner`` once on the mean
+    (its clipping sees the mean, as ``MultiSteps(chain(clip, adam))`` does)
+    and zeroes it. Only that call moves the parameters, the EMA shadow and
+    the inner count (so the lr schedule and the bias corrections advance
+    once an update). ``apply`` returns the micro-batch gradient's global
+    norm, as the JAX trainer reports it."""
+
+    def init(params: Tensors) -> MultiStepsState:
+        return MultiStepsState(inner.init(params), {
+            k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in params.items()})
+
+    @torch.no_grad()
+    def apply(grads: Tensors, state: MultiStepsState, params: Tensors, **kw):
+        gnorm = global_norm(grads)
+        accs = [state.acc[k] for k in params]
+        gs = [grads[k].float() for k in params]
+        n = state.mini_step
+        if n == 0:
+            torch._foreach_copy_(accs, gs)  # 0 + (g - 0) / 1, exactly
+        else:
+            d = torch._foreach_sub(gs, accs)
+            torch._foreach_div_(d, float(n + 1))
+            torch._foreach_add_(accs, d)
+        if n + 1 < every_k:
+            state.mini_step = n + 1
+            return (params, state, gnorm) + ((kw["ema"],) if kw.get("ema") is not None else ())
+        out = inner.apply(state.acc, state.inner, params, **kw)
+        torch._foreach_zero_(accs)
+        state.mini_step = 0
+        return (out[0], state, gnorm) + tuple(out[3:])
+
+    return Optimizer(init=init, apply=apply, fused=inner.fused)
+
+
+def updated(opt_state) -> bool:
+    """Whether the last ``apply`` on this state ran the update (always true
+    without accumulation)."""
+    return getattr(opt_state, "mini_step", 0) == 0
+
+
 def make_optimizer(learning_rate_fn, adam_beta1: float = 0.9, adam_beta2: float = 0.999,
                    adam_weight_decay: float = 1e-2, adam_epsilon: float = 1e-8,
                    max_grad_norm: Optional[float] = 1.0, gradient_accumulation_steps: int = 1,
                    use_8bit_adam: bool = False) -> Optimizer:
-    """AdamW with global-norm clipping, optionally with int8 moments.
+    """AdamW with global-norm clipping, optionally with int8 moments, and
+    gradient accumulation over ``gradient_accumulation_steps`` micro-batches.
 
     ``use_8bit_adam`` gives the one-pass kernel optimizer (its ``fused`` is
-    True, which the train step reads); otherwise f32 AdamW. Gradient
-    accumulation (optax ``MultiSteps`` in the JAX package) is not ported yet
-    and raises.
+    True, which the train step reads); otherwise f32 AdamW. Under
+    accumulation the JAX package switches to its unfused int8 chain
+    (``agenda_tpu/train/optim.py:384-385``); the port keeps the kernel and
+    runs it once an update on the averaged gradient (``multi_steps``).
     """
-    if gradient_accumulation_steps != 1:
-        raise NotImplementedError(
-            "gradient accumulation is not ported to agenda_tpu_torch yet (see ROADMAP.md)")
+    if gradient_accumulation_steps < 1:
+        raise ValueError(f"gradient_accumulation_steps must be >= 1, got "
+                         f"{gradient_accumulation_steps}")
     if use_8bit_adam:
-        return make_fused_adamw_8bit(learning_rate_fn, adam_beta1, adam_beta2, adam_epsilon,
-                                     adam_weight_decay, max_grad_norm)
-    return make_adamw(learning_rate_fn, adam_beta1, adam_beta2, adam_epsilon,
-                      adam_weight_decay, max_grad_norm)
+        tx = make_fused_adamw_8bit(learning_rate_fn, adam_beta1, adam_beta2, adam_epsilon,
+                                   adam_weight_decay, max_grad_norm)
+    else:
+        tx = make_adamw(learning_rate_fn, adam_beta1, adam_beta2, adam_epsilon,
+                        adam_weight_decay, max_grad_norm)
+    if gradient_accumulation_steps > 1:
+        tx = multi_steps(tx, gradient_accumulation_steps)
+    return tx

@@ -48,7 +48,29 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
  11. train e2e -- cli/finetune_sd.main trains 6 steps on 8 fabricated PNG
                 tiles, writes checkpoint-3/ and the final export, which
                 loads back; the kernel launch counts must equal the config's;
- 12. report  -- a `kernels` JSON line (six kernels), the card's name and power
+ 12. GN tail  -- the group norm at H*W % 8 != 0 (the UNet's 6x6 and
+                10x10 levels at 384 and 640 pixels, with and without SiLU)
+                against the plain version; then cli/data_generation at
+                --resolution 384 (2 images, 20 PLMS steps, 3 word heatmaps),
+                launch counts as the config's;
+ 13. token API -- one step of train/finetune_sd_token at batch 4, 512x512, full
+                width, tokens + UNet + cross-attention regularization, f32
+                AdamW: launches as the config's, attn_loss > 0, the embedding
+                moved; warm s/step, peak memory, a profiled step; then a
+                token-only step, whose flash backward skips the first attn1;
+ 14. token CLI, stage 1 -- cli/finetune_sd_token.main with the recipe's flags,
+                4 steps on the 8 tiles, checkpoints at 2 and 4, one validation
+                image at step 4: checkpoint-2/, learned_embeds_steps_4.bin and
+                full_model_step_4/ load back;
+ 15. token CLI, stage 2 -- from full_model_step_4/ with --embedding_path, 2
+                updates of the UNet with the reg loss under --use_8bit_adam
+                and --gradient_accumulation_steps 2 (4 micro-batches): the
+                loaded rows are the exported table's, K4 launches once an
+                update;
+ 16. accumulation -- cli/finetune_sd.main with --use_8bit_adam --use_ema
+                --gradient_accumulation_steps 2 over 4 micro-batches: K5 launches,
+                the EMA step and the global step are 2;
+ 17. report  -- a `kernels` JSON line (six kernels), the card's name and power
                 limit, and last the device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -60,6 +82,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -103,6 +126,24 @@ ADAMW_TOL_P = 1e-6  # params and EMA shadow, absolute: f32 rounding at |p| ~ 1
 ADAMW_TOL_SCALE = 1e-5  # row absmax scales, relative
 ADAMW_KW = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
 RAGGED_LEAF = (1000, 77)  # off the path: 77 000 % 256 != 0
+
+# the group norm where H*W % 8 != 0: the UNet's 6x6 (384 pixels) and 10x10 (640) levels
+GN_TAIL_SHAPES = ((2, 1280, 6, 6), (2, 1280, 10, 10), (2, 640, 10, 10))
+TAIL_RES_ARGS = ["--resolution", "384", "--image-size", "112", "--num-inference-steps", "20",
+                 "--batch-size", "2", "--num-images", "2",
+                 "--word_token_heatmaps", "cars", "aerial", "utah", "--device", "cuda"]
+# the token fine-tune's recipe (scripts/finetune_sd_token.sh), cut to a few steps
+TOKEN_WORDS = ("cars", "Utah", "New Zealand")
+TOKEN_PROMPTS = ("An aerial view image with cars in Utah",
+                 "An aerial view image with cars in New Zealand")
+TOKEN_LR = 5e-7
+TOKEN_ARGS = ["--resolution", str(TRAIN_RES), "--train_batch_size", str(TRAIN_BATCH),
+              "--learning_rate", str(TOKEN_LR), "--snr_gamma", "5", "--reg_weight", "0.5",
+              "--n_object_embedding", "1", "--object_token", "new_token",
+              "--initialize_token", *TOKEN_WORDS, "--with_cross_attn_reg", "--train_unet",
+              "--seed", "0", "--device", "cuda", "--report_to", "jsonl"]
+STAGE1_STEPS, STAGE2_STEPS = 4, 2
+ACCUM, ACCUM_UPDATES = 2, 2
 
 
 def require(cond: bool, msg: str) -> None:
@@ -355,7 +396,9 @@ def flash_rows(per_batch):
     return rows
 
 
-def gn_rows(per_batch):
+def gn_row(shape, groups, eps, act, count, tag="groupnorm"):
+    """Parity and timing of the group norm at one shape (``count`` launches
+    a batch), with its launch plan."""
     import ctypes
 
     import torch
@@ -366,48 +409,53 @@ def gn_rows(per_batch):
 
     plan_fn = _build.load_library().function("agenda_groupnorm_plan",
                                              [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    rows = []
-    for (shape, groups, eps, act), count in per_batch.items():
-        c = shape[1]
-        g = torch.Generator(device="cuda").manual_seed(sum(shape) + c)
-        x = (torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5).to(torch.bfloat16)
-        w = torch.randn(c, device="cuda", generator=g)
-        bias = torch.randn(c, device="cuda", generator=g)
-        y = group_norm_act(x, w, bias, groups, eps, act)
-        ref = group_norm_act_reference(x, w, bias, groups, eps, act)
-        torch.cuda.synchronize()
-        diff = (y.float() - ref.float()).abs()
-        err = diff.max().item()
-        require(bool((diff <= GN_ATOL + GN_RTOL * ref.float().abs()).all()),
-                f"group norm {shape} eps {eps} act {act}: max err {err} "
-                f"(tol {GN_ATOL} + {GN_RTOL}*|ref|)")
-        wb, bb = w.to(x.dtype), bias.to(x.dtype)
+    c = shape[1]
+    g = torch.Generator(device="cuda").manual_seed(sum(shape) + c)
+    x = (torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5).to(torch.bfloat16)
+    w = torch.randn(c, device="cuda", generator=g)
+    bias = torch.randn(c, device="cuda", generator=g)
+    before = group_norm_act.launches
+    y = group_norm_act(x, w, bias, groups, eps, act)
+    ref = group_norm_act_reference(x, w, bias, groups, eps, act)
+    torch.cuda.synchronize()
+    require(group_norm_act.launches == before + 1, f"group norm {shape} did not launch")
+    diff = (y.float() - ref.float()).abs()
+    err = diff.max().item()
+    require(bool((diff <= GN_ATOL + GN_RTOL * ref.float().abs()).all()),
+            f"group norm {shape} eps {eps} act {act}: max err {err} "
+            f"(tol {GN_ATOL} + {GN_RTOL}*|ref|)")
+    wb, bb = w.to(x.dtype), bias.to(x.dtype)
 
-        def library():
-            out = F.group_norm(x, groups, wb, bb, eps)
-            return F.silu(out) if act == "silu" else out
+    def library():
+        out = F.group_norm(x, groups, wb, bb, eps)
+        return F.silu(out) if act == "silu" else out
 
-        ms, eager = time_ms(lambda: group_norm_act(x, w, bias, groups, eps, act))
-        plain, _ = time_ms(lambda: group_norm_act_reference(x, w, bias, groups, eps, act))
-        lib, _ = time_ms(library)
-        n = x.numel()
-        plan = (ctypes.c_longlong * 4)()
-        plan_fn(shape[0], c, n // (shape[0] * c), groups, plan)
-        nbytes = 2.0 * n * 2 + 2.0 * c * 4
-        flops = n * (8.0 if act == "silu" else 4.0)
-        rows.append(dict(shape=(shape, eps, act), per_batch=count, err=err, ms=ms,
-                         plain_ms=plain, library_ms=lib,
-                         bound_ms=1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS),
-                         bound_by="bytes" if nbytes / H100_BYTES_PER_S
-                         >= flops / H100_F32_FLOPS else "operations"))
-        print(f"groupnorm {shape} eps {eps:g} act {act} x{count}/batch  err {err:.3g} "
-              f"(tol {GN_ATOL}+{GN_RTOL}|ref|)  kernel {ms:.4f} ms (eager {eager:.4f})  "
-              f"plain {plain:.4f} ms  F.group_norm {lib:.4f} ms  bound "
-              f"{rows[-1]['bound_ms']:.4f} ms  (cluster of {plan[0]}, {plan[1]} threads, "
-              f"{plan[2]} chunks a thread in shared memory; "
-              + ("x read once)" if plan[3] == 0 else f"{plan[3]} of each block's chunks "
-                 "read twice)"), flush=True)
-        del x, y, ref, diff
+    ms, eager = time_ms(lambda: group_norm_act(x, w, bias, groups, eps, act))
+    plain, _ = time_ms(lambda: group_norm_act_reference(x, w, bias, groups, eps, act))
+    lib, _ = time_ms(library)
+    n = x.numel()
+    plan = (ctypes.c_longlong * 4)()
+    plan_fn(shape[0], c, n // (shape[0] * c), groups, plan)
+    nbytes = 2.0 * n * 2 + 2.0 * c * 4
+    flops = n * (8.0 if act == "silu" else 4.0)
+    row = dict(shape=(shape, eps, act), per_batch=count, err=err, ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=1e3 * max(nbytes / H100_BYTES_PER_S,
+                                                  flops / H100_F32_FLOPS),
+               bound_by="bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_F32_FLOPS
+               else "operations")
+    print(f"{tag} {shape} (H*W = {n // (shape[0] * c)}) eps {eps:g} act {act} x{count}/batch  "
+          f"err {err:.3g} (tol {GN_ATOL}+{GN_RTOL}|ref|)  kernel {ms:.4f} ms (eager "
+          f"{eager:.4f})  plain {plain:.4f} ms  F.group_norm {lib:.4f} ms  bound "
+          f"{row['bound_ms']:.4f} ms  (cluster of {plan[0]}, {plan[1]} threads, "
+          f"{plan[2]} chunks a thread in shared memory; "
+          + ("x read once)" if plan[3] == 0 else f"{plan[3]} of each block's chunks "
+             "read twice)"), flush=True)
+    return row
+
+
+def gn_rows(per_batch):
+    rows = [gn_row(shape, groups, eps, act, count)
+            for (shape, groups, eps, act), count in per_batch.items()]
     ours, lib, bound = (sum(r[key] * r["per_batch"] for r in rows)
                         for key in ("ms", "library_ms", "bound_ms"))
     print(f"groupnorm per generation batch: {ours:.4f} ms against F.group_norm + F.silu "
@@ -974,6 +1022,342 @@ def train_e2e(model_dir: str, tmp: str, unet_cfg, vae_cfg):
     return launches
 
 
+# -- the group norm's tail, the token fine-tune and accumulation --------------------
+
+
+def gn_tail_rows():
+    """Phase 12: the group norm at H*W % 8 != 0 against its plain version, at the
+    UNet's 6x6 and 10x10 levels (off the main path: they count 0 times a
+    batch)."""
+    return [gn_row(shape, 32, 1e-5, act, 0, tag="[GN tail] groupnorm")
+            for shape in GN_TAIL_SHAPES for act in (None, "silu")]
+
+
+def tail_resolution_e2e(model_dir: str, embeds: str, tmp: str, expected: dict) -> None:
+    """Phase 12, second half: generation at 384x384, whose UNet's lowest
+    level is 6x6 (H*W = 36), through the CLI."""
+    import torch
+
+    from agenda_tpu_torch.cli import data_generation
+    from agenda_tpu_torch.kernels.flash import flash_attention_fwd
+    from agenda_tpu_torch.kernels.groupnorm import group_norm_act
+
+    save_dir = os.path.join(tmp, "out_384")
+    flash_attention_fwd.launches = 0
+    group_norm_act.launches = 0
+    stats = data_generation.main(["--pretrained-model-path", model_dir,
+                                  "--learnable-tokens-embedding-path", embeds,
+                                  "--save-dir", save_dir, *TAIL_RES_ARGS])
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "group_norm_act": group_norm_act.launches}
+    want = {k: v * stats["batches"] for k, v in expected.items()}
+    print(f"[GN tail] cli/data_generation at 384x384: {stats['images']} images in "
+          f"{stats['seconds']:.3f} s; launches {launches} (expected {want})", flush=True)
+    require(launches == want, "384x384 launch counts differ from the config's count")
+    check_outputs(save_dir, n_images=2)
+    print("[GN tail] 2 images 112x112x3 uint8 and 3x2 heatmaps 112x112 uint8 written at 384",
+          flush=True)
+
+
+def build_token_trainer(model_dir: str, dev):
+    """The full-width models as cli/finetune_sd_token builds them, with three
+    new tokens in the tokenizer and the token table."""
+    import dataclasses
+
+    import torch
+
+    from agenda_tpu_torch.cli.finetune_sd_token import TOKEN_TABLE, extend_token_table
+    from agenda_tpu_torch.data.tokenizer import CLIPTokenizer
+    from agenda_tpu_torch.generate.pipeline import _build
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.models.clip_text import CLIPTextModel
+    from agenda_tpu_torch.models.unet import UNet2DConditionModel
+    from agenda_tpu_torch.models.vae import AutoencoderKL
+
+    bundle = load_pipeline(model_dir)
+    tokenizer = CLIPTokenizer.from_pretrained(bundle.tokenizer_dir)
+    new_tokens = [f"new_token_v{i}" for i in range(len(TOKEN_WORDS))]
+    tokenizer.add_tokens(new_tokens)
+    table = extend_token_table(bundle.text_state[TOKEN_TABLE].numpy(),
+                               tokenizer.convert_tokens_to_ids(new_tokens), 0)
+    text_cfg = dataclasses.replace(bundle.text_config, vocab_size=table.shape[0])
+    with torch.device("meta"):
+        unet = UNet2DConditionModel(bundle.unet_config)
+    unet.load_state_dict({k: v.to(dev, torch.float32) for k, v in bundle.unet_state.items()},
+                         strict=True, assign=True)
+    vae = _build(AutoencoderKL, bundle.vae_config, bundle.vae_state, dev, torch.bfloat16)
+    text = _build(CLIPTextModel, text_cfg, {**bundle.text_state,
+                                            TOKEN_TABLE: torch.from_numpy(table)},
+                  dev, torch.bfloat16)
+    for m in (vae, text):
+        m.requires_grad_(False)
+    return unet.train(), vae, text, tokenizer, new_tokens, text_cfg.hidden_size
+
+
+def token_batch(tokenizer, new_tokens, vae_cfg, dev):
+    """The recipe's prompts with the new tokens spliced in (as TokenDataset
+    does), and cached latent moments."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.data.tokens import insert_new_tokens
+
+    ids, starts = [], []
+    for i in range(TRAIN_BATCH):
+        prompt, st = insert_new_tokens(tokenizer, TOKEN_PROMPTS[i % 2], TOKEN_WORDS, new_tokens)
+        ids.append(tokenizer(prompt))
+        starts.append((st + [-1] * len(TOKEN_WORDS))[:len(TOKEN_WORDS)])
+    batch = synthetic_batch(vae_cfg, 2, dev, 5)
+    batch["input_ids"] = torch.from_numpy(np.stack(ids).astype(np.int64)).to(dev)
+    batch["new_tokens_start"] = torch.tensor(starts, dtype=torch.int32, device=dev)
+    require(bool((batch["new_tokens_start"][:, 0] > 0).all()),
+            f"the tokenizer did not find the object word in every prompt: {starts}")
+    return batch
+
+
+def token_api_phase(model_dir, unet_cfg, vae_cfg, dev):
+    """Phase 13: the token step through the trainer API at full width."""
+    import torch
+
+    from agenda_tpu_torch.core.schedules import make_schedule
+    from agenda_tpu_torch.train.finetune_sd_token import (
+        TokenLossConfig,
+        init_token_train_state,
+        make_token_train_step,
+    )
+    from agenda_tpu_torch.train.optim import lr_schedule, make_optimizer
+
+    expected = train_expected(unet_cfg, vae_cfg)
+    unet, vae, text, tokenizer, new_tokens, hidden = build_token_trainer(model_dir, dev)
+    batch = token_batch(tokenizer, new_tokens, vae_cfg, dev)
+
+    before_update = []  # (allocated, peak) bytes when the step reaches the optimizer
+
+    def make(train_unet: bool):
+        tx = make_optimizer(lr_schedule("constant", TOKEN_LR, 0, 100), max_grad_norm=None)
+
+        def apply(*args, **kw):
+            before_update.append((torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()))
+            return update(*args, **kw)
+
+        update = tx.apply
+        tx = tx._replace(apply=apply)
+        cfg = TokenLossConfig(snr_gamma=5.0, with_cross_attn_reg=True, reg_weight=0.5,
+                              n_object_embedding=1, train_token=True, max_grad_norm=1.0)
+        state = init_token_train_state(unet, tx, True, train_unet, False, len(new_tokens),
+                                       hidden, generator=torch_generator(dev, 0))
+        return state, make_token_train_step(unet, vae, text, make_schedule(), tx, cfg)
+
+    state, step = make(True)
+    emb0 = state.embedding.detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, m = step(state, batch, generator=torch_generator(dev, 0))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want.update({"flash_attention_fwd": expected["flash_per_step"],
+                 "flash_attention_bwd_dkv": expected["flash_per_step"],
+                 "flash_attention_bwd_dq": expected["flash_per_step"],
+                 "group_norm_act": expected["gn_per_step"]})
+    metrics = {k: float(v) for k, v in m.items()}
+    moved = float((state.embedding.detach() - emb0).abs().max())
+    print(f"[token API] one step at batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}, tokens + UNet + "
+          f"reg, f32 AdamW: metrics {metrics}; embedding moved by up to {moved:.3g}; launches "
+          f"{counts} (expected {want})", flush=True)
+    require(counts == want, "token-step launches differ from the config's")
+    require(math.isfinite(metrics["loss"]) and metrics["attn_loss"] > 0
+            and math.isfinite(metrics["attn_loss"]), f"token step metrics {metrics}")
+    require(moved > 0, "the learned embedding did not move")
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        _, m = step(state, batch, generator=torch_generator(dev, i + 1))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    warm_s = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses), f"non-finite token loss {losses}")
+    allocated, peak_grads = before_update[0]  # the first step, before its optimizer ran
+    print(f"[token API] warm {warm_s:.4f} s/step = {TRAIN_BATCH / warm_s:.3f} images/s (3 "
+          f"synchronised steps); peak memory {peak / 2**30:.2f} GiB over 4 steps, where the "
+          f"first step's forward and backward peak at {peak_grads / 2**30:.2f} GiB and "
+          f"{allocated / 2**30:.2f} GiB stay allocated when its f32 AdamW starts; losses "
+          f"{losses}", flush=True)
+    profile_run(lambda: (step(state, batch, generator=torch_generator(dev, 9)),
+                         torch.cuda.synchronize()),
+                "token profile", f"one token step at batch {TRAIN_BATCH}, "
+                f"{TRAIN_RES}x{TRAIN_RES}", warm_s)
+
+    # tokens only: the UNet is frozen, so the first attn1 (before any attn2
+    # depends on the tokens) needs no flash backward
+    del state, step
+    torch.cuda.empty_cache()
+    state, step = make(False)
+    reset_counts()
+    step(state, batch, generator=torch_generator(dev, 20))
+    torch.cuda.synchronize()
+    only = read_counts()
+    print(f"[token API] a token-only step (frozen UNet): launches {only}", flush=True)
+    require(only["flash_attention_fwd"] == expected["flash_per_step"]
+            and only["flash_attention_bwd_dkv"] == expected["flash_per_step"] - 1
+            and only["flash_attention_bwd_dq"] == expected["flash_per_step"] - 1,
+            "the token-only step's flash backward launches are not one short of the forward's")
+    del unet, vae, text, state, step, batch
+    torch.cuda.empty_cache()
+    return {"warm_s": warm_s, "peak": peak, "launches": counts, "token_only": only}
+
+
+def token_cli_phases(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int):
+    """Phases 14-15: the token CLI's stage 1 and stage 2 at full width."""
+
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.cli import finetune_sd_token
+    from agenda_tpu_torch.cli.finetune_sd_token import TOKEN_TABLE
+    from agenda_tpu_torch.data.tokenizer import CLIPTokenizer
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.io.learned_embeds import load_learned_embeddings
+
+    data_dir = os.path.join(tmp, "tiles")
+    if not os.path.isdir(data_dir):
+        write_tiles(data_dir)
+    expected = train_expected(unet_cfg, vae_cfg)
+    cache_batches = math.ceil(TRAIN_TILES / TRAIN_BATCH)
+    validation = expected_launches(unet_cfg, vae_cfg, unet_calls)  # one 20-step batch
+
+    def want(steps: int, micro: int, validations: int, int8: bool) -> dict:
+        out = {k: 0 for k in train_counters()}
+        out.update({
+            "flash_attention_fwd": (expected["flash_per_step"] * micro + cache_batches
+                                    + validation["flash_attention_fwd"] * validations),
+            "flash_attention_bwd_dkv": expected["flash_per_step"] * micro,
+            "flash_attention_bwd_dq": expected["flash_per_step"] * micro,
+            "group_norm_act": (expected["gn_per_step"] * micro
+                               + expected["gn_per_cache_batch"] * cache_batches
+                               + validation["group_norm_act"] * validations)})
+        if int8:  # K4 once an update, over every quantized UNet leaf
+            out["fused_adamw8bit"] = expected["adamw_per_step"] * steps
+            out["fused_adamw8bit_leaves"] = expected["quantized"] * steps
+        return out
+
+    def run(tag, argv, steps, validations, accum=1, int8=False):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stats = finetune_sd_token.main(argv)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        micro = steps * accum
+        expect = want(steps, micro, validations, int8)
+        print(f"[{tag}] cli/finetune_sd_token: {stats['steps']} steps ({stats['micro_batches']} "
+              f"micro-batches) in {stats['seconds']:.3f} s (cold first step, checkpoints, "
+              f"validation included); peak memory {peak / 2**30:.2f} GiB; losses "
+              f"{stats['losses']}; attn losses {stats['attn_losses']}; launches {launches} "
+              f"(expected {expect})", flush=True)
+        require(stats["steps"] == stats["global_step"] == steps
+                and stats["micro_batches"] == len(stats["losses"]) == micro
+                and all(math.isfinite(x) for x in stats["losses"]),
+                f"{tag}: {stats['steps']} steps, {stats['micro_batches']} micro-batches, "
+                f"losses {stats['losses']}")
+        require(all(a > 0 and math.isfinite(a) for a in stats["attn_losses"]),
+                f"{tag}: attn losses {stats['attn_losses']}")
+        require(launches == expect, f"{tag}: launch counts differ")
+        return stats
+
+    one = os.path.join(tmp, "token_stage1")
+    run("token CLI 1", ["--pretrained_model_name_or_path", model_dir, "--dataset_folder",
+                        data_dir, "--json_file_name", "train.json", "--output_dir", one,
+                        *TOKEN_ARGS, "--train_token", "--max_train_steps", str(STAGE1_STEPS),
+                        "--checkpointing_steps", "2",
+                        "--validation_prompts", "An aerial view image with {} cars in {} Utah",
+                        "--num_validation_images", "1",
+                        "--validation_steps", str(STAGE1_STEPS)], STAGE1_STEPS, 1)
+    ckpt = os.path.join(one, "checkpoint-2")
+    for sub in ("unet", "train_state", "learned_embeds_steps_2.bin"):
+        require(os.path.exists(os.path.join(ckpt, sub)), f"checkpoint-2/{sub} was not written")
+    bin_path = os.path.join(one, f"learned_embeds_steps_{STAGE1_STEPS}.bin")
+    learned = load_learned_embeddings(bin_path)
+    export = os.path.join(one, f"full_model_step_{STAGE1_STEPS}")
+    exported = load_pipeline(export)
+    ids = CLIPTokenizer.from_pretrained(exported.tokenizer_dir).convert_tokens_to_ids(
+        list(learned))
+    table = exported.text_state[TOKEN_TABLE].numpy()
+    require(all(np.array_equal(table[i], learned[t]) for t, i in zip(learned, ids)),
+            "the export's token table does not hold the learned rows")
+    require(len(os.listdir(os.path.join(one, "logs", "images"))) == 1,
+            "the validation image was not logged")
+    print(f"[token CLI 1] checkpoint-2/ (unet, train_state, learned_embeds_steps_2.bin), "
+          f"{os.path.basename(bin_path)} ({list(learned)}) and {os.path.basename(export)}/ "
+          f"written and loaded back; the export's table holds the learned rows at ids {ids}; "
+          "one validation image", flush=True)
+    for d in os.listdir(one):  # free the disk: stage 2 needs the export and the .bin
+        if d.startswith("checkpoint-"):
+            shutil.rmtree(os.path.join(one, d))
+
+    two = os.path.join(tmp, "token_stage2")
+    stats2 = run("token CLI 2", ["--pretrained_model_name_or_path", export, "--dataset_folder",
+                                 data_dir, "--json_file_name", "train.json", "--output_dir",
+                                 two, *TOKEN_ARGS, "--embedding_path", bin_path,
+                                 "--max_train_steps", str(STAGE2_STEPS),
+                                 "--checkpointing_steps", "100", "--use_8bit_adam",
+                                 "--gradient_accumulation_steps", str(ACCUM)],
+                 STAGE2_STEPS, 0, accum=ACCUM, int8=True)
+    table2 = load_pipeline(os.path.join(two, f"full_model_step_{STAGE2_STEPS}")).text_state[
+        TOKEN_TABLE].numpy()
+    require(stats2["object_tokens"] == list(learned)
+            and all(np.array_equal(table2[i], learned[t]) for t, i in zip(learned, ids)),
+            "stage 2 did not train with the exported rows")
+    print(f"[token CLI 2] the loaded embeddings ({stats2['object_tokens']}) are the rows of "
+          "the exported table, and stay so in stage 2's export; under --use_8bit_adam and "
+          f"--gradient_accumulation_steps {ACCUM}, K4 launched once an update", flush=True)
+    shutil.rmtree(one)
+    shutil.rmtree(two)
+
+
+def accumulation_e2e(model_dir: str, tmp: str, unet_cfg, vae_cfg):
+    """Phase 16: the SD CLI with gradient accumulation: K5 launches once an update."""
+    import torch
+
+    from agenda_tpu_torch.cli import finetune_sd
+
+    data_dir = os.path.join(tmp, "tiles")
+    if not os.path.isdir(data_dir):
+        write_tiles(data_dir)
+    expected = train_expected(unet_cfg, vae_cfg)
+    out_dir = os.path.join(tmp, "accumulated")
+    args = [a for a in TRAIN_ARGS]
+    args[args.index("--max_train_steps") + 1] = str(ACCUM_UPDATES)
+    args[args.index("--checkpointing_steps") + 1] = "100"
+    reset_counts()
+    stats = finetune_sd.main(["--pretrained_model_name_or_path", model_dir, "--dataset_folder",
+                              data_dir, "--json_file_name", "train.json", "--output_dir",
+                              out_dir, "--gradient_accumulation_steps", str(ACCUM), *args])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    micro = ACCUM * ACCUM_UPDATES
+    print(f"[accumulation] cli/finetune_sd --gradient_accumulation_steps {ACCUM}: "
+          f"{stats['micro_batches']} micro-batches, global step {stats['global_step']}, EMA "
+          f"step {stats['ema_step']}, {stats['seconds']:.3f} s; losses {stats['losses']}; "
+          f"launches {launches}", flush=True)
+    require(stats["micro_batches"] == micro and stats["global_step"] == ACCUM_UPDATES
+            and stats["ema_step"] == ACCUM_UPDATES,
+            "accumulation: micro-batches, global step or EMA step off")
+    require(launches["fused_adamw8bit_ema"] == expected["adamw_per_step"] * ACCUM_UPDATES
+            and launches["fused_adamw8bit_leaves_ema"] == expected["quantized"] * ACCUM_UPDATES
+            and launches["fused_adamw8bit"] == 0
+            and launches["flash_attention_bwd_dkv"] == expected["flash_per_step"] * micro,
+            f"accumulation: K5 must launch once an update ({ACCUM_UPDATES}), the backward "
+            "once a micro-batch")
+    require(all(math.isfinite(x) for x in stats["losses"]), "non-finite accumulated loss")
+    shutil.rmtree(out_dir)
+    return launches
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -992,11 +1376,11 @@ def summarize(name, route, source, replaces, rows, launches):
             "library_ms": per_batch("library_ms")}
 
 
-def check_outputs(save_dir: str) -> None:
+def check_outputs(save_dir: str, n_images: int = E2E_IMAGES) -> None:
     from agenda_tpu_torch.utils.png import read_png
 
     images = sorted(os.listdir(os.path.join(save_dir, "images")))
-    require(len(images) == E2E_IMAGES, f"expected {E2E_IMAGES} image PNGs, found {images}")
+    require(len(images) == n_images, f"expected {n_images} image PNGs, found {images}")
     for name in images:
         img = read_png(os.path.join(save_dir, "images", name))
         require(img.shape == (112, 112, 3) and str(img.dtype) == "uint8",
@@ -1132,7 +1516,29 @@ def main() -> int:
         # 11. the trainer's CLI end to end
         t_phase = time.perf_counter()
         train_launches = train_e2e(model_dir, tmp, unet_cfg, vae_cfg)
+        shutil.rmtree(os.path.join(tmp, "finetuned"))  # the disk for the later phases
         phase_s["train e2e (11)"] = time.perf_counter() - t_phase
+
+        # 12. the group norm's tail path, then generation at 384x384
+        t_phase = time.perf_counter()
+        gn += gn_tail_rows()
+        tail_resolution_e2e(model_dir, embeds, tmp, expected)
+        phase_s["GN tail (12)"] = time.perf_counter() - t_phase
+
+        # 13. the token step through the trainer API
+        t_phase = time.perf_counter()
+        token = token_api_phase(model_dir, unet_cfg, vae_cfg, dev)
+        phase_s["token API (13)"] = time.perf_counter() - t_phase
+
+        # 14-15. the token CLI, stage 1 then stage 2
+        t_phase = time.perf_counter()
+        token_cli_phases(model_dir, tmp, unet_cfg, vae_cfg, unet_calls)
+        phase_s["token CLI (14-15)"] = time.perf_counter() - t_phase
+
+        # 16. gradient accumulation through the SD CLI
+        t_phase = time.perf_counter()
+        accum_launches = accumulation_e2e(model_dir, tmp, unet_cfg, vae_cfg)
+        phase_s["accumulation (16)"] = time.perf_counter() - t_phase
 
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
@@ -1160,6 +1566,12 @@ def main() -> int:
           f"{train_launches['fused_adamw8bit_leaves_ema']} leaves in {TRAIN_STEPS} steps "
           f"({train_launches['fused_adamw8bit_ema'] // TRAIN_STEPS} launch(es) and "
           f"{train_launches['fused_adamw8bit_leaves_ema'] // TRAIN_STEPS} leaves a step)",
+          flush=True)
+    print(f"[report] token step at batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES} (tokens + UNet + "
+          f"reg, f32 AdamW): warm {token['warm_s']:.4f} s/step, peak memory "
+          f"{token['peak'] / 2**30:.2f} GiB, launches a step {token['launches']}; token-only "
+          f"step {token['token_only']}; accumulation ({ACCUM} micro-batches an update): K5 "
+          f"{accum_launches['fused_adamw8bit_ema']} launches in {ACCUM_UPDATES} updates",
           flush=True)
     print("[report] units: flash_attention_fwd and group_norm_act sum ms over one generation "
           f"batch (batch {E2E_BATCH}, {E2E_STEPS} PLMS steps; launches from the generation "

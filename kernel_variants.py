@@ -33,6 +33,9 @@ fused_adamw8bit_leaves, else one a leaf):
   fwd_128_key_tiles_at_40  128-key tiles at D = 40;
   fwd_64_key_tiles       64-key tiles at every head dim (D = 80 too);
   fwd_three_warpgroups_at_80  three consumer warpgroups and 64-key tiles at D = 80;
+  gn_base                the group norm alone, as it is;
+  gn_tail_everywhere     its tail path (per-element channels, head and tail
+                         elements one at a time) at every shape;
   gn_no_cluster          one block a span at every shape;
   gn_clusters_x2         clusters that take a launch up to two blocks an SM, not one;
   bwd_no_exp             the backward's exponentials replaced by the identity;
@@ -191,6 +194,9 @@ VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replace
     "fwd_128_key_tiles_at_40": [(_FWD, _BK, "static constexpr int kBK = ND == 160 ? 64 : 128;")],
     "fwd_64_key_tiles": [(_FWD, _BK, "static constexpr int kBK = 64;")],
     "fwd_three_warpgroups_at_80": [_warpgroups(4, 3), (_FWD, _BK, "static constexpr int kBK = 64;")],
+    "gn_base": [],  # the group norm alone, as it is
+    "gn_tail_everywhere": [(_GN, "if (HW % 8 != 0 || xa % 16 != 0)  // the tail path",
+                            "if (true)  // the tail path")],
     "gn_no_cluster": [(_GN, _CLUSTER, "false")],
     "gn_clusters_x2": [(_GN, _CLUSTER, "2ll * spans * pl.cluster <= 2 * sms")],
     "bwd_no_exp": [_BWD_NO_EXP],

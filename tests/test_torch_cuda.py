@@ -241,8 +241,48 @@ def test_groupnorm_wrapper_raises_instead_of_falling_back():
         group_norm_act(x, w.bfloat16(), b.bfloat16(), 32, 1e-5)
     with pytest.raises(ValueError):
         group_norm_act(x.to(memory_format=torch.channels_last), w, b, 32, 1e-5)
-    with pytest.raises(ValueError):  # H*W not a multiple of 8
-        group_norm_act(x[:, :, :7, :7].contiguous(), w, b, 32, 1e-5)
+    # H*W not a multiple of 8 raised before the kernel had its tail path; now
+    # it runs the kernel and agrees with the plain version
+    odd = x[:, :, :7, :7].contiguous()
+    before = group_norm_act.launches
+    y = group_norm_act(odd, w, b, 32, 1e-5)
+    assert group_norm_act.launches == before + 1
+    _assert_gn_close(y, group_norm_act_reference(odd, w, b, 32, 1e-5))
+
+
+def _assert_gn_close(y, ref):
+    assert bool(((y.float() - ref.float()).abs() <= GN_ATOL + GN_RTOL * ref.float().abs()).all())
+
+
+# the tail path: the UNet's 6x6 and 10x10 levels (384 and 640 pixels), where
+# a 16-byte chunk crosses a channel boundary; spans whose length is not a
+# multiple of 8, so that later spans start off a 16-byte boundary; and a
+# clustered span (VAE-sized) whose H*W is odd
+GN_TAIL_SHAPES = [(2, 1280, 6, 6), (2, 1280, 10, 10), (2, 640, 10, 10), (2, 640, 6, 6),
+                  (2, 64, 3, 3), (3, 96, 7, 5), (1, 32, 1, 1), (2, 128, 255, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GN_TAIL_SHAPES)
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_groupnorm_tail_path_matches_plain(shape, act):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).bfloat16()
+    w = torch.randn(shape[1], device="cuda", generator=g)
+    b = torch.randn(shape[1], device="cuda", generator=g)
+    before = group_norm_act.launches
+    _assert_gn_close(group_norm_act(x, w, b, 32, 1e-5, act),
+                     group_norm_act_reference(x, w, b, 32, 1e-5, act))
+    # the same values at a base 2, 6 and 14 bytes past a 16-byte boundary
+    for off in (1, 3, 7):
+        buf = torch.empty(x.numel() + 8, device="cuda", dtype=torch.bfloat16)
+        xo = buf[off:off + x.numel()].view(shape)
+        xo.copy_(x)
+        assert xo.data_ptr() % 16 == 2 * off
+        _assert_gn_close(group_norm_act(xo, w, b, 32, 1e-5, act),
+                         group_norm_act_reference(xo, w, b, 32, 1e-5, act))
+    assert group_norm_act.launches == before + 4
 
 
 # Broken copies of csrc/groupnorm.cu that the group-norm tolerance must fail
@@ -729,7 +769,7 @@ def test_flash_bwd_variants_apply_to_the_source(variant):
 
 @pytest.mark.parametrize("variant", sorted(
     name for name in kernel_variants.VARIANTS
-    if name.startswith(("fwd_", "gn_", "adamw_")) and name != "adamw_base"))
+    if name.startswith(("fwd_", "gn_", "adamw_")) and not name.endswith("_base")))
 def test_kernel_variants_apply_to_the_source(variant):
     """Runs anywhere: the same for the forward's, the group norm's and the
     AdamW's variants (for the AdamW, the alternative for this tree's source)."""

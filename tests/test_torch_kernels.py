@@ -134,6 +134,38 @@ def test_masked_attention_and_cpu_dispatch_match_jax():
     np.testing.assert_allclose(out.numpy(), np.asarray(unmasked), atol=F32_TOL, rtol=F32_TOL)
 
 
+def test_attention_logits_stay_f32_under_autocast():
+    """The trainer runs the UNet under bf16 autocast. The JAX package keeps
+    the logits f32 (preferred_element_type), so the port's probabilities must
+    agree with JAX's on the same bf16 q, k, v: f32 within summation order
+    (1e-6 abs + 1e-5 rel), and the bf16 outputs within one bf16 ulp
+    (2^-7 |ref|, + 1e-3 abs). With the logits rounded to bf16 the
+    probabilities were 9% off and the outputs 25-29x past that limit."""
+    rng = np.random.RandomState(0)
+
+    def bf16(*shape, scale=1.0):
+        return torch.from_numpy(_rand(rng, *shape) * scale).bfloat16()
+
+    def jax_bf16(t):
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    q, k, v = bf16(2, 64, 2, 40, scale=2.0), bf16(2, 77, 2, 40, scale=2.0), bf16(2, 77, 2, 40)
+    k_self, v_self = bf16(2, 64, 2, 40, scale=2.0), bf16(2, 64, 2, 40)
+    mask = np.triu(np.full((64, 64), -1e9, np.float32), k=1)[None, None]
+    out_j, probs_j = jax_cross_attention(jax_bf16(q), jax_bf16(k), jax_bf16(v))
+    self_j = jax_attention_reference(jax_bf16(q), jax_bf16(k_self), jax_bf16(v_self),
+                                     jnp.asarray(mask))
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        out_t, probs_t = cross_attention_with_probs(q, k, v)
+        self_t = attention_reference(q, k_self, v_self, torch.from_numpy(mask))
+    assert probs_t.dtype == torch.float32
+    np.testing.assert_allclose(probs_t.numpy(), np.asarray(probs_j), atol=1e-6, rtol=1e-5)
+    for got, want in ((out_t, out_j), (self_t, self_j)):
+        want = np.asarray(want.astype(jnp.float32))
+        assert got.dtype == torch.bfloat16
+        assert np.all(np.abs(got.float().numpy() - want) <= 2.0 ** -7 * np.abs(want) + 1e-3)
+
+
 # -- resizes --------------------------------------------------------------------
 
 

@@ -361,8 +361,13 @@ def test_make_optimizer_dispatch_and_refusals():
     assert eight.fused and isinstance(eight.init(params).mu["big"], toptim._Quantized)
     plain = toptim.make_optimizer(lr)
     assert not plain.fused and isinstance(plain.init(params), toptim.AdamState)
-    with pytest.raises(NotImplementedError):
-        toptim.make_optimizer(lr, gradient_accumulation_steps=2, use_8bit_adam=True)
+    # accumulation wraps either optimizer (it raised before the port had it)
+    accum = toptim.make_optimizer(lr, gradient_accumulation_steps=2, use_8bit_adam=True)
+    state = accum.init(params)
+    assert accum.fused and isinstance(state, toptim.MultiStepsState)
+    assert isinstance(state.inner.mu["big"], toptim._Quantized)
+    with pytest.raises(ValueError):
+        toptim.make_optimizer(lr, gradient_accumulation_steps=0)
 
 
 @pytest.mark.parametrize("name", ["constant", "constant_with_warmup", "linear", "cosine",
