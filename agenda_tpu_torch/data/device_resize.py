@@ -6,7 +6,9 @@ separable filter products out = W_h @ img @ W_w^T per channel.
 ``resize_weights`` builds Pillow's filter matrix (support window, half-pixel
 centres, per-position normalisation); each pass rounds and clamps to the
 uint8 range as Pillow's 8-bit resample does, so the result agrees with
-Pillow's ``resize`` to about one level.
+Pillow's ``resize`` to about one level. ``resize_levels`` is the detector's
+eval-time resize (``agenda_tpu/detect/runner.py:712-725``): both passes in
+f32, then one rounding to a level.
 """
 
 from __future__ import annotations
@@ -66,3 +68,19 @@ def apply_resize(pixels_u8: torch.Tensor, wy, wx, half_up: bool = False) -> torc
     x = to_level(torch.einsum("Ww,bhwc->bhWc", wx, x))
     x = to_level(torch.einsum("Hh,bhwc->bHwc", wy, x))
     return x / 255.0 * 2.0 - 1.0
+
+
+def resize_levels(pixels_u8: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                  half_up: bool = False) -> torch.Tensor:
+    """(B, h, w, 3) uint8 -> (B, H, W, 3) f32 levels in [0, 255].
+
+    Width pass, then height pass, both in f32, then one clamp and one
+    rounding: half to even as the JAX package's device resize
+    (``jnp.round``), or half up (``half_up``) as its native host resize,
+    which stands in for Pillow there. ``wy`` and ``wx`` are f32 tensors on
+    pixels_u8's device.
+    """
+    x = pixels_u8.float()
+    x = torch.einsum("Ww,bhwc->bhWc", wx, x)
+    x = torch.einsum("Hh,bhwc->bHwc", wy, x).clamp_(0.0, 255.0)
+    return torch.floor(x + 0.5) if half_up else torch.round(x)

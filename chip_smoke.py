@@ -70,8 +70,35 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
  16. accumulation -- cli/finetune_sd.main with --use_8bit_adam --use_ema
                 --gradient_accumulation_steps 2 over 4 micro-batches: K5 launches,
                 the EMA step and the global step are 2;
- 17. report  -- a `kernels` JSON line (six kernels), the card's name and power
-                limit, and last the device JSON line.
+ 17. labels   -- 512 fabricated object / fg / bg heatmap triples (112x112)
+                stacked by cli/postprocess_heatmap into two sets of 256: a GT
+                set with a COCO file of its fabricated vehicles, and one
+                given an images-only COCO by cli/build_empty_annotation; seeded
+                YOLOv8n and YOLOv8s checkpoints in the JAX runner's layout;
+                a COCO of all 512 stacks with their vehicles;
+ 18. detector parity -- one batch of 192 stacks through each detector on the
+                card and on the CPU (f32, TF32 off), from the same weights:
+                the eval resize within one level, the per-level head outputs
+                within their limit (and the same heads with TF32 on beyond it:
+                the limit's control), the kept detections matched at IoU >= 0.99
+                both ways with the share unmatched bounded; then
+                DetectorRunner.test (det_test's path: pinned staging, one packed
+                copy back a batch) with YOLOv8n over all 512 stacks and their
+                boxes, three batches, on the card and on the CPU: equal image
+                paths and GT fields, predictions matched record by record;
+ 19. labelling stages -- as cli/pipeline.py chains them, on the card with
+                YOLOv8n: det_test on the GT set, select_threshold --table-out
+                --result-out, det_test on the empty set, select_threshold
+                --emit-pseudo-coco --thresh-conf <the selected threshold>;
+                every output loads back with one record per image;
+ 20. labelling timing -- warm images/s of the runner's _predict_batches over
+                the 512 stacks at batch 192 for YOLOv8n and YOLOv8s (host
+                clock, PNG decode included), the device busy share, a
+                batch's convolution, NMS (ms and launches) and the rest, and
+                on the host the ms to decode a tile and to enqueue a batch;
+ 21. report  -- a `kernels` JSON line (six kernels; none is on the labelling
+                path), the card's name and power limit, and last the device
+                JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. It imports nothing of JAX or agenda_tpu.
@@ -79,6 +106,7 @@ checkout of the repository. It imports nothing of JAX or agenda_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -144,6 +172,29 @@ TOKEN_ARGS = ["--resolution", str(TRAIN_RES), "--train_batch_size", str(TRAIN_BA
               "--seed", "0", "--device", "cuda", "--report_to", "jsonl"]
 STAGE1_STEPS, STAGE2_STEPS = 4, 2
 ACCUM, ACCUM_UPDATES = 2, 2
+
+# labelling: the synthetic_heatmap yolov8 preset's batch, DetectionConfig's 128 px
+LABEL_BATCH, LABEL_IMG, LABEL_TILES = 192, 128, 512
+LABEL_DETECTORS = ("yolov8", "yolov8s")  # YOLOv8n (the pipeline's default) and YOLOv8s
+LABEL_WORDS = ("cars", "new_token_v0", "new_token_v2")  # object, fg, bg (cli/pipeline.py)
+# card vs CPU, both f32 (TF32 off), from weights whose batch-norm statistics
+# were measured on data (logits up to about 100): each per-level head output
+# within HEAD_TOL_RMS * rms(ref) elementwise (summation order and cuDNN's
+# algorithms differ by about 1e-6 relative a layer; over the 60-odd
+# convolutions of the deepest path the sound runs reached 3.4e-5 of the rms
+# here and 1.9e-4 in the card test's noise images, the limit is 3x the
+# larger; an element's error follows its layer's scale, not its own size, as
+# for flash); the same forward with TF32 on for cuDNN and cuBLAS (2.0e-2 to
+# 2.7e-2) is the control and must fail the limit, as a run that lost full f32
+# would;
+# a kept detection matches one of the other side's at IoU >= DET_IOU and
+# |d score| <= DET_SCORE_TOL (a logit off by 4e-3 moves a score by at most
+# 1e-3); near-tied scores may trade places in NMS, so at most
+# DET_UNMATCHED_MAX of the kept detections go unmatched, each way (5e-4 of
+# them under 1e-4 relative noise on the CPU); the resize within one level
+HEAD_TOL_RMS = 6e-4
+DET_IOU, DET_SCORE_TOL, DET_UNMATCHED_MAX = 0.99, 1e-3, 0.02
+RESIZE_TOL = 1.0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -295,9 +346,9 @@ def time_batches(pipe, batch: int) -> Tuple[float, float]:
     return walls[0], walls[1]
 
 
-def profile_run(run, tag: str, what: str, warm_s: float) -> None:
-    """torch.profiler breakdown of one run() by kernel group (last in its path:
-    the profiler's CUPTI hooks can slow later launches)."""
+def device_times(run) -> Tuple[dict, float]:
+    """torch.profiler over one run(): ({CUDA kernel, memcpy or memset name:
+    (us, count)}, the run's wall seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,6 +361,13 @@ def profile_run(run, tag: str, what: str, warm_s: float) -> None:
         if e.device_type == DeviceType.CUDA:
             us, n = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return per_name, wall
+
+
+def profile_run(run, tag: str, what: str, warm_s: float) -> None:
+    """torch.profiler breakdown of one run() by kernel group (last in its path:
+    the profiler's CUPTI hooks can slow later launches)."""
+    per_name, wall = device_times(run)
     busy_ms = sum(us for us, _ in per_name.values()) / 1e3
     groups = {}
     for name, (us, n) in per_name.items():
@@ -326,6 +384,7 @@ def profile_run(run, tag: str, what: str, warm_s: float) -> None:
               f"{n} launches", flush=True)
     for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"[{tag}]   top: {us / 1e3:8.2f} ms  x{n:<5d} {name[:110]}", flush=True)
+    return busy_ms, groups
 
 
 def flash_rows(per_batch):
@@ -1358,6 +1417,385 @@ def accumulation_e2e(model_dir: str, tmp: str, unet_cfg, vae_cfg):
     return launches
 
 
+def fabricate_heatmaps(save_dir: str, n: int, seed: int):
+    """n object / fg / bg word-heatmap triples, 112x112 uint8 PNGs as
+    cli/data_generation writes them, with a blob on each of 1-3 fabricated
+    42.36-px vehicles -> the vehicles' xywh boxes per image."""
+    import numpy as np
+
+    from agenda_tpu_torch.detect.fabricate import BOX
+    from agenda_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:TILE, 0:TILE].astype(np.float32)
+    dirs = {w: os.path.join(save_dir, f"daam_{w}_heatmaps") for w in LABEL_WORDS}
+    for d in dirs.values():
+        os.makedirs(d)
+    boxes = []
+    for i in range(n):
+        xy = rng.uniform(0, TILE - BOX, (int(rng.integers(1, 4)), 2))
+        boxes.append([[float(x), float(y), BOX, BOX] for x, y in xy])
+        c = xy + BOX / 2
+        blob = np.exp(-((xx[..., None] - c[:, 0]) ** 2 + (yy[..., None] - c[:, 1]) ** 2)
+                      / (2 * (BOX / 4) ** 2)).max(-1)
+        obj = blob + rng.uniform(0, 0.2, blob.shape)
+        fg = 0.8 * blob + rng.uniform(0, 0.3, blob.shape)
+        bg = 1.0 - blob + rng.uniform(0, 0.2, blob.shape)
+        for word, m in zip(LABEL_WORDS, (obj, fg, bg)):
+            m = (m - m.min()) / (m.max() - m.min())  # min-max, as the generator's maps
+            write_png(os.path.join(dirs[word], f"{i}.png"), (m * 255).round().astype(np.uint8))
+    return boxes
+
+
+def labels_fabricate(root: str) -> dict:
+    """Phase 17: heatmap stacks through cli/postprocess_heatmap (a GT set and
+    an unlabelled set), the GT set's COCO, the other's through
+    cli/build_empty_annotation, and seeded YOLOv8n and YOLOv8s checkpoints in
+    the JAX runner's layout."""
+    import numpy as np
+
+    from agenda_tpu_torch.cli import build_empty_annotation, postprocess_heatmap
+    from agenda_tpu_torch.detect.fabricate import coco_dict, fabricate_detector
+    from agenda_tpu_torch.utils.png import read_png
+
+    t0 = time.perf_counter()
+    sets = {}
+    for seed, name in enumerate(("gt", "empty")):
+        save_dir = os.path.join(root, name)
+        boxes = fabricate_heatmaps(save_dir, LABEL_TILES // 2, seed)
+        postprocess_heatmap.main([
+            "--save-dir", save_dir, "--object-heatmap-path", f"daam_{LABEL_WORDS[0]}_heatmaps",
+            "--fg-heatmap-path", f"daam_{LABEL_WORDS[1]}_heatmaps",
+            "--bg-heatmap-path", f"daam_{LABEL_WORDS[2]}_heatmaps",
+            "--stack-heatmap-save-path", "daam_stack_heatmaps",
+            "--inv-heatmap-save-path", f"daam_{LABEL_WORDS[2]}_inv_heatmaps"])
+        stacks = sorted(os.listdir(os.path.join(save_dir, "daam_stack_heatmaps")))
+        require(len(stacks) == LABEL_TILES // 2, f"{name}: {len(stacks)} heatmap stacks")
+        sets[name] = (save_dir, boxes)
+    gt_dir, gt_boxes = sets["gt"]
+    names = [f"{i}.png" for i in range(LABEL_TILES // 2)]
+    with open(os.path.join(gt_dir, "ann.json"), "w") as f:
+        json.dump(coco_dict(names, gt_boxes, TILE), f)
+    empty_dir = sets["empty"][0]
+    build_empty_annotation.main([
+        "--image-dir", os.path.join(empty_dir, "daam_stack_heatmaps"),
+        "--save-dir", os.path.join(empty_dir, "annotations_coco_Empty.json"),
+        "--coco-dir", os.path.join(gt_dir, "ann.json")])
+    with open(os.path.join(empty_dir, "annotations_coco_Empty.json")) as f:
+        empty = json.load(f)
+    require(len(empty["images"]) == LABEL_TILES // 2 and not empty["annotations"],
+            "the empty annotation is not 256 images without annotations")
+    # a stack is (object, fg, 255 - bg)
+    stack = read_png(os.path.join(gt_dir, "daam_stack_heatmaps", "7.png"))
+    parts = [read_png(os.path.join(gt_dir, f"daam_{w}_heatmaps", "7.png")) for w in LABEL_WORDS]
+    require(stack.shape == (TILE, TILE, 3) and (stack[..., 0] == parts[0]).all()
+            and (stack[..., 1] == parts[1]).all() and (stack[..., 2] == 255 - parts[2]).all(),
+            "a heatmap stack is not (object, fg, 255 - bg)")
+    # every stack with its boxes: phase 18's runner check and phase 20's timing
+    all_names = [os.path.join(s, "daam_stack_heatmaps", f"{i}.png") for s in ("gt", "empty")
+                 for i in range(LABEL_TILES // 2)]
+    with open(os.path.join(root, "all.json"), "w") as f:
+        json.dump(coco_dict(all_names, gt_boxes + sets["empty"][1], TILE), f)
+    ckpts = {}
+    for seed, detector in enumerate(LABEL_DETECTORS):
+        ckpts[detector] = fabricate_detector(os.path.join(root, f"work_{detector}"), detector,
+                                             seed, LABEL_IMG, LABEL_BATCH)
+    n_boxes = sum(len(b) for b in gt_boxes)
+    print(f"[labels] {LABEL_TILES} heatmap stacks {TILE}x{TILE} (GT set {LABEL_TILES // 2} tiles, "
+          f"{n_boxes} boxes; empty set {LABEL_TILES // 2}), checkpoints {sorted(ckpts)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"gt": gt_dir, "empty": empty_dir, "all": "all.json", "ckpts": ckpts}
+
+
+def match_detections(boxes, scores, ref_boxes, ref_scores) -> int:
+    """How many of the (K, 4), (K,) detections have no partner among the
+    reference's at IoU >= DET_IOU and |d score| <= DET_SCORE_TOL (one to one)."""
+    from agenda_tpu_torch.detect.ops import box_iou
+
+    ok = (box_iou(boxes, ref_boxes) >= DET_IOU) & (
+        (scores[:, None] - ref_scores[None, :]).abs() <= DET_SCORE_TOL)
+    free = [True] * len(ref_scores)
+    unmatched = 0
+    for row in ok.tolist():
+        j = next((j for j, hit in enumerate(row) if hit and free[j]), None)
+        if j is None:
+            unmatched += 1
+        else:
+            free[j] = False
+    return unmatched
+
+
+def unmatched_both(boxes, scores, ref_boxes, ref_scores) -> Tuple[int, int]:
+    """(detections without a partner, the reference's without a partner)."""
+    return (match_detections(boxes, scores, ref_boxes, ref_scores),
+            match_detections(ref_boxes, ref_scores, boxes, scores))
+
+
+def head_error(heads, ref_heads) -> float:
+    """The largest max |d| / rms(ref) over the per-level (cls, box) outputs."""
+    err = 0.0
+    for pair, ref_pair in zip(heads, ref_heads):
+        for out, ref in zip(pair, ref_pair):
+            rms = float(ref.square().mean().sqrt())
+            err = max(err, float((out.cpu() - ref).abs().max()) / rms)
+    return err
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 for cuDNN's convolutions and cuBLAS's matmuls: the control."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                        allow_tf32=True):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def detector_parity(labels: dict, dev) -> None:
+    """Phase 18: one batch of 192 heatmap stacks through each detector on the
+    card and on the CPU (f32, TF32 off on the card), from the same weights:
+    the eval resize, the per-level head outputs and the kept detections; the
+    heads once more with TF32 on, as the control of their limit."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.data.device_resize import resize_levels, resize_weights
+    from agenda_tpu_torch.detect.configs import DatasetSpec, DetectionConfig
+    from agenda_tpu_torch.detect.runner import DetectorRunner, full_f32, load_variables
+
+    for detector, (config, ckpt) in labels["ckpts"].items():
+        cfg = DetectionConfig.from_json(config)
+        ds = cfg.build_eval_dataset(DatasetSpec(labels["gt"], "ann.json", "daam_stack_heatmaps/"))
+        u8 = torch.from_numpy(np.stack([ds.item_u8(j)["image_u8"] for j in range(LABEL_BATCH)]))
+        wy = torch.from_numpy(resize_weights(TILE, LABEL_IMG, "bilinear"))
+        family = cfg.build_family()
+        state = load_variables(ckpt)
+        on_card = DetectorRunner(family, cfg.runner, device=dev).variables_on_device(state)
+        with full_f32(dev):
+            levels = resize_levels(u8.to(dev), wy.to(dev), wy.to(dev)).cpu()
+            ref_levels = resize_levels(u8, wy, wy)
+            x = ref_levels / 255.0
+            heads = family.forward(on_card, x.to(dev))
+            boxes, scores, valid = (t.cpu() for t in family.predict_fn(on_card, x.to(dev)))
+        with tf32_on():
+            control = family.forward(on_card, x.to(dev))
+        ref_heads = family.forward(state, x)
+        ref_boxes, ref_scores, ref_valid = family.predict_fn(state, x)
+        resize_err = float((levels - ref_levels).abs().max())
+        head_err, control_err = head_error(heads, ref_heads), head_error(control, ref_heads)
+        kept, ref_kept = int(valid.sum()), int(ref_valid.sum())
+        unmatched = ref_unmatched = 0
+        for i in range(LABEL_BATCH):
+            u, ru = unmatched_both(boxes[i][valid[i]], scores[i][valid[i]],
+                                   ref_boxes[i][ref_valid[i]], ref_scores[i][ref_valid[i]])
+            unmatched, ref_unmatched = unmatched + u, ref_unmatched + ru
+        share = max(unmatched / max(kept, 1), ref_unmatched / max(ref_kept, 1))
+        print(f"[parity] {detector} batch {LABEL_BATCH} at {LABEL_IMG}px, card vs CPU (f32): "
+              f"resize max |d| {resize_err:.0f} levels (limit {RESIZE_TOL}); heads max |d| "
+              f"{head_err:.3e} rms(ref) (limit {HEAD_TOL_RMS}; TF32 control {control_err:.3e}); "
+              f"kept {kept} on the card, {ref_kept} on the CPU, {unmatched} and {ref_unmatched} "
+              f"without a partner at IoU >= {DET_IOU} and |d score| <= {DET_SCORE_TOL} "
+              f"({100 * share:.2f}%, limit {100 * DET_UNMATCHED_MAX:.0f}%)", flush=True)
+        require(resize_err <= RESIZE_TOL, f"{detector}: the eval resize differs on the card")
+        require(head_err <= HEAD_TOL_RMS,
+                f"{detector}: head outputs differ on the card beyond the limit")
+        require(control_err > HEAD_TOL_RMS,
+                f"{detector}: the TF32 control passes the head limit: the limit cannot tell "
+                "TF32 from full f32")
+        require(kept > LABEL_BATCH and share <= DET_UNMATCHED_MAX,
+                f"{detector}: {unmatched} of {kept} kept detections unmatched, "
+                f"{ref_unmatched} of the CPU's {ref_kept}")
+
+
+def runner_parity(labels: dict, root: str, dev) -> None:
+    """Phase 18 (cont.): DetectorRunner.test, the path det_test runs, with
+    YOLOv8n over all 512 stacks and their boxes at batch 192 (three batches,
+    the last padded, so the first pinned staging buffers are reused) on the
+    card and on the CPU: equal image paths and GT fields, and the
+    predictions matched record by record."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.detect.configs import DetectionConfig
+    from agenda_tpu_torch.detect.dataset import CocoDetDataset
+    from agenda_tpu_torch.detect.runner import DetectorRunner, load_variables
+
+    config, ckpt = labels["ckpts"]["yolov8"]
+    cfg = DetectionConfig.from_json(config)
+    state = load_variables(ckpt)
+    ds = CocoDetDataset(root, labels["all"], "", cfg.img_scale, cfg.max_gt)
+    card, ref = (DetectorRunner(cfg.build_family(), cfg.runner, device=d).test(state, ds)
+                 for d in (dev, torch.device("cpu")))
+    require(len(card) == len(ref) == LABEL_TILES, f"records {len(card)} and {len(ref)}")
+    kept = ref_kept = unmatched = ref_unmatched = n_gt = 0
+    for a, r in zip(card, ref):
+        require(a["img_path"] == r["img_path"], f"{a['img_path']} != {r['img_path']}")
+        ga, gr = a["gt_instances"], r["gt_instances"]
+        require(np.array_equal(ga["bboxes"], gr["bboxes"])
+                and np.array_equal(ga["labels"], gr["labels"]),
+                f"{a['img_path']}: the GT fields differ")
+        n_gt += len(gr["labels"])
+        pa, pr = a["pred_instances"], r["pred_instances"]
+        require(len(pa["labels"]) == len(pa["scores"]) == len(pa["bboxes"]),
+                f"{a['img_path']}: prediction fields of unequal length")
+        u, ru = unmatched_both(*(torch.from_numpy(p[k]) for p in (pa, pr)
+                                 for k in ("bboxes", "scores")))
+        kept, ref_kept = kept + len(pa["scores"]), ref_kept + len(pr["scores"])
+        unmatched, ref_unmatched = unmatched + u, ref_unmatched + ru
+    share = max(unmatched / max(kept, 1), ref_unmatched / max(ref_kept, 1))
+    n_batches = -(-LABEL_TILES // LABEL_BATCH)
+    print(f"[parity] DetectorRunner.test, yolov8, {LABEL_TILES} stacks at batch {LABEL_BATCH} "
+          f"({n_batches} batches, the last padded), card vs CPU: image paths and GT fields equal "
+          f"({n_gt} boxes); kept {kept} on the card, {ref_kept} on the CPU, {unmatched} and "
+          f"{ref_unmatched} without a partner ({100 * share:.2f}%, limit "
+          f"{100 * DET_UNMATCHED_MAX:.0f}%)", flush=True)
+    require(n_gt > 0 and kept > LABEL_TILES and share <= DET_UNMATCHED_MAX,
+            f"DetectorRunner.test: {unmatched} of {kept} detections unmatched, "
+            f"{ref_unmatched} of the CPU's {ref_kept}")
+
+
+def labelling_stages(labels: dict, root: str, dev) -> dict:
+    """Phase 19: the labelling stages as cli/pipeline.py chains them, on the
+    card with YOLOv8n: det_test on the GT set, select_threshold --table-out
+    --result-out, det_test on the empty set, select_threshold
+    --emit-pseudo-coco --thresh-conf <the selected threshold>."""
+    from agenda_tpu_torch.annotate.records import load_predictions
+    from agenda_tpu_torch.cli import det_test, select_threshold
+
+    config, ckpt = labels["ckpts"]["yolov8"]
+    pred_real, pred_syn = os.path.join(root, "pred_real.pkl"), os.path.join(root, "pred_syn.pkl")
+    table, result = os.path.join(root, "thr_table.json"), os.path.join(root, "thr_result.json")
+    common = ["--config", config, "--checkpoint", ckpt, "--test-prefix", "daam_stack_heatmaps/",
+              "--device", dev.type]
+    walls = {}
+    t0 = time.perf_counter()
+    det_test.main(common + ["--test-root", labels["gt"], "--test-ann", "ann.json",
+                            "--out", pred_real])
+    walls["det_test (GT set)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    select_threshold.main(["--prediction_pkl", pred_real, "--table-out", table,
+                           "--result-out", result])
+    walls["select_threshold"] = time.perf_counter() - t0
+    with open(result) as f:
+        chosen = json.load(f)
+    with open(table) as f:
+        tab = json.load(f)
+    t0 = time.perf_counter()
+    det_test.main(common + ["--test-root", labels["empty"], "--test-ann",
+                            "annotations_coco_Empty.json", "--out", pred_syn])
+    walls["det_test (empty set)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    select_threshold.main(["--prediction_pkl", pred_syn, "--emit-pseudo-coco",
+                           "--out-dir", labels["empty"], "--detector-tag", "yolov8",
+                           "--dataset-tag", "SynLINZ-STACKDAAMHeatMaps", "--image-size", str(TILE),
+                           "--thresh-conf", str(chosen["threshold"])])
+    walls["select_threshold --emit-pseudo-coco"] = time.perf_counter() - t0
+    real, syn = load_predictions(pred_real), load_predictions(pred_syn)
+    pseudo = [n for n in os.listdir(labels["empty"]) if n.startswith("annotations_coco_FakeBBoxes")]
+    require(len(pseudo) == 1, f"pseudo COCO files: {pseudo}")
+    with open(os.path.join(labels["empty"], pseudo[0])) as f:
+        coco = json.load(f)
+    half = LABEL_TILES // 2
+    require(len(real) == half and len(syn) == half and len(coco["images"]) == half,
+            f"records {len(real)}, {len(syn)}, pseudo COCO images {len(coco['images'])}")
+    require(chosen["n_pred"] == len(tab["score"]) and 0.0 < chosen["threshold"] < 1.0,
+            f"the threshold result does not fit its table: {chosen}")
+    n_gt = sum(len(r["gt_instances"]["bboxes"]) for r in real)
+    n_pred = sum(len(r["pred_instances"]["scores"]) for r in syn)
+    print(f"[stages] det_test -> {len(real)} records ({n_gt} GT boxes, {chosen['n_pred']} "
+          f"predictions); select_threshold: AP {chosen['ap']:.4f}, F1 {chosen['f1_max']:.4f} at "
+          f"threshold {chosen['threshold']:.4f}; det_test on the empty set -> {len(syn)} records, "
+          f"{n_pred} predictions; pseudo COCO {pseudo[0]}: {len(coco['images'])} images, "
+          f"{len(coco['annotations'])} annotations; wall "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()), flush=True)
+    return chosen
+
+
+def labelling_timing(labels: dict, root: str, dev) -> dict:
+    """Phase 20: warm images/s of DetectorRunner._predict_batches over all
+    512 stacks at batch 192 (host clock, PNG decode included), the device
+    busy share, the split into convolution, NMS and the rest, and the
+    host's two shares: decoding a tile and enqueueing a batch's predict."""
+    import torch
+
+    from agenda_tpu_torch.detect.configs import DatasetSpec, DetectionConfig
+    from agenda_tpu_torch.detect.dataset import CocoDetDataset
+    from agenda_tpu_torch.detect.ops import nms_images
+    from agenda_tpu_torch.detect.runner import DetectorRunner, full_f32, load_variables
+    from agenda_tpu_torch.detect.yolov8 import _anchors, _flatten_outputs, decode_boxes
+
+    out = {}
+    for detector, (config, ckpt) in labels["ckpts"].items():
+        cfg = DetectionConfig.from_json(config)
+        ds = CocoDetDataset(root, labels["all"], "", cfg.img_scale, cfg.max_gt)
+        runner = DetectorRunner(cfg.build_family(), cfg.runner, device=dev)
+        state = load_variables(ckpt)
+        walls = []
+        for _ in range(3):  # cold (cuDNN autotune, allocation), then warm twice
+            t0 = time.perf_counter()
+            recs = runner._predict_batches(state, ds)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        require(len(recs) == LABEL_TILES, f"{detector}: {len(recs)} records")
+        warm = min(walls[1:])
+        n_batches = -(-LABEL_TILES // LABEL_BATCH)
+        busy_ms, groups = profile_run(lambda: runner._predict_batches(state, ds), "label-profile",
+                                      f"{detector}, {LABEL_TILES} stacks at batch {LABEL_BATCH}",
+                                      warm)
+        # NMS alone, on one batch of this detector's decoded boxes
+        fam = runner.family
+        params = runner.variables_on_device(state)
+        x = torch.rand(LABEL_BATCH, LABEL_IMG, LABEL_IMG, 3, device=dev,
+                       generator=torch_generator(dev, 0))
+        with full_f32(dev):
+            cls, dist = _flatten_outputs(fam.forward(params, x), fam.config)
+            pts, strides = _anchors(fam.config, x.device)
+            boxes = decode_boxes(dist, pts, strides, fam.config)
+            scores = torch.sigmoid(cls)[..., 0]
+
+            def nms():
+                nms_images(boxes, scores, fam.iou_thr, fam.max_dets, fam.score_thr)
+
+            nms()
+            torch.cuda.synchronize()
+            per_name, _ = device_times(lambda: (nms(), torch.cuda.synchronize()))
+            # the host's two shares: enqueueing one batch's predict, decoding the tiles
+            enqueue = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fam.predict_fn(params, x)
+                enqueue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(len(ds)):
+            ds.item_u8(j, expect_size=(TILE, TILE))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+        nms_ms = sum(us for us, _ in per_name.values()) / 1e3
+        nms_launches = sum(n for _, n in per_name.values())
+        conv_ms = groups.get("convolution", (0.0, 0))[0] / n_batches
+        out[detector] = {"images_per_s": LABEL_TILES / warm, "warm_s": warm,
+                         "busy": busy_ms / (1e3 * warm), "nms_ms": nms_ms,
+                         "nms_launches": nms_launches, "conv_ms": conv_ms,
+                         "rest_ms": busy_ms / n_batches - conv_ms - nms_ms,
+                         "decode_ms": decode_ms, "enqueue_ms": min(enqueue) * 1e3}
+        print(f"[label-timing] {detector}: {LABEL_TILES} stacks at batch {LABEL_BATCH} "
+              f"({n_batches} batches, the last padded): cold {walls[0]:.3f} s, warm "
+              f"{walls[1]:.3f} / {walls[2]:.3f} s -> {LABEL_TILES / warm:.1f} images/s; device "
+              f"busy {100 * busy_ms / (1e3 * warm):.1f}% of the warm run; a batch: convolution "
+              f"{conv_ms:.2f} ms, NMS {nms_ms:.2f} ms in {nms_launches} launches (N = "
+              f"{boxes.shape[1]} anchors, K = {fam.max_dets}), the rest "
+              f"{out[detector]['rest_ms']:.2f} ms; host: decoding a tile {decode_ms:.3f} ms, "
+              f"enqueueing a batch's predict {min(enqueue) * 1e3:.2f} ms (of "
+              + ", ".join(f"{1e3 * e:.2f}" for e in enqueue) + ")", flush=True)
+    return out
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -1540,6 +1978,16 @@ def main() -> int:
         accum_launches = accumulation_e2e(model_dir, tmp, unet_cfg, vae_cfg)
         phase_s["accumulation (16)"] = time.perf_counter() - t_phase
 
+        # 17-20. the labelling stages: heatmap stacks, YOLOv8n/s on the card
+        t_phase = time.perf_counter()
+        label_root = os.path.join(tmp, "labels")
+        labels = labels_fabricate(label_root)
+        detector_parity(labels, dev)
+        runner_parity(labels, label_root, dev)
+        chosen = labelling_stages(labels, label_root, dev)
+        label_timing = labelling_timing(labels, label_root, dev)
+        phase_s["labelling (17-20)"] = time.perf_counter() - t_phase
+
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
                   "agenda_tpu/kernels/flash.py:55", flash, launches["flash_attention_fwd"]),
@@ -1573,6 +2021,14 @@ def main() -> int:
           f"step {token['token_only']}; accumulation ({ACCUM} micro-batches an update): K5 "
           f"{accum_launches['fused_adamw8bit_ema']} launches in {ACCUM_UPDATES} updates",
           flush=True)
+    for detector, t in label_timing.items():
+        print(f"[report] labelling with {detector} at batch {LABEL_BATCH}, {LABEL_IMG}px, "
+              f"{LABEL_TILES} heatmap stacks: {t['images_per_s']:.1f} images/s warm (host clock, "
+              f"PNG decode included), device busy {100 * t['busy']:.1f}%, NMS {t['nms_ms']:.2f} ms "
+              f"and {t['nms_launches']} launches a batch, convolution {t['conv_ms']:.2f} ms a "
+              f"batch; host decode {t['decode_ms']:.3f} ms a tile, enqueue "
+              f"{t['enqueue_ms']:.2f} ms a batch; selected threshold {chosen['threshold']:.4f} "
+              f"(YOLOv8n)", flush=True)
     print("[report] units: flash_attention_fwd and group_norm_act sum ms over one generation "
           f"batch (batch {E2E_BATCH}, {E2E_STEPS} PLMS steps; launches from the generation "
           "CLI run); flash_attention_bwd_dkv, flash_attention_bwd_dq and fused_adamw8bit_ema "

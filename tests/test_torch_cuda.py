@@ -747,6 +747,144 @@ def test_fused_adamw_wrapper_raises_instead_of_falling_back():
                                scalars, **ADAMW_KW)
 
 
+def _greedy_nms_loop(boxes, scores, iou_thr, k, score_thr):
+    """Plain greedy NMS of one image, one box at a time, in float64 numpy."""
+    import numpy as np
+
+    order = np.argsort(-scores, kind="stable")
+    alive = scores[order] > score_thr
+    b = boxes[order].astype(np.float64)
+    area = np.clip(b[:, 2] - b[:, 0], 0, None) * np.clip(b[:, 3] - b[:, 1], 0, None)
+    for r in range(len(order)):
+        if not alive[r]:
+            continue
+        for j in range(r + 1, len(order)):
+            w = max(0.0, min(b[r, 2], b[j, 2]) - max(b[r, 0], b[j, 0]))
+            h = max(0.0, min(b[r, 3], b[j, 3]) - max(b[r, 1], b[j, 1]))
+            union = area[r] + area[j] - w * h
+            if union > 0 and w * h / union > iou_thr:
+                alive[j] = False
+    kept = order[alive][:k]
+    return np.concatenate([kept, np.zeros(k - len(kept), kept.dtype)]), np.arange(k) < len(kept)
+
+
+@pytest.mark.cuda
+def test_batched_nms_on_the_card_matches_the_plain_loop():
+    """The labelling NMS (YOLOv8n at 128 px: N = 336 anchors, K = 300) on
+    the card, all images in one rank loop, against a plain CPU loop per
+    image; scores drawn from a few values, so ties are everywhere."""
+    import numpy as np
+
+    from agenda_tpu_torch.detect.ops import nms_images
+
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 128, (24, 336, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 48, (24, 336, 2))], -1).astype(np.float32)
+    boxes = np.round(boxes)  # integer corners: the IoU is exact in f32 and f64 alike
+    scores = rng.choice(np.asarray([0.0005, 0.01, 0.02, 0.3, 0.7], np.float32), (24, 336))
+    keep, valid = nms_images(torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda(),
+                             0.7, 300, 0.001)
+    for i in range(24):
+        want_keep, want_valid = _greedy_nms_loop(boxes[i], scores[i], 0.7, 300, 0.001)
+        assert (valid[i].cpu().numpy() == want_valid).all(), i
+        assert (keep[i].cpu().numpy() == want_keep).all(), i
+
+
+@pytest.mark.cuda
+def test_yolov8n_predicts_on_the_card_as_on_the_cpu():
+    """YOLOv8n (seeded init, batch-norm statistics measured on noise) on one
+    batch of 32 at 128 px: each head output within 6e-4 rms(ref) in f32
+    (TF32 off), and at most 2% of the kept detections without a partner at
+    IoU >= 0.99 and |d score| <= 1e-3 (near-tied scores may trade places in
+    NMS). The limits are chip_smoke.py's. The same heads with TF32 on, the
+    control, fail the head limit."""
+    from agenda_tpu_torch.detect.fabricate import calibrate_batch_norm
+    from agenda_tpu_torch.detect.families import build_family
+    from agenda_tpu_torch.detect.runner import full_f32
+
+    _need_cuda()
+    fam = build_family("yolov8")
+    g = torch.Generator().manual_seed(0)
+    state = calibrate_batch_norm(fam, fam.init_variables(g), torch.rand(16, 128, 128, 3,
+                                                                        generator=g))
+    images = torch.rand(32, 128, 128, 3, generator=g)
+    on_card = {k: v.cuda() for k, v in state.items()}
+    with full_f32(torch.device("cuda")):
+        heads = fam.forward(on_card, images.cuda())
+        boxes, scores, valid = (t.cpu() for t in fam.predict_fn(on_card, images.cuda()))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                        allow_tf32=True):
+            control = fam.forward(on_card, images.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    ref_heads = fam.forward(state, images)
+
+    def rel_err(outs):
+        return max(float((out.cpu() - ref).abs().max()) / float(ref.square().mean().sqrt())
+                   for pair, ref_pair in zip(outs, ref_heads) for out, ref in zip(pair, ref_pair))
+
+    err, control_err = rel_err(heads), rel_err(control)
+    assert err <= 6e-4 < control_err, (err, control_err)
+    ref_boxes, ref_scores, ref_valid = fam.predict_fn(state, images)
+    from agenda_tpu_torch.detect.ops import box_iou
+
+    kept = unmatched = 0
+    for i in range(32):
+        a, sa = boxes[i][valid[i]], scores[i][valid[i]]
+        r, sr = ref_boxes[i][ref_valid[i]], ref_scores[i][ref_valid[i]]
+        ok = (box_iou(a, r) >= 0.99) & ((sa[:, None] - sr[None, :]).abs() <= 1e-3)
+        kept += len(a)
+        unmatched += int((~ok.any(dim=1)).sum())
+    assert kept > 32 and unmatched <= 0.02 * kept, (unmatched, kept)
+
+
+@pytest.mark.cuda
+def test_runner_test_on_the_card_as_on_the_cpu(tmp_path):
+    """DetectorRunner.test, the path det_test runs (pinned staging buffers
+    reused every other batch, one packed copy back a batch), with YOLOv8n
+    over 40 tiles at batch 16: three batches, the last padded. The card's
+    records equal the CPU's in image path and GT fields, and at most 2% of
+    the detections go without a partner either way (IoU >= 0.99, |d score|
+    <= 1e-3), as chip_smoke.py holds it at batch 192."""
+    import numpy as np
+
+    from agenda_tpu_torch.detect.configs import DatasetSpec, DetectionConfig
+    from agenda_tpu_torch.detect.fabricate import fabricate_detector, write_square_set
+    from agenda_tpu_torch.detect.ops import box_iou
+    from agenda_tpu_torch.detect.runner import DetectorRunner, load_variables
+
+    _need_cuda()
+    write_square_set(str(tmp_path / "data"), 40)
+    config, ckpt = fabricate_detector(str(tmp_path / "work"), batch_size=16)
+    cfg = DetectionConfig.from_json(config)
+    ds = cfg.build_eval_dataset(DatasetSpec(str(tmp_path / "data"), "ann.json"))
+    state = load_variables(ckpt)
+    card, ref = (DetectorRunner(cfg.build_family(), cfg.runner, device=d).test(state, ds)
+                 for d in ("cuda", "cpu"))
+    assert len(card) == len(ref) == 40
+
+    def unmatched(p, q):
+        ok = (box_iou(torch.from_numpy(p["bboxes"]), torch.from_numpy(q["bboxes"])) >= 0.99) & (
+            (torch.from_numpy(p["scores"])[:, None] - torch.from_numpy(q["scores"])[None, :])
+            .abs() <= 1e-3)
+        return int((~ok.any(dim=1)).sum())
+
+    kept = ref_kept = lost = ref_lost = 0
+    for a, r in zip(card, ref):
+        assert a["img_path"] == r["img_path"]
+        for key in ("bboxes", "labels"):
+            assert np.array_equal(a["gt_instances"][key], r["gt_instances"][key])
+        pa, pr = a["pred_instances"], r["pred_instances"]
+        kept, ref_kept = kept + len(pa["scores"]), ref_kept + len(pr["scores"])
+        lost, ref_lost = lost + unmatched(pa, pr), ref_lost + unmatched(pr, pa)
+    assert kept > 40 and lost <= 0.02 * kept and ref_lost <= 0.02 * ref_kept, (
+        lost, kept, ref_lost, ref_kept)
+
+
 def _variant_applies_edits(edits):
     csrc = Path(agenda_tpu_torch.__file__).parent / "csrc"
     return bool(edits) and all(old in (csrc / source).read_text() for source, old, _ in edits)

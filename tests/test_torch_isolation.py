@@ -3,6 +3,8 @@
 - A fresh interpreter imports the port, writes a tiny pipeline with the
   port's own fabricator and runs the port's CLI on the CPU; afterwards
   ``jax``, ``flax`` and ``agenda_tpu`` are absent from ``sys.modules``.
+  Another does the same for the labelling CLIs (``det_test`` on a
+  fabricated detector and tiles, then ``select_threshold``).
 - No source file of the port, nor the tools at the root of the repo
   (``chip_smoke.py`` and the kernel-variant timer), imports them.
 - Asking for CUDA without a GPU raises; ``chip_smoke.py`` exits non-zero and
@@ -41,6 +43,27 @@ print("FORBIDDEN", bad)
 """
 
 
+_DRIVE_LABELS = r"""
+import json, os, sys
+from agenda_tpu_torch.cli import det_test, select_threshold
+from agenda_tpu_torch.detect.fabricate import fabricate_detector, write_square_set
+d = sys.argv[1]
+write_square_set(os.path.join(d, "data"), 6, seed=1)
+config, ckpt = fabricate_detector(os.path.join(d, "work"), img_size=64, batch_size=4, seed=1)
+recs = det_test.main(["--device", "cpu", "--config", config, "--checkpoint", ckpt,
+                      "--test-root", os.path.join(d, "data"), "--test-ann", "ann.json",
+                      "--out", os.path.join(d, "pred.pkl")])
+assert len(recs) == 6
+select_threshold.main(["--prediction_pkl", os.path.join(d, "pred.pkl"),
+                       "--result-out", os.path.join(d, "result.json"), "--emit-pseudo-coco",
+                       "--out-dir", d])
+assert "threshold" in json.load(open(os.path.join(d, "result.json")))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "jaxlib", "agenda_tpu"))
+print("FORBIDDEN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
@@ -51,6 +74,15 @@ def test_port_runs_without_importing_jax_or_agenda_tpu(tmp_path):
     out = subprocess.run([sys.executable, "-c", _DRIVE, str(tmp_path)], cwd=str(tmp_path),
                          env=_env(),
                          capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FORBIDDEN []" in out.stdout, out.stdout[-2000:]
+
+
+def test_labelling_runs_without_importing_jax_or_agenda_tpu(tmp_path):
+    """det_test and select_threshold of the port, on the CPU, in a fresh interpreter."""
+    out = subprocess.run([sys.executable, "-c", _DRIVE_LABELS, str(tmp_path)],
+                         cwd=str(tmp_path), env=_env(), capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FORBIDDEN []" in out.stdout, out.stdout[-2000:]
 
