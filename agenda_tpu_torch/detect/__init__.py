@@ -1,1 +1,1 @@
-"""Detectors, prediction side: YOLOv8, batched NMS, the eval dataset and the runner."""
+"""Detectors: YOLOv8 prediction and training, batched NMS, TAL, the datasets and the runner."""

@@ -1,12 +1,12 @@
-"""Detector run configuration (the JSON that ``det_train`` writes beside a checkpoint).
+"""Detector run configuration and the stage presets.
 
-Counterpart of ``agenda_tpu/detect/configs.py:36-135``: ``DatasetSpec`` and
-``DetectionConfig`` with ``to_json``/``from_json``, ``build_family`` and
-``build_eval_dataset``, and ``AugConfig`` as a plain dataclass with the
-fields of ``agenda_tpu/detect/augment.py::AugConfig``, so that a
-``config.json`` written by the JAX ``det_train`` parses unchanged. The
-stage presets (``preset``, ``HYPERPARAMS``) and the training dataset
-belong to training and are not ported yet (ROADMAP.md §A).
+Counterpart of ``agenda_tpu/detect/configs.py``: ``DatasetSpec`` and
+``DetectionConfig`` with ``to_json``/``from_json``, ``build_family``,
+``build_train_dataset`` and ``build_eval_dataset``, so that a
+``config.json`` written by either package parses in the other; and the
+stage presets (``preset``, ``HYPERPARAMS``) for the YOLOv8 family in all
+three stages, with the reference's batch size, lr, epochs, val cadence,
+optimizer and recipe. The other families' presets raise (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -15,32 +15,8 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional, Tuple
 
+from agenda_tpu_torch.detect.augment import AugConfig, mix_stage_aug
 from agenda_tpu_torch.detect.runner import RunnerConfig
-
-
-@dataclasses.dataclass
-class AugConfig:
-    """One stage's train-time augmentation recipe (read, not applied, here)."""
-
-    mosaic: bool = False
-    affine_scale: float = 0.9
-    max_rotate_degree: float = 0.0
-    max_shear_degree: float = 0.0
-    max_translate_ratio: float = 0.1
-    mixup_prob: float = 0.0
-    mixup_mosaic_pre: bool = False
-    blur_prob: float = 0.0
-    median_blur_prob: float = 0.0
-    to_gray_prob: float = 0.0
-    clahe_prob: float = 0.0
-    hsv: bool = False
-    hue_delta: int = 5
-    saturation_delta: int = 30
-    value_delta: int = 30
-    flip_prob: float = 0.5
-    lsj: bool = False
-    lsj_ratio_range: Tuple[float, float] = (0.1, 2.0)
-    standalone_affine: bool = False
 
 
 @dataclasses.dataclass
@@ -109,8 +85,102 @@ class DetectionConfig:
         model.setdefault("max_gt", self.max_gt)
         return build_family(self.detector, model=model, predict=self.predict)
 
+    def build_train_dataset(self):
+        from agenda_tpu_torch.detect.dataset import CocoDetDataset, ConcatDataset
+
+        aug = dataclasses.replace(self.aug, flip_prob=self.flip_prob) \
+            if self.flip_prob is not None else self.aug
+        parts = [
+            CocoDetDataset(s.data_root, s.ann_file, s.data_prefix, self.img_scale, self.max_gt,
+                           train=True, aug=aug)
+            for s in self.train_datasets
+        ]
+        return parts[0] if len(parts) == 1 else ConcatDataset(parts)
+
     def build_eval_dataset(self, spec: DatasetSpec):
         from agenda_tpu_torch.detect.dataset import CocoDetDataset
 
         return CocoDetDataset(spec.data_root, spec.ann_file, spec.data_prefix,
                               self.img_scale, self.max_gt, train=False)
+
+
+# Per-stage hyperparameters of the YOLOv8 family, read off the reference's
+# configs (Real_Source/yolov8.py:19,29-34,40; Synthetic_Heatmap/yolov8.py:
+# 19,29-34,40; Synthetic_Target/yolov8.py:19,29-34,40,239-240,254-255).
+# bs = train_batch_size_per_gpu. The rows differ only in these keys: every
+# one trains with the YOLOv5 optimizer and the mix recipe with YOLOv5MixUp
+# (the reference's aug="mix", yolo_mixup and yolo_opt), which ``preset`` sets.
+HYPERPARAMS: Dict[Tuple[str, str], Dict[str, Any]] = {
+    ("real_source", "yolov8"): dict(bs=512, lr=0.001, opt="sgd", epochs=1000,
+                                    val_interval=1, lr_factor=0.01,
+                                    close_mosaic=10, val_interval_stage2=1),
+    ("synthetic_heatmap", "yolov8"): dict(bs=192, lr=1e-4, opt="sgd", epochs=500,
+                                          val_interval=2, lr_factor=0.01,
+                                          close_mosaic=10, val_interval_stage2=1),
+    ("synthetic_target", "yolov8"): dict(bs=1024, lr=0.001, opt="sgd",
+                                         epochs=1000, val_interval=1,
+                                         lr_factor=0.01, close_mosaic=10,
+                                         val_interval_stage2=1),
+}
+STAGES = ("real_source", "synthetic_heatmap", "synthetic_target")
+
+
+def _family_key(detector: str) -> str:
+    if detector.startswith("yolov8"):
+        return "yolov8"
+    if detector.startswith("yolov5"):
+        return "yolov5"
+    if detector.startswith("vitdet"):
+        return "vitdet"
+    return "faster-rcnn"
+
+
+def preset(
+    stage: str,
+    detector: str,
+    train: List[DatasetSpec],
+    val: Optional[DatasetSpec] = None,
+    test: Optional[DatasetSpec] = None,
+    output_dir: str = "work_dirs/run",
+    pretrained: Optional[str] = None,
+    **overrides,
+) -> DetectionConfig:
+    """Stage x family presets carrying the reference's hyperparameters."""
+    family = _family_key(detector)
+    if stage not in STAGES:
+        raise ValueError(f"Unknown stage/family {(stage, family)}; stages: {sorted(STAGES)}")
+    if family != "yolov8":
+        raise NotImplementedError(
+            f"the {family} presets are not ported yet: ROADMAP.md §A, the item "
+            "'Faster R-CNN, YOLOv5, ViTDet and io/torch_import.py'")
+    hp = HYPERPARAMS[(stage, family)]
+    # every row trains with mmyolo's YOLOv5OptimizerConstructor: SGD with
+    # momentum 0.937, nesterov, wd 0.0005 scaled by the batch size, per-group
+    # decay, the lr_factor schedule, no gradient clipping; the EMA of
+    # ExpMomentumEMA(momentum=0.0002); and the mix recipe with YOLOv5MixUp
+    # (a mosaic'd sample mixed in at prob 0.1)
+    runner = RunnerConfig(
+        output_dir=output_dir,
+        max_epochs=hp["epochs"],
+        batch_size=hp["bs"],
+        lr=hp["lr"],
+        optimizer=hp["opt"],
+        weight_decay=0.0005,
+        val_interval=hp["val_interval"],
+        yolo_optimizer=True,
+        momentum=0.937,
+        nesterov=True,
+        lr_factor=hp["lr_factor"],
+        clip_grad_norm=None,
+        close_mosaic_epochs=hp["close_mosaic"],
+        val_interval_stage2=hp["val_interval_stage2"],
+        ema_decay=0.9998,
+    )
+    aug = mix_stage_aug(mixup_prob=0.1, mixup_mosaic_pre=True)
+    cfg = DetectionConfig(
+        detector=detector, train_datasets=train, val_dataset=val,
+        test_dataset=test, runner=runner, aug=aug, pretrained=pretrained,
+    )
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return cfg

@@ -1,40 +1,88 @@
-"""COCO detection dataset, evaluation side.
+"""COCO detection dataset: the eval items and the train-time augmentation.
 
-Counterpart of the eval path of ``agenda_tpu/detect/dataset.py:43-98,
-225-305``: ``CocoDetDataset(train=False)`` with ``__len__``, ``item_u8``
-(the tile as decoded plus its boxes at ``img_scale``), ``source_size``,
-``file_name``, the eval branch of ``__getitem__`` and ``scale_back``.
+Counterpart of ``agenda_tpu/detect/dataset.py``:
+
+- ``CocoDetDataset(train=False)``: ``__len__``, ``item_u8`` (the tile as
+  decoded plus its boxes at ``img_scale``), ``source_size``,
+  ``file_name``, the eval ``__getitem__`` and ``scale_back``;
+- ``CocoDetDataset(train=True, aug=...)``: the tiles decoded and resized to
+  ``img_scale`` once, into a uint8 cache (``_load_scaled``), and
+  ``__getitem__``'s train recipes: mosaic + affine + mixup, the stage-2
+  ``standalone_affine``, or plain, then the photometric tail (blur,
+  median, gray, CLAHE, HSV, flip). Each call draws from
+  ``default_rng((calls * 2654435761 + index) mod 2**31)``, as the reference
+  does, so a sample's draws depend on the order of the calls;
+- GT padded to ``max_gt`` with a validity mask;
+- ``ConcatDataset`` (the with-cars + without-cars set of the
+  ``synthetic_target`` stage).
+
 Tiles are decoded with the port's PNG reader (``utils/png.py``); other
-formats raise. Where the JAX package resizes on the host (its native
-resize, or Pillow), the port resizes with the same filter and one
-half-up rounding (``data/device_resize.resize_levels``), within one level
-of it. The training side (mosaic, mixup, affine, the tile cache) is not
-ported yet (ROADMAP.md §A).
+formats raise. The host resize (``resize_u8_host``) is the arithmetic of the
+JAX package's native bilinear resize (``native/image_ops.cc``), so a cached
+tile is the reference's to the bit. The cache holds at most
+``AGENDA_TORCH_IMG_CACHE_MB`` megabytes (default 2048; 0 turns it off).
+LSJ serves the ViTDet stage and raises (ROADMAP.md §A).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from agenda_tpu_torch.data.datasets import load_image_u8
-from agenda_tpu_torch.data.device_resize import resize_levels, resize_weights
+from agenda_tpu_torch.data.device_resize import resize_weights
+from agenda_tpu_torch.detect.augment import (
+    AugConfig,
+    blur,
+    clahe,
+    flip_horizontal,
+    hsv_jitter,
+    median_blur,
+    mixup,
+    mosaic,
+    random_affine,
+    to_gray,
+)
+
+CACHE_ENV = "AGENDA_TORCH_IMG_CACHE_MB"
+
+
+def _sequential_pass(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One f32 bilinear pass along ``axis`` (``resize_weights``' filter), each
+    output a left-to-right sum of weight x pixel over its window, as the
+    native resize sums it (a tap past a window's end has weight 0 and adds
+    exactly 0)."""
+    in_size = x.shape[axis]
+    w = resize_weights(in_size, out_size, "bilinear")
+    starts = (w != 0).argmax(1)
+    taps = starts[:, None] + np.arange(int(math.ceil(max(in_size / out_size, 1.0))) * 2 + 1)
+    weights = np.take_along_axis(w, np.minimum(taps, in_size - 1), 1) * (taps < in_size)
+    shape = list(x.shape)
+    shape[axis] = out_size
+    acc = np.zeros(shape, np.float32)
+    for k in range(taps.shape[1]):
+        idx = np.minimum(taps[:, k], in_size - 1)
+        if axis == 1:
+            acc += weights[None, :, k, None] * np.take(x, idx, axis=1)
+        else:
+            acc += weights[:, k, None, None] * np.take(x, idx, axis=0)
+    return acc
 
 
 def resize_u8_host(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
-    """uint8 (h, w, 3) -> uint8 (out_h, out_w, 3) with the bilinear filter,
-    rounded half up once, on the CPU."""
+    """uint8 (h, w, 3) -> uint8 (out_h, out_w, 3), bilinear, on the CPU: a
+    horizontal then a vertical pass in f32, one half-up rounding (the JAX
+    package's native ``resize_bilinear_rgb8``, bit for bit)."""
     h, w = img.shape[:2]
     if (w, h) == (out_w, out_h):
         return img
-    wy = torch.from_numpy(resize_weights(h, out_h, "bilinear"))
-    wx = torch.from_numpy(resize_weights(w, out_w, "bilinear"))
-    return resize_levels(torch.from_numpy(img)[None], wy, wx, half_up=True)[0].to(
-        torch.uint8).numpy()
+    x = _sequential_pass(img.astype(np.float32), out_w, 1)
+    x = _sequential_pass(x, out_h, 0)
+    return np.clip(np.floor(x + np.float32(0.5)), 0, 255).astype(np.uint8)
 
 
 class CocoDetDataset:
@@ -45,12 +93,10 @@ class CocoDetDataset:
         data_prefix: str = "images/",
         img_scale: Tuple[int, int] = (128, 128),
         max_gt: int = 64,
+        flip_prob: float = 0.5,
         train: bool = False,
+        aug: Optional[AugConfig] = None,
     ):
-        if train:
-            raise NotImplementedError(
-                "the detector's training dataset (mosaic, mixup, affine) is not ported yet: "
-                "ROADMAP.md §A, the YOLOv8 training item")
         self.data_root = data_root
         self.img_dir = os.path.join(data_root, data_prefix)
         with open(ann_file if os.path.isabs(ann_file) else os.path.join(data_root, ann_file)) as f:
@@ -65,6 +111,22 @@ class CocoDetDataset:
             self._file_names.setdefault(im["id"], im["file_name"])
         self.img_scale = img_scale
         self.max_gt = max_gt
+        self.train = train
+        self.aug = (aug if aug is not None else AugConfig(flip_prob=flip_prob)) if train \
+            else AugConfig(flip_prob=0.0)
+        if self.aug.lsj:
+            raise NotImplementedError(
+                "the LSJ recipe (the ViTDet heatmap stage) is not ported yet: ROADMAP.md §A, "
+                "the item 'Faster R-CNN, YOLOv5, ViTDet and io/torch_import.py'")
+        # a different draw for the same index at every call (train only)
+        self._aug_calls = 0
+        # decoded + resized tiles as uint8: mosaic and mixup read 4-8 tiles a
+        # sample, so the cache takes the decode and resize out of every epoch
+        # after the first
+        cache_mb = float(os.environ.get(CACHE_ENV, "2048"))
+        est_mb = len(self.images) * img_scale[0] * img_scale[1] * 3 / 1e6
+        self._scaled_cache: Optional[Dict[int, tuple]] = (
+            {} if train and 0 < est_mb <= cache_mb else None)
 
     def __len__(self):
         return len(self.images)
@@ -72,25 +134,59 @@ class CocoDetDataset:
     def _decode(self, index: int) -> np.ndarray:
         return load_image_u8(os.path.join(self.img_dir, self.images[index]["file_name"]))
 
-    def _targets(self, index: int, w: int, h: int) -> Dict[str, np.ndarray]:
-        """GT boxes scaled from the decoded (w, h) to img_scale, padded to
-        max_gt, and the factors that scale predictions back."""
-        info = self.images[index]
-        out_w, out_h = self.img_scale
+    def _boxes(self, index: int, w: int, h: int) -> np.ndarray:
+        """The COCO boxes (xyxy) scaled from the decoded (w, h) to img_scale."""
         boxes = []
-        for a in self.anns_by_img.get(info["id"], []):
+        for a in self.anns_by_img.get(self.images[index]["id"], []):
             x, y, bw, bh = a["bbox"]
             boxes.append([x, y, x + bw, y + bh])
         boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
         if len(boxes):
+            out_w, out_h = self.img_scale
             boxes = boxes * np.array([out_w / w, out_h / h] * 2, np.float32)
+        return boxes
+
+    def _resized(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """uint8 tile at img_scale and its boxes scaled there."""
+        img = self._decode(index)
+        h, w = img.shape[:2]
+        return resize_u8_host(img, *self.img_scale), self._boxes(index, w, h)
+
+    def _load_scaled(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """f32 tile at img_scale (fresh arrays: augmentation never writes
+        into the cache) and its boxes."""
+        if self._scaled_cache is None:
+            img, boxes = self._resized(index)
+            return img.astype(np.float32), boxes
+        hit = self._scaled_cache.get(index)
+        if hit is None:
+            hit = self._scaled_cache[index] = self._resized(index)
+        return hit[0].astype(np.float32), hit[1].copy()
+
+    def _affine(self, img, boxes, rng, **kw):
+        a = self.aug
+        return random_affine(
+            img, boxes, rng, self.img_scale,
+            max_rotate_degree=a.max_rotate_degree,
+            max_shear_degree=a.max_shear_degree,
+            scaling_ratio_range=(1 - a.affine_scale, 1 + a.affine_scale),
+            max_translate_ratio=a.max_translate_ratio, **kw)
+
+    def _mosaic_affine(self, index: int, rng) -> Tuple[np.ndarray, np.ndarray]:
+        img, boxes = mosaic(self._load_scaled, index, len(self), rng, self.img_scale)
+        return self._affine(img, boxes, rng)
+
+    def _targets(self, index: int, boxes: np.ndarray) -> Dict[str, np.ndarray]:
+        """Boxes at img_scale padded to max_gt, and the factors that scale
+        predictions back to the COCO entry's size (mmdet rescale=True)."""
+        info = self.images[index]
+        out_w, out_h = self.img_scale
         gt = np.zeros((self.max_gt, 4), np.float32)
         valid = np.zeros(self.max_gt, bool)
         nb = min(len(boxes), self.max_gt)
         if nb:
             gt[:nb] = boxes[:nb]
             valid[:nb] = True
-        # mmdet rescale=True: predictions go back to the COCO entry's size
         sx = info.get("width", out_w) / out_w
         sy = info.get("height", out_h) / out_h
         return {
@@ -101,12 +197,45 @@ class CocoDetDataset:
         }
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        """The eval item: the tile resized to img_scale on the host, in [0, 1]."""
-        img = self._decode(index)
-        h, w = img.shape[:2]
-        out_w, out_h = self.img_scale
-        img = resize_u8_host(img, out_w, out_h)
-        return {"image": img.astype(np.float32) / np.float32(255.0), **self._targets(index, w, h)}
+        if not self.train:
+            img, boxes = self._resized(index)
+            return {"image": img.astype(np.float32) / np.float32(255.0),
+                    **self._targets(index, boxes)}
+        self._aug_calls += 1
+        rng = np.random.default_rng((self._aug_calls * 2654435761 + index) % (2**31))
+        a = self.aug
+        if a.mosaic:
+            img, boxes = self._mosaic_affine(index, rng)
+            if rng.random() < a.mixup_prob:
+                j = int(rng.integers(len(self)))
+                if a.mixup_mosaic_pre:  # YOLOv5MixUp: the retrieved sample is mosaic'd
+                    img2, boxes2 = self._mosaic_affine(j, rng)
+                else:  # mmdet MixUp: the raw retrieved sample
+                    img2, boxes2 = self._load_scaled(j)
+                img, boxes = mixup(img, boxes, img2, boxes2, rng)
+        elif a.standalone_affine:
+            # mosaic-close stage 2: affine on the single tile, no mosaic border
+            # (max_aspect_ratio 100, as the reference's stage-2 pipeline)
+            img, boxes = self._load_scaled(index)
+            img, boxes = self._affine(img, boxes, rng, max_aspect_ratio=100.0)
+        else:
+            img, boxes = self._load_scaled(index)
+
+        # the Albu photometric block, then HSV, then the flip
+        if a.blur_prob > 0 and rng.random() < a.blur_prob:
+            img = blur(img, rng)
+        if a.median_blur_prob > 0 and rng.random() < a.median_blur_prob:
+            img = median_blur(img, rng)
+        if a.to_gray_prob > 0 and rng.random() < a.to_gray_prob:
+            img = to_gray(img)
+        if a.clahe_prob > 0 and rng.random() < a.clahe_prob:
+            img = clahe(img)
+        if a.hsv:
+            img = hsv_jitter(img, rng, a.hue_delta, a.saturation_delta, a.value_delta)
+        if rng.random() < a.flip_prob:
+            img, boxes = flip_horizontal(img, boxes)
+        return {"image": (np.ascontiguousarray(img) / 255.0).astype(np.float32),
+                **self._targets(index, boxes)}
 
     def source_size(self) -> Optional[Tuple[int, int]]:
         """(w, h) when every image shares one size (COCO metadata), else
@@ -133,9 +262,30 @@ class CocoDetDataset:
         """
         img = self._decode(index)
         h, w = img.shape[:2]
+        boxes = self._boxes(index, w, h)
         if expect_size is not None and (w, h) != tuple(expect_size):
             img = resize_u8_host(img, *expect_size)
-        return {"image_u8": img, **self._targets(index, w, h)}
+        return {"image_u8": img, **self._targets(index, boxes)}
 
     def file_name(self, image_id: int) -> str:
         return self._file_names[image_id]
+
+
+class ConcatDataset:
+    """Concatenation of datasets with one output schema (the
+    ``synthetic_target`` stage: with-cars + without-cars)."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    @property
+    def max_gt(self) -> int:
+        return max(getattr(d, "max_gt", 0) for d in self.datasets)
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def __getitem__(self, index: int):
+        di = int(np.searchsorted(self._offsets, index, side="right") - 1)
+        return self.datasets[di][index - int(self._offsets[di])]

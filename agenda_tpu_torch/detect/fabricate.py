@@ -23,9 +23,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from agenda_tpu_torch.detect.configs import DatasetSpec, DetectionConfig
 from agenda_tpu_torch.detect.runner import save_variables
+from agenda_tpu_torch.detect.yolov8 import ConvBNAct
 from agenda_tpu_torch.utils.png import write_png
 
 BOX = 42.36
@@ -34,7 +36,8 @@ BOX = 42.36
 def calibrate_batch_norm(family, variables: Dict[str, torch.Tensor],
                          images: torch.Tensor) -> Dict[str, torch.Tensor]:
     """``variables`` with every BatchNorm's running statistics set to the
-    batch statistics of ``images`` (B, H, W, 3) in [0, 1].
+    batch statistics of ``images`` (B, H, W, 3) in [0, 1]: the mean and the
+    unbiased variance of each norm's input, the model in train mode.
 
     A fresh init keeps mean 0 and var 1, so in eval mode each SiLU about
     halves the signal and the heads see activations of 1e-6: every anchor
@@ -43,16 +46,32 @@ def calibrate_batch_norm(family, variables: Dict[str, torch.Tensor],
     """
     model = family.model
     model.load_state_dict(variables)
-    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-    for m in norms:
-        m.reset_running_stats()
-        m.momentum = None  # a cumulative average: after one batch, that batch's statistics
-    model.train()
-    with torch.no_grad():
-        model(images.permute(0, 3, 1, 2))
-    model.eval()
-    for m in norms:
-        m.momentum = 0.03
+    blocks = [m for m in model.modules() if isinstance(m, ConvBNAct)]
+    stats = {}
+
+    def record(block):
+        def hook(_mod, _inp, out):  # the convolution's output is the norm's input
+            c = out.shape[1]
+            mean, var = torch.zeros(c, dtype=out.dtype), torch.ones(c, dtype=out.dtype)
+            # momentum 1: the running statistics become the batch's mean and
+            # unbiased variance, as BatchNorm2d records a first batch
+            F.batch_norm(out, mean, var, None, None, True, 1.0, block.bn.eps)
+            stats[block] = (mean, var)
+        return hook
+
+    handles = [b.conv.register_forward_hook(record(b)) for b in blocks]
+    model.train()  # each norm normalises with its batch's statistics
+    try:
+        with torch.no_grad():
+            model(images.permute(0, 3, 1, 2))
+    finally:
+        model.eval()
+        for h in handles:
+            h.remove()
+    for b in blocks:
+        mean, var = stats[b]
+        b.bn.running_mean.copy_(mean)
+        b.bn.running_var.copy_(var)
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 

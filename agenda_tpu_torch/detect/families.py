@@ -1,22 +1,25 @@
-"""Detector family adapters for the runner (prediction path).
+"""Detector family adapters for the runner.
 
 Counterpart of ``agenda_tpu/detect/families.py``. A family packages a
-model, its variables and its predict function. Variables are the model's
-``state_dict`` (the port's names; ``runner.load_variables`` reads the JAX
-checkpoint layout into it). ``predict_fn`` runs on whatever device the
-variables and the images are on. Only YOLOv8 is ported; the other
-families of the JAX package raise.
+model, its variables, its loss and its predict function. Variables are the
+model's ``state_dict`` (the port's names; ``runner.load_variables`` reads
+the JAX checkpoint layout into it): the parameters (``param_names``), the
+batch-norm statistics (``stat_names``, flax's ``batch_stats``) and torch's
+``num_batches_tracked`` counters, which nothing reads. ``loss_fn`` and
+``predict_fn`` run on whatever device the variables and the images are
+on. Only YOLOv8 is ported; the other families of the JAX package raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 from torch.func import functional_call
 
-from agenda_tpu_torch.detect.yolov8 import YOLOv8, YOLOv8Config, init_yolov8_, yolov8_predict
+from agenda_tpu_torch.detect.yolov8 import (YOLOv8, YOLOv8Config, init_yolov8_, yolov8_loss,
+                                            yolov8_predict)
 
 
 @dataclasses.dataclass
@@ -28,6 +31,9 @@ class YOLOv8Family:
 
     def __post_init__(self):
         self.model = YOLOv8(self.config).eval()
+        self.param_names: List[str] = [n for n, _ in self.model.named_parameters()]
+        self.stat_names: List[str] = [n for n, _ in self.model.named_buffers()
+                                      if n.endswith(("running_mean", "running_var"))]
 
     def init_variables(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """Fresh weights drawn from ``generator`` (a CPU generator), as a state_dict."""
@@ -57,6 +63,26 @@ class YOLOv8Family:
         and forth around every layer."""
         x = images.permute(0, 3, 1, 2).contiguous()
         return functional_call(self.model, variables, (x,))
+
+    def loss_fn(self, variables: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """The train-mode forward and the v8 loss -> (loss, metrics, new_batch_stats).
+
+        ``batch`` holds ``image`` (B, H, W, 3) in [0, 1], ``gt_boxes`` and
+        ``gt_valid``. Gradients flow to the parameter tensors of
+        ``variables``; its batch-norm statistics are left as they are, and
+        their update (flax's, with the biased batch variance) comes back as
+        ``new_batch_stats``, keyed as ``stat_names``.
+        """
+        stats = {k: variables[k].clone() for k in self.stat_names}
+        x = batch["image"].permute(0, 3, 1, 2).contiguous()
+        self.model.train()
+        try:
+            outs = functional_call(self.model, {**variables, **stats}, (x,))
+        finally:
+            self.model.eval()
+        loss, metrics = yolov8_loss(outs, batch, self.config)
+        return loss, metrics, stats
 
     @torch.no_grad()
     def predict_fn(self, variables: Dict[str, torch.Tensor], images: torch.Tensor):

@@ -1,15 +1,36 @@
-"""Detector runner, prediction side: checkpoints, batched labelling, mAP.
+"""Detector runner: training, checkpoints, batched labelling, mAP.
 
-Counterpart of ``agenda_tpu/detect/runner.py:37-118, 679-808``:
+Counterpart of ``agenda_tpu/detect/runner.py``:
 
 - ``RunnerConfig`` with every field of the JAX package's, so a
-  ``config.json`` from its ``det_train`` parses; only ``batch_size`` is
-  read here;
-- ``load_variables``/``save_variables``: the JAX runner's checkpoint, one
-  safetensors file of flattened flax variables (``params.<path>`` and
-  ``batch_stats.<path>``), read and written through the port's own
-  safetensors code and mapped to and from the model's ``state_dict``
-  (``yolov8.flax_to_state_dict``), so one file serves both packages;
+  ``config.json`` from either package's ``det_train`` parses in the other;
+- ``save_variables``/``load_variables``: the JAX runner's checkpoint, one
+  safetensors file of flattened flax variables (``params.<path>``,
+  ``batch_stats.<path>`` and, from a trainer with EMA, ``ema_params.<path>``),
+  read and written through the port's own safetensors code and mapped to
+  and from the model's ``state_dict`` (``yolov8.flax_to_state_dict``), so
+  one file serves both packages. ``load_variables`` returns the params and
+  batch statistics, which is what prediction reads, as the JAX ``det_test``
+  does; ``read_checkpoint`` returns the EMA too;
+- ``DetectorRunner.train``, the host-augmentation path of the JAX runner
+  (``:314-611, 641-676``): the port's ``DataLoader`` (one producer thread,
+  so the dataset sees the reference's order of calls) feeds one train step
+  a batch (``make_train_step``: the train-mode forward and the v8 loss,
+  autograd, ``optim.DetectorSGD``, the EMA with its ramp
+  ``d = ema_decay (1 - exp(-(step + 1) / 2000))`` at the step before its
+  increment, flax's batch-norm statistics); ``metrics.jsonl`` at
+  ``log_interval`` and the first two steps; validation every
+  ``val_interval`` epochs, then every ``val_interval_stage2`` inside the
+  mosaic-close window, on the EMA params with the live batch statistics,
+  saving ``best_<key>.safetensors``; the recipe switch at ``max_epochs -
+  close_mosaic_epochs``; ``latest.safetensors`` and the port's own
+  ``train_state_torch.safetensors`` sidecar (momentum buffers, update
+  count, epoch, step) each epoch on a writer thread; resume from
+  ``latest`` (moments, epoch, step) or weights only from any other file.
+  As in the reference's host path, a resumed run's data loader starts its
+  shuffle and the dataset its per-call seeds at 0 again. The reference's
+  ``--device-aug`` path, ``--pretrained`` weights, AdamW and layer decay
+  raise (ROADMAP.md §A);
 - ``DetectorRunner._predict_batches``: one batch in flight. The host
   decodes batch i+1 while the card runs batch i; the tiles go up as uint8
   from pinned memory (non-blocking), are resized on the card (bilinear, two
@@ -21,17 +42,19 @@ Counterpart of ``agenda_tpu/detect/runner.py:37-118, 679-808``:
 - ``evaluate`` (COCO mAP) and ``test`` (the ``prediction.pkl`` records).
 
 The detector runs in f32 on the card with TF32 off (``allow_tf32=False``
-for cuDNN and cuBLAS), as the reference's f32 convolutions. Training
-(``fit``, optimizers, EMA) and the JAX package's dp-mesh sharding of the
-batch are not ported yet (ROADMAP.md §A).
+for cuDNN and cuBLAS), as the reference's f32 convolutions, in training
+too. The JAX package's dp-mesh sharding of the batch is not ported
+(ROADMAP.md §A).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import logging
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +63,7 @@ from agenda_tpu_torch._device import resolve_device
 from agenda_tpu_torch.annotate.records import save_predictions
 from agenda_tpu_torch.data.device_resize import resize_levels, resize_weights
 from agenda_tpu_torch.detect.coco_eval import coco_map
+from agenda_tpu_torch.detect.optim import DetectorSGD, SGDState, global_norm
 from agenda_tpu_torch.detect.yolov8 import flax_to_state_dict, state_dict_to_flax
 from agenda_tpu_torch.io.safetensors_io import load_file, save_file
 
@@ -79,20 +103,43 @@ class RunnerConfig:
     layer_decay_layers: int = 12
 
 
+SIDECAR = "train_state_torch.safetensors"
+EMA_RAMP_STEPS = 2000.0  # the EMA decay ramps in as 1 - exp(-(step + 1) / 2000)
+logger = logging.getLogger("agenda_tpu_torch.detect")
+
+
 def _st_path(path: str) -> str:
     return path if path.endswith(".safetensors") else path + ".safetensors"
 
 
-def save_variables(path: str, variables: Dict[str, torch.Tensor]) -> None:
-    """Write a state_dict in the JAX runner's checkpoint layout."""
-    save_file(state_dict_to_flax(variables), _st_path(path))
+def save_variables(path: str, variables: Dict[str, torch.Tensor],
+                   ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Write a state_dict (and an EMA of its parameters, as flax's
+    ``ema_params`` collection) in the JAX runner's checkpoint layout."""
+    flat = state_dict_to_flax(variables)
+    if ema is not None:
+        flat.update({"ema_" + k: v for k, v in state_dict_to_flax(ema).items()})
+    save_file(flat, _st_path(path))
+
+
+def read_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                        Optional[Dict[str, torch.Tensor]]]:
+    """A JAX (or port) detector checkpoint -> (state_dict, EMA of the
+    parameters or None), on the CPU. An unknown key raises."""
+    flat = {k: v.float().numpy() for k, v in load_file(_st_path(path)).items()}
+    ema_flat = {k[len("ema_"):]: flat.pop(k) for k in list(flat) if k.startswith("ema_params.")}
+    ema = None
+    if ema_flat:
+        ema = {k: v for k, v in flax_to_state_dict(ema_flat).items()
+               if not k.endswith("num_batches_tracked")}
+    return flax_to_state_dict(flat), ema
 
 
 def load_variables(path: str) -> Dict[str, torch.Tensor]:
-    """Read a JAX (or port) detector checkpoint into the model's state_dict
-    names, on the CPU. An unknown key raises."""
-    flat = {k: v.float().numpy() for k, v in load_file(_st_path(path)).items()}
-    return flax_to_state_dict(flat)
+    """The params and batch statistics of a checkpoint as the model's
+    state_dict; a trainer's EMA collection is not read, as the JAX
+    ``det_test`` does not read it."""
+    return read_checkpoint(path)[0]
 
 
 def full_f32(dev: torch.device):
@@ -109,6 +156,42 @@ def full_f32(dev: torch.device):
     return stack
 
 
+@dataclasses.dataclass
+class TrainState:
+    """What a train step reads and updates: parameters (leaf tensors that
+    take gradients), batch-norm statistics, torch's ``num_batches_tracked``
+    counters (nothing reads them), the EMA of the parameters (None without
+    EMA) and the optimizer state."""
+
+    params: Dict[str, torch.Tensor]
+    stats: Dict[str, torch.Tensor]
+    counters: Dict[str, torch.Tensor]
+    ema: Optional[Dict[str, torch.Tensor]]
+    opt: SGDState
+
+    def variables(self, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+        """The model's state_dict, with the EMA's parameters when asked."""
+        params = self.ema if use_ema and self.ema is not None else self.params
+        return {**{k: v.detach() for k, v in params.items()}, **self.stats, **self.counters}
+
+
+def ema_decay_at(ema_decay: float, step: int) -> float:
+    """The EMA's decay at ``step`` (before its increment), in f32 as the
+    reference computes it."""
+    f32 = np.float32
+    return float(f32(ema_decay) * (f32(1) - np.exp(-(f32(step) + f32(1)) / f32(EMA_RAMP_STEPS))))
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The loader's numpy batch -> the step's tensors on ``dev``."""
+    return {k: torch.from_numpy(batch[k]).to(dev, non_blocking=True)
+            for k in ("image", "gt_boxes", "gt_valid")}
+
+
+def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
 class DetectorRunner:
     def __init__(self, family, cfg: Optional[RunnerConfig] = None, device: Any = "cuda"):
         self.family = family
@@ -119,6 +202,169 @@ class DetectorRunner:
         """The checked variables on the runner's device."""
         self.family.check_variables(variables)
         return {k: v.to(self.device) for k, v in variables.items()}
+
+    # -- training -----------------------------------------------------------
+
+    def init_train_state(self, opt: DetectorSGD, variables: Dict[str, torch.Tensor],
+                         ema: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+        """A train state on the runner's device; the EMA starts from ``ema``,
+        else from the parameters, when ``ema_decay`` > 0."""
+        on_dev = self.variables_on_device(variables)
+        fam = self.family
+        params = {k: on_dev[k].clone().requires_grad_(True) for k in fam.param_names}
+        stats = {k: on_dev[k] for k in fam.stat_names}
+        counters = {k: v for k, v in on_dev.items() if k not in params and k not in stats}
+        shadow = None
+        if self.cfg.ema_decay > 0:
+            src = ema if ema is not None else params
+            shadow = {k: src[k].detach().to(self.device, copy=True) for k in fam.param_names}
+        return TrainState(params, stats, counters, shadow, opt.init(params))
+
+    def make_train_step(self, opt: DetectorSGD) -> Callable[..., Dict[str, torch.Tensor]]:
+        """-> ``step(state, batch, gstep)``: one update of ``state`` in place
+        from a batch on the device; returns the step's metrics (0-dim tensors
+        on the device: cls, iou, dfl, loss, grad_norm)."""
+        family, ema_decay = self.family, self.cfg.ema_decay
+
+        def step(state: TrainState, batch: Dict[str, torch.Tensor], gstep: int):
+            variables = {**state.params, **state.stats, **state.counters}
+            loss, metrics, new_stats = family.loss_fn(variables, batch)
+            names = list(state.params)
+            grads = dict(zip(names, torch.autograd.grad(loss, [state.params[k] for k in names])))
+            opt.update(grads, state.opt, state.params)
+            state.stats = new_stats
+            if state.ema is not None:
+                d = ema_decay_at(ema_decay, gstep)
+                ema = list(state.ema.values())
+                torch._foreach_mul_(ema, d)  # e d + (1 - d) p
+                torch._foreach_add_(ema, torch._foreach_mul(
+                    [state.params[k].detach() for k in state.ema], float(np.float32(1) - np.float32(d))))
+            out = {k: v.detach() for k, v in metrics.items()}
+            out["loss"] = loss.detach()
+            out["grad_norm"] = global_norm(list(grads.values()))
+            return out
+
+        return step
+
+    def train(self, train_dataset, val_dataset=None, resume: Optional[str] = None,
+              pretrained: Optional[str] = None):
+        from agenda_tpu_torch.data.datasets import DataLoader
+        from agenda_tpu_torch.train.checkpoint import AsyncWriter
+        from agenda_tpu_torch.utils.profiling import StepTimer
+
+        cfg, dev = self.cfg, self.device
+        if pretrained:
+            raise NotImplementedError(
+                "--pretrained (mmdet/mmyolo weights) is not ported yet: ROADMAP.md §A, the item "
+                "'Faster R-CNN, YOLOv5, ViTDet and io/torch_import.py'")
+        if cfg.device_aug:
+            raise NotImplementedError(
+                "--device-aug is not ported yet: ROADMAP.md §A, the item "
+                "'detect/device_aug.py'")
+        global_bs = cfg.batch_size
+        loader = DataLoader(train_dataset, global_bs, shuffle=True, seed=cfg.seed,
+                            num_workers=1, pad_to_full=True)
+        switch_epoch = cfg.max_epochs - cfg.close_mosaic_epochs \
+            if cfg.close_mosaic_epochs > 0 else None
+        base_lr = cfg.lr
+        if cfg.auto_scale_lr and cfg.base_batch_size:
+            base_lr = cfg.lr * global_bs / cfg.base_batch_size
+            logger.info("auto_scale_lr: lr %.2e -> %.2e (global_bs %d / base %d)",
+                        cfg.lr, base_lr, global_bs, cfg.base_batch_size)
+        opt = DetectorSGD(cfg, len(loader), total_bs=global_bs, base_lr=base_lr)
+
+        variables = self.family.init_variables(torch.Generator().manual_seed(cfg.seed))
+        resume_ema, sidecar, start_epoch, gstep = None, None, 0, 0
+        if resume:
+            variables, resume_ema = read_checkpoint(resume)
+            # the sidecar is written with latest.safetensors and matches only it
+            path = os.path.join(os.path.dirname(os.path.abspath(resume)), SIDECAR)
+            is_latest = os.path.basename(resume) == "latest.safetensors"
+            if is_latest and os.path.exists(path):
+                sidecar = load_file(path)
+                start_epoch, gstep = int(sidecar["epoch"]) + 1, int(sidecar["gstep"])
+                logger.info("resumed optimizer/epoch state: epoch %d, step %d",
+                            start_epoch, gstep)
+            elif not is_latest:
+                logger.info("%s is not latest.safetensors: weights-only resume "
+                            "(the train_state sidecar only matches latest)", resume)
+            else:
+                logger.info("no %s next to %s: weights-only resume", SIDECAR, resume)
+        state = self.init_train_state(opt, variables, resume_ema)
+        if sidecar is not None:
+            state.opt.count = int(sidecar["count"])
+            for k, t in state.opt.trace.items():
+                t.copy_(sidecar["momentum." + k])
+        train_step = self.make_train_step(opt)
+
+        best: Dict[str, float] = {k: -1.0 for k in cfg.save_best}
+        timer = StepTimer()
+        saver = AsyncWriter()
+        with open(os.path.join(cfg.output_dir, "metrics.jsonl"), "a") as metrics_log, \
+                full_f32(dev):
+            for epoch in range(start_epoch, cfg.max_epochs):
+                if switch_epoch is not None and epoch >= switch_epoch:
+                    self._apply_stage2_aug(train_dataset)
+                for batch in loader:
+                    metrics = train_step(state, batch_to_device(batch, dev), gstep)
+                    gstep += 1
+                    if gstep % cfg.log_interval == 0 or gstep <= 2:
+                        names = list(metrics)
+                        values = torch.stack([metrics[k] for k in names]).tolist()
+                        m = dict(zip(names, values))
+                        m.update(epoch=epoch, step=gstep, lr=opt.lr_fn(gstep),
+                                 sps=timer.tick(gstep))
+                        metrics_log.write(json.dumps(m) + "\n")
+                        metrics_log.flush()
+                        logger.info("e%d s%d loss=%.4f lr=%.2e", epoch, gstep, m["loss"], m["lr"])
+                # a tighter val cadence inside the mosaic-close window
+                val_every = cfg.val_interval
+                if (switch_epoch is not None and epoch >= switch_epoch
+                        and cfg.val_interval_stage2 is not None):
+                    val_every = cfg.val_interval_stage2
+                if val_dataset is not None and (epoch + 1) % val_every == 0:
+                    variables = state.variables(use_ema=cfg.ema_decay > 0)
+                    results = self.evaluate(variables, val_dataset)
+                    logger.info("epoch %d val: %s", epoch,
+                                {k: round(v, 4) for k, v in results.items()})
+                    metrics_log.write(json.dumps({"epoch": epoch, **results}) + "\n")
+                    metrics_log.flush()
+                    for key in cfg.save_best:
+                        if results.get(key, -1) > best[key]:
+                            best[key] = results[key]
+                            save_variables(os.path.join(cfg.output_dir, f"best_{key}.safetensors"),
+                                           variables)
+                # a host snapshot now; the files are written while the next epoch runs
+                snap = (_host(state.variables()),
+                        None if state.ema is None else _host(state.ema),
+                        _host(state.opt.trace), state.opt.count)
+                saver.submit(lambda snap=snap, epoch=epoch, gstep=gstep:
+                             self._save_latest(*snap, epoch, gstep), name=f"latest-e{epoch}")
+        saver.wait()
+        return state.variables(use_ema=cfg.ema_decay > 0)
+
+    def _save_latest(self, variables, ema, trace, count: int, epoch: int, gstep: int) -> None:
+        """latest.safetensors and its train-state sidecar."""
+        out = self.cfg.output_dir
+        save_variables(os.path.join(out, "latest.safetensors"), variables, ema)
+        flat = {f"momentum.{k}": v for k, v in trace.items()}
+        flat.update(count=torch.tensor(count), epoch=torch.tensor(epoch),
+                    gstep=torch.tensor(gstep))
+        save_file(flat, os.path.join(out, SIDECAR))
+
+    def _apply_stage2_aug(self, dataset) -> None:
+        """Switch a (possibly concatenated) train dataset to the stage-2
+        (mosaic-closed) recipe; idempotent."""
+        from agenda_tpu_torch.detect.augment import stage2_aug
+
+        for part in getattr(dataset, "datasets", [dataset]):
+            a = getattr(part, "aug", None)
+            if a is not None and not a.standalone_affine:
+                part.aug = stage2_aug(a)
+                logger.info("mosaic-close: switched train aug to stage-2 "
+                            "recipe (mosaic/mixup off, standalone affine)")
+
+    # -- evaluation / test --------------------------------------------------
 
     def _predict_batches(self, variables, dataset, batch_size: Optional[int] = None):
         bs = batch_size or self.cfg.batch_size

@@ -1,6 +1,6 @@
-"""YOLOv8-family detector as torch modules (prediction path).
+"""YOLOv8-family detector as torch modules: prediction and the training loss.
 
-Counterpart of ``agenda_tpu/detect/yolov8.py:31-214, 276-292``: the same
+Counterpart of ``agenda_tpu/detect/yolov8.py``: the same
 modules under the same names, so a JAX checkpoint maps onto this
 ``state_dict`` name for name (``flax_to_state_dict``). The layers run
 NCHW; every ``concatenate(axis=-1)`` of the
@@ -8,13 +8,17 @@ reference is a ``cat(dim=1)`` in the same order, and the head outputs are
 returned NHWC, as the reference's, so that ``_flatten_outputs`` reshapes
 (B, h, w, C) -> (B, h*w, 4, reg_max) exactly as it does.
 
-BatchNorm: eps 1e-3; flax momentum 0.97 is torch momentum 0.03; eval reads
-the running statistics. The neck's 2x nearest upsample equals
+BatchNorm: eps 1e-3; eval reads the running statistics. In train mode it
+is flax's ``nn.BatchNorm(momentum=0.97)``, not torch's: it normalises with
+the biased batch variance and updates ``running_var`` with that biased
+variance too (``0.97 old + 0.03 batch``), where ``nn.BatchNorm2d`` would
+take the unbiased one. The neck's 2x nearest upsample equals
 ``jax.image.resize(..., "nearest")`` at 2x, and the SPPF max-pools pad with
 -inf as flax's do. The detector runs in f32 on both devices.
 
-The loss (TAL assignment, CIoU, DFL) belongs to training and is not
-ported yet (ROADMAP.md §A).
+``yolov8_loss`` is the reference's v8 loss (``:216-273``), batched over the
+images: TAL assignment, BCE on the aligned score, (1 - CIoU) and DFL weighted
+by it, each normalised by the weights' sum, times the batch size.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from agenda_tpu_torch.detect.assign import task_aligned_assign
+from agenda_tpu_torch.detect.losses import bce_with_logits, ciou, dfl_loss
 from agenda_tpu_torch.detect.ops import anchor_points, nms_images
 
 
@@ -54,15 +60,33 @@ class YOLOv8Config:
         return max(1, round(x * self.depth))
 
 
+BN_EPS = 1e-3
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` in train mode over NCHW ``x``: normalise with the
+    batch mean and biased variance, and move ``bn``'s running statistics to
+    ``(1 - m) old + m batch`` with the biased variance, m = ``bn.momentum``
+    (0.03, torch's convention for flax's momentum 0.97)."""
+    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, BN_EPS)
+    m = bn.momentum
+    with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+    return y
+
+
 class ConvBNAct(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1):
         super().__init__()
         # (k-1)//2: torch's symmetric padding, as the reference's
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, (kernel - 1) // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-3, momentum=0.03)
+        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=0.03)
 
     def forward(self, x):
-        return F.silu(self.bn(self.conv(x)))
+        x = self.conv(x)
+        return F.silu(batch_norm_train(x, self.bn) if self.training else self.bn(x))
 
 
 class Bottleneck(nn.Module):
@@ -303,3 +327,38 @@ def yolov8_predict(
     kept_boxes = torch.gather(boxes, 1, keep[..., None].expand(*keep.shape, 4))
     kept_scores = torch.gather(scores, 1, keep) * valid
     return kept_boxes, kept_scores, valid
+
+
+def yolov8_loss(outs, batch: Dict[str, torch.Tensor], cfg: YOLOv8Config
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """TAL-assigned BCE + CIoU + DFL (the ultralytics v8 loss) over a batch:
+    ``batch`` holds ``gt_boxes`` (B, G, 4) and ``gt_valid`` (B, G)."""
+    cls_logits, dist = _flatten_outputs(outs, cfg)
+    points, strides = _anchors(cfg, cls_logits.device)
+    pred_boxes = decode_boxes(dist, points, strides, cfg)  # (B, N, 4)
+    scores = torch.sigmoid(cls_logits)
+
+    gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
+    gt_labels = torch.zeros(gt_boxes.shape[:2], dtype=torch.long, device=gt_boxes.device)
+    fg, agt, tsc, _ = task_aligned_assign(scores.detach(), pred_boxes.detach(), points,
+                                          gt_boxes, gt_labels, gt_valid)
+    tgt_boxes = torch.gather(gt_boxes, 1, agt[..., None].expand(-1, -1, 4))
+    w = tsc * fg
+    # cls targets: the aligned score at the assigned class (single class 0)
+    cls_tgt = torch.zeros_like(cls_logits)
+    cls_tgt[..., 0] = w
+    cls_l = bce_with_logits(cls_logits, cls_tgt).sum()
+    iou_l = ((1.0 - ciou(pred_boxes, tgt_boxes)) * w).sum()
+    # DFL targets: distances to the GT edges in stride units
+    lt = (points - tgt_boxes[..., :2]) / strides[:, None]
+    rb = (tgt_boxes[..., 2:] - points) / strides[:, None]
+    tdist = torch.cat([lt, rb], dim=-1).clamp(0, cfg.reg_max - 1.01)
+    dfl_l = (dfl_loss(dist, tdist, cfg.reg_max - 1).sum(dim=-1) * w).sum()
+
+    denom = w.sum().clamp(min=1.0)
+    total_cls, total_iou, total_dfl = cls_l / denom, iou_l / denom, dfl_l / denom
+    loss = cfg.cls_weight * total_cls + cfg.box_weight * total_iou + cfg.dfl_weight * total_dfl
+    # mmyolo/ultralytics scale the loss by the global batch size; the presets'
+    # learning rates assume that gradient scale
+    loss = loss * scores.shape[0]
+    return loss, {"cls": total_cls, "iou": total_iou, "dfl": total_dfl}

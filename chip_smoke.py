@@ -96,9 +96,30 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 clock, PNG decode included), the device busy share, a
                 batch's convolution, NMS (ms and launches) and the rest, and
                 on the host the ms to decode a tile and to enqueue a batch;
- 21. report  -- a `kernels` JSON line (six kernels; none is on the labelling
-                path), the card's name and power limit, and last the device
-                JSON line.
+ 21. detector train step -- YOLOv8n at 128 px, batch 192 (the
+                synthetic_heatmap preset), one host-augmented batch of the
+                stacks, the calibrated weights, on the card and on the CPU
+                (f32): each side's TAL assignment (the anchors that differ,
+                bounded); with the CPU's assignment on both, the loss and its
+                parts, every gradient, the new batch statistics, the SGD
+                update and the EMA, each within its limit; the same step
+                with TF32 on, the control, beyond every limit; the gradients
+                in float64 on both sides;
+ 22. det_train -- cli/det_train --preset synthetic_heatmap on 384 stacks with
+                64 to validate, batch 192, 12 epochs: the recipe switch
+                logged at epoch 2, validation after epoch 1 and every epoch
+                from 2, finite losses, the checkpoints; det_test reads its
+                latest.safetensors; a resume with --max-epochs 13 starts at
+                epoch 12, step 24;
+ 23. detector training timing -- at batch 192 and 1024 (synthetic_target's):
+                the step alone (warm, synchronised), host augmentation ms an
+                image (mix and stage 2), the host-to-device copy, the step's
+                device time by kernel group, the training loop's wall a step
+                (counted over the steps it ran, across epochs of the loader)
+                and the card's busy share of it, peak memory;
+ 24. report  -- a `kernels` JSON line (six kernels; none is on the labelling
+                or the detector-training path), the card's name and power
+                limit, and last the device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. It imports nothing of JAX or agenda_tpu.
@@ -107,6 +128,7 @@ checkout of the repository. It imports nothing of JAX or agenda_tpu.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -195,6 +217,33 @@ LABEL_WORDS = ("cars", "new_token_v0", "new_token_v2")  # object, fg, bg (cli/pi
 HEAD_TOL_RMS = 6e-4
 DET_IOU, DET_SCORE_TOL, DET_UNMATCHED_MAX = 0.99, 1e-3, 0.02
 RESIZE_TOL = 1.0
+
+# detector training (phases 21-23): the synthetic_heatmap preset's YOLOv8n at
+# 128 px; the CLI on 384 stacks with 64 more for validation, 12 epochs (the
+# mosaic-close switch at epoch 12 - 10 = 2); phase 21's update at step 1000
+# (the end of the warmup, in an epoch of 1001 steps: the preset's full lr,
+# so an update stands well above the rounding of the weights); timing at the
+# synthetic_heatmap (192) and synthetic_target (1024) batches
+DET_TRAIN_TILES, DET_VAL_TILES, DET_EPOCHS, DET_SWITCH = 384, 64, 12, 2
+DET_STEP, DET_AUG_IMAGES = 1000, 64
+DET_TIMING = (("synthetic_heatmap", 192), ("synthetic_target", 1024))
+# card vs CPU, both f32, one train step from the same weights and batch: each
+# limit lies between the sound runs' largest reading and the TF32 control's
+# (det_readings says what each reads; the readings, sound / TF32 control, are
+# the H100's with the CPU's TAL assignment on both sides): the loss and its
+# parts 1.4e-7 / 4.5e-5 relative; the gradients 3.5e-3 / 1.2 of their rms (the
+# CPU's own f32 error against a float64 run is the larger: 3.5e-3 at sppf.cv1,
+# the card's 5.8e-4; the float64 runs agree to 2.8e-10); the batch statistics
+# 1.4e-5 / 1.5e-2 of their move; the update 3.5e-3 / 1.2 and the EMA 3.3e-3 /
+# 1.2 of theirs; TAL, each side's own, 8 / 22 anchors of 64 512 (8 of the
+# CPU's 5 780 fg anchors sit between two GT boxes of near-equal IoU)
+DET_LOSS_RTOL = 2.5e-6
+DET_GRAD_TOL_RMS = 1e-2  # per tensor, max |d| / rms(CPU)
+DET_GRAD64_TOL_RMS = 1e-9  # the same step in float64 on both sides
+DET_STATS_TOL_RMS = 1e-4
+DET_UPDATE_TOL_RMS = 1e-2
+DET_EMA_TOL_RMS = 1e-2
+DET_TAL_MAX = 13  # anchors whose fg or assigned GT differ
 
 
 def require(cond: bool, msg: str) -> None:
@@ -329,6 +378,10 @@ KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wi
 )
 
 
+# the detector training's profile: batch norm first, then the shared table
+DET_KERNEL_GROUPS = (("batch norm", ("batch_norm", "bn_fw", "bn_bw")),) + KERNEL_GROUPS
+
+
 def generate_kwargs():
     return dict(num_inference_steps=E2E_STEPS, words=list(E2E_WORDS), out_size=112,
                 heatmap_size=112)
@@ -364,7 +417,7 @@ def device_times(run) -> Tuple[dict, float]:
     return per_name, wall
 
 
-def profile_run(run, tag: str, what: str, warm_s: float) -> None:
+def profile_run(run, tag: str, what: str, warm_s: float, kernel_groups=KERNEL_GROUPS) -> None:
     """torch.profiler breakdown of one run() by kernel group (last in its path:
     the profiler's CUPTI hooks can slow later launches)."""
     per_name, wall = device_times(run)
@@ -372,7 +425,7 @@ def profile_run(run, tag: str, what: str, warm_s: float) -> None:
     groups = {}
     for name, (us, n) in per_name.items():
         low = name.lower()
-        group = next((g for g, subs in KERNEL_GROUPS if any(x in low for x in subs)), "other")
+        group = next((g for g, subs in kernel_groups if any(x in low for x in subs)), "other")
         ms, count = groups.get(group, (0.0, 0))
         groups[group] = (ms + us / 1e3, count + n)
     print(f"[{tag}] {what}: device busy {busy_ms / 1e3:.3f} s = "
@@ -1796,6 +1849,422 @@ def labelling_timing(labels: dict, root: str, dev) -> dict:
     return out
 
 
+def det_split(labels: dict, root: str) -> Tuple[str, str]:
+    """The 512 stacks' COCO split into DET_TRAIN_TILES to train on and
+    DET_VAL_TILES to validate on -> the two file names under root."""
+    with open(os.path.join(root, labels["all"])) as f:
+        coco = json.load(f)
+    names = []
+    for name, images in (("det_train.json", coco["images"][:DET_TRAIN_TILES]),
+                         ("det_val.json", coco["images"][DET_TRAIN_TILES:
+                                                         DET_TRAIN_TILES + DET_VAL_TILES])):
+        ids = {im["id"] for im in images}
+        with open(os.path.join(root, name), "w") as f:
+            json.dump({**coco, "images": images,
+                       "annotations": [a for a in coco["annotations"] if a["image_id"] in ids]}, f)
+        names.append(name)
+    return names[0], names[1]
+
+
+def det_preset(root: str, ann: str, stage: str = "synthetic_heatmap"):
+    """A stage's yolov8 preset over one COCO file of the stacks."""
+    from agenda_tpu_torch.detect.configs import DatasetSpec, preset
+
+    return preset(stage, "yolov8", [DatasetSpec(root, ann, "")],
+                  output_dir=os.path.join(root, "det_work"))
+
+
+def det_first_batch(cfg, batch: int) -> dict:
+    """The loader's first host-augmented batch (the mix recipe)."""
+    from agenda_tpu_torch.data.datasets import DataLoader
+
+    loader = DataLoader(cfg.build_train_dataset(), batch, shuffle=True, seed=cfg.runner.seed,
+                        num_workers=0, pad_to_full=True)
+    return next(iter(loader))
+
+
+def det_assignment(fam, st, tb):
+    """TAL's (fg, assigned GT, target scores, labels) for the train-mode heads
+    of ``st``'s weights on ``tb``, as the step's loss computes it."""
+    import torch
+    from torch.func import functional_call
+
+    from agenda_tpu_torch.detect.assign import task_aligned_assign
+    from agenda_tpu_torch.detect.yolov8 import _anchors, _flatten_outputs, decode_boxes
+
+    with torch.no_grad():
+        fam.model.train()
+        try:
+            stats = {k: v.clone() for k, v in st.stats.items()}
+            outs = functional_call(fam.model, {**st.params, **stats, **st.counters},
+                                   (tb["image"].permute(0, 3, 1, 2).contiguous(),))
+        finally:
+            fam.model.eval()
+        cls, dist = _flatten_outputs(outs, fam.config)
+        pts, strides = _anchors(fam.config, cls.device)
+        labels = torch.zeros(tb["gt_valid"].shape, dtype=torch.long, device=cls.device)
+        return task_aligned_assign(torch.sigmoid(cls), decode_boxes(dist, pts, strides, fam.config),
+                                   pts, tb["gt_boxes"], labels, tb["gt_valid"])
+
+
+def det_step_on(dev, cfg, state, batch, assign=None, mode: str = "step") -> dict:
+    """One train step through DetectorRunner.make_train_step on ``dev`` from
+    ``state`` (CPU tensors): update count DET_STEP, the end of the warmup, in
+    an epoch of DET_STEP + 1 steps (the preset's full lr), zero moments and
+    the EMA at the weights. Returns (on the CPU) its own TAL assignment,
+    then, with ``assign`` (the CPU's) in place of its own where given, the
+    loss, its parts, every gradient, the new batch statistics, the weights
+    before and after the update and the EMA. ``mode`` "tf32" runs all of it
+    with TF32 on (the control); "f64" (the weights and batch in float64)
+    returns the gradients only."""
+    import torch
+
+    from agenda_tpu_torch.detect import yolov8
+    from agenda_tpu_torch.detect.optim import DetectorSGD
+    from agenda_tpu_torch.detect.runner import DetectorRunner, batch_to_device, full_f32
+
+    f64 = mode == "f64"
+    if f64:
+        state = {k: v.double() if v.is_floating_point() else v for k, v in state.items()}
+        batch = {k: v.astype("float64") if v.dtype.kind == "f" else v for k, v in batch.items()}
+    fam = cfg.build_family()
+    runner = DetectorRunner(fam, cfg.runner, device=dev)
+    opt = DetectorSGD(cfg.runner, steps_per_epoch=DET_STEP + 1, total_bs=cfg.runner.batch_size)
+    st = runner.init_train_state(opt, state)
+    st.opt.count = DET_STEP
+    tb = batch_to_device(batch, dev)
+    names = list(st.params)
+    arith = tf32_on if mode == "tf32" else lambda: full_f32(dev)
+    with arith():
+        own = det_assignment(fam, st, tb)
+    out = {"assign": tuple(t.cpu() for t in own)}
+
+    def grads_with(assignment, context):
+        with mock.patch.object(yolov8, "task_aligned_assign", lambda *a, **k: assignment), context:
+            loss, parts, _ = fam.loss_fn({**st.params, **st.stats, **st.counters}, tb)
+            grads = torch.autograd.grad(loss, [st.params[k] for k in names])
+        return loss, parts, {k: g.cpu().double() for k, g in zip(names, grads)}
+
+    given = own if assign is None else tuple(
+        t.to(dev, tb["gt_boxes"].dtype if t.is_floating_point() else t.dtype) for t in assign)
+    loss, parts, out["grads"] = grads_with(given, arith())
+    if f64:
+        return out
+    if assign is not None and mode == "step":  # for the record: with this side's own assignment
+        out["own_grads"] = grads_with(own, full_f32(dev))[2]
+    old_stats = {k: v.cpu() for k, v in st.stats.items()}
+    with mock.patch.object(yolov8, "task_aligned_assign", lambda *a, **k: given), arith():
+        before = {k: v.detach().clone() for k, v in st.params.items()}
+        runner.make_train_step(opt)(st, tb, DET_STEP)
+    out.update(loss=loss.item(), parts={k: v.item() for k, v in parts.items()},
+               old_stats=old_stats, stats={k: v.cpu() for k, v in st.stats.items()},
+               before={k: v.cpu() for k, v in before.items()},
+               params={k: st.params[k].detach().cpu() for k in names},
+               ema={k: st.ema[k].cpu() for k in names})
+    return out
+
+
+def moved_error(got: dict, want: dict, before: dict, roundings: int = 1) -> Tuple[float, str]:
+    """The largest difference of two updated tensors beyond ``roundings``
+    f32 roundings of the result (an update of a few ulps of the weight
+    rounds either way), over the rms of the move (want - before), and its
+    name."""
+    import torch
+
+    worst = (0.0, "")
+    for k, w in want.items():
+        ulp = torch.nextafter(w, torch.full_like(w, math.inf)) - w
+        rms = float((w - before[k]).double().square().mean().sqrt())
+        beyond = float(((got[k] - w).abs() - roundings * ulp).clamp(min=0).max())
+        worst = max(worst, (beyond / max(rms, 1e-30), k))
+    return worst
+
+
+def rms_error(got: dict, want: dict) -> Tuple[float, str]:
+    """The largest max |d| / rms(want) over the tensors, and its name."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        rms = float(w.double().square().mean().sqrt())
+        worst = max(worst, (float((got[k] - w).abs().max()) / max(rms, 1e-30), k))
+    return worst
+
+
+def det_readings(side: dict, ref: dict) -> dict:
+    """One side's train step against the CPU's (``ref``): the loss and its
+    parts (relative), the gradients (max |d| / rms, per tensor), the batch
+    statistics, the update and the EMA (each beyond its own roundings, over
+    the rms of its move: the statistics move by 0.03 of a batch's, the EMA
+    by 1 - d of the update; the EMA's two products and its sum round atop
+    the update's one rounding, hence three), and the TAL assignment (the
+    anchors whose fg differs, and the CPU's fg anchors whose GT differs)."""
+    (fg, agt), (ref_fg, ref_agt) = side["assign"][:2], ref["assign"][:2]
+    return {  # each (reading, the tensor it was read at)
+        "loss": (abs(side["loss"] - ref["loss"]) / abs(ref["loss"]), ""),
+        "parts": max((abs(side["parts"][k] - ref["parts"][k]) / abs(ref["parts"][k]), k)
+                     for k in ref["parts"]),
+        "grads": rms_error(side["grads"], ref["grads"]),
+        "stats": moved_error(side["stats"], ref["stats"], ref["old_stats"]),
+        "update": moved_error(side["params"], ref["params"], ref["before"]),
+        "ema": moved_error(side["ema"], ref["ema"], ref["before"], roundings=3),
+        "tal": (int((fg != ref_fg).sum()) + int(((agt != ref_agt) & ref_fg).sum()), ""),
+    }
+
+
+def det_train_parity(labels: dict, root: str, dev) -> dict:
+    """Phase 21: one train step of YOLOv8n at 128 px, batch 192 (the
+    synthetic_heatmap preset), from the calibrated weights and one
+    host-augmented batch of the stacks, on the card and on the CPU (both
+    f32): the TAL assignment each side makes, then, with the CPU's
+    assignment on both sides (an anchor claimed by two GT boxes of near-equal
+    IoU goes to either under 1e-5 of noise: 8 such anchors of 5780 moved
+    down4's gradient by a third of its rms), the loss and its parts, every
+    gradient, the new batch statistics, the SGD update and the EMA; all of
+    it once more with TF32 on, the control that each limit must fail; the
+    gradients in float64 on both sides, to tell the port's arithmetic from
+    f32 noise."""
+    import torch
+
+    from agenda_tpu_torch.detect.runner import ema_decay_at, load_variables
+
+    t0 = time.perf_counter()
+    cfg = det_preset(root, labels["all"])
+    require(cfg.runner.batch_size == LABEL_BATCH, "the synthetic_heatmap preset's batch")
+    batch = det_first_batch(cfg, LABEL_BATCH)
+    state = load_variables(labels["ckpts"]["yolov8"][1])
+    cpu = torch.device("cpu")
+    ref = det_step_on(cpu, cfg, state, batch)
+    card = det_step_on(dev, cfg, state, batch, assign=ref["assign"])
+    control = det_step_on(dev, cfg, state, batch, assign=ref["assign"], mode="tf32")
+    card64 = det_step_on(dev, cfg, state, batch, assign=ref["assign"], mode="f64")
+    ref64 = det_step_on(cpu, cfg, state, batch, assign=ref["assign"], mode="f64")
+    sound, tf32 = det_readings(card, ref), det_readings(control, ref)
+    own_err, own_at = rms_error(card["own_grads"], ref["grads"])
+    f64_err, f64_at = rms_error(card64["grads"], ref64["grads"])
+    card_f32, card_f32_at = rms_error(card["grads"], card64["grads"])
+    cpu_f32, cpu_f32_at = rms_error(ref["grads"], ref64["grads"])
+    worst = sorted(((rms_error({k: card["grads"][k]}, {k: v})[0], k)
+                    for k, v in ref["grads"].items()), reverse=True)[:4]
+    n_anchors, n_fg = ref["assign"][0].numel(), int(ref["assign"][0].sum())
+    limits = {"loss": DET_LOSS_RTOL, "parts": DET_LOSS_RTOL, "grads": DET_GRAD_TOL_RMS,
+              "stats": DET_STATS_TOL_RMS, "update": DET_UPDATE_TOL_RMS,
+              "ema": DET_EMA_TOL_RMS, "tal": DET_TAL_MAX}
+
+    def show(r: dict) -> str:
+        return ", ".join((f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}")
+                         + (f" (at {at})" if at else "")
+                         for k, (v, at) in r.items())
+
+    d = ema_decay_at(cfg.runner.ema_decay, DET_STEP)
+    print(f"[det-parity] YOLOv8n train step at batch {LABEL_BATCH}, {LABEL_IMG} px, update "
+          f"{DET_STEP}, EMA d = {d:.6f}, all with the CPU's TAL assignment (tal: each side's "
+          f"own, of {n_anchors} anchors, {n_fg} fg on the CPU); loss {card['loss']:.6f} vs "
+          f"{ref['loss']:.6f}; limits {limits}; card (f32) against the CPU: {show(sound)}; "
+          f"TF32 control against the CPU: {show(tf32)}; the worst gradients "
+          f"{[(k, f'{e:.2e}') for e, k in worst]}; with the card's own assignment "
+          f"{own_err:.3e} at {own_at}; float64 on both sides {f64_err:.3e} (at {f64_at}; "
+          f"limit {DET_GRAD64_TOL_RMS}); f32 against f64: the card {card_f32:.3e} (at "
+          f"{card_f32_at}), the CPU {cpu_f32:.3e} (at {cpu_f32_at}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(n_fg > LABEL_BATCH, f"only {n_fg} foreground anchors in a batch of {LABEL_BATCH}")
+    for k, limit in limits.items():
+        require(sound[k][0] <= limit, f"the train step's {k} differs on the card: "
+                f"{sound[k][0]:.3e} > {limit}")
+        require(tf32[k][0] > limit, f"the TF32 control passes the {k} limit ({limit}): "
+                f"the limit cannot tell TF32 from f32")
+    require(f64_err <= DET_GRAD64_TOL_RMS, "the float64 gradients differ on the card")
+    return {"sound": sound, "tf32": tf32, "f64_err": f64_err}
+
+
+class LogRecorder:
+    """The messages of the port's detector logger, in order."""
+
+    def __init__(self):
+        import logging
+
+        self.messages = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+        self.logger = logging.getLogger("agenda_tpu_torch.detect")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(20)  # INFO
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def det_cli_phase(labels: dict, root: str, dev) -> dict:
+    """Phase 22: cli/det_train --preset synthetic_heatmap --detector yolov8 on
+    the card: 384 stacks, 64 to validate, batch 192, 12 epochs (mix recipe in
+    epochs 0-1, stage 2 from epoch 2, validation after epoch 1 and every
+    epoch from 2); det_test reads its latest.safetensors; a resume from it
+    with --max-epochs 13 starts at epoch 12, step 24."""
+    import math as _math
+
+    import torch
+
+    from agenda_tpu_torch.cli import det_test, det_train
+    from agenda_tpu_torch.io.safetensors_io import load_file
+
+    train_ann, val_ann = det_split(labels, root)
+    work = os.path.join(root, "det_cli")
+    args = ["--preset", "synthetic_heatmap", "--detector", "yolov8", "--train-root", root,
+            "--train-ann", train_ann, "--train-prefix", "", "--val-root", root, "--val-ann",
+            val_ann, "--val-prefix", "", "--work-dir", work, "--device", dev.type]
+    steps_per_epoch = -(-DET_TRAIN_TILES // LABEL_BATCH)
+    with LogRecorder() as log:
+        t0 = time.perf_counter()
+        det_train.main(args + ["--max-epochs", str(DET_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        first = list(log.messages)
+        t0 = time.perf_counter()
+        det_train.main(args + ["--max-epochs", str(DET_EPOCHS + 1), "--resume",
+                               os.path.join(work, "latest.safetensors")])
+        resume_wall = time.perf_counter() - t0
+        second = log.messages[len(first):]
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if "loss" in r]
+    vals = [r["epoch"] for r in rows if "bbox_mAP" in r]
+    first_vals = [m for m in first if m.startswith("epoch ") and " val:" in m]
+    switch_at = [i for i, m in enumerate(first) if m.startswith("mosaic-close")]
+    # the switch comes after the validation of epoch 1 and before that of epoch 2
+    after = [m for m in first[:switch_at[0]] if " val:" in m] if switch_at else []
+    n_steps = DET_EPOCHS * steps_per_epoch
+    for name in ("config.json", "latest.safetensors", "train_state_torch.safetensors",
+                 "best_bbox_mAP.safetensors", "best_bbox_mAP_50.safetensors"):
+        require(os.path.exists(os.path.join(work, name)), f"det_train wrote no {name}")
+    pred = os.path.join(root, "det_cli_pred.pkl")
+    records = det_test.main(["--config", os.path.join(work, "config.json"), "--checkpoint",
+                             os.path.join(work, "latest.safetensors"), "--test-root", root,
+                             "--test-ann", val_ann, "--test-prefix", "", "--out", pred,
+                             "--device", dev.type])
+    side = load_file(os.path.join(work, "train_state_torch.safetensors"))
+    resumed = [m for m in second if m.startswith("resumed optimizer/epoch state")]
+    print(f"[det-cli] cli/det_train {DET_EPOCHS} epochs of {steps_per_epoch} steps at batch "
+          f"{LABEL_BATCH} ({DET_TRAIN_TILES} stacks, {DET_VAL_TILES} to validate): "
+          f"{wall:.1f} s ({wall / n_steps:.3f} s a step with validation and checkpoints); "
+          f"logged steps {[r['step'] for r in steps]}, losses "
+          f"{[round(r['loss'], 3) for r in steps]}; validations after epochs {vals}; recipe "
+          f"switch logged after {len(after)} validation(s) ({after[-1:] or 'none'}); det_test "
+          f"read latest: {len(records)} records; resume: {resumed}, {resume_wall:.1f} s, sidecar "
+          f"epoch {int(side['epoch'])} step {int(side['gstep'])}", flush=True)
+    require(len(switch_at) == 1 and len(after) == 1 and after[0].startswith("epoch 1 val")
+            and len(first_vals) == DET_EPOCHS - DET_SWITCH + 1,
+            "the mosaic-close switch is not logged once, between the validations of epochs 1 "
+            "and 2")
+    require([r["step"] for r in steps][:3] == [1, 2, 20]
+            and all(_math.isfinite(r[k]) for r in steps for k in ("loss", "cls", "iou", "dfl")),
+            "metrics.jsonl: the logged steps are not 1, 2, 20 with finite losses")
+    require(vals[:DET_EPOCHS - DET_SWITCH + 1] == list(range(1, DET_EPOCHS))
+            and vals[-1] == DET_EPOCHS, f"validation epochs {vals}")
+    require(len(records) == DET_VAL_TILES, f"det_test wrote {len(records)} records")
+    require(resumed == [f"resumed optimizer/epoch state: epoch {DET_EPOCHS}, step {n_steps}"]
+            and int(side["epoch"]) == DET_EPOCHS
+            and int(side["gstep"]) == n_steps + steps_per_epoch,
+            "the resume did not continue at the next epoch and step")
+    shutil.rmtree(work)
+    return {"wall": wall, "steps": n_steps}
+
+
+def det_timing(labels: dict, root: str, dev) -> dict:
+    """Phase 23: YOLOv8n training at batch 192 (synthetic_heatmap) and 1024
+    (synthetic_target): warm s/step over 3 synchronised steps through
+    DetectorRunner.make_train_step on one batch on the card; host
+    augmentation ms an image (mix and stage-2 recipes, the tile cache
+    warm); the batch's host-to-device copy; the step's device time by kernel
+    group; the training loop's wall a step (the loader's producer thread
+    augmenting while the card steps, from a fresh epoch) and the card's busy
+    share of it; peak memory."""
+    import torch
+
+    from agenda_tpu_torch.data.datasets import DataLoader
+    from agenda_tpu_torch.detect.augment import stage2_aug
+    from agenda_tpu_torch.detect.optim import DetectorSGD
+    from agenda_tpu_torch.detect.runner import (DetectorRunner, batch_to_device, full_f32,
+                                                load_variables)
+
+    state = load_variables(labels["ckpts"]["yolov8"][1])
+    out = {}
+    for stage, bs in DET_TIMING:
+        cfg = det_preset(root, labels["all"], stage)
+        require(cfg.runner.batch_size == bs, f"the {stage} preset's batch")
+        ds = cfg.build_train_dataset()
+        for j in range(len(ds)):
+            ds._load_scaled(j)  # the tile cache, as after a first epoch
+        aug_ms = {}
+        for recipe in ("mix", "stage2"):
+            if recipe == "stage2":
+                ds.aug = stage2_aug(ds.aug)
+            t0 = time.perf_counter()
+            for j in range(DET_AUG_IMAGES):
+                ds[j]
+            aug_ms[recipe] = (time.perf_counter() - t0) * 1e3 / DET_AUG_IMAGES
+        batch = det_first_batch(cfg, bs)
+        fam = cfg.build_family()
+        runner = DetectorRunner(fam, cfg.runner, device=dev)
+        opt = DetectorSGD(cfg.runner, steps_per_epoch=-(-len(ds) // bs), total_bs=bs)
+        st = runner.init_train_state(opt, state)
+        step = runner.make_train_step(opt)
+        with full_f32(dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tb = batch_to_device(batch, dev)
+            torch.cuda.synchronize()
+            h2d_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(st, tb, 0)  # cold: cuDNN's autotune, allocation
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            walls = []
+            for g in range(1, 4):
+                t0 = time.perf_counter()
+                step(st, tb, g)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            warm = sum(walls) / len(walls)
+            # the loop as DetectorRunner.train runs it, from a fresh epoch of the loader
+            ds = cfg.build_train_dataset()
+            for j in range(len(ds)):
+                ds._load_scaled(j)
+            loader = DataLoader(ds, bs, shuffle=True, seed=0, num_workers=1, pad_to_full=True)
+            n_loop = 2 if bs > LABEL_BATCH else 3
+            # as many epochs of the loader as n_loop steps take (one batch an
+            # epoch at 1024: each epoch's producer starts with its first batch)
+            epochs = itertools.chain.from_iterable(itertools.repeat(loader))
+            n = 0
+            t0 = time.perf_counter()
+            for b in itertools.islice(epochs, n_loop):
+                step(st, batch_to_device(b, dev), 4 + n)
+                n += 1
+            torch.cuda.synchronize()
+            loop = (time.perf_counter() - t0) / n
+            require(n == n_loop, f"the loop ran {n} steps, not {n_loop}")
+            busy_ms, groups = profile_run(lambda: (step(st, tb, 9), torch.cuda.synchronize()),
+                                          "det-profile", f"YOLOv8n train step at batch {bs}",
+                                          warm, DET_KERNEL_GROUPS)
+        out[bs] = {"warm_s": warm, "images_per_s": bs / warm, "cold_s": cold, "h2d_ms": h2d_ms,
+                   "aug_ms": aug_ms, "busy_ms": busy_ms, "loop_s": loop,
+                   "loop_images_per_s": bs / loop, "busy": busy_ms / (1e3 * loop), "peak": peak}
+        print(f"[det-timing] {stage}, batch {bs}: step cold {cold:.3f} s, warm "
+              + ", ".join(f"{w:.4f}" for w in walls) + f" s -> {warm:.4f} s/step, "
+              f"{bs / warm:.1f} images/s (the step alone, its batch on the card); host "
+              f"augmentation {aug_ms['mix']:.2f} ms an image (mix), {aug_ms['stage2']:.2f} "
+              f"(stage 2); host-to-device copy {h2d_ms:.2f} ms a batch; device busy "
+              f"{busy_ms:.2f} ms a step; the loop {loop:.3f} s a step over {n} steps in "
+              f"{loader.epoch} epoch(s) of the loader "
+              f"({bs / loop:.1f} images/s), card busy {100 * busy_ms / (1e3 * loop):.1f}% of "
+              f"it; peak memory {peak / 2**30:.2f} GiB", flush=True)
+        del st, tb, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -1988,6 +2457,13 @@ def main() -> int:
         label_timing = labelling_timing(labels, label_root, dev)
         phase_s["labelling (17-20)"] = time.perf_counter() - t_phase
 
+        # 21-23. detector training: a train step card vs CPU, the CLI, timing
+        t_phase = time.perf_counter()
+        det_parity = det_train_parity(labels, label_root, dev)
+        det_cli = det_cli_phase(labels, label_root, dev)
+        det_time = det_timing(labels, label_root, dev)
+        phase_s["detector training (21-23)"] = time.perf_counter() - t_phase
+
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
                   "agenda_tpu/kernels/flash.py:55", flash, launches["flash_attention_fwd"]),
@@ -2029,6 +2505,17 @@ def main() -> int:
               f"batch; host decode {t['decode_ms']:.3f} ms a tile, enqueue "
               f"{t['enqueue_ms']:.2f} ms a batch; selected threshold {chosen['threshold']:.4f} "
               f"(YOLOv8n)", flush=True)
+    for bs, t in det_time.items():
+        print(f"[report] YOLOv8n training at batch {bs}, {LABEL_IMG}px: {t['warm_s']:.4f} s a "
+              f"step on the card ({t['images_per_s']:.1f} images/s), the loop {t['loop_s']:.3f} "
+              f"s a step ({t['loop_images_per_s']:.1f} images/s, card busy "
+              f"{100 * t['busy']:.1f}%); host augmentation {t['aug_ms']['mix']:.2f} / "
+              f"{t['aug_ms']['stage2']:.2f} ms an image (mix / stage 2); host-to-device "
+              f"{t['h2d_ms']:.2f} ms a batch; peak {t['peak'] / 2**30:.2f} GiB", flush=True)
+    print(f"[report] detector train step card vs CPU: gradients "
+          f"{det_parity['sound']['grads'][0]:.3e} of their rms (TF32 control "
+          f"{det_parity['tf32']['grads'][0]:.3e}); det_train CLI "
+          f"{det_cli['steps']} steps in {det_cli['wall']:.1f} s", flush=True)
     print("[report] units: flash_attention_fwd and group_norm_act sum ms over one generation "
           f"batch (batch {E2E_BATCH}, {E2E_STEPS} PLMS steps; launches from the generation "
           "CLI run); flash_attention_bwd_dkv, flash_attention_bwd_dq and fused_adamw8bit_ema "

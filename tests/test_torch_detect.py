@@ -333,8 +333,11 @@ def test_eval_dataset_and_resize_match_jax(tmp_path):
         assert np.abs(gb["image"] * 255 - ga["image"] * 255).max() <= 1.0 + 1e-3
         for k in ("gt_boxes", "gt_valid", "image_id", "scale_back"):
             np.testing.assert_array_equal(gb[k], ga[k], err_msg=k)
-    with pytest.raises(NotImplementedError):
-        CocoDetDataset(root, "ann.json", train=True)
+    # training is ported; its LSJ recipe (the ViTDet stage) is not
+    from agenda_tpu_torch.detect.augment import AugConfig
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CocoDetDataset(root, "ann.json", train=True, aug=AugConfig(lsj=True))
 
     # the uniform path: JAX's predict_u8 resize, exactly
     np.testing.assert_array_equal(resize_weights(112, 128, "bilinear"),

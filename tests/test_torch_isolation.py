@@ -3,10 +3,12 @@
 - A fresh interpreter imports the port, writes a tiny pipeline with the
   port's own fabricator and runs the port's CLI on the CPU; afterwards
   ``jax``, ``flax`` and ``agenda_tpu`` are absent from ``sys.modules``.
-  Another does the same for the labelling CLIs (``det_test`` on a
-  fabricated detector and tiles, then ``select_threshold``).
+  Another does the same for the detector CLIs (``det_train`` for an
+  epoch on fabricated tiles, ``det_test`` on a fabricated detector, then
+  ``select_threshold``).
 - No source file of the port, nor the tools at the root of the repo
-  (``chip_smoke.py`` and the kernel-variant timer), imports them.
+  (``chip_smoke.py`` and the kernel-variant timer), imports them, nor
+  Pillow; the detector drive runs without importing Pillow.
 - Asking for CUDA without a GPU raises; ``chip_smoke.py`` exits non-zero and
   prints no result without a card, and outside a checkout.
 """
@@ -23,7 +25,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "agenda_tpu_torch"
-FORBIDDEN = ("jax", "flax", "agenda_tpu")
+FORBIDDEN = ("jax", "flax", "agenda_tpu", "PIL")  # the card's machine has no Pillow
 
 _DRIVE = r"""
 import os, sys
@@ -45,10 +47,17 @@ print("FORBIDDEN", bad)
 
 _DRIVE_LABELS = r"""
 import json, os, sys
-from agenda_tpu_torch.cli import det_test, select_threshold
+from agenda_tpu_torch.cli import det_test, det_train, select_threshold
+from agenda_tpu_torch.detect.configs import DatasetSpec, preset
 from agenda_tpu_torch.detect.fabricate import fabricate_detector, write_square_set
 d = sys.argv[1]
 write_square_set(os.path.join(d, "data"), 6, seed=1)
+run = preset("synthetic_heatmap", "yolov8", [DatasetSpec(os.path.join(d, "data"), "ann.json")],
+             img_scale=(64, 64), max_gt=8)
+run.to_json(os.path.join(d, "run.json"))
+det_train.main(["--device", "cpu", "--config", os.path.join(d, "run.json"), "--max-epochs", "1",
+                "--batch-size", "4", "--work-dir", os.path.join(d, "trained")])
+assert os.path.exists(os.path.join(d, "trained", "latest.safetensors"))
 config, ckpt = fabricate_detector(os.path.join(d, "work"), img_size=64, batch_size=4, seed=1)
 recs = det_test.main(["--device", "cpu", "--config", config, "--checkpoint", ckpt,
                       "--test-root", os.path.join(d, "data"), "--test-ann", "ann.json",
@@ -59,7 +68,7 @@ select_threshold.main(["--prediction_pkl", os.path.join(d, "pred.pkl"),
                        "--out-dir", d])
 assert "threshold" in json.load(open(os.path.join(d, "result.json")))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "jaxlib", "agenda_tpu"))
+             if m.split(".")[0] in ("jax", "flax", "jaxlib", "agenda_tpu", "PIL"))
 print("FORBIDDEN", bad)
 """
 
@@ -79,7 +88,8 @@ def test_port_runs_without_importing_jax_or_agenda_tpu(tmp_path):
 
 
 def test_labelling_runs_without_importing_jax_or_agenda_tpu(tmp_path):
-    """det_test and select_threshold of the port, on the CPU, in a fresh interpreter."""
+    """det_train, det_test and select_threshold of the port, on the CPU, in a fresh
+    interpreter."""
     out = subprocess.run([sys.executable, "-c", _DRIVE_LABELS, str(tmp_path)],
                          cwd=str(tmp_path), env=_env(), capture_output=True, text=True,
                          timeout=300)
