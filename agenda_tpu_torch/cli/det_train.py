@@ -10,9 +10,10 @@ Counterpart of ``agenda_tpu/cli/det_train.py``: the same flags plus
 
 A JSON config (``DetectionConfig``) is the reproducible artifact; the preset
 flags generate one and save it next to the checkpoints. The YOLOv8 family
-(``yolov8``, ``yolov8n``, ``yolov8s``) trains; the other families,
-``--pretrained``, ``--device-aug`` and ``--device-aug-workers`` raise
-(ROADMAP.md §A).
+(``yolov8``, ``yolov8n``, ``yolov8s``) trains, with the augmentation on the
+host or, with ``--device-aug``, rendered on the device from the host's
+plans (``--device-aug-workers`` processes build them ahead); the other
+families and ``--pretrained`` raise (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -44,9 +45,12 @@ def parse_args(argv=None):
     p.add_argument("--auto-scale-lr", action="store_true",
                    help="Scale the lr by the batch size over the config's base_batch_size.")
     p.add_argument("--device-aug", action="store_true",
-                   help="Augmentation on the device (not ported: raises).")
+                   help="Render the train augmentations on the device from a resident dataset "
+                        "tensor (the host draws the random numbers and does the box math); a "
+                        "recipe the planner cannot express takes the host pipeline.")
     p.add_argument("--device-aug-workers", type=int, default=0,
-                   help="Plan-building workers of --device-aug (not ported: raises).")
+                   help="Worker processes that build future epochs' device-aug plans "
+                        "(identical to the serial ones). 0 = serial.")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, choices=("cuda", "cpu"), default="cuda",
                    help="Train on the card (default) or on the CPU.")
@@ -61,9 +65,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
     args = parse_args(argv)
-    if args.device_aug or args.device_aug_workers:
-        raise NotImplementedError("--device-aug and --device-aug-workers are not ported yet: "
-                                  "ROADMAP.md §A, the item 'detect/device_aug.py'")
     if args.pretrained is not None:
         raise NotImplementedError("--pretrained (mmdet/mmyolo weights) is not ported yet: "
                                   "ROADMAP.md §A, the item 'Faster R-CNN, YOLOv5, ViTDet and "
@@ -89,6 +90,10 @@ def main(argv=None):
         cfg.runner.lr = args.lr
     if args.auto_scale_lr:
         cfg.runner.auto_scale_lr = True
+    if args.device_aug:
+        cfg.runner.device_aug = True
+    if args.device_aug_workers:
+        cfg.runner.device_aug_workers = args.device_aug_workers
     cfg.runner.seed = args.seed
     cfg.runner.output_dir = args.work_dir if args.work_dir else cfg.runner.output_dir
 

@@ -1,12 +1,14 @@
 """Detection train-time augmentation on the host, in numpy, without Pillow.
 
-Counterpart of ``agenda_tpu/detect/augment.py`` for the recipes the YOLOv8
-presets use: ``AugConfig`` and the mix, plain and stage-2 recipes; the HSV
+Counterpart of ``agenda_tpu/detect/augment.py``: ``AugConfig`` and the
+mix, plain, LSJ and stage-2 recipes; the HSV
 pair and ``hsv_jitter``; ``to_gray``, ``box_blur_k``/``blur``,
 ``median_blur_k``/``median_blur`` (in uint8) and ``clahe``;
 ``random_affine`` with ``affine_matrix``, ``affine_inverse`` and
 ``affine_boxes``; ``mosaic`` and its regions; ``mixup``/``mixup_boxes``;
-``flip_horizontal``. Every random draw is taken in the reference's order
+``flip_horizontal``; large-scale jitter (``lsj``, ``lsj_params``,
+``lsj_boxes``), the ViTDet heatmap stage's recipe, which a YOLOv8 config
+may name too. Every random draw is taken in the reference's order
 from the caller's ``numpy.random.Generator``, so the same seed gives the
 same boxes.
 
@@ -18,15 +20,12 @@ median in a native library. The machine that runs the port has neither, so:
   a pixel outside the source (before the half-pixel shift) takes the fill,
   neighbours clamped to the edge, the lerps in double, then truncation to
   8 bits;
-- ``resize_bilinear_pil`` is Pillow's 8-bit ``Image.resize(BILINEAR)``:
-  its filter coefficients in 22-bit fixed point, horizontal pass then
-  vertical, each rounded half up to a level;
+- ``resize_bilinear_pil`` is Pillow's 8-bit ``Image.resize(BILINEAR)``
+  (the mixup and LSJ resizes): its filter coefficients in 22-bit fixed
+  point, horizontal pass then vertical, each rounded half up to a level;
 - ``hsv_apply`` and ``median_blur_k`` are the numpy formulas the reference
   keeps beside its native calls (``agenda_tpu/detect/augment.py:144-153,
   203-210``).
-
-LSJ (``lsj``, ``lsj_params``, ``lsj_boxes``, ``lsj_aug``) serves the
-ViTDet stage only and is not ported (ROADMAP.md §A).
 """
 
 from __future__ import annotations
@@ -64,7 +63,7 @@ class AugConfig:
     value_delta: int = 30
     # geometric tail
     flip_prob: float = 0.5
-    # LSJ (the ViTDet heatmap stage): parsed, not applied (the dataset raises)
+    # LSJ (the ViTDet heatmap stage): flip, keep-ratio resize, crop, pad
     lsj: bool = False
     lsj_ratio_range: Tuple[float, float] = (0.1, 2.0)
     # stage 2 ("close mosaic"): RandomAffine on the single resized image
@@ -84,6 +83,11 @@ def mix_stage_aug(mixup_prob: float = 1.0, mixup_mosaic_pre: bool = False) -> Au
 def plain_aug() -> AugConfig:
     """resize + flip only."""
     return AugConfig(flip_prob=0.5)
+
+
+def lsj_aug() -> AugConfig:
+    """Large-scale jitter (the ViTDet heatmap stage's base recipe)."""
+    return AugConfig(lsj=True, flip_prob=0.5)
 
 
 def stage2_aug(a: AugConfig) -> AugConfig:
@@ -540,6 +544,54 @@ def mixup_boxes(boxes2: np.ndarray, scale: float, nw: int, flipped: bool,
     b2[:, 1::2] = b2[:, 1::2].clip(0, ch)
     ok = (b2[:, 2] - b2[:, 0] > 1) & (b2[:, 3] - b2[:, 1] > 1)
     return b2[ok]
+
+
+def lsj_params(rng: np.random.Generator, in_hw: Tuple[int, int], out_size: Tuple[int, int],
+               ratio_range: Tuple[float, float] = (0.1, 2.0)) -> Tuple[float, int, int, int, int]:
+    """LSJ's draws and geometry -> (scale, nw, nh, x0, y0): the ratio, then
+    the crop's x0 and y0 (the host render and the device planner share it)."""
+    out_w, out_h = out_size
+    h, w = in_hw
+    ratio = rng.uniform(*ratio_range)
+    scale = min(out_h / h, out_w / w) * ratio
+    nw, nh = max(1, int(w * scale)), max(1, int(h * scale))
+    x0 = int(rng.integers(0, max(1, nw - out_w + 1)))
+    y0 = int(rng.integers(0, max(1, nh - out_h + 1)))
+    return scale, nw, nh, x0, y0
+
+
+def lsj_boxes(boxes: np.ndarray, scale: float, nw: int, nh: int, x0: int, y0: int,
+              out_size: Tuple[int, int]) -> np.ndarray:
+    """LSJ's boxes: scale, shift by the crop, clip to the cropped extent,
+    drop boxes of 1e-2 px or less (FilterAnnotations)."""
+    out_w, out_h = out_size
+    if not len(boxes):
+        return boxes
+    boxes = boxes * scale
+    boxes = boxes - np.array([x0, y0, x0, y0], np.float32)
+    cw, ch = min(nw - x0, out_w), min(nh - y0, out_h)
+    boxes[:, 0::2] = boxes[:, 0::2].clip(0, cw)
+    boxes[:, 1::2] = boxes[:, 1::2].clip(0, ch)
+    keep = (boxes[:, 2] - boxes[:, 0] > 1e-2) & (boxes[:, 3] - boxes[:, 1] > 1e-2)
+    return boxes[keep]
+
+
+def lsj(img: np.ndarray, boxes: np.ndarray, rng: np.random.Generator,
+        out_size: Tuple[int, int], ratio_range: Tuple[float, float] = (0.1, 2.0),
+        pad_val: float = PAD_VAL) -> Tuple[np.ndarray, np.ndarray]:
+    """Large-scale jitter: keep-ratio resize by a ratio in ``ratio_range``
+    (Pillow's 8-bit BILINEAR), a crop of ``out_size`` at a random corner,
+    the boxes filtered, pad_val padding on the bottom and right."""
+    out_w, out_h = out_size
+    scale, nw, nh, x0, y0 = lsj_params(rng, img.shape[:2], out_size, ratio_range)
+    img = resize_bilinear_pil(_to_u8(img), nw, nh).astype(np.float32)
+    boxes = lsj_boxes(boxes, scale, nw, nh, x0, y0, out_size)
+    img = img[y0:y0 + out_h, x0:x0 + out_w]
+    if img.shape[0] != out_h or img.shape[1] != out_w:
+        canvas = np.full((out_h, out_w, 3), pad_val, np.float32)
+        canvas[:img.shape[0], :img.shape[1]] = img
+        img = canvas
+    return img, boxes
 
 
 def flip_horizontal(img: np.ndarray, boxes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

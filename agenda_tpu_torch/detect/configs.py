@@ -15,7 +15,7 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional, Tuple
 
-from agenda_tpu_torch.detect.augment import AugConfig, mix_stage_aug
+from agenda_tpu_torch.detect.augment import AugConfig, lsj_aug, mix_stage_aug
 from agenda_tpu_torch.detect.runner import RunnerConfig
 
 
@@ -176,7 +176,10 @@ def preset(
         val_interval_stage2=hp["val_interval_stage2"],
         ema_decay=0.9998,
     )
-    aug = mix_stage_aug(mixup_prob=0.1, mixup_mosaic_pre=True)
+    # a row's "aug" names its recipe, as the JAX package's rows do; "lsj" is
+    # the ViTDet heatmap stage's, whose rows are not ported yet
+    aug = lsj_aug() if hp.get("aug") == "lsj" else \
+        mix_stage_aug(mixup_prob=0.1, mixup_mosaic_pre=True)
     cfg = DetectionConfig(
         detector=detector, train_datasets=train, val_dataset=val,
         test_dataset=test, runner=runner, aug=aug, pretrained=pretrained,

@@ -8,8 +8,12 @@ Counterpart of ``agenda_tpu/detect/dataset.py``:
 - ``CocoDetDataset(train=True, aug=...)``: the tiles decoded and resized to
   ``img_scale`` once, into a uint8 cache (``_load_scaled``), and
   ``__getitem__``'s train recipes: mosaic + affine + mixup, the stage-2
-  ``standalone_affine``, or plain, then the photometric tail (blur,
-  median, gray, CLAHE, HSV, flip). Each call draws from
+  ``standalone_affine``, LSJ (on the tile as decoded, flipped before its
+  resize), or plain, then the photometric tail (blur, median, gray, CLAHE,
+  HSV, and the flip except after LSJ); ``scaled_boxes`` and
+  ``scaled_u8`` (a tile's boxes, or its cached uint8 pixels, at
+  ``img_scale`` without an f32 copy: what the device augmentation's
+  planner reads). Each call draws from
   ``default_rng((calls * 2654435761 + index) mod 2**31)``, as the reference
   does, so a sample's draws depend on the order of the calls;
 - GT padded to ``max_gt`` with a validity mask;
@@ -21,11 +25,11 @@ formats raise. The host resize (``resize_u8_host``) is the arithmetic of the
 JAX package's native bilinear resize (``native/image_ops.cc``), so a cached
 tile is the reference's to the bit. The cache holds at most
 ``AGENDA_TORCH_IMG_CACHE_MB`` megabytes (default 2048; 0 turns it off).
-LSJ serves the ViTDet stage and raises (ROADMAP.md §A).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -41,6 +45,7 @@ from agenda_tpu_torch.detect.augment import (
     clahe,
     flip_horizontal,
     hsv_jitter,
+    lsj,
     median_blur,
     mixup,
     mosaic,
@@ -51,16 +56,28 @@ from agenda_tpu_torch.detect.augment import (
 CACHE_ENV = "AGENDA_TORCH_IMG_CACHE_MB"
 
 
+@functools.lru_cache(maxsize=16)
+def _pass_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(taps, weights) of one bilinear pass, each (out_size, window): the
+    source index and ``resize_weights``' weight of each tap (read-only: a
+    train set's tiles share a few sizes, and the weights cost more to build
+    than the pass)."""
+    w = resize_weights(in_size, out_size, "bilinear")
+    starts = (w != 0).argmax(1)
+    taps = starts[:, None] + np.arange(int(math.ceil(max(in_size / out_size, 1.0))) * 2 + 1)
+    weights = np.take_along_axis(w, np.minimum(taps, in_size - 1), 1) * (taps < in_size)
+    taps.setflags(write=False)
+    weights.setflags(write=False)
+    return taps, weights
+
+
 def _sequential_pass(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     """One f32 bilinear pass along ``axis`` (``resize_weights``' filter), each
     output a left-to-right sum of weight x pixel over its window, as the
     native resize sums it (a tap past a window's end has weight 0 and adds
     exactly 0)."""
     in_size = x.shape[axis]
-    w = resize_weights(in_size, out_size, "bilinear")
-    starts = (w != 0).argmax(1)
-    taps = starts[:, None] + np.arange(int(math.ceil(max(in_size / out_size, 1.0))) * 2 + 1)
-    weights = np.take_along_axis(w, np.minimum(taps, in_size - 1), 1) * (taps < in_size)
+    taps, weights = _pass_taps(in_size, out_size)
     shape = list(x.shape)
     shape[axis] = out_size
     acc = np.zeros(shape, np.float32)
@@ -114,10 +131,6 @@ class CocoDetDataset:
         self.train = train
         self.aug = (aug if aug is not None else AugConfig(flip_prob=flip_prob)) if train \
             else AugConfig(flip_prob=0.0)
-        if self.aug.lsj:
-            raise NotImplementedError(
-                "the LSJ recipe (the ViTDet heatmap stage) is not ported yet: ROADMAP.md §A, "
-                "the item 'Faster R-CNN, YOLOv5, ViTDet and io/torch_import.py'")
         # a different draw for the same index at every call (train only)
         self._aug_calls = 0
         # decoded + resized tiles as uint8: mosaic and mixup read 4-8 tiles a
@@ -134,13 +147,21 @@ class CocoDetDataset:
     def _decode(self, index: int) -> np.ndarray:
         return load_image_u8(os.path.join(self.img_dir, self.images[index]["file_name"]))
 
-    def _boxes(self, index: int, w: int, h: int) -> np.ndarray:
-        """The COCO boxes (xyxy) scaled from the decoded (w, h) to img_scale."""
+    def _raw_boxes(self, index: int) -> np.ndarray:
+        """The COCO boxes (xyxy) as annotated, on the tile as decoded."""
         boxes = []
         for a in self.anns_by_img.get(self.images[index]["id"], []):
             x, y, bw, bh = a["bbox"]
             boxes.append([x, y, x + bw, y + bh])
-        boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+        return np.asarray(boxes, np.float32).reshape(-1, 4)
+
+    def _load_raw(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """f32 tile as decoded and its boxes there (LSJ's input)."""
+        return self._decode(index).astype(np.float32), self._raw_boxes(index)
+
+    def _boxes(self, index: int, w: int, h: int) -> np.ndarray:
+        """The COCO boxes (xyxy) scaled from the decoded (w, h) to img_scale."""
+        boxes = self._raw_boxes(index)
         if len(boxes):
             out_w, out_h = self.img_scale
             boxes = boxes * np.array([out_w / w, out_h / h] * 2, np.float32)
@@ -152,16 +173,29 @@ class CocoDetDataset:
         h, w = img.shape[:2]
         return resize_u8_host(img, *self.img_scale), self._boxes(index, w, h)
 
-    def _load_scaled(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
-        """f32 tile at img_scale (fresh arrays: augmentation never writes
-        into the cache) and its boxes."""
+    def _cached(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The uint8 tile at img_scale and its boxes, through the cache
+        when it is on (the arrays are the cache's own: read them only)."""
         if self._scaled_cache is None:
-            img, boxes = self._resized(index)
-            return img.astype(np.float32), boxes
+            return self._resized(index)
         hit = self._scaled_cache.get(index)
         if hit is None:
             hit = self._scaled_cache[index] = self._resized(index)
-        return hit[0].astype(np.float32), hit[1].copy()
+        return hit
+
+    def _load_scaled(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """f32 tile at img_scale (fresh arrays: augmentation never writes
+        into the cache) and its boxes."""
+        img, boxes = self._cached(index)
+        return img.astype(np.float32), boxes.copy()
+
+    def scaled_u8(self, index: int) -> np.ndarray:
+        """The uint8 tile at img_scale (the cache's own array: read only)."""
+        return self._cached(index)[0]
+
+    def scaled_boxes(self, index: int) -> np.ndarray:
+        """The tile's boxes at img_scale, without the tile's f32 copy."""
+        return self._cached(index)[1].copy()
 
     def _affine(self, img, boxes, rng, **kw):
         a = self.aug
@@ -204,6 +238,7 @@ class CocoDetDataset:
         self._aug_calls += 1
         rng = np.random.default_rng((self._aug_calls * 2654435761 + index) % (2**31))
         a = self.aug
+        tail_flip = True
         if a.mosaic:
             img, boxes = self._mosaic_affine(index, rng)
             if rng.random() < a.mixup_prob:
@@ -218,6 +253,13 @@ class CocoDetDataset:
             # (max_aspect_ratio 100, as the reference's stage-2 pipeline)
             img, boxes = self._load_scaled(index)
             img, boxes = self._affine(img, boxes, rng, max_aspect_ratio=100.0)
+        elif a.lsj:
+            # the LSJ pipeline flips before its resize and crop, and not again
+            img, boxes = self._load_raw(index)
+            if rng.random() < a.flip_prob:
+                img, boxes = flip_horizontal(img, boxes)
+            img, boxes = lsj(img, boxes, rng, self.img_scale, ratio_range=a.lsj_ratio_range)
+            tail_flip = False
         else:
             img, boxes = self._load_scaled(index)
 
@@ -232,7 +274,7 @@ class CocoDetDataset:
             img = clahe(img)
         if a.hsv:
             img = hsv_jitter(img, rng, a.hue_delta, a.saturation_delta, a.value_delta)
-        if rng.random() < a.flip_prob:
+        if tail_flip and rng.random() < a.flip_prob:
             img, boxes = flip_horizontal(img, boxes)
         return {"image": (np.ascontiguousarray(img) / 255.0).astype(np.float32),
                 **self._targets(index, boxes)}

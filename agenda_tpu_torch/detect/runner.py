@@ -12,9 +12,14 @@ Counterpart of ``agenda_tpu/detect/runner.py``:
   one file serves both packages. ``load_variables`` returns the params and
   batch statistics, which is what prediction reads, as the JAX ``det_test``
   does; ``read_checkpoint`` returns the EMA too;
-- ``DetectorRunner.train``, the host-augmentation path of the JAX runner
-  (``:314-611, 641-676``): the port's ``DataLoader`` (one producer thread,
-  so the dataset sees the reference's order of calls) feeds one train step
+- ``DetectorRunner.train``, both paths of the JAX runner (``:314-676``).
+  On the host-augmentation path the port's ``DataLoader`` (one producer
+  thread, so the dataset sees the reference's order of calls) feeds the
+  batches; with ``device_aug`` (``_make_planner``; a recipe the planner
+  cannot express warns and takes the host path, ``aug_path`` says which
+  ran) the train set goes to the card once as uint8 and ``DeviceAugFeed``
+  renders each batch there from the host's plans (``detect/device_aug.py``),
+  serially or from ``PlanPrefetcher``'s workers. Either feeds one train step
   a batch (``make_train_step``: the train-mode forward and the v8 loss,
   autograd, ``optim.DetectorSGD``, the EMA with its ramp
   ``d = ema_decay (1 - exp(-(step + 1) / 2000))`` at the step before its
@@ -28,9 +33,10 @@ Counterpart of ``agenda_tpu/detect/runner.py``:
   count, epoch, step) each epoch on a writer thread; resume from
   ``latest`` (moments, epoch, step) or weights only from any other file.
   As in the reference's host path, a resumed run's data loader starts its
-  shuffle and the dataset its per-call seeds at 0 again. The reference's
-  ``--device-aug`` path, ``--pretrained`` weights, AdamW and layer decay
-  raise (ROADMAP.md §A);
+  shuffle and the dataset its per-call seeds at 0 again; the device path
+  keys its plans and batches on the true epoch, so a resumed run continues
+  them. ``--pretrained`` weights, AdamW and layer decay raise (ROADMAP.md
+  §A);
 - ``DetectorRunner._predict_batches``: one batch in flight. The host
   decodes batch i+1 while the card runs batch i; the tiles go up as uint8
   from pinned memory (non-blocking), are resized on the card (bilinear, two
@@ -63,6 +69,9 @@ from agenda_tpu_torch._device import resolve_device
 from agenda_tpu_torch.annotate.records import save_predictions
 from agenda_tpu_torch.data.device_resize import resize_levels, resize_weights
 from agenda_tpu_torch.detect.coco_eval import coco_map
+from agenda_tpu_torch.detect.device_aug import (PLAN_SEED, SELECTORS, AugPlanner, ConcatAugPlanner,
+                                                LSJPlanner, PlanPrefetcher, epoch_plans,
+                                                render_batch, render_lsj_batch)
 from agenda_tpu_torch.detect.optim import DetectorSGD, SGDState, global_norm
 from agenda_tpu_torch.detect.yolov8 import flax_to_state_dict, state_dict_to_flax
 from agenda_tpu_torch.io.safetensors_io import load_file, save_file
@@ -192,6 +201,104 @@ def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
+class DeviceAugFeed:
+    """The device-augmentation path's batches (the JAX runner's plan stream,
+    ``agenda_tpu/detect/runner.py:324-358, 495-544``).
+
+    The planner fills the train set's uint8 tensor on the host, and it goes
+    to the card once. Each epoch's plans come from ``workers`` processes
+    (epochs before ``stop_epoch``) or are made here as the batches are
+    taken, from
+    ``default_rng((seed + 1) * PLAN_SEED + epoch)`` over
+    ``loader.batches_for_epoch(epoch)``: keyed on the true epoch, so a
+    resumed run continues the same plans. A batch's plans go up from one of
+    two pinned staging buffers without waiting (``SELECTORS`` stay on the
+    host for the render), with the passthrough slab only when a sample uses
+    it (else zeros kept on the card), and are rendered before the step,
+    without autograd."""
+
+    def __init__(self, planner, n_tiles: int, batch_size: int, seed: int, max_gt: int,
+                 workers: int, stop_epoch: Optional[int], dev: torch.device):
+        from agenda_tpu_torch.data.datasets import DataLoader
+
+        self.planner, self.dev, self.max_gt = planner, dev, max_gt
+        self.seed_base = (seed + 1) * PLAN_SEED
+        # the batches' indices only: nothing augments images on the host
+        self.loader = DataLoader(range(n_tiles), batch_size, shuffle=True, seed=seed,
+                                 num_workers=0, pad_to_full=True)
+        # MedianBlur/CLAHE passthrough slots: about 2% of a batch; 64 covers
+        # a batch of 1024 at more than 6 sigma
+        self.slots = max(1, min(64, batch_size // 8))
+        tiles = planner.dataset_tensor()
+        self.data = torch.from_numpy(tiles).to(dev)
+        self.zero_scratch = torch.zeros((self.slots, planner.th, planner.tw, 3),
+                                        dtype=torch.float32, device=dev)
+        logger.info("device aug on: %d tiles (%.0f MB) resident in device memory",
+                    self.data.shape[0], self.data.nbytes / 1e6)
+        self.prefetcher = None
+        if workers > 0:  # its pool starts with the first epoch it prefetches
+            self.prefetcher = PlanPrefetcher(planner, self.loader.batches_for_epoch,
+                                             self.seed_base, max_gt, self.slots, workers, tiles,
+                                             stop_epoch=stop_epoch)
+        self._staged: List[Dict[str, torch.Tensor]] = [{}, {}]
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._slot = 0
+
+    def plans(self, epoch: int):
+        """(packed, scratch or None) of each batch of ``epoch``, in order."""
+        pre = self.prefetcher.epoch_batches(epoch) if self.prefetcher is not None else None
+        if pre is not None:
+            return pre
+        rng = np.random.default_rng(self.seed_base + epoch)
+        return epoch_plans(self.planner, self.loader.batches_for_epoch(epoch), rng,
+                           self.max_gt, self.slots)
+
+    def upload(self, packed: Dict[str, np.ndarray], scratch: Optional[np.ndarray]
+               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """-> (the plans as tensors, the scratch slab) on the card, the
+        selectors on the host."""
+        arrays = packed if scratch is None else {**packed, "scratch": scratch}
+        if self.dev.type != "cuda":
+            out = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        else:
+            slot, self._slot = self._slot, 1 - self._slot
+            if self._copied[slot] is not None:
+                self._copied[slot].synchronize()  # this slot's copies of two batches ago
+            bufs, out = self._staged[slot], {}
+            for k, v in arrays.items():
+                if k in SELECTORS:
+                    out[k] = torch.from_numpy(v)
+                    continue
+                buf = bufs.get(k)
+                if buf is None or buf.shape != v.shape:
+                    buf = bufs[k] = torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                                                pin_memory=True)
+                buf.numpy()[...] = v
+                out[k] = buf.to(self.dev, non_blocking=True)
+            self._copied[slot] = torch.cuda.Event()
+            self._copied[slot].record()
+        return out, out.pop("scratch", self.zero_scratch)
+
+    def render(self, plans: Dict[str, torch.Tensor], scratch: torch.Tensor) -> torch.Tensor:
+        p = self.planner
+        with torch.no_grad():
+            if "lsj_idx" in plans:
+                return render_lsj_batch(self.data, plans, (p.th, p.tw), (p.sh, p.sw))
+            return render_batch(self.data, scratch, plans, (p.th, p.tw), separable=p.separable)
+
+    def batches(self, epoch: int):
+        """The epoch's train batches on the card: image, gt_boxes, gt_valid."""
+        for packed, scratch in self.plans(epoch):
+            plans, slab = self.upload(packed, scratch)
+            yield {"image": self.render(plans, slab), "gt_boxes": plans["gt_boxes"],
+                   "gt_valid": plans["gt_valid"]}
+
+    def close(self) -> None:
+        if self.prefetcher is not None:
+            self.prefetcher.close()
+            self.prefetcher = None
+
+
 class DetectorRunner:
     def __init__(self, family, cfg: Optional[RunnerConfig] = None, device: Any = "cuda"):
         self.family = family
@@ -250,28 +357,55 @@ class DetectorRunner:
               pretrained: Optional[str] = None):
         from agenda_tpu_torch.data.datasets import DataLoader
         from agenda_tpu_torch.train.checkpoint import AsyncWriter
-        from agenda_tpu_torch.utils.profiling import StepTimer
 
         cfg, dev = self.cfg, self.device
         if pretrained:
             raise NotImplementedError(
                 "--pretrained (mmdet/mmyolo weights) is not ported yet: ROADMAP.md §A, the item "
                 "'Faster R-CNN, YOLOv5, ViTDet and io/torch_import.py'")
-        if cfg.device_aug:
-            raise NotImplementedError(
-                "--device-aug is not ported yet: ROADMAP.md §A, the item "
-                "'detect/device_aug.py'")
         global_bs = cfg.batch_size
-        loader = DataLoader(train_dataset, global_bs, shuffle=True, seed=cfg.seed,
-                            num_workers=1, pad_to_full=True)
         switch_epoch = cfg.max_epochs - cfg.close_mosaic_epochs \
             if cfg.close_mosaic_epochs > 0 else None
+        planner = feed = None
+        if cfg.device_aug:
+            planner, why = self._make_planner(train_dataset)
+            if planner is None:
+                logger.warning("device_aug requested but unsupported (%s); "
+                               "using the host aug pipeline", why)
+        self.aug_path = "host" if planner is None else "device"
+        if planner is None:
+            loader = DataLoader(train_dataset, global_bs, shuffle=True, seed=cfg.seed,
+                                num_workers=1, pad_to_full=True)
+
+            def epoch_batches(epoch):
+                return (batch_to_device(b, dev) for b in loader)
+        else:
+            feed = DeviceAugFeed(planner, len(train_dataset), global_bs, cfg.seed,
+                                 train_dataset.max_gt, cfg.device_aug_workers, switch_epoch, dev)
+            loader, epoch_batches = feed.loader, feed.batches
+        saver = AsyncWriter()
+        try:
+            return self._train_loop(train_dataset, val_dataset, resume, epoch_batches,
+                                    len(loader), switch_epoch, saver)
+        finally:
+            # the worker pool must not outlive a failed run, and the last
+            # checkpoint is complete before the caller goes on
+            if feed is not None:
+                feed.close()
+            saver.wait()
+
+    def _train_loop(self, train_dataset, val_dataset, resume, epoch_batches,
+                    steps_per_epoch: int, switch_epoch, saver):
+        from agenda_tpu_torch.utils.profiling import StepTimer
+
+        cfg, dev = self.cfg, self.device
+        global_bs = cfg.batch_size
         base_lr = cfg.lr
         if cfg.auto_scale_lr and cfg.base_batch_size:
             base_lr = cfg.lr * global_bs / cfg.base_batch_size
             logger.info("auto_scale_lr: lr %.2e -> %.2e (global_bs %d / base %d)",
                         cfg.lr, base_lr, global_bs, cfg.base_batch_size)
-        opt = DetectorSGD(cfg, len(loader), total_bs=global_bs, base_lr=base_lr)
+        opt = DetectorSGD(cfg, steps_per_epoch, total_bs=global_bs, base_lr=base_lr)
 
         variables = self.family.init_variables(torch.Generator().manual_seed(cfg.seed))
         resume_ema, sidecar, start_epoch, gstep = None, None, 0, 0
@@ -299,14 +433,13 @@ class DetectorRunner:
 
         best: Dict[str, float] = {k: -1.0 for k in cfg.save_best}
         timer = StepTimer()
-        saver = AsyncWriter()
         with open(os.path.join(cfg.output_dir, "metrics.jsonl"), "a") as metrics_log, \
                 full_f32(dev):
             for epoch in range(start_epoch, cfg.max_epochs):
                 if switch_epoch is not None and epoch >= switch_epoch:
                     self._apply_stage2_aug(train_dataset)
-                for batch in loader:
-                    metrics = train_step(state, batch_to_device(batch, dev), gstep)
+                for batch in epoch_batches(epoch):
+                    metrics = train_step(state, batch, gstep)
                     gstep += 1
                     if gstep % cfg.log_interval == 0 or gstep <= 2:
                         names = list(metrics)
@@ -340,7 +473,6 @@ class DetectorRunner:
                         _host(state.opt.trace), state.opt.count)
                 saver.submit(lambda snap=snap, epoch=epoch, gstep=gstep:
                              self._save_latest(*snap, epoch, gstep), name=f"latest-e{epoch}")
-        saver.wait()
         return state.variables(use_ema=cfg.ema_decay > 0)
 
     def _save_latest(self, variables, ema, trace, count: int, epoch: int, gstep: int) -> None:
@@ -351,6 +483,28 @@ class DetectorRunner:
         flat.update(count=torch.tensor(count), epoch=torch.tensor(epoch),
                     gstep=torch.tensor(gstep))
         save_file(flat, os.path.join(out, SIDECAR))
+
+    @staticmethod
+    def _make_planner(dataset):
+        """-> (planner or None, why not). Device aug needs each part's tile
+        cache; an LSJ recipe takes the LSJPlanner, which needs one dataset
+        whose tiles share one size."""
+        parts = getattr(dataset, "datasets", None)
+        for part in (parts or [dataset]):
+            aug = getattr(part, "aug", None)
+            if aug is None:
+                return None, "dataset has no aug recipe"
+            if aug.lsj:
+                if parts is not None:
+                    return None, "LSJ over a ConcatDataset"
+                if dataset.source_size() is None:
+                    return None, "LSJ needs a uniform source tile size"
+                return LSJPlanner(dataset), ""
+            if getattr(part, "_scaled_cache", None) is None:
+                return None, "tile cache disabled (AGENDA_TORCH_IMG_CACHE_MB)"
+        if parts is not None:
+            return ConcatAugPlanner(dataset), ""
+        return AugPlanner(dataset), ""
 
     def _apply_stage2_aug(self, dataset) -> None:
         """Switch a (possibly concatenated) train dataset to the stage-2

@@ -117,9 +117,27 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 device time by kernel group, the training loop's wall a step
                 (counted over the steps it ran, across epochs of the loader)
                 and the card's busy share of it, peak memory;
- 24. report  -- a `kernels` JSON line (six kernels; none is on the labelling
-                or the detector-training path), the card's name and power
-                limit, and last the device JSON line.
+ 24. render parity -- detect/device_aug.py's render_batch on the card
+                against the same code on the CPU at batch 192, 128 px over
+                the stacks: real_source's mix plans with passthrough samples
+                forced in, the separable and the gather form, a stage-2
+                batch; render_lsj_batch at 112 -> 128 px; the CPU tests'
+                limits; the render's ms a batch;
+ 25. device-aug training -- DetectorRunner.train with device_aug at batch
+                192 (the stacks) and 1024 (4096 fabricated tiles in two
+                parts, a 201 MB tensor), serial and with 4 plan workers: the
+                loop's s/step and images/s, the card's busy share, the
+                render's and the step's ms, the host's plan ms an image, the
+                plan upload ms, peak memory; aug_path "device", the step
+                count, finite losses; the workers' plans of an epoch equal
+                to the serial ones;
+ 26. device-aug CLI -- phase 22 with --device-aug --device-aug-workers 2:
+                the switch, validations, resume and det_test as there, and
+                both runs on the device path;
+ 27. report  -- a `kernels` JSON line (six kernels; none is on the labelling
+                or the detector-training path: the render is einsums and
+                elementwise PyTorch, as it is jnp in the reference), the
+                card's name and power limit, and last the device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. It imports nothing of JAX or agenda_tpu.
@@ -244,6 +262,19 @@ DET_STATS_TOL_RMS = 1e-4
 DET_UPDATE_TOL_RMS = 1e-2
 DET_EMA_TOL_RMS = 1e-2
 DET_TAL_MAX = 13  # anchors whose fg or assigned GT differ
+# device augmentation (phases 24-26): the render card vs CPU at batch 192 with
+# the CPU tests' limits (tests/test_torch_device_aug.py), levels: the mean
+# |d| and the share of values more than half a level apart (HSV's sector
+# can flip at a tie); LSJ within one level on at most LSJ_DIFF_SHARE of the
+# values (one of its two roundings can flip at .5); RENDER_FORCED
+# passthrough samples forced into the mix batch. Timing at the
+# synthetic_heatmap (192, the 512 stacks, 4 epochs of 3 steps) and
+# synthetic_target (1024, two parts of 2048 fabricated tiles: a 201 MB
+# tensor, 3 epochs of 4 steps) batches
+RENDER_MEAN_TOL, RENDER_FAR_SHARE, LSJ_DIFF_SHARE = 1e-3, 1e-4, 1e-3
+RENDER_SLOTS, RENDER_FORCED = 24, 4
+DEVICE_AUG_TILES = 4096
+DEVICE_AUG_TIMING = (("synthetic_heatmap", 192, 4), ("synthetic_target", 1024, 3))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2095,12 +2126,14 @@ class LogRecorder:
         self.logger.removeHandler(self.handler)
 
 
-def det_cli_phase(labels: dict, root: str, dev) -> dict:
-    """Phase 22: cli/det_train --preset synthetic_heatmap --detector yolov8 on
-    the card: 384 stacks, 64 to validate, batch 192, 12 epochs (mix recipe in
-    epochs 0-1, stage 2 from epoch 2, validation after epoch 1 and every
-    epoch from 2); det_test reads its latest.safetensors; a resume from it
-    with --max-epochs 13 starts at epoch 12, step 24."""
+def det_cli_phase(labels: dict, root: str, dev, extra=(), tag: str = "det-cli") -> dict:
+    """Phase 22 (and 26 with ``extra`` = the device-aug flags): cli/det_train
+    --preset synthetic_heatmap --detector yolov8 on the card: 384 stacks, 64
+    to validate, batch 192, 12 epochs (mix recipe in epochs 0-1, stage 2 from
+    epoch 2, validation after epoch 1 and every epoch from 2); det_test reads
+    its latest.safetensors; a resume from it with --max-epochs 13 starts at
+    epoch 12, step 24. With the device-aug flags both runs must log the
+    device path."""
     import math as _math
 
     import torch
@@ -2109,10 +2142,10 @@ def det_cli_phase(labels: dict, root: str, dev) -> dict:
     from agenda_tpu_torch.io.safetensors_io import load_file
 
     train_ann, val_ann = det_split(labels, root)
-    work = os.path.join(root, "det_cli")
+    work = os.path.join(root, tag)
     args = ["--preset", "synthetic_heatmap", "--detector", "yolov8", "--train-root", root,
             "--train-ann", train_ann, "--train-prefix", "", "--val-root", root, "--val-ann",
-            val_ann, "--val-prefix", "", "--work-dir", work, "--device", dev.type]
+            val_ann, "--val-prefix", "", "--work-dir", work, "--device", dev.type, *extra]
     steps_per_epoch = -(-DET_TRAIN_TILES // LABEL_BATCH)
     with LogRecorder() as log:
         t0 = time.perf_counter()
@@ -2137,15 +2170,17 @@ def det_cli_phase(labels: dict, root: str, dev) -> dict:
     for name in ("config.json", "latest.safetensors", "train_state_torch.safetensors",
                  "best_bbox_mAP.safetensors", "best_bbox_mAP_50.safetensors"):
         require(os.path.exists(os.path.join(work, name)), f"det_train wrote no {name}")
-    pred = os.path.join(root, "det_cli_pred.pkl")
+    pred = os.path.join(root, f"{tag}_pred.pkl")
     records = det_test.main(["--config", os.path.join(work, "config.json"), "--checkpoint",
                              os.path.join(work, "latest.safetensors"), "--test-root", root,
                              "--test-ann", val_ann, "--test-prefix", "", "--out", pred,
                              "--device", dev.type])
     side = load_file(os.path.join(work, "train_state_torch.safetensors"))
     resumed = [m for m in second if m.startswith("resumed optimizer/epoch state")]
-    print(f"[det-cli] cli/det_train {DET_EPOCHS} epochs of {steps_per_epoch} steps at batch "
-          f"{LABEL_BATCH} ({DET_TRAIN_TILES} stacks, {DET_VAL_TILES} to validate): "
+    paths = [sum(m.startswith("device aug on") for m in run) for run in (first, second)]
+    print(f"[{tag}] cli/det_train {' '.join(extra)} {DET_EPOCHS} epochs of {steps_per_epoch} "
+          f"steps at batch {LABEL_BATCH} ({DET_TRAIN_TILES} stacks, {DET_VAL_TILES} to validate; "
+          f"device-aug path logged by {paths} of the two runs): "
           f"{wall:.1f} s ({wall / n_steps:.3f} s a step with validation and checkpoints); "
           f"logged steps {[r['step'] for r in steps]}, losses "
           f"{[round(r['loss'], 3) for r in steps]}; validations after epochs {vals}; recipe "
@@ -2162,6 +2197,9 @@ def det_cli_phase(labels: dict, root: str, dev) -> dict:
     require(vals[:DET_EPOCHS - DET_SWITCH + 1] == list(range(1, DET_EPOCHS))
             and vals[-1] == DET_EPOCHS, f"validation epochs {vals}")
     require(len(records) == DET_VAL_TILES, f"det_test wrote {len(records)} records")
+    require(paths == ([1, 1] if extra else [0, 0])
+            and not any("unsupported" in m for m in first + second),
+            f"the augmentation path: device aug logged by {paths} of the runs")
     require(resumed == [f"resumed optimizer/epoch state: epoch {DET_EPOCHS}, step {n_steps}"]
             and int(side["epoch"]) == DET_EPOCHS
             and int(side["gstep"]) == n_steps + steps_per_epoch,
@@ -2262,6 +2300,243 @@ def det_timing(labels: dict, root: str, dev) -> dict:
               f"it; peak memory {peak / 2**30:.2f} GiB", flush=True)
         del st, tb, batch
         torch.cuda.empty_cache()
+    return out
+
+
+def plans_on(packed: dict, dev) -> dict:
+    """Packed plans as the runner hands them to the render: on ``dev``, the
+    tail selectors on the host."""
+    import torch
+
+    from agenda_tpu_torch.detect.device_aug import SELECTORS
+
+    return {k: torch.from_numpy(v) if k in SELECTORS else torch.from_numpy(v).to(dev)
+            for k, v in packed.items()}
+
+
+def events_ms(fn, n: int = 3) -> float:
+    """Mean ms of n warm calls of fn between two CUDA events (eager)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def render_parity(labels: dict, root: str, dev) -> dict:
+    """Phase 24: device_aug.render_batch on the card against the same code
+    on the CPU, at batch 192 and 128 px over the 512 stacks: real_source's mix
+    plans with passthrough samples forced in, separable and gather forms;
+    a stage-2 batch; then render_lsj_batch over the stacks at 112 -> 128 px.
+    The CPU tests' limits; the render's ms a batch (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.detect.augment import lsj_aug, stage2_aug
+    from agenda_tpu_torch.detect.dataset import CocoDetDataset
+    from agenda_tpu_torch.detect.device_aug import (AugPlanner, LSJPlanner, render_batch,
+                                                    render_lsj_batch)
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    ds = det_preset(root, labels["all"], "real_source").build_train_dataset()
+    planner = AugPlanner(ds)
+    tiles = planner.dataset_tensor()
+    data = {d: torch.from_numpy(tiles).to(d) for d in (cpu, dev)}
+    rng = np.random.default_rng(24)
+    idx = rng.integers(0, len(ds), LABEL_BATCH)
+    out = {}
+    for recipe in ("mix", "stage2"):
+        if recipe == "stage2":
+            ds.aug = stage2_aug(ds.aug)
+        packed, scratch, plans = planner.plan_batch(idx, rng, ds.max_gt, RENDER_SLOTS)
+        if recipe == "mix":  # passthrough samples forced in, past the drawn ones
+            forced = [i for i in range(RENDER_FORCED) if packed["pass_slot"][i] < 0]
+            used = int((packed["pass_slot"] >= 0).sum())
+            packed["pass_slot"][forced] = used + np.arange(len(forced))
+            scratch[used:used + len(forced)] = [planner.render_host(plans[i]) for i in forced]
+        slab = {d: torch.from_numpy(scratch).to(d) for d in (cpu, dev)}
+        for separable in (True, False):
+            def run(d, separable=separable):
+                return render_batch(data[d], slab[d], plans_on(packed, d), (LABEL_IMG, LABEL_IMG),
+                                    separable=separable)
+            got, want = run(dev).cpu() * 255.0, run(cpu) * 255.0
+            diff = (got - want).abs()
+            ms = events_ms(lambda: run(dev))
+            name = f"{recipe} {'separable' if separable else 'gather'}"
+            out[name] = {"mean": float(diff.mean()), "far": float((diff > 0.5).float().mean()),
+                         "max": float(diff.max()), "ms": ms}
+            require(bool(torch.isfinite(got).all()) and out[name]["mean"] <= RENDER_MEAN_TOL
+                    and out[name]["far"] <= RENDER_FAR_SHARE,
+                    f"render_batch ({name}) differs on the card: {out[name]}")
+        if recipe == "mix":
+            n_mix, n_pass = int((packed["mix"] > 0).sum()), int((packed["pass_slot"] >= 0).sum())
+    lds = CocoDetDataset(root, labels["all"], "", img_scale=(LABEL_IMG, LABEL_IMG), train=True,
+                         aug=lsj_aug())
+    lsj = LSJPlanner(lds)
+    raw = lsj.dataset_tensor()
+    packed, _, _ = lsj.plan_batch(idx, rng, lds.max_gt, 1)
+
+    def run_lsj(d):
+        return render_lsj_batch(torch.from_numpy(raw).to(d), plans_on(packed, d),
+                                (LABEL_IMG, LABEL_IMG), (lsj.sh, lsj.sw))
+
+    def levels(x):  # LSJ's output is whole levels / 255 (the card divides by a reciprocal)
+        return torch.round(x.cpu() * 255.0)
+    diff = (levels(run_lsj(dev)) - levels(run_lsj(cpu))).abs()
+    out["lsj"] = {"max": float(diff.max()), "share": float((diff > 0).float().mean()),
+                  "ms": events_ms(lambda: run_lsj(dev))}
+    print(f"[render-parity] batch {LABEL_BATCH} at {LABEL_IMG} px, card against the CPU, levels "
+          f"({n_mix} mixed and {n_pass} passthrough samples in the mix batch; limits: mean "
+          f"{RENDER_MEAN_TOL}, share > 0.5 {RENDER_FAR_SHARE}; LSJ max 1, share "
+          f"{LSJ_DIFF_SHARE}): " + "; ".join(
+              f"{k}: " + ", ".join(f"{m} {v:.3g}" for m, v in r.items()) for k, r in out.items())
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    require(n_mix > 0 and n_pass >= RENDER_FORCED, "the mix batch lacks mixed or passthrough samples")
+    require(out["lsj"]["max"] <= 1.0 and out["lsj"]["share"] <= LSJ_DIFF_SHARE,
+            f"render_lsj_batch differs on the card: {out['lsj']}")
+    return out
+
+
+def device_aug_timing(labels: dict, root: str, dev) -> dict:
+    """Phase 25: YOLOv8n training through DetectorRunner.train with
+    device_aug at batch 192 (synthetic_heatmap, the 512 stacks) and 1024
+    (synthetic_target, two fabricated parts of 2048 tiles), each serial and
+    with 4 plan workers: the loop's s/step from the first step of epoch 1 to
+    the run's end (host clock; the last checkpoint's write included), the
+    card's busy share of it (one profiled render + step), the render's and
+    the step's ms (CUDA events), the host's plan ms an image, the plan upload
+    ms (warm: the copy into a pinned slot and up), peak memory, the dataset
+    tensor's MB; the workers' plans of one epoch (at 192) equal to the
+    serial ones."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.detect.configs import DatasetSpec, preset
+    from agenda_tpu_torch.detect.device_aug import PlanPrefetcher, epoch_plans
+    from agenda_tpu_torch.detect.fabricate import write_square_set
+    from agenda_tpu_torch.detect.optim import DetectorSGD
+    from agenda_tpu_torch.detect.runner import (DetectorRunner, DeviceAugFeed, full_f32,
+                                                load_variables)
+
+    state = load_variables(labels["ckpts"]["yolov8"][1])
+    parts = []
+    for k in range(2):
+        part = os.path.join(root, f"square_{k}")
+        write_square_set(part, DEVICE_AUG_TILES // 2, seed=40 + k)
+        parts.append(DatasetSpec(part, "ann.json"))
+    out = {}
+    for stage, bs, epochs in DEVICE_AUG_TIMING:
+        specs = parts if stage == "synthetic_target" else [DatasetSpec(root, labels["all"], "")]
+        cfg = preset(stage, "yolov8", specs, output_dir=os.path.join(root, f"devaug_{bs}"))
+        require(cfg.runner.batch_size == bs, f"the {stage} preset's batch")
+        cfg.runner.max_epochs, cfg.runner.close_mosaic_epochs = epochs, 0
+        cfg.runner.log_interval, cfg.runner.device_aug = 10 ** 6, True
+        ds = cfg.build_train_dataset()
+        planner, why = DetectorRunner._make_planner(ds)
+        require(planner is not None, f"no planner for {stage}: {why}")
+        t0 = time.perf_counter()
+        feed = DeviceAugFeed(planner, len(ds), bs, cfg.runner.seed, ds.max_gt, 0, None, dev)
+        fill_s = time.perf_counter() - t0
+        steps_per_epoch = len(feed.loader)
+        batches = feed.loader.batches_for_epoch(0)
+        t0 = time.perf_counter()
+        packed, scratch, _ = planner.plan_batch(batches[0], np.random.default_rng(0), ds.max_gt,
+                                                feed.slots)
+        plan_ms = (time.perf_counter() - t0) * 1e3 / bs
+        for _ in range(2):  # each staging slot allocates its pinned buffers once
+            feed.upload(packed, scratch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans, slab = feed.upload(packed, scratch)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        fam = cfg.build_family()
+        runner = DetectorRunner(fam, cfg.runner, device=dev)
+        opt = DetectorSGD(cfg.runner, steps_per_epoch=steps_per_epoch, total_bs=bs)
+        st = runner.init_train_state(opt, state)
+        step = runner.make_train_step(opt)
+        with full_f32(dev):
+            image = feed.render(plans, slab)
+            batch = {"image": image, "gt_boxes": plans["gt_boxes"], "gt_valid": plans["gt_valid"]}
+            render_ms = events_ms(lambda: feed.render(plans, slab))
+            step_ms = events_ms(lambda: step(st, batch, 1))
+            busy_ms, _ = profile_run(lambda: (step(st, {**batch, "image": feed.render(plans, slab)},
+                                                   1), torch.cuda.synchronize()),
+                                     "devaug-profile", f"render + YOLOv8n train step at batch {bs}",
+                                     (render_ms + step_ms) / 1e3, DET_KERNEL_GROUPS)
+        mb = feed.data.nbytes / 1e6
+        index_loader, seed_base, slots = feed.loader, feed.seed_base, feed.slots
+        feed.close()
+        del st, batch, image, plans, slab, feed
+        torch.cuda.empty_cache()
+        if bs == DEVICE_AUG_TIMING[0][1]:  # the workers' plans of epoch 0 against the serial
+            t0 = time.perf_counter()
+            pre = PlanPrefetcher(planner, index_loader.batches_for_epoch, seed_base, ds.max_gt,
+                                 slots, 4, planner.dataset_tensor(), stop_epoch=1)
+            try:
+                prefetched = pre.epoch_batches(0)
+            finally:
+                pre.close()
+            pool_s = time.perf_counter() - t0
+            serial = list(epoch_plans(planner, batches, np.random.default_rng(seed_base),
+                                      ds.max_gt, slots))
+            same = len(prefetched) == len(serial) == steps_per_epoch and all(
+                all(np.array_equal(a[k], b[k]) for k in a) and (s is None) == (t is None)
+                and (s is None or np.array_equal(s, t))
+                for (a, s), (b, t) in zip(serial, prefetched))
+            print(f"[devaug] batch {bs}: 4 workers planned epoch 0 ({len(prefetched)} batches) in "
+                  f"{pool_s:.1f} s with the pool's start; equal to the serial plans: {same}",
+                  flush=True)
+            require(same, "the workers' plans differ from the serial ones")
+        for workers in (0, 4):
+            cfg.runner.device_aug_workers = workers
+            runner = DetectorRunner(cfg.build_family(), cfg.runner, device=dev)
+            times = []
+            make = DetectorRunner.make_train_step
+
+            def timed_make(self, opt, make=make, times=times):
+                inner = make(self, opt)
+
+                def timed(*a):
+                    times.append(time.perf_counter())
+                    return inner(*a)
+                return timed
+            torch.cuda.reset_peak_memory_stats()
+            os.makedirs(cfg.runner.output_dir, exist_ok=True)
+            t0 = time.perf_counter()
+            with mock.patch.object(DetectorRunner, "make_train_step", timed_make):
+                runner.train(ds)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated()
+            with open(os.path.join(cfg.runner.output_dir, "metrics.jsonl")) as f:
+                losses = [json.loads(line)["loss"] for line in f]
+            shutil.rmtree(cfg.runner.output_dir)
+            n = len(times)
+            loop = (end - times[steps_per_epoch]) / (n - steps_per_epoch)
+            r = {"loop_s": loop, "images_per_s": bs / loop, "busy": busy_ms / (1e3 * loop),
+                 "render_ms": render_ms, "step_ms": step_ms, "busy_ms": busy_ms,
+                 "plan_ms": plan_ms, "upload_ms": upload_ms, "peak": peak, "mb": mb,
+                 "start_s": times[0] - t0, "fill_s": fill_s}
+            out[(bs, workers)] = r
+            print(f"[devaug] {stage}, batch {bs}, {workers} plan workers: {n} steps in {epochs} "
+                  f"epochs of {steps_per_epoch}; the loop {loop:.4f} s a step from epoch 1 "
+                  f"({bs / loop:.1f} images/s), card busy {100 * r['busy']:.1f}% of it "
+                  f"({busy_ms:.2f} ms a render + step profiled); render {render_ms:.2f} ms, "
+                  f"step {step_ms:.2f} ms (events); host plans {plan_ms:.3f} ms an image; plan "
+                  f"upload {upload_ms:.2f} ms a batch; dataset tensor {mb:.0f} MB (host fill and "
+                  f"upload {fill_s:.1f} s), first step {r['start_s']:.1f} s after train() began; "
+                  f"peak {peak / 2**30:.2f} GiB; aug_path {runner.aug_path}; losses "
+                  f"{[round(v, 3) for v in losses]}", flush=True)
+            require(runner.aug_path == "device", f"the run took the {runner.aug_path} path")
+            require(n == epochs * steps_per_epoch, f"{n} steps, not {epochs * steps_per_epoch}")
+            require(all(math.isfinite(v) for v in losses), "a loss is not finite")
     return out
 
 
@@ -2464,6 +2739,14 @@ def main() -> int:
         det_time = det_timing(labels, label_root, dev)
         phase_s["detector training (21-23)"] = time.perf_counter() - t_phase
 
+        # 24-26. device augmentation: the render card vs CPU, the loop, the CLI
+        t_phase = time.perf_counter()
+        render = render_parity(labels, label_root, dev)
+        devaug = device_aug_timing(labels, label_root, dev)
+        det_cli_phase(labels, label_root, dev, ("--device-aug", "--device-aug-workers", "2"),
+                      "devaug-cli")
+        phase_s["device augmentation (24-26)"] = time.perf_counter() - t_phase
+
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
                   "agenda_tpu/kernels/flash.py:55", flash, launches["flash_attention_fwd"]),
@@ -2512,6 +2795,20 @@ def main() -> int:
               f"{100 * t['busy']:.1f}%); host augmentation {t['aug_ms']['mix']:.2f} / "
               f"{t['aug_ms']['stage2']:.2f} ms an image (mix / stage 2); host-to-device "
               f"{t['h2d_ms']:.2f} ms a batch; peak {t['peak'] / 2**30:.2f} GiB", flush=True)
+    for (bs, workers), t in devaug.items():
+        host = det_time[bs]
+        print(f"[report] YOLOv8n training at batch {bs} with device augmentation, {workers} plan "
+              f"workers: the loop {t['loop_s']:.4f} s a step ({t['images_per_s']:.1f} images/s, "
+              f"card busy {100 * t['busy']:.1f}%) against the host augmentation's "
+              f"{host['loop_s']:.3f} s ({host['loop_images_per_s']:.1f} images/s, busy "
+              f"{100 * host['busy']:.1f}%); render {t['render_ms']:.2f} ms, step "
+              f"{t['step_ms']:.2f} ms; plans {t['plan_ms']:.3f} ms an image, upload "
+              f"{t['upload_ms']:.2f} ms a batch; tensor {t['mb']:.0f} MB; peak "
+              f"{t['peak'] / 2**30:.2f} GiB", flush=True)
+    print(f"[report] render card vs CPU at batch {LABEL_BATCH}: " + "; ".join(
+        f"{k} mean {r['mean']:.2e} ({r['ms']:.2f} ms)" for k, r in render.items() if k != "lsj")
+        + f"; LSJ max {render['lsj']['max']:.0f}, share {render['lsj']['share']:.1e} "
+        f"({render['lsj']['ms']:.2f} ms)", flush=True)
     print(f"[report] detector train step card vs CPU: gradients "
           f"{det_parity['sound']['grads'][0]:.3e} of their rms (TF32 control "
           f"{det_parity['tf32']['grads'][0]:.3e}); det_train CLI "

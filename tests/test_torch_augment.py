@@ -20,7 +20,7 @@ share of differing pixels is reported:
   with YOLOv5MixUp), a mix recipe with every photometric op likely, the
   stage-2 recipe and the plain one, over several indices and two epochs of
   calls, and a ``ConcatDataset``: equal GT and ``gt_valid``, images within
-  one level.
+  one level; the LSJ recipe's train items (112-px tiles to 128 px) likewise.
 """
 
 import dataclasses
@@ -260,10 +260,19 @@ def test_concat_dataset_matches_jax(tile_sets):
 
 
 def test_eval_items_and_the_lsj_refusal(tile_sets):
+    """The eval items, and the LSJ train items (the recipe once refused):
+    the flip before the resize, Pillow's resize, the crop and the pad."""
     root = tile_sets[0]
     jds = JaxDataset(root, "ann.json", img_scale=(64, 64), max_gt=8, train=False)
     ds = CocoDetDataset(root, "ann.json", img_scale=(64, 64), max_gt=8, train=False)
     worst, _ = _compare_items(ds, jds, range(len(ds)))
     assert worst == 0.0  # the same host resize
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CocoDetDataset(root, "ann.json", train=True, aug=pa.AugConfig(lsj=True))
+    assert dataclasses.asdict(pa.lsj_aug()) == dataclasses.asdict(ja.lsj_aug())
+    jds = JaxDataset(root, "ann.json", img_scale=(128, 128), max_gt=8, train=True,
+                     aug=ja.lsj_aug())
+    ds = CocoDetDataset(root, "ann.json", img_scale=(128, 128), max_gt=8, train=True,
+                        aug=pa.lsj_aug())
+    worst, share = _compare_items(ds, jds, [3, 0, 7, 9, 5, 3] * 2)
+    print(f"lsj: max |d| {worst:.2e} levels, {100 * share:.2f}% of pixels differ")
+    assert worst <= LEVEL_TOL
+    assert ds._aug_calls == jds._aug_calls == 12

@@ -333,11 +333,20 @@ def test_eval_dataset_and_resize_match_jax(tmp_path):
         assert np.abs(gb["image"] * 255 - ga["image"] * 255).max() <= 1.0 + 1e-3
         for k in ("gt_boxes", "gt_valid", "image_id", "scale_back"):
             np.testing.assert_array_equal(gb[k], ga[k], err_msg=k)
-    # training is ported; its LSJ recipe (the ViTDet stage) is not
-    from agenda_tpu_torch.detect.augment import AugConfig
+    # training is ported, its LSJ recipe (the ViTDet stage) too: LSJ's train
+    # items on these tiles of three sizes against the JAX package's
+    from agenda_tpu.detect.augment import lsj_aug as jax_lsj_aug
+    from agenda_tpu_torch.detect.augment import lsj_aug
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CocoDetDataset(root, "ann.json", train=True, aug=AugConfig(lsj=True))
+    jtrain = JaxDataset(root, "ann.json", img_scale=(128, 128), max_gt=8, train=True,
+                        aug=jax_lsj_aug())
+    train = CocoDetDataset(root, "ann.json", img_scale=(128, 128), max_gt=8, train=True,
+                           aug=lsj_aug())
+    for i in (0, 3, 4, 3):
+        ga, gb = jtrain[i], train[i]
+        np.testing.assert_array_equal(gb["gt_valid"], ga["gt_valid"])
+        assert np.abs(gb["gt_boxes"] - ga["gt_boxes"]).max() <= 1e-5
+        assert np.abs(gb["image"] * 255 - ga["image"] * 255).max() <= 1.0
 
     # the uniform path: JAX's predict_u8 resize, exactly
     np.testing.assert_array_equal(resize_weights(112, 128, "bilinear"),
