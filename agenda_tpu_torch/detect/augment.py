@@ -21,8 +21,10 @@ median in a native library. The machine that runs the port has neither, so:
   neighbours clamped to the edge, the lerps in double, then truncation to
   8 bits;
 - ``resize_bilinear_pil`` is Pillow's 8-bit ``Image.resize(BILINEAR)``
-  (the mixup and LSJ resizes): its filter coefficients in 22-bit fixed
-  point, horizontal pass then vertical, each rounded half up to a level;
+  (the mixup and LSJ resizes), and ``resize_pil`` that or its BICUBIC over
+  a batch of images (the refine classifier's crops): the filter
+  coefficients in 22-bit fixed point, horizontal pass then vertical, each
+  rounded half up to a level;
 - ``hsv_apply`` and ``median_blur_k`` are the numpy formulas the reference
   keeps beside its native calls (``agenda_tpu/detect/augment.py:144-153,
   203-210``).
@@ -31,6 +33,7 @@ median in a native library. The machine that runs the port has neither, so:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -296,12 +299,33 @@ def warp_affine_u8(img: np.ndarray, inv: np.ndarray, out_size: Tuple[int, int],
     return out
 
 
-def _pil_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Pillow's bilinear filter as (starts (out,), int64 coefficients (out, ksize))
-    in 22-bit fixed point (``precompute_coeffs`` + ``normalize_coeffs_8bpc``)."""
+def _triangle(x: float) -> float:
+    return max(0.0, 1.0 - abs(x))
+
+
+def _keys_cubic(x: float) -> float:
+    """Pillow's ``bicubic_filter`` (a = -0.5), in its order of operations."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+_PIL_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_keys_cubic, 2.0)}
+
+
+def _pil_coeffs(in_size: int, out_size: int,
+                filt: str = "bilinear") -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``filt`` filter (bilinear or bicubic) as (starts (out,), int64
+    coefficients (out, ksize)) in 22-bit fixed point (``precompute_coeffs`` +
+    ``normalize_coeffs_8bpc``: each coefficient rounded half away from 0)."""
+    fn, filter_support = _PIL_FILTERS[filt]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     starts = np.zeros(out_size, np.int64)
@@ -310,37 +334,64 @@ def _pil_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         n = min(int(center + support + 0.5), in_size) - xmin
-        ws = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(n)]
+        ws = [fn((x + xmin - center + 0.5) * ss) for x in range(n)]
         total = 0.0
         for v in ws:
             total += v
         for x, v in enumerate(ws):
             k = v / total if total != 0.0 else v
-            kk[xx, x] = int(0.5 + k * (1 << _PREC))  # k >= 0: the triangle filter
+            kk[xx, x] = int(-0.5 + k * (1 << _PREC)) if k < 0 else int(0.5 + k * (1 << _PREC))
         starts[xx] = xmin
     return starts, kk
 
 
-def _pil_pass(x: np.ndarray, in_size: int, out_size: int, axis: int) -> np.ndarray:
-    starts, kk = _pil_coeffs(in_size, out_size)
-    idx = np.minimum(starts[:, None] + np.arange(kk.shape[1])[None, :], in_size - 1)
-    if axis == 1:
-        acc = (x[:, idx, :] * kk[None, :, :, None]).sum(2)
-    else:
-        acc = (x[idx, :, :] * kk[:, :, None, None]).sum(1)
-    return np.clip((acc + (1 << (_PREC - 1))) >> _PREC, 0, 255)
+@functools.lru_cache(maxsize=256)
+def _pil_matrix(in_size: int, out_size: int, filt: str) -> np.ndarray:
+    """``_pil_coeffs`` as a dense (in_size, out_size) float64 matrix (read-only:
+    the cache shares it)."""
+    starts, kk = _pil_coeffs(in_size, out_size, filt)
+    rows = starts[:, None] + np.arange(kk.shape[1])[None, :]
+    cols = np.broadcast_to(np.arange(out_size)[:, None], rows.shape)
+    used = kk != 0
+    mat = np.zeros((in_size, out_size), np.float64)
+    mat[rows[used], cols[used]] = kk[used]
+    mat.flags.writeable = False
+    return mat
+
+
+def _pil_pass(x: np.ndarray, in_size: int, out_size: int, axis: int,
+              filt: str = "bilinear") -> np.ndarray:
+    """One of Pillow's passes along ``axis`` of ``x`` (integer levels, any
+    dtype), rounded and clipped to [0, 255], as float64. The taps run as one
+    float64 matrix product: every product and partial sum is an integer
+    below 2^53, so the sums are exact in any order, and the rounding
+    ``(acc + 2^21) >> 22`` is exact as a floor of a power-of-two scaling."""
+    xm = np.moveaxis(x, axis, -1)
+    acc = xm.reshape(-1, in_size).astype(np.float64) @ _pil_matrix(in_size, out_size, filt)
+    acc += float(1 << (_PREC - 1))
+    acc *= 1.0 / (1 << _PREC)
+    np.floor(acc, out=acc)
+    np.clip(acc, 0.0, 255.0, out=acc)
+    return np.moveaxis(acc.reshape(xm.shape[:-1] + (out_size,)), -1, axis)
+
+
+def resize_pil(img: np.ndarray, out_w: int, out_h: int, filt: str = "bilinear") -> np.ndarray:
+    """uint8 (..., h, w, 3) -> uint8 (..., out_h, out_w, 3), as Pillow's
+    ``Image.resize((out_w, out_h), filt)`` on each 8-bit RGB image
+    (``filt`` "bilinear" or "bicubic", Pillow's default)."""
+    h, w = img.shape[-3:-1]
+    x = img
+    if out_w != w:
+        x = _pil_pass(x, w, out_w, x.ndim - 2, filt)
+    if out_h != h:
+        x = _pil_pass(x, h, out_h, x.ndim - 3, filt)
+    return x.astype(np.uint8)
 
 
 def resize_bilinear_pil(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     """uint8 (h, w, 3) -> uint8 (out_h, out_w, 3), as Pillow's
     ``Image.resize((out_w, out_h), BILINEAR)`` on an 8-bit RGB image."""
-    h, w = img.shape[:2]
-    x = img.astype(np.int64)
-    if out_w != w:
-        x = _pil_pass(x, w, out_w, 1)
-    if out_h != h:
-        x = _pil_pass(x, h, out_h, 0)
-    return x.astype(np.uint8)
+    return resize_pil(img, out_w, out_h, "bilinear")
 
 
 def _to_u8(img: np.ndarray) -> np.ndarray:

@@ -36,6 +36,7 @@ from torch import nn
 from agenda_tpu_torch.detect.assign import task_aligned_assign
 from agenda_tpu_torch.detect.losses import bce_with_logits, ciou, dfl_loss
 from agenda_tpu_torch.detect.ops import anchor_points, nms_images
+from agenda_tpu_torch.models.batch_norm import batch_norm_train
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,20 +62,6 @@ class YOLOv8Config:
 
 
 BN_EPS = 1e-3
-
-
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """flax ``nn.BatchNorm`` in train mode over NCHW ``x``: normalise with the
-    batch mean and biased variance, and move ``bn``'s running statistics to
-    ``(1 - m) old + m batch`` with the biased variance, m = ``bn.momentum``
-    (0.03, torch's convention for flax's momentum 0.97)."""
-    y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, BN_EPS)
-    m = bn.momentum
-    with torch.no_grad():
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
-    return y
 
 
 class ConvBNAct(nn.Module):

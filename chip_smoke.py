@@ -134,10 +134,36 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
  26. device-aug CLI -- phase 22 with --device-aug --device-aug-workers 2:
                 the switch, validations, resume and det_test as there, and
                 both runs on the device path;
- 27. report  -- a `kernels` JSON line (six kernels; none is on the labelling
-                or the detector-training path: the render is einsums and
-                elementwise PyTorch, as it is jnp in the reference), the
-                card's name and power limit, and last the device JSON line.
+ 27. refine parity -- ResNet-50 at 224 px from the refine CLI's fresh init:
+                one train step at batch 32 (28 real rows padded) on the card
+                (f32, TF32 off) and on the CPU: the loss, every gradient,
+                the new running statistics and the Adam update, each within
+                its limit; the same step with TF32 on, the control, beyond
+                each; the gradients in float64 on both sides; eval logits at
+                batch 64; a bf16 step (the CLI's default on the card) finite;
+ 28. refine_label -- cli/refine_label on the card over 400 fabricated
+                112x112 tiles with 10 detections each (every bucket), batch
+                256 / 512, crop 224, 2 epochs: both checkpoints load back,
+                the refined COCO is sorted, re-id'd and holds every label-1
+                crop and the kept ones;
+ 29. refine timing -- warm s/step at batch 256 (bf16 and f32, peak memory),
+                predict images/s at batch 512, the CLI's loop a step over an
+                epoch and the card's busy share of it; on the host the crop
+                and resize ms a crop and the gather + upload ms a batch;
+ 30. the chain -- the port's cli/pipeline --device cuda through all 21 stages
+                (SD-1.4's layout cut to two levels of 128 and 256 channels,
+                fabricated real sets): up to label_synthetic_target, a rerun
+                that skips every stage, the target predictions doctored to
+                fill the refine buckets, then --from-stage refine; every
+                stage's marker and manifest line, K1-K6 launched by the stages
+                that run them and by no other, one final record per target
+                image, each stage's wall time;
+ 31. report  -- a `kernels` JSON line (six kernels; none is on the labelling,
+                detector-training, refine or orchestrator path: the render
+                is einsums and elementwise PyTorch, as it is jnp in the
+                reference, ResNet-50 is cuDNN and ATen as it is flax without
+                Pallas there), the card's name and power limit, and last the
+                device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. It imports nothing of JAX or agenda_tpu.
@@ -2540,6 +2566,506 @@ def device_aug_timing(labels: dict, root: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the refine classifier and the chain (phases 27-30)
+# ---------------------------------------------------------------------------
+
+# ResNet-50 at the recipe's 224 px and batches (train 256, test 512); crops
+# from fabricated 112x112 target tiles, REFINE_DETS detections a tile with
+# scores spread over every bucket
+REFINE_CROP, REFINE_TRAIN_BATCH, REFINE_TEST_BATCH, REFINE_LR = 224, 256, 512, 4e-4
+REFINE_TILES, REFINE_DETS, REFINE_EPOCHS = 400, 10, 2
+REFINE_PARITY_BATCH, REFINE_PARITY_REAL, REFINE_PREDICT_BATCH = 32, 28, 64
+REFINE_TIMING_ROWS = 4 * REFINE_TRAIN_BATCH
+# One train step card vs CPU, both f32 (TF32 off), from the CLI's fresh init
+# with REFINE_PARITY_REAL real rows padded to 32. A fresh ResNet-50 in train
+# mode is chaotic: its f32 gradients on the CPU lie up to 2.8e-2 (relative
+# L2, per tensor) from its own float64 ones at 224 px (batch 8), its new
+# running statistics 4.6e-4 of their move, and 0.55% of the Adam update's
+# elements more than 0.01 lr apart (ReLU and max-pool gates near 0 flip). The
+# limits sit a few times above that; TF32 (2^-11 per product, four orders
+# above f32) is the control and must fail each. In float64 on both sides
+# the gradients agree to REFINE_GRAD64_TOL. Eval logits (batch 64, no train
+# mode) within REFINE_LOGIT_TOL_RMS of their rms.
+REFINE_LOSS_RTOL = 1e-5
+REFINE_GRAD_TOL_L2 = 0.1  # per tensor, ||d|| / ||CPU||
+REFINE_GRAD64_TOL = 1e-6  # the same, float64 on both sides
+REFINE_STATS_TOL = 5e-3  # running statistics, max |d| / rms(their move)
+REFINE_UPDATE_SHARE = 0.03  # Adam update elements more than 0.01 lr apart
+REFINE_LOGIT_TOL_RMS = 1e-3
+# the chain (phase 30): SD-1.4's layout cut to two UNet and VAE levels of
+# 128 and 256 channels (the VAE's own group sizes 4 and 8, flash head dims 64
+# and 128), CLIP at width 64; the CPU test's extra_args, plus the int8 AdamW
+# in finetune_sd (with EMA: K5) and token_stage2 (K4)
+CHAIN_ARGS = {
+    "finetune_sd": ["--train_batch_size", "1", "--checkpointing_steps", "100",
+                    "--report_to", "jsonl", "--use_8bit_adam", "--use_ema"],
+    "token_stage1": ["--train_batch_size", "1", "--checkpointing_steps", "100",
+                     "--report_to", "jsonl"],
+    "token_stage2": ["--train_batch_size", "1", "--checkpointing_steps", "100",
+                     "--report_to", "jsonl", "--use_8bit_adam"],
+    "generate_source": ["--batch-size", "4", "--num-inference-steps", "2"],
+    "generate_target": ["--batch-size", "4", "--num-inference-steps", "2"],
+    "generate_target_nocars": ["--batch-size", "4", "--num-inference-steps", "2"],
+    "det_real_source": ["--max-epochs", "1", "--batch-size", "4"],
+    "det_synthetic_heatmap": ["--max-epochs", "1", "--batch-size", "4"],
+    "det_synthetic_target": ["--max-epochs", "1", "--batch-size", "4"],
+    "refine": ["--num_epochs", "1", "--train_batch_size", "8", "--test_batch_size", "8"],
+}
+CHAIN_REAL_TILES = 8
+# the kernels each stage must launch (every other stage launches none)
+CHAIN_KERNELS = {
+    "finetune_sd": ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                    "fused_adamw8bit_ema", "group_norm_act"),
+    "token_stage1": ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                     "group_norm_act"),
+    "token_stage2": ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                     "fused_adamw8bit", "group_norm_act"),
+    "generate_source": ("flash_attention_fwd", "group_norm_act"),
+    "generate_target": ("flash_attention_fwd", "group_norm_act"),
+    "generate_target_nocars": ("flash_attention_fwd", "group_norm_act"),
+}
+
+
+def refine_step_on(dev, state_dict, images, labels, mask, mode: str = "f32") -> dict:
+    """One classifier train step (annotate/classifier.py, Adam at the
+    recipe's lr) from ``state_dict`` on ``dev``: mode f32 (TF32 off), tf32
+    (the control), f64 or bf16 (autocast, the card's default). -> the loss,
+    the gradients (Adam's first moment / 0.1), the new running statistics,
+    the parameters after the update and before it."""
+    import torch
+
+    from agenda_tpu_torch.annotate.classifier import make_adam, make_classifier_train_step
+    from agenda_tpu_torch.models.resnet import ResNet50
+
+    dtype = {"f32": torch.float32, "tf32": torch.float32, "f64": torch.float64,
+             "bf16": torch.bfloat16}[mode]
+    model = ResNet50(num_classes=1)
+    model.load_state_dict(state_dict)
+    model = model.to(dev, torch.float64 if mode == "f64" else torch.float32)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tx = make_adam(REFINE_LR)
+    opt_state = tx.init(dict(model.named_parameters()))
+    step = make_classifier_train_step(model, tx, dtype)
+    x_dtype = torch.float64 if mode == "f64" else torch.float32
+    args = (images.to(dev, x_dtype), labels.to(dev, x_dtype), mask.to(dev, x_dtype))
+    with tf32_on() if mode == "tf32" else contextlib.nullcontext():
+        loss = step(opt_state, *args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    cpu = torch.device("cpu")
+    sd = model.state_dict()
+    return {"loss": float(loss),
+            "grads": {k: (v / 0.1).to(cpu, torch.float64) for k, v in opt_state.mu.items()},
+            "stats": {k: v.to(cpu, torch.float64) for k, v in sd.items() if "running" in k},
+            "params": {k: v.detach().to(cpu, torch.float64) for k, v in model.named_parameters()},
+            "before": {k: v.to(cpu, torch.float64) for k, v in before.items()}}
+
+
+def refine_readings(side: dict, ref: dict, old_stats: dict) -> dict:
+    """One side's classifier step against the CPU's: the loss (relative),
+    the gradients (the largest relative L2 over the tensors), the running
+    statistics (max |d| over the rms of the CPU's move), the update (the
+    share of elements more than 0.01 lr apart)."""
+    grads = max((float((side["grads"][k] - g).norm() / g.norm().clamp(min=1e-30)), k)
+                for k, g in ref["grads"].items())
+    stats = max((float((side["stats"][k] - s).abs().max()
+                       / (s - old_stats[k]).square().mean().sqrt().clamp(min=1e-30)), k)
+                for k, s in ref["stats"].items())
+    apart = sum(int((side["params"][k] - p).abs().gt(0.01 * REFINE_LR).sum())
+                for k, p in ref["params"].items())
+    n = sum(p.numel() for p in ref["params"].values())
+    return {"loss": (abs(side["loss"] - ref["loss"]) / abs(ref["loss"]), ""),
+            "grads": grads, "stats": stats, "update": (apart / n, "")}
+
+
+def refine_parity(dev) -> dict:
+    """Phase 27: ResNet-50 at 224 px from the CLI's fresh init (seed 0), one
+    train step at batch 32 (28 real rows padded with copies of row 0, as
+    batches_padded pads) on the card (f32, TF32 off) and on the CPU: the
+    loss, every gradient, the new running statistics and the Adam update,
+    each within its limit; the same step with TF32 on, the control, beyond
+    each; the gradients in float64 on both sides; eval logits at batch 64
+    from the CPU's stepped weights; a bf16 step (the card's default) finite."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.annotate.classifier import classifier_logits, padded_index_batches
+    from agenda_tpu_torch.models.resnet import ResNet50, init_resnet_
+
+    t0 = time.perf_counter()
+    model = ResNet50(num_classes=1)
+    init_resnet_(model, torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 1, (REFINE_PARITY_REAL, REFINE_CROP, REFINE_CROP, 3)).astype(np.float32)
+    bb, real = next(padded_index_batches(REFINE_PARITY_REAL, REFINE_PARITY_BATCH, False, rng))
+    images = torch.from_numpy(x[bb])
+    labels = torch.from_numpy((np.arange(REFINE_PARITY_REAL) % 2)[bb].astype(np.float32))
+    mask = (torch.arange(REFINE_PARITY_BATCH) < real).float()
+    old_stats = {k: v.double() for k, v in sd.items() if "running" in k}
+    cpu = torch.device("cpu")
+    ref = refine_step_on(cpu, sd, images, labels, mask)
+    card = refine_step_on(dev, sd, images, labels, mask)
+    control = refine_step_on(dev, sd, images, labels, mask, "tf32")
+    ref64 = refine_step_on(cpu, sd, images, labels, mask, "f64")
+    card64 = refine_step_on(dev, sd, images, labels, mask, "f64")
+    bf16 = refine_step_on(dev, sd, images, labels, mask, "bf16")
+    sound, tf32 = refine_readings(card, ref, old_stats), refine_readings(control, ref, old_stats)
+    f64 = max(float((card64["grads"][k] - g).norm() / g.norm().clamp(min=1e-30))
+              for k, g in ref64["grads"].items())
+    cpu_f32 = max(float((ref["grads"][k] - g).norm() / g.norm().clamp(min=1e-30))
+                  for k, g in ref64["grads"].items())
+    # eval logits at batch 64 from the CPU's stepped weights (its statistics moved once)
+    stepped = {k: v.clone() for k, v in sd.items()}
+    stepped.update({k: v.float() for k, v in ref["params"].items()})
+    stepped.update({k: v.float() for k, v in ref["stats"].items()})
+    xp = torch.from_numpy(rng.uniform(0, 1, (REFINE_PREDICT_BATCH, REFINE_CROP, REFINE_CROP, 3))
+                          .astype(np.float32))
+    logits = []
+    for d in (cpu, dev):
+        m = ResNet50(num_classes=1)
+        m.load_state_dict(stepped)
+        logits.append(classifier_logits(m.to(d), xp.to(d), torch.float32).cpu().double())
+    lref, lcard = logits
+    logit_err = float((lcard - lref).abs().max() / lref.square().mean().sqrt())
+    bf16_ok = math.isfinite(bf16["loss"]) and all(bool(torch.isfinite(g).all())
+                                                   for g in bf16["grads"].values())
+    limits = {"loss": REFINE_LOSS_RTOL, "grads": REFINE_GRAD_TOL_L2, "stats": REFINE_STATS_TOL,
+              "update": REFINE_UPDATE_SHARE}
+
+    def show(r: dict) -> str:
+        return ", ".join(f"{k} {v:.3e}" + (f" (at {at})" if at else "") for k, (v, at) in r.items())
+
+    print(f"[refine-parity] ResNet-50 train step at batch {REFINE_PARITY_BATCH} ({real} real "
+          f"rows), {REFINE_CROP} px, Adam lr {REFINE_LR}: loss {card['loss']:.7f} vs "
+          f"{ref['loss']:.7f}; limits {limits}; card (f32) against the CPU: {show(sound)}; TF32 "
+          f"control against the CPU: {show(tf32)}; float64 on both sides {f64:.3e} (limit "
+          f"{REFINE_GRAD64_TOL}); the CPU's f32 against its float64 {cpu_f32:.3e}; eval logits "
+          f"at batch {REFINE_PREDICT_BATCH} {logit_err:.3e} of their rms (limit "
+          f"{REFINE_LOGIT_TOL_RMS}); bf16 step loss {bf16['loss']:.5f}, finite {bf16_ok}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for k, limit in limits.items():
+        require(sound[k][0] <= limit, f"the classifier step's {k} differs on the card: "
+                f"{sound[k][0]:.3e} > {limit}")
+        require(tf32[k][0] > limit, f"the TF32 control passes the {k} limit ({limit}): "
+                f"the limit cannot tell TF32 from f32")
+    require(f64 <= REFINE_GRAD64_TOL, f"the float64 gradients differ on the card: {f64:.3e}")
+    require(logit_err <= REFINE_LOGIT_TOL_RMS, f"eval logits differ on the card: {logit_err:.3e}")
+    require(bf16_ok, "the bf16 classifier step is not finite")
+    return {"sound": sound, "tf32": tf32, "f64": f64, "logits": logit_err}
+
+
+def refine_fabricate(root: str, n_tiles: int, n_dets: int, seed: int = 0) -> Tuple[str, str]:
+    """``n_tiles`` 112x112 PNG tiles of dark noise and a prediction pkl of
+    ``n_dets`` detections a tile: scores uniform on [0, 1] (every bucket,
+    hard negatives too), box centres uniform over the tile and 5 px past its
+    edges; a detection scoring 0.5 or more has a bright 21-px square at its
+    centre, something for the classifier to learn. -> (image dir, pkl)."""
+    import pickle
+
+    import numpy as np
+
+    from agenda_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    records = []
+    for i in range(n_tiles):
+        tile = rng.integers(0, 60, (TILE, TILE, 3), dtype=np.uint8)
+        c = rng.uniform(-5, TILE + 5, (n_dets, 2))
+        boxes = np.clip(np.concatenate([c - 21.18, c + 21.18], 1), 0, TILE)
+        scores = np.sort(rng.uniform(0, 1, n_dets))[::-1]
+        for (x, y), s in zip(c.astype(int), scores):
+            if s >= 0.5:
+                tile[max(y - 10, 0):max(y + 11, 0), max(x - 10, 0):max(x + 11, 0)] = 220
+        write_png(os.path.join(img_dir, f"{i}.png"), tile)
+        records.append({"img_path": f"stacks/{i}.png", "pred_instances": {
+            "bboxes": boxes.astype(np.float32), "scores": scores.astype(np.float32),
+            "labels": np.zeros(n_dets, np.int64)}})
+    pkl = os.path.join(root, "pred.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(records, f)
+    return img_dir, pkl
+
+
+def refine_cli_phase(root: str, dev) -> dict:
+    """Phase 28: cli/refine_label on the card over REFINE_TILES fabricated
+    tiles (REFINE_DETS detections each, every bucket filled), the recipe's
+    batches 256 / 512, crop 224, 2 epochs: both checkpoints load back into
+    the port's ResNet-50; the refined COCO is sorted by image_id, re-id'd,
+    and holds every label-1 crop and the kept ones."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.annotate.records import load_predictions
+    from agenda_tpu_torch.cli import refine_label
+    from agenda_tpu_torch.io.safetensors_io import load_file
+    from agenda_tpu_torch.models.resnet import ResNet50, resnet_from_flax
+
+    img_dir, pkl = refine_fabricate(root, REFINE_TILES, REFINE_DETS)
+    n_pos = 0
+    for r in load_predictions(pkl):
+        s = r["pred_instances"]["scores"]
+        s = s[s >= 0.05]
+        n_pos += int(len(s) > 0) + int((s[1:] >= 0.75).sum())
+    out_json = os.path.join(root, "refined.json")
+    t0 = time.perf_counter()
+    stats = refine_label.main([
+        "--prediction_pkl", pkl, "--synthetic_image_base_path", img_dir,
+        "--json_save_path", out_json, "--checkpoint_save_path", os.path.join(root, "clf"),
+        "--num_epochs", str(REFINE_EPOCHS), "--device", dev.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loaded = []
+    for name in ("resnet_best_accuracy.safetensors", "resnet_best_f1.safetensors"):
+        path = os.path.join(root, "clf", name)
+        require(os.path.exists(path), f"refine_label wrote no {name}")
+        m = ResNet50(num_classes=1)
+        missing, unexpected = m.load_state_dict(
+            resnet_from_flax({k: v.numpy() for k, v in load_file(path).items()}), strict=False)
+        loaded.append(not unexpected and all(k.endswith("num_batches_tracked") for k in missing))
+    with open(out_json) as f:
+        coco = json.load(f)
+    anns = coco["annotations"]
+    ids = [a["image_id"] for a in anns]
+    labels = [a["label"] for a in anns]
+    hist = [(h["accuracy"], h["f1"]) for h in stats["history"]]
+    print(f"[refine-cli] cli/refine_label on {REFINE_TILES} tiles x {REFINE_DETS} detections: "
+          f"{stats['n_train']} train crops, {stats['n_test']} unlabeled, {stats['steps']} steps "
+          f"at batch {REFINE_TRAIN_BATCH} ({stats['dtype']}), {REFINE_EPOCHS} epochs "
+          f"(accuracy, F1 {[(round(a, 4), round(b, 4)) for a, b in hist]}), kept "
+          f"{stats['kept']}; {wall:.1f} s (crops {stats['crop_seconds']:.2f} s, resize "
+          f"{stats['resize_seconds']:.2f} s, epochs {[round(s, 2) for s in stats['epoch_seconds']]}"
+          f" s); checkpoints load back {loaded}; COCO {len(coco['images'])} images, "
+          f"{labels.count(1)} label-1 + {labels.count(-1)} kept annotations", flush=True)
+    require(all(loaded), "a refine checkpoint does not load back")
+    require(stats["dtype"] == "torch.bfloat16", f"the card's compute dtype {stats['dtype']}")
+    require(stats["n_train"] + stats["n_test"] > 2000 and stats["n_test"] > 0
+            and 0 < n_pos < stats["n_train"],
+            "the fabricated predictions do not fill every bucket")
+    require(len(coco["images"]) == REFINE_TILES and ids == sorted(ids)
+            and [a["id"] for a in anns] == list(range(len(anns))),
+            "the refined COCO is not sorted by image_id and re-id'd")
+    require(labels.count(1) == n_pos and labels.count(-1) == stats["kept"]
+            and len(anns) == n_pos + stats["kept"],
+            f"the refined COCO holds {labels.count(1)} label-1 crops (of {n_pos}) and "
+            f"{labels.count(-1)} kept (of {stats['kept']})")
+    require(all(np.isfinite(a) and np.isfinite(b) for a, b in hist), "accuracy or F1 not finite")
+    shutil.rmtree(os.path.join(root, "clf"))
+    return {**stats, "wall": wall}
+
+
+def refine_timing(cli: dict, dev) -> dict:
+    """Phase 29: the classifier on the card at the recipe's batches: warm
+    s/step at batch 256 in bf16 (the CLI's) and f32, synchronised, with peak
+    memory; predict images/s at batch 512 (bf16); one epoch of
+    REFINE_TIMING_ROWS crops through the CLI's loop (CropFeed + step), its
+    wall a step and the card's busy share (torch.profiler); on the host the
+    gather + upload ms a batch (CropFeed.batch, synchronised), and phase
+    28's crop and resize ms a crop."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.annotate.classifier import (CropFeed, init_classifier, make_adam,
+                                                      make_classifier_train_step,
+                                                      padded_index_batches, predict)
+
+    rng = np.random.default_rng(1)
+    crops = rng.integers(0, 256, (REFINE_TIMING_ROWS, REFINE_CROP, REFINE_CROP, 3), np.uint8)
+    feed = CropFeed(crops, dev)
+    labels = feed.upload((np.arange(REFINE_TIMING_ROWS) % 2).astype(np.float32))
+    mask = torch.ones(REFINE_TRAIN_BATCH, device=dev)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        tx = make_adam(REFINE_LR)
+        model, opt_state = init_classifier(torch.Generator().manual_seed(0), tx, dev)
+        step = make_classifier_train_step(model, tx, dtype)
+        images, rows = feed.batch(np.arange(REFINE_TRAIN_BATCH))
+        for _ in range(2):
+            step(opt_state, images, labels[rows], mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(opt_state, images, labels[rows], mask)
+        torch.cuda.synchronize()
+        out[name] = {"step_s": (time.perf_counter() - t0) / 3,
+                     "peak": torch.cuda.max_memory_allocated()}
+        if name == "bf16":
+            test_images, _ = feed.batch(np.arange(REFINE_TEST_BATCH))
+            predict(model, test_images, dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                predict(model, test_images, dtype).cpu()
+            out["predict_images_per_s"] = 3 * REFINE_TEST_BATCH / (time.perf_counter() - t0)
+
+            def epoch():
+                feed.set_flips(rng.random(REFINE_TIMING_ROWS) < 0.5)
+                for bb, real in padded_index_batches(REFINE_TIMING_ROWS, REFINE_TRAIN_BATCH,
+                                                     True, rng):
+                    x, r = feed.batch(bb)
+                    step(opt_state, x, labels[r], mask)
+                feed.set_flips(None)
+                torch.cuda.synchronize()
+
+            epoch()
+            t0 = time.perf_counter()
+            epoch()
+            out["epoch_step_s"] = (time.perf_counter() - t0) / (REFINE_TIMING_ROWS
+                                                               // REFINE_TRAIN_BATCH)
+            per_name, wall = device_times(epoch)
+            out["busy"] = sum(us for us, _ in per_name.values()) / 1e6 / wall
+        del model, opt_state, step
+        torch.cuda.empty_cache()
+    idx = np.arange(REFINE_TRAIN_BATCH)
+    feed.batch(idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        feed.batch(idx)
+        torch.cuda.synchronize()
+    out["gather_upload_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out["crop_ms"] = 1e3 * cli["crop_seconds"] / cli["n_crops"]
+    out["resize_ms"] = 1e3 * cli["resize_seconds"] / cli["n_crops"]
+    print(f"[refine-timing] ResNet-50 at {REFINE_CROP} px: warm step at batch "
+          f"{REFINE_TRAIN_BATCH} bf16 {out['bf16']['step_s']:.4f} s "
+          f"({REFINE_TRAIN_BATCH / out['bf16']['step_s']:.1f} images/s, peak "
+          f"{out['bf16']['peak'] / 2**30:.2f} GiB), f32 {out['f32']['step_s']:.4f} s "
+          f"({REFINE_TRAIN_BATCH / out['f32']['step_s']:.1f} images/s, peak "
+          f"{out['f32']['peak'] / 2**30:.2f} GiB); predict {out['predict_images_per_s']:.1f} "
+          f"images/s at batch {REFINE_TEST_BATCH} (bf16); the CLI's loop "
+          f"{out['epoch_step_s']:.4f} s a step over an epoch of {REFINE_TIMING_ROWS} crops, card "
+          f"busy {100 * out['busy']:.1f}%; host: crop {out['crop_ms']:.3f} ms and resize "
+          f"{out['resize_ms']:.3f} ms a crop (phase 28's {cli['n_crops']}), gather + upload "
+          f"{out['gather_upload_ms']:.2f} ms a batch of {REFINE_TRAIN_BATCH} "
+          f"({REFINE_TRAIN_BATCH * REFINE_CROP * REFINE_CROP * 3 / 2**20:.0f} MiB)", flush=True)
+    return out
+
+
+def fabricate_chain_pipeline(out_dir: str) -> None:
+    """SD-1.4's layout at two UNet and VAE levels of 128 and 256 channels,
+    CLIP at width 64, the tiny tokenizer, seeded weights."""
+    from agenda_tpu_torch.io.configs import CLIPTextConfig, UNetConfig, VAEConfig
+    from agenda_tpu_torch.io.diffusers_io import save_pipeline
+    from agenda_tpu_torch.io.fabricate import random_state, write_tiny_tokenizer
+    from agenda_tpu_torch.models.clip_text import CLIPTextModel
+    from agenda_tpu_torch.models.unet import UNet2DConditionModel
+    from agenda_tpu_torch.models.vae import AutoencoderKL
+
+    tok_dir = os.path.join(out_dir, "tokenizer")
+    vocab = write_tiny_tokenizer(tok_dir)
+    unet = UNetConfig(sample_size=16, block_out_channels=(128, 256), layers_per_block=1,
+                      down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                      up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                      attention_head_dim=2, cross_attention_dim=64)
+    vae = VAEConfig(block_out_channels=(128, 256), layers_per_block=1)
+    text = CLIPTextConfig(vocab_size=vocab, hidden_size=64, intermediate_size=128,
+                          num_hidden_layers=2, num_attention_heads=2)
+    save_pipeline(out_dir, unet, random_state(UNet2DConditionModel, unet, 0),
+                  vae, random_state(AutoencoderKL, vae, 1),
+                  text, random_state(CLIPTextModel, text, 2), tokenizer_dir=tok_dir)
+
+
+def chain_phase(root: str, dev) -> dict:
+    """Phase 30: the port's cli/pipeline --device cuda through all 21 stages
+    on fabricated sets: --until-stage label_synthetic_target; a rerun that
+    skips every stage; the target predictions doctored to fill the refine
+    buckets; --from-stage refine. Each stage leaves its marker and manifest
+    line, launches the kernels CHAIN_KERNELS names for it (and no other), and
+    the final prediction_real_target.pkl holds one record per target image."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.cli import pipeline as pl
+    from agenda_tpu_torch.detect.fabricate import write_square_set
+    from agenda_tpu_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    fabricate_chain_pipeline(os.path.join(root, "pipe"))
+    rng = np.random.default_rng(0)
+    ds = os.path.join(root, "ds")
+    os.makedirs(ds)
+    prompts = {}
+    for i in range(2):
+        write_png(os.path.join(ds, f"img{i}.png"), rng.integers(0, 256, (64, 64, 3), np.uint8))
+        prompts[f"img{i}.png"] = "An aerial view image with cars in Utah"
+    with open(os.path.join(ds, "data.json"), "w") as f:
+        json.dump(prompts, f)
+    write_square_set(os.path.join(root, "real"), CHAIN_REAL_TILES, seed=1)
+    cfg = pl.PipelineConfig(
+        work_dir=os.path.join(root, "run"), base_model=os.path.join(root, "pipe"),
+        dataset_folder=ds, train_json="data.json", num_images=4, sd_steps=1,
+        token_steps_stage1=1, token_steps_stage2=1, resolution=32, image_size=112,
+        real_train_root=os.path.join(root, "real"), real_train_ann="ann.json",
+        real_target_test_root=os.path.join(root, "real"), real_target_test_ann="ann.json",
+        thresh_conf=0.0, extra_args=CHAIN_ARGS)
+    path = os.path.join(root, "chain.json")
+    cfg.to_json(path)
+    run = ["--config", path, "--device", dev.type]
+    per_stage = {}
+    run_stage = pl.run_stage
+
+    def counted(stage, c):
+        reset_counts()
+        t = time.perf_counter()
+        run_stage(stage, c)
+        torch.cuda.synchronize()
+        per_stage[stage.name] = (time.perf_counter() - t, read_counts())
+
+    with mock.patch.object(pl, "run_stage", counted):
+        pl.main(run + ["--until-stage", "label_synthetic_target"])
+        first = dict(per_stage)
+        pl.main(run + ["--until-stage", "label_synthetic_target"])
+        rerun = len(per_stage) - len(first)
+        pred_tgt = os.path.join(cfg.work_dir, "work_dirs", "yolov8_synthetic_heatmap",
+                                "prediction_syn_target.pkl")
+        with open(pred_tgt, "rb") as f:
+            records = pickle.load(f)
+        for r in records:
+            r["pred_instances"] = {
+                "scores": np.array([0.9, 0.5, 0.2, 0.6, 0.01]), "labels": np.zeros(5, np.int64),
+                "bboxes": np.array([[30, 30, 72, 72], [0, 0, 42, 42], [60, 60, 100, 100],
+                                    [80, 5, 112, 47], [10, 70, 52, 112]], np.float32)}
+        with open(pred_tgt, "wb") as f:
+            pickle.dump(records, f)
+        pl.main(run + ["--from-stage", "refine"])
+    names = [s.name for s in pl.build_stages(cfg)]
+    with open(os.path.join(cfg.work_dir, "pipeline_manifest.jsonl")) as f:
+        manifest = [json.loads(line) for line in f]
+    markers = sorted(os.listdir(os.path.join(cfg.work_dir, ".stage_done")))
+    with open(os.path.join(cfg.work_dir, "work_dirs", "yolov8_synthetic_target",
+                           "prediction_real_target.pkl"), "rb") as f:
+        final = pickle.load(f)
+    wrong = {n: {k: v for k, v in counts.items() if not k.startswith("fused_adamw8bit_leaves")
+                 and (v > 0) != (k in CHAIN_KERNELS.get(n, ()))}
+             for n, (_, counts) in per_stage.items()}
+    wrong = {n: w for n, w in wrong.items() if w}
+    wall = time.perf_counter() - t0
+    print(f"[chain] cli/pipeline --device {dev.type}, {len(names)} stages: "
+          + ", ".join(f"{n} {s:.1f} s" for n, (s, _) in per_stage.items())
+          + f"; kernel launches by stage "
+          + "; ".join(f"{n} {({k: v for k, v in c.items() if v})}" for n, (_, c)
+                      in per_stage.items() if any(c.values()))
+          + f"; rerun ran {rerun} stages; manifest {len(manifest)} lines, markers {len(markers)};"
+          f" final records {len(final)}; {wall:.1f} s", flush=True)
+    require(list(per_stage) == names, f"the stages ran {list(per_stage)}")
+    require(rerun == 0, f"the rerun ran {rerun} stages")
+    require([e["stage"] for e in manifest] == names and markers == sorted(names),
+            "a stage left no marker or manifest line")
+    modules = {s.name: s.module for s in pl.build_stages(cfg)}
+    require(all((e["argv"][-2:] == ["--device", dev.type])
+                == (modules[e["stage"]] in pl.DEVICE_MODULES) for e in manifest),
+            "--device is not on exactly the stages whose CLIs take it")
+    require(not wrong, f"kernel launches differ from CHAIN_KERNELS: {wrong}")
+    require(len(final) == CHAIN_REAL_TILES, f"{len(final)} final records")
+    return {"stages": {n: s for n, (s, _) in per_stage.items()}, "wall": wall}
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -2746,6 +3272,24 @@ def main() -> int:
         det_cli_phase(labels, label_root, dev, ("--device-aug", "--device-aug-workers", "2"),
                       "devaug-cli")
         phase_s["device augmentation (24-26)"] = time.perf_counter() - t_phase
+        shutil.rmtree(label_root)
+
+        # 27-29. the refine classifier: a step card vs CPU, the CLI, timing
+        t_phase = time.perf_counter()
+        refine = refine_parity(dev)
+        phase_s["refine parity (27)"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        refine_root = os.path.join(tmp, "refine")
+        refine_cli = refine_cli_phase(refine_root, dev)
+        refine_time = refine_timing(refine_cli, dev)
+        shutil.rmtree(refine_root)
+        torch.cuda.empty_cache()
+        phase_s["refine CLI and timing (28-29)"] = time.perf_counter() - t_phase
+
+        # 30. the whole chain through the port's orchestrator
+        t_phase = time.perf_counter()
+        chain = chain_phase(os.path.join(tmp, "chain"), dev)
+        phase_s["chain (30)"] = time.perf_counter() - t_phase
 
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
@@ -2813,6 +3357,18 @@ def main() -> int:
           f"{det_parity['sound']['grads'][0]:.3e} of their rms (TF32 control "
           f"{det_parity['tf32']['grads'][0]:.3e}); det_train CLI "
           f"{det_cli['steps']} steps in {det_cli['wall']:.1f} s", flush=True)
+    print(f"[report] refine classifier (ResNet-50, {REFINE_CROP} px): step card vs CPU "
+          f"gradients {refine['sound']['grads'][0]:.3e} relative L2 (TF32 control "
+          f"{refine['tf32']['grads'][0]:.3e}, float64 {refine['f64']:.3e}); warm step at batch "
+          f"{REFINE_TRAIN_BATCH} bf16 {refine_time['bf16']['step_s']:.4f} s / f32 "
+          f"{refine_time['f32']['step_s']:.4f} s, predict {refine_time['predict_images_per_s']:.1f}"
+          f" images/s at {REFINE_TEST_BATCH}, the CLI's loop {refine_time['epoch_step_s']:.4f} s a "
+          f"step (busy {100 * refine_time['busy']:.1f}%); refine_label {refine_cli['n_train']} + "
+          f"{refine_cli['n_test']} crops, {REFINE_EPOCHS} epochs in {refine_cli['wall']:.1f} s; "
+          f"the chain's 21 stages in {chain['wall']:.1f} s. No TPU kernel lies on the refine "
+          "path (convolutions, batch norm, ReLU, max-pool: cuDNN and ATen, as the reference's "
+          "is flax without Pallas) nor on the orchestrator's own; the chain's generation and "
+          "fine-tune stages launch K1-K6", flush=True)
     print("[report] units: flash_attention_fwd and group_norm_act sum ms over one generation "
           f"batch (batch {E2E_BATCH}, {E2E_STEPS} PLMS steps; launches from the generation "
           "CLI run); flash_attention_bwd_dkv, flash_attention_bwd_dq and fused_adamw8bit_ema "

@@ -885,6 +885,66 @@ def test_runner_test_on_the_card_as_on_the_cpu(tmp_path):
         lost, kept, ref_lost, ref_kept)
 
 
+def _classifier_step(dev, state_dict, images, labels, mask, dtype=torch.float32):
+    """One refine-classifier step (Adam, lr 4e-4) -> (loss, gradients, new
+    running statistics, parameters after), all float64 on the CPU."""
+    from agenda_tpu_torch.annotate.classifier import make_adam, make_classifier_train_step
+    from agenda_tpu_torch.models.resnet import ResNet50
+
+    model = ResNet50(num_classes=1)
+    model.load_state_dict(state_dict)
+    model = model.to(dev, dtype)
+    tx = make_adam(4e-4)
+    opt_state = tx.init(dict(model.named_parameters()))
+    loss = make_classifier_train_step(model, tx, dtype)(
+        opt_state, images.to(dev, dtype), labels.to(dev, dtype), mask.to(dev, dtype))
+    cpu = torch.device("cpu")
+    return (float(loss), {k: (v / 0.1).to(cpu, torch.float64) for k, v in opt_state.mu.items()},
+            {k: v.to(cpu, torch.float64) for k, v in model.state_dict().items() if "running" in k},
+            {k: v.detach().to(cpu, torch.float64) for k, v in model.named_parameters()})
+
+
+@pytest.mark.cuda
+def test_resnet50_train_step_on_the_card_as_on_the_cpu():
+    """The refine classifier's step (ResNet-50 from the CLI's fresh init, 112
+    px, 6 real rows padded to 8) on the card in f32 (TF32 off) against the
+    CPU, with chip_smoke.py's limits: the loss within 1e-5 relative, every
+    gradient within 0.1 relative L2 (a fresh ResNet-50 in train mode is
+    chaotic: the CPU's own f32 lies up to 2.8e-2 from its float64), the new
+    running statistics within 5e-3 of their move, at most 3% of the Adam
+    update's elements more than 0.01 lr apart; in float64 on both sides the
+    gradients within 1e-6."""
+    from agenda_tpu_torch.detect.runner import full_f32
+    from agenda_tpu_torch.models.resnet import ResNet50, init_resnet_
+
+    _need_cuda()
+    model = ResNet50(num_classes=1)
+    init_resnet_(model, torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(6, 112, 112, 3, generator=g)
+    images = torch.cat([x, x[:1], x[:1]])  # batches_padded's pad rows: copies of row 0
+    labels = torch.tensor([1.0, 0, 1, 1, 0, 0, 1, 1])
+    mask = (torch.arange(8) < 6).float()
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    ref = _classifier_step(cpu, sd, images, labels, mask)
+    with full_f32(dev):
+        card = _classifier_step(dev, sd, images, labels, mask)
+    assert abs(card[0] - ref[0]) <= 1e-5 * abs(ref[0]), (card[0], ref[0])
+    worst = max(float((card[1][k] - v).norm() / v.norm()) for k, v in ref[1].items())
+    assert worst <= 0.1, worst
+    old = {k: v.double() for k, v in sd.items() if "running" in k}
+    stats = max(float((card[2][k] - v).abs().max() / (v - old[k]).square().mean().sqrt())
+                for k, v in ref[2].items())
+    assert stats <= 5e-3, stats
+    apart = sum(int(((card[3][k] - v).abs() > 0.01 * 4e-4).sum()) for k, v in ref[3].items())
+    assert apart <= 0.03 * sum(v.numel() for v in ref[3].values()), apart
+    ref64 = _classifier_step(cpu, sd, images, labels, mask, torch.float64)
+    card64 = _classifier_step(dev, sd, images, labels, mask, torch.float64)
+    worst64 = max(float((card64[1][k] - v).norm() / v.norm()) for k, v in ref64[1].items())
+    assert worst64 <= 1e-6, worst64
+
+
 def _variant_applies_edits(edits):
     csrc = Path(agenda_tpu_torch.__file__).parent / "csrc"
     return bool(edits) and all(old in (csrc / source).read_text() for source, old, _ in edits)

@@ -6,6 +6,8 @@
   Another does the same for the detector CLIs (``det_train`` for an
   epoch on fabricated tiles, ``det_test`` on a fabricated detector, then
   ``select_threshold``).
+  A third drives ``refine_label`` on fabricated tiles and a dry run of the
+  port's ``pipeline`` over its whole DAG; ``PIL`` stays absent too.
 - No source file of the port, nor the tools at the root of the repo
   (``chip_smoke.py`` and the kernel-variant timer), imports them, nor
   Pillow; the detector drive runs without importing Pillow.
@@ -73,6 +75,39 @@ print("FORBIDDEN", bad)
 """
 
 
+_DRIVE_REFINE = r"""
+import json, os, pickle, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)  # beside the suite's other test processes
+from agenda_tpu_torch.cli import pipeline, refine_label
+from agenda_tpu_torch.utils.png import write_png
+d = sys.argv[1]
+rng = np.random.default_rng(0)
+os.makedirs(os.path.join(d, "images"))
+records = []
+for i in range(4):
+    write_png(os.path.join(d, "images", f"{i}.png"), rng.integers(0, 256, (112, 112, 3), np.uint8))
+    records.append({"img_path": f"{i}.png", "pred_instances": {
+        "scores": np.array([0.9, 0.5, 0.2]), "labels": np.zeros(3, np.int64),
+        "bboxes": np.array([[30, 30, 72, 72], [0, 0, 42, 42], [70, 70, 112, 112]], np.float32)}})
+with open(os.path.join(d, "pred.pkl"), "wb") as f:
+    pickle.dump(records, f)
+out = refine_label.main(["--device", "cpu", "--prediction_pkl", os.path.join(d, "pred.pkl"),
+    "--synthetic_image_base_path", os.path.join(d, "images"),
+    "--json_save_path", os.path.join(d, "refined.json"),
+    "--checkpoint_save_path", os.path.join(d, "clf"), "--num_epochs", "1",
+    "--crop_size", "32", "--train_batch_size", "4", "--test_batch_size", "4"])
+assert out["n_train"] == 8 and out["n_test"] == 4
+assert len(json.load(open(os.path.join(d, "refined.json")))["annotations"]) >= 4
+pipeline.main(["--init", os.path.join(d, "cfg.json")])
+pipeline.main(["--config", os.path.join(d, "cfg.json"), "--dry-run", "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "jaxlib", "agenda_tpu", "PIL"))
+print("FORBIDDEN", bad)
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
@@ -94,6 +129,17 @@ def test_labelling_runs_without_importing_jax_or_agenda_tpu(tmp_path):
                          cwd=str(tmp_path), env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+    assert "FORBIDDEN []" in out.stdout, out.stdout[-2000:]
+
+
+def test_refine_and_pipeline_run_without_importing_jax_or_pillow(tmp_path):
+    """refine_label on the CPU and a dry run of the orchestrator, in a fresh
+    interpreter."""
+    out = subprocess.run([sys.executable, "-c", _DRIVE_REFINE, str(tmp_path)],
+                         cwd=str(tmp_path), env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[dry-run] refine: agenda_tpu_torch.cli.refine_label" in out.stdout
     assert "FORBIDDEN []" in out.stdout, out.stdout[-2000:]
 
 
