@@ -7,7 +7,9 @@ Labels a dataset with a trained detector, writing the pickled per-image
 records the annotation stage reads (threshold selection, pseudo-COCO
 conversion), and prints bbox mAP/mAP50/mAP75 when the set has
 annotations. The checkpoint is the JAX ``det_train``'s
-``latest.safetensors`` (or one the port wrote in the same layout).
+``latest.safetensors`` (or one the port wrote in the same layout), of any
+family the config names (``faster-rcnn``, ``yolov5``, ``yolov5s``,
+``yolov8``, ``yolov8s``, ``vitdet``).
 
     python -m agenda_tpu_torch.cli.det_test --config work/config.json \\
         --checkpoint work/latest.safetensors --test-root data --test-ann ann.json \\
@@ -54,7 +56,7 @@ def main(argv=None):
     family = cfg.build_family()
     runner = DetectorRunner(family, cfg.runner, device=device)
     dataset = cfg.build_eval_dataset(spec)
-    variables = load_variables(args.checkpoint)
+    variables = load_variables(args.checkpoint, family)
     records = runner.test(variables, dataset, out_pkl=args.out)
 
     if any(len(r["gt_instances"]["bboxes"]) for r in records):

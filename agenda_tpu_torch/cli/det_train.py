@@ -9,11 +9,13 @@ Counterpart of ``agenda_tpu/cli/det_train.py``: the same flags plus
         --val-root data/val --val-ann ann.json --work-dir work_dirs/yolov8_heatmap
 
 A JSON config (``DetectionConfig``) is the reproducible artifact; the preset
-flags generate one and save it next to the checkpoints. The YOLOv8 family
-(``yolov8``, ``yolov8n``, ``yolov8s``) trains, with the augmentation on the
-host or, with ``--device-aug``, rendered on the device from the host's
-plans (``--device-aug-workers`` processes build them ahead); the other
-families and ``--pretrained`` raise (ROADMAP.md §A).
+flags generate one and save it next to the checkpoints. Every family
+trains (``--detector faster-rcnn | yolov5 | yolov5s | yolov8 | yolov8s |
+vitdet``), with the augmentation on the host or, with ``--device-aug``,
+rendered on the device from the host's plans (``--device-aug-workers``
+processes build them ahead). ``--pretrained`` starts from an mmdet/mmyolo
+checkpoint (``.pth`` or ``.safetensors``), as the reference's ``load_from``:
+the class-count heads are skipped by shape.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--pretrained", type=str, default=None,
-                   help="torch checkpoint to initialize from (not ported: raises).")
+                   help="mmdet/mmyolo checkpoint (.pth or .safetensors) to initialize from "
+                        "(the reference's load_from).")
     p.add_argument("--auto-scale-lr", action="store_true",
                    help="Scale the lr by the batch size over the config's base_batch_size.")
     p.add_argument("--device-aug", action="store_true",
@@ -65,10 +68,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
     args = parse_args(argv)
-    if args.pretrained is not None:
-        raise NotImplementedError("--pretrained (mmdet/mmyolo weights) is not ported yet: "
-                                  "ROADMAP.md §A, the item 'Faster R-CNN, YOLOv5, ViTDet and "
-                                  "io/torch_import.py'")
     device = resolve_device(args.device)
 
     if args.config:
@@ -88,6 +87,8 @@ def main(argv=None):
         cfg.runner.batch_size = args.batch_size
     if args.lr is not None:
         cfg.runner.lr = args.lr
+    if args.pretrained is not None:
+        cfg.pretrained = args.pretrained
     if args.auto_scale_lr:
         cfg.runner.auto_scale_lr = True
     if args.device_aug:

@@ -322,6 +322,15 @@ def _pil_coeffs(in_size: int, out_size: int,
     """Pillow's ``filt`` filter (bilinear or bicubic) as (starts (out,), int64
     coefficients (out, ksize)) in 22-bit fixed point (``precompute_coeffs`` +
     ``normalize_coeffs_8bpc``: each coefficient rounded half away from 0)."""
+    starts, kf = _pil_float_coeffs(in_size, out_size, filt)
+    kk = np.where(kf < 0, (-0.5 + kf * (1 << _PREC)), (0.5 + kf * (1 << _PREC)))
+    return starts, np.trunc(kk).astype(np.int64) * (kf != 0)
+
+
+def _pil_float_coeffs(in_size: int, out_size: int,
+                      filt: str = "bilinear") -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs``: (starts (out,), normalised float64
+    coefficients (out, ksize)), what it applies to 32-bit float images."""
     fn, filter_support = _PIL_FILTERS[filt]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
@@ -329,7 +338,7 @@ def _pil_coeffs(in_size: int, out_size: int,
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     starts = np.zeros(out_size, np.int64)
-    kk = np.zeros((out_size, ksize), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
@@ -339,10 +348,21 @@ def _pil_coeffs(in_size: int, out_size: int,
         for v in ws:
             total += v
         for x, v in enumerate(ws):
-            k = v / total if total != 0.0 else v
-            kk[xx, x] = int(-0.5 + k * (1 << _PREC)) if k < 0 else int(0.5 + k * (1 << _PREC))
+            kk[xx, x] = v / total if total != 0.0 else v
         starts[xx] = xmin
     return starts, kk
+
+
+def pil_float_matrix(in_size: int, out_size: int, filt: str = "bilinear") -> np.ndarray:
+    """Pillow's resize of a 32-bit float ("F") image along one axis as a
+    dense (in_size, out_size) float64 matrix: each output is the float64
+    sum of its taps, rounded to f32 by the caller after each pass."""
+    starts, kk = _pil_float_coeffs(in_size, out_size, filt)
+    mat = np.zeros((in_size, out_size), np.float64)
+    for xx in range(out_size):
+        used = kk[xx] != 0
+        mat[starts[xx] + np.nonzero(used)[0], xx] = kk[xx][used]
+    return mat
 
 
 @functools.lru_cache(maxsize=256)

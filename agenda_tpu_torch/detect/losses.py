@@ -1,11 +1,10 @@
-"""Detection losses of the YOLOv8 head: BCE, the CIoU pieces and DFL.
+"""Detection losses: focal and BCE, smooth L1, the IoU family, DFL.
 
-Counterpart of ``agenda_tpu/detect/losses.py:29-101`` (``bce_with_logits``,
-``pairwise_iou_terms``, ``ciou``, ``dfl_loss``), elementwise over any
-leading shape, with the same formulas and epsilons. CIoU's ``alpha`` is
-computed without gradient, as the reference's ``stop_gradient``.
-``sigmoid_focal_loss``, ``smooth_l1`` and ``giou`` serve Faster R-CNN and
-are not ported (ROADMAP.md §A).
+Counterpart of ``agenda_tpu/detect/losses.py`` (``sigmoid_focal_loss``,
+``bce_with_logits``, ``smooth_l1``, ``pairwise_iou_terms``, ``ciou``,
+``giou``, ``dfl_loss``), elementwise over any leading shape, with the same
+formulas and epsilons. CIoU's ``alpha`` is computed without gradient, as
+the reference's ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -16,8 +15,23 @@ import torch
 import torch.nn.functional as F
 
 
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float = 0.25,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """Per-element focal loss (RetinaNet form)."""
+    p = torch.sigmoid(logits)
+    ce = bce_with_logits(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    a_t = alpha * targets + (1 - alpha) * (1 - targets)
+    return a_t * ((1 - p_t) ** gamma) * ce
+
+
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    diff = (pred - target).abs()
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
 
 
 def _box_wh(b):
@@ -55,6 +69,16 @@ def ciou(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     with torch.no_grad():
         alpha = v / (1 - iou + v + 1e-7)
     return iou - rho2 / c2 - alpha * v
+
+
+def giou(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Generalized IoU of aligned boxes."""
+    iou, union = pairwise_iou_terms(pred, target)
+    lt = torch.minimum(pred[..., :2], target[..., :2])
+    rb = torch.maximum(pred[..., 2:], target[..., 2:])
+    cwh = (rb - lt).clamp(min=0)
+    area_c = cwh[..., 0] * cwh[..., 1] + 1e-7
+    return iou - (area_c - union) / area_c
 
 
 def dfl_loss(pred_dist: torch.Tensor, target: torch.Tensor, reg_max: int) -> torch.Tensor:

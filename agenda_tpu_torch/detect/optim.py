@@ -1,6 +1,7 @@
 """The detector trainer's optimizers and schedules, on tensors.
 
-Counterpart of ``agenda_tpu/detect/runner.py:121-285``:
+Counterpart of ``agenda_tpu/detect/runner.py:121-285``; ``make_optimizer``
+picks the runner's:
 
 - ``make_lr_fn``: linear warmup over ``warmup_iters`` from 0.001 x lr, then
   x0.1 at each milestone (fractions of the run);
@@ -21,8 +22,16 @@ Counterpart of ``agenda_tpu/detect/runner.py:121-285``:
   ``add_decayed_weights(wd)`` on every leaf, then ``sgd(lr_fn, momentum)``.
   Each schedule is read at the update's count before it is incremented, and
   the trace is ``g + momentum x trace`` with no dampening (nesterov:
-  ``g + momentum x trace`` once more). AdamW and layer decay serve ViTDet
-  and raise.
+  ``g + momentum x trace`` once more);
+- ``DetectorAdamW``: the JAX runner's AdamW chain in its order:
+  ``clip_by_global_norm`` (when set), ``optax.adamw(lr_fn, b1 0.9, b2
+  0.999, eps 1e-8, weight_decay)`` (with layer decay, the decay only on
+  parameters of more than one dimension, ``no_decay_mask``), then
+  ``scale_by_layer_decay``: each update times ``layer_decay_scale`` of its
+  parameter, ``rate ** (L + 1 - layer_id)`` with layer 0 the patch and
+  position embeddings, ``i + 1`` backbone block i, ``L + 1`` the rest of the
+  backbone, and 1 outside it. The port's parameter names carry the flax
+  paths (``backbone.block_3.qkv.weight``), so the layer ids are the same.
 
 The schedules are evaluated on the host in float32 with the reference's
 operation order, so the lr and momentum of a step are the reference's f32
@@ -39,7 +48,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from agenda_tpu_torch.detect.yolov8 import flax_to_state_dict
+from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict
 
 Tensors = Dict[str, torch.Tensor]
 f32 = np.float32
@@ -121,17 +130,23 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+def clip_by_global_norm(g: List[torch.Tensor], clip: Optional[float]) -> List[torch.Tensor]:
+    """optax's clip_by_global_norm: t / norm x clip when norm >= clip."""
+    if not clip:
+        return g
+    norm = global_norm(g)
+    keep = norm < clip
+    return [torch.where(keep, t, t / norm * clip) for t in g]
+
+
 class DetectorSGD:
     """The runner's SGD: the yolo chain or the plain one (see the module
     docstring), updating parameter tensors in place."""
 
     def __init__(self, cfg, steps_per_epoch: int, total_bs: Optional[int] = None,
                  base_lr: Optional[float] = None):
-        if cfg.optimizer != "sgd" or cfg.layer_decay_rate:
-            raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r} with layer decay {cfg.layer_decay_rate} serves "
-                "ViTDet and is not ported yet: ROADMAP.md §A, the item 'Faster R-CNN, YOLOv5, "
-                "ViTDet and io/torch_import.py'")
+        if cfg.optimizer != "sgd":
+            raise ValueError(f"DetectorSGD for optimizer {cfg.optimizer!r}")
         self.clip = cfg.clip_grad_norm
         self.nesterov = cfg.nesterov
         self.yolo = cfg.yolo_optimizer
@@ -152,7 +167,7 @@ class DetectorSGD:
     def update(self, grads: Tensors, state: SGDState, params: Tensors) -> None:
         """One step: ``params`` and ``state`` change in place."""
         names = list(params)
-        g = dict(zip(names, self._clipped([grads[k] for k in names])))
+        g = dict(zip(names, clip_by_global_norm([grads[k] for k in names], self.clip)))
         if self.weight_decay:
             decay = decay_mask(params) if self.yolo else dict.fromkeys(names, True)
             wd = [k for k in names if decay[k]]
@@ -171,13 +186,101 @@ class DetectorSGD:
             torch._foreach_add_([params[k] for k in group], torch._foreach_mul(upd, -lr))
         state.count += 1
 
-    def _clipped(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
-        """optax's clip_by_global_norm: t / norm x clip when norm >= clip."""
-        if not self.clip:
-            return g
-        norm = global_norm(g)
-        keep = norm < self.clip
-        return [torch.where(keep, t, t / norm * self.clip) for t in g]
+    def buffers(self, state: SGDState) -> Dict[str, Tensors]:
+        """The state's tensors by kind, as the runner's sidecar keeps them."""
+        return {"momentum": state.trace}
+
+
+def layer_decay_scale(name: str, rate: float, num_layers: int) -> float:
+    """The lr multiplier of parameter ``name`` (mmdet's
+    LayerDecayOptimizerConstructor, detectron2's ``get_vit_lr_decay_rate``)."""
+    names = name.split(".")
+    if names[0] != "backbone":
+        return 1.0
+    sub = names[1] if len(names) > 1 else ""
+    if sub in ("patch_embed", "pos_embed"):
+        layer_id = 0
+    elif sub.startswith("block_"):
+        layer_id = int(sub.split("_")[1]) + 1
+    else:
+        layer_id = num_layers + 1
+    return rate ** (num_layers + 1 - layer_id)
+
+
+def no_decay_mask(params: Tensors) -> Dict[str, bool]:
+    """The constructor's decay group: parameters of more than one dimension."""
+    return {k: p.ndim > 1 for k, p in params.items()}
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: int  # updates so far
+    mu: Tensors
+    nu: Tensors
+
+
+class DetectorAdamW:
+    """The runner's AdamW (see the module docstring), updating parameter
+    tensors in place. Each step's lr is ``lr_fn`` at the update's count
+    before its increment; the bias corrections ``1 - b ** (count + 1)`` are
+    computed in f32 on the host, as optax's are."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, cfg, steps_per_epoch: int, total_bs: Optional[int] = None,
+                 base_lr: Optional[float] = None):
+        if cfg.optimizer != "adamw":
+            raise ValueError(f"DetectorAdamW for optimizer {cfg.optimizer!r}")
+        self.clip = cfg.clip_grad_norm
+        self.weight_decay = cfg.weight_decay
+        self.layer_decay = cfg.layer_decay_rate
+        self.num_layers = cfg.layer_decay_layers
+        self.lr_fn = make_lr_fn(cfg, steps_per_epoch, base_lr)
+
+    def init(self, params: Tensors) -> AdamWState:
+        return AdamWState(0, {k: torch.zeros_like(p) for k, p in params.items()},
+                          {k: torch.zeros_like(p) for k, p in params.items()})
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: AdamWState, params: Tensors) -> None:
+        names = list(params)
+        g = clip_by_global_norm([grads[k] for k in names], self.clip)
+        mu = [state.mu[k] for k in names]
+        nu = [state.nu[k] for k in names]
+        # (1 - b) g + b t, in optax's order
+        torch._foreach_mul_(mu, self.B1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.B1))
+        torch._foreach_mul_(nu, self.B2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.B2))
+        count = f32(state.count + 1)
+        bc1 = float(f32(1) - f32(self.B1) ** count)
+        bc2 = float(f32(1) - f32(self.B2) ** count)
+        upd = torch._foreach_div(torch._foreach_div(mu, bc1), torch._foreach_add(
+            torch._foreach_sqrt(torch._foreach_div(nu, bc2)), self.EPS))
+        decay = no_decay_mask(params) if self.layer_decay else dict.fromkeys(names, True)
+        if self.weight_decay:
+            upd = [u + self.weight_decay * params[k] if decay[k] else u
+                   for k, u in zip(names, upd)]
+        lr = -self.lr_fn(state.count)
+        for k, u in zip(names, upd):
+            u = u * lr
+            if self.layer_decay:
+                u = u * layer_decay_scale(k, self.layer_decay, self.num_layers)
+            params[k].add_(u)
+        state.count += 1
+
+    def buffers(self, state: AdamWState) -> Dict[str, Tensors]:
+        return {"mu": state.mu, "nu": state.nu}
+
+
+def make_optimizer(cfg, steps_per_epoch: int, total_bs: Optional[int] = None,
+                   base_lr: Optional[float] = None):
+    """The runner's optimizer for ``cfg.optimizer`` (sgd or adamw)."""
+    if cfg.optimizer == "sgd":
+        return DetectorSGD(cfg, steps_per_epoch, total_bs, base_lr)
+    if cfg.optimizer == "adamw":
+        return DetectorAdamW(cfg, steps_per_epoch, total_bs, base_lr)
+    raise ValueError(cfg.optimizer)
 
 
 def trace_from_flax(flat: Dict[str, np.ndarray]) -> Tensors:

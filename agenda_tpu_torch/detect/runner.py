@@ -8,8 +8,9 @@ Counterpart of ``agenda_tpu/detect/runner.py``:
   safetensors file of flattened flax variables (``params.<path>``,
   ``batch_stats.<path>`` and, from a trainer with EMA, ``ema_params.<path>``),
   read and written through the port's own safetensors code and mapped to
-  and from the model's ``state_dict`` (``yolov8.flax_to_state_dict``), so
-  one file serves both packages. ``load_variables`` returns the params and
+  and from the model's ``state_dict`` by the family's ``from_flax`` and
+  ``to_flax`` (``detect/flax_layout.py``; without a family, the layout
+  every family but Faster R-CNN shares), so one file serves both packages. ``load_variables`` returns the params and
   batch statistics, which is what prediction reads, as the JAX ``det_test``
   does; ``read_checkpoint`` returns the EMA too;
 - ``DetectorRunner.train``, both paths of the JAX runner (``:314-676``).
@@ -20,8 +21,10 @@ Counterpart of ``agenda_tpu/detect/runner.py``:
   ran) the train set goes to the card once as uint8 and ``DeviceAugFeed``
   renders each batch there from the host's plans (``detect/device_aug.py``),
   serially or from ``PlanPrefetcher``'s workers. Either feeds one train step
-  a batch (``make_train_step``: the train-mode forward and the v8 loss,
-  autograd, ``optim.DetectorSGD``, the EMA with its ramp
+  a batch (``make_train_step``: the family's train-mode forward and loss,
+  its samplers drawing from a generator seeded from (seed, step) as the JAX
+  runner folds the step into its key, autograd, the optimizer of
+  ``optim.make_optimizer``, the EMA with its ramp
   ``d = ema_decay (1 - exp(-(step + 1) / 2000))`` at the step before its
   increment, flax's batch-norm statistics); ``metrics.jsonl`` at
   ``log_interval`` and the first two steps; validation every
@@ -29,14 +32,15 @@ Counterpart of ``agenda_tpu/detect/runner.py``:
   mosaic-close window, on the EMA params with the live batch statistics,
   saving ``best_<key>.safetensors``; the recipe switch at ``max_epochs -
   close_mosaic_epochs``; ``latest.safetensors`` and the port's own
-  ``train_state_torch.safetensors`` sidecar (momentum buffers, update
+  ``train_state_torch.safetensors`` sidecar (the optimizer's buffers, update
   count, epoch, step) each epoch on a writer thread; resume from
-  ``latest`` (moments, epoch, step) or weights only from any other file.
+  ``latest`` (moments, epoch, step) or weights only from any other file;
+  ``pretrained`` imports an mmdet/mmyolo checkpoint over the fresh weights
+  first (``io/torch_import.py``, the reference's ``load_from``).
   As in the reference's host path, a resumed run's data loader starts its
   shuffle and the dataset its per-call seeds at 0 again; the device path
   keys its plans and batches on the true epoch, so a resumed run continues
-  them. ``--pretrained`` weights, AdamW and layer decay raise (ROADMAP.md
-  §A);
+  them;
 - ``DetectorRunner._predict_batches``: one batch in flight. The host
   decodes batch i+1 while the card runs batch i; the tiles go up as uint8
   from pinned memory (non-blocking), are resized on the card (bilinear, two
@@ -72,8 +76,8 @@ from agenda_tpu_torch.detect.coco_eval import coco_map
 from agenda_tpu_torch.detect.device_aug import (PLAN_SEED, SELECTORS, AugPlanner, ConcatAugPlanner,
                                                 LSJPlanner, PlanPrefetcher, epoch_plans,
                                                 render_batch, render_lsj_batch)
-from agenda_tpu_torch.detect.optim import DetectorSGD, SGDState, global_norm
-from agenda_tpu_torch.detect.yolov8 import flax_to_state_dict, state_dict_to_flax
+from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict, state_dict_to_flax
+from agenda_tpu_torch.detect.optim import global_norm, make_optimizer
 from agenda_tpu_torch.io.safetensors_io import load_file, save_file
 
 
@@ -122,33 +126,46 @@ def _st_path(path: str) -> str:
 
 
 def save_variables(path: str, variables: Dict[str, torch.Tensor],
-                   ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
+                   ema: Optional[Dict[str, torch.Tensor]] = None, family=None) -> None:
     """Write a state_dict (and an EMA of its parameters, as flax's
-    ``ema_params`` collection) in the JAX runner's checkpoint layout."""
-    flat = state_dict_to_flax(variables)
+    ``ema_params`` collection) in the JAX runner's checkpoint layout, through
+    ``family``'s converter."""
+    to_flax = family.to_flax if family is not None else state_dict_to_flax
+    flat = to_flax(variables)
     if ema is not None:
-        flat.update({"ema_" + k: v for k, v in state_dict_to_flax(ema).items()})
+        flat.update({"ema_" + k: v for k, v in to_flax(ema).items()})
     save_file(flat, _st_path(path))
 
 
-def read_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
-                                        Optional[Dict[str, torch.Tensor]]]:
+def read_checkpoint(path: str, family=None) -> Tuple[Dict[str, torch.Tensor],
+                                                     Optional[Dict[str, torch.Tensor]]]:
     """A JAX (or port) detector checkpoint -> (state_dict, EMA of the
-    parameters or None), on the CPU. An unknown key raises."""
+    parameters or None), on the CPU, through ``family``'s converter. An
+    unknown key raises."""
+    from_flax = family.from_flax if family is not None else flax_to_state_dict
     flat = {k: v.float().numpy() for k, v in load_file(_st_path(path)).items()}
     ema_flat = {k[len("ema_"):]: flat.pop(k) for k in list(flat) if k.startswith("ema_params.")}
     ema = None
     if ema_flat:
-        ema = {k: v for k, v in flax_to_state_dict(ema_flat).items()
+        ema = {k: v for k, v in from_flax(ema_flat).items()
                if not k.endswith("num_batches_tracked")}
-    return flax_to_state_dict(flat), ema
+    return from_flax(flat), ema
 
 
-def load_variables(path: str) -> Dict[str, torch.Tensor]:
+def load_variables(path: str, family=None) -> Dict[str, torch.Tensor]:
     """The params and batch statistics of a checkpoint as the model's
     state_dict; a trainer's EMA collection is not read, as the JAX
     ``det_test`` does not read it."""
-    return read_checkpoint(path)[0]
+    return read_checkpoint(path, family)[0]
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The train step's generator on ``device``, seeded from (seed, step)."""
+    return torch.Generator(device=device).manual_seed((seed << 32) + step)
+
+
+IMPORT_KEYS = {"FasterRCNNFamily": "faster-rcnn", "YOLOv5Family": "yolov5",
+               "YOLOv8Family": "yolov8", "ViTDetFamily": "vitdet"}
 
 
 def full_f32(dev: torch.device):
@@ -176,7 +193,7 @@ class TrainState:
     stats: Dict[str, torch.Tensor]
     counters: Dict[str, torch.Tensor]
     ema: Optional[Dict[str, torch.Tensor]]
-    opt: SGDState
+    opt: Any  # the optimizer's state (optim.SGDState or optim.AdamWState)
 
     def variables(self, use_ema: bool = False) -> Dict[str, torch.Tensor]:
         """The model's state_dict, with the EMA's parameters when asked."""
@@ -312,7 +329,12 @@ class DetectorRunner:
 
     # -- training -----------------------------------------------------------
 
-    def init_train_state(self, opt: DetectorSGD, variables: Dict[str, torch.Tensor],
+    def _import_key(self) -> str:
+        """The family's key for the torch-checkpoint importer."""
+        name = type(self.family).__name__
+        return IMPORT_KEYS.get(name, name.lower())
+
+    def init_train_state(self, opt, variables: Dict[str, torch.Tensor],
                          ema: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """A train state on the runner's device; the EMA starts from ``ema``,
         else from the parameters, when ``ema_decay`` > 0."""
@@ -327,15 +349,16 @@ class DetectorRunner:
             shadow = {k: src[k].detach().to(self.device, copy=True) for k in fam.param_names}
         return TrainState(params, stats, counters, shadow, opt.init(params))
 
-    def make_train_step(self, opt: DetectorSGD) -> Callable[..., Dict[str, torch.Tensor]]:
+    def make_train_step(self, opt) -> Callable[..., Dict[str, torch.Tensor]]:
         """-> ``step(state, batch, gstep)``: one update of ``state`` in place
         from a batch on the device; returns the step's metrics (0-dim tensors
-        on the device: cls, iou, dfl, loss, grad_norm)."""
-        family, ema_decay = self.family, self.cfg.ema_decay
+        on the device: the family's loss parts, loss, grad_norm)."""
+        family, ema_decay, seed, dev = self.family, self.cfg.ema_decay, self.cfg.seed, self.device
 
         def step(state: TrainState, batch: Dict[str, torch.Tensor], gstep: int):
             variables = {**state.params, **state.stats, **state.counters}
-            loss, metrics, new_stats = family.loss_fn(variables, batch)
+            loss, metrics, new_stats = family.loss_fn(variables, batch,
+                                                      step_generator(seed, gstep, dev))
             names = list(state.params)
             grads = dict(zip(names, torch.autograd.grad(loss, [state.params[k] for k in names])))
             opt.update(grads, state.opt, state.params)
@@ -359,10 +382,6 @@ class DetectorRunner:
         from agenda_tpu_torch.train.checkpoint import AsyncWriter
 
         cfg, dev = self.cfg, self.device
-        if pretrained:
-            raise NotImplementedError(
-                "--pretrained (mmdet/mmyolo weights) is not ported yet: ROADMAP.md §A, the item "
-                "'Faster R-CNN, YOLOv5, ViTDet and io/torch_import.py'")
         global_bs = cfg.batch_size
         switch_epoch = cfg.max_epochs - cfg.close_mosaic_epochs \
             if cfg.close_mosaic_epochs > 0 else None
@@ -385,7 +404,7 @@ class DetectorRunner:
             loader, epoch_batches = feed.loader, feed.batches
         saver = AsyncWriter()
         try:
-            return self._train_loop(train_dataset, val_dataset, resume, epoch_batches,
+            return self._train_loop(train_dataset, val_dataset, resume, pretrained, epoch_batches,
                                     len(loader), switch_epoch, saver)
         finally:
             # the worker pool must not outlive a failed run, and the last
@@ -394,7 +413,7 @@ class DetectorRunner:
                 feed.close()
             saver.wait()
 
-    def _train_loop(self, train_dataset, val_dataset, resume, epoch_batches,
+    def _train_loop(self, train_dataset, val_dataset, resume, pretrained, epoch_batches,
                     steps_per_epoch: int, switch_epoch, saver):
         from agenda_tpu_torch.utils.profiling import StepTimer
 
@@ -405,12 +424,23 @@ class DetectorRunner:
             base_lr = cfg.lr * global_bs / cfg.base_batch_size
             logger.info("auto_scale_lr: lr %.2e -> %.2e (global_bs %d / base %d)",
                         cfg.lr, base_lr, global_bs, cfg.base_batch_size)
-        opt = DetectorSGD(cfg, steps_per_epoch, total_bs=global_bs, base_lr=base_lr)
+        opt = make_optimizer(cfg, steps_per_epoch, total_bs=global_bs, base_lr=base_lr)
 
         variables = self.family.init_variables(torch.Generator().manual_seed(cfg.seed))
+        if pretrained:
+            # a COCO init from a torch checkpoint: the reference's load_from
+            from agenda_tpu_torch.io.torch_import import (import_detector_weights,
+                                                          load_torch_checkpoint)
+
+            variables, report = import_detector_weights(
+                self.family, variables, load_torch_checkpoint(pretrained), self._import_key())
+            self.import_report = report
+            logger.info("pretrained init from %s: %d tensors imported, %d head tensors "
+                        "shape-skipped", pretrained, len(report.imported),
+                        len(report.skipped_shape))
         resume_ema, sidecar, start_epoch, gstep = None, None, 0, 0
         if resume:
-            variables, resume_ema = read_checkpoint(resume)
+            variables, resume_ema = read_checkpoint(resume, self.family)
             # the sidecar is written with latest.safetensors and matches only it
             path = os.path.join(os.path.dirname(os.path.abspath(resume)), SIDECAR)
             is_latest = os.path.basename(resume) == "latest.safetensors"
@@ -427,8 +457,9 @@ class DetectorRunner:
         state = self.init_train_state(opt, variables, resume_ema)
         if sidecar is not None:
             state.opt.count = int(sidecar["count"])
-            for k, t in state.opt.trace.items():
-                t.copy_(sidecar["momentum." + k])
+            for kind, buffers in opt.buffers(state.opt).items():
+                for k, t in buffers.items():
+                    t.copy_(sidecar[f"{kind}.{k}"])
         train_step = self.make_train_step(opt)
 
         best: Dict[str, float] = {k: -1.0 for k in cfg.save_best}
@@ -466,20 +497,21 @@ class DetectorRunner:
                         if results.get(key, -1) > best[key]:
                             best[key] = results[key]
                             save_variables(os.path.join(cfg.output_dir, f"best_{key}.safetensors"),
-                                           variables)
+                                           variables, family=self.family)
                 # a host snapshot now; the files are written while the next epoch runs
                 snap = (_host(state.variables()),
                         None if state.ema is None else _host(state.ema),
-                        _host(state.opt.trace), state.opt.count)
+                        {kind: _host(b) for kind, b in opt.buffers(state.opt).items()},
+                        state.opt.count)
                 saver.submit(lambda snap=snap, epoch=epoch, gstep=gstep:
                              self._save_latest(*snap, epoch, gstep), name=f"latest-e{epoch}")
         return state.variables(use_ema=cfg.ema_decay > 0)
 
-    def _save_latest(self, variables, ema, trace, count: int, epoch: int, gstep: int) -> None:
+    def _save_latest(self, variables, ema, buffers, count: int, epoch: int, gstep: int) -> None:
         """latest.safetensors and its train-state sidecar."""
         out = self.cfg.output_dir
-        save_variables(os.path.join(out, "latest.safetensors"), variables, ema)
-        flat = {f"momentum.{k}": v for k, v in trace.items()}
+        save_variables(os.path.join(out, "latest.safetensors"), variables, ema, self.family)
+        flat = {f"{kind}.{k}": v for kind, b in buffers.items() for k, v in b.items()}
         flat.update(count=torch.tensor(count), epoch=torch.tensor(epoch),
                     gstep=torch.tensor(gstep))
         save_file(flat, os.path.join(out, SIDECAR))

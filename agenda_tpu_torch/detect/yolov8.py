@@ -2,7 +2,8 @@
 
 Counterpart of ``agenda_tpu/detect/yolov8.py``: the same
 modules under the same names, so a JAX checkpoint maps onto this
-``state_dict`` name for name (``flax_to_state_dict``). The layers run
+``state_dict`` name for name (``flax_to_state_dict``, shared by every
+family in ``detect/flax_layout.py``). The layers run
 NCHW; every ``concatenate(axis=-1)`` of the
 reference is a ``cat(dim=1)`` in the same order, and the head outputs are
 returned NHWC, as the reference's, so that ``_flatten_outputs`` reshapes
@@ -203,62 +204,6 @@ def init_yolov8_(model: YOLOv8, generator: torch.Generator) -> None:
                     mod.bias.fill_(cls_bias if name.startswith("head_cls3_") else 1.0)
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.reset_parameters()
-
-
-# ---------------------------------------------------------------------------
-# The JAX checkpoint layout: flattened flax variables
-# ---------------------------------------------------------------------------
-
-
-def flax_to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """``{"params.<path>.kernel": HWIO, ..., "batch_stats.<path>.bn.mean": ...}``
-    (the JAX runner's safetensors keys) -> this module's ``state_dict``.
-
-    Conv ``kernel`` HWIO -> ``weight`` OIHW; ``bn.scale``/``bn.bias`` ->
-    ``weight``/``bias``; ``bn.mean``/``bn.var`` -> ``running_mean``/
-    ``running_var``; a conv's ``bias`` stays ``bias``. Any other name raises.
-    """
-    out: Dict[str, torch.Tensor] = {}
-    for key, value in flat.items():
-        col, _, path = key.partition(".")
-        parent, _, leaf = path.rpartition(".")
-        v = torch.tensor(np.asarray(value, np.float32))  # a copy: the reader's arrays may be read-only
-        if col == "params" and leaf == "kernel" and v.ndim == 4:
-            out[f"{parent}.weight"] = v.permute(3, 2, 0, 1).contiguous()
-        elif col == "params" and leaf == "scale" and parent.endswith("bn"):
-            out[f"{parent}.weight"] = v
-        elif col == "params" and leaf == "bias":
-            out[f"{parent}.bias"] = v
-        elif col == "batch_stats" and leaf in ("mean", "var") and parent.endswith("bn"):
-            out[f"{parent}.running_{leaf}"] = v
-        else:
-            raise KeyError(f"no state_dict name for the checkpoint key {key!r}")
-        if parent.endswith("bn") and leaf == "scale":
-            out[f"{parent}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
-    return out
-
-
-def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The inverse of ``flax_to_state_dict`` (``num_batches_tracked`` has no
-    flax counterpart and is not written)."""
-    out: Dict[str, np.ndarray] = {}
-    for key, value in state.items():
-        parent, _, leaf = key.rpartition(".")
-        v = value.detach().to("cpu", torch.float32).numpy()
-        is_bn = parent.endswith("bn")
-        if leaf == "num_batches_tracked" and is_bn:
-            continue
-        if leaf == "weight" and v.ndim == 4:
-            out[f"params.{parent}.kernel"] = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
-        elif leaf == "weight" and is_bn:
-            out[f"params.{parent}.scale"] = v
-        elif leaf == "bias":
-            out[f"params.{parent}.bias"] = v
-        elif leaf in ("running_mean", "running_var") and is_bn:
-            out[f"batch_stats.{parent}.{leaf[len('running_'):]}"] = v
-        else:
-            raise KeyError(f"no checkpoint name for the state_dict key {key!r}")
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -158,12 +158,35 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 stage's marker and manifest line, K1-K6 launched by the stages
                 that run them and by no other, one final record per target
                 image, each stage's wall time;
- 31. report  -- a `kernels` JSON line (six kernels; none is on the labelling,
-                detector-training, refine or orchestrator path: the render
-                is einsums and elementwise PyTorch, as it is jnp in the
-                reference, ResNet-50 is cuDNN and ATen as it is flax without
-                Pallas there), the card's name and power limit, and last the
-                device JSON line.
+ 31. family parity -- Faster R-CNN (R50-FPN), YOLOv5m, YOLOv5s and ViTDet
+                (ViT-B) at their reference widths, 128 px: one train step at
+                batch 8 of the stacks (the real_source recipe and optimizer:
+                SGD, the yolo SGD, AdamW with layer decay) from seeded
+                weights with measured batch-norm statistics, on the card and
+                on the CPU (f32, the CPU's RCNN targets on both sides): the
+                loss and its parts, the gradients, the update and the
+                statistics' move within the family's FAM_LIMITS, the TF32
+                control beyond each; predictions matched box for box;
+ 32. family CLIs -- cli/det_train --preset real_source --detector <family>
+                at the preset's batch with --pretrained from a fabricated
+                mmdet/mmyolo checkpoint (80-class COCO heads): the import
+                report (every tensor but the heads imported, the heads
+                shape-skipped), one epoch, a resume for one more, det_test;
+                Faster R-CNN once more with --device-aug;
+ 33. family timing -- each family's train step at its real_source and
+                synthetic_target batches (cold, warm, images/s, peak memory,
+                the card's busy share and kernel launches of a profiled step,
+                the NMS rank loop's launches), and labelling the 512 stacks
+                at batch 192 (images/s, NMS launches a batch);
+ 34. the chain with faster-rcnn -- phase 30 with `detector: faster-rcnn`;
+ 35. report  -- a `kernels` JSON line (six kernels; none is on the labelling,
+                detector, refine or orchestrator path: the render is einsums
+                and elementwise PyTorch, as it is jnp in the reference,
+                ResNet-50 is cuDNN and ATen as it is flax without Pallas
+                there, ViTDet's attention is the reference's plain
+                attention_reference and RoIAlign, NMS and the assigners are
+                PyTorch as they are jnp there), the card's name and power
+                limit, and last the device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. It imports nothing of JAX or agenda_tpu.
@@ -176,6 +199,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2969,13 +2993,14 @@ def fabricate_chain_pipeline(out_dir: str) -> None:
                   text, random_state(CLIPTextModel, text, 2), tokenizer_dir=tok_dir)
 
 
-def chain_phase(root: str, dev) -> dict:
-    """Phase 30: the port's cli/pipeline --device cuda through all 21 stages
-    on fabricated sets: --until-stage label_synthetic_target; a rerun that
-    skips every stage; the target predictions doctored to fill the refine
-    buckets; --from-stage refine. Each stage leaves its marker and manifest
-    line, launches the kernels CHAIN_KERNELS names for it (and no other), and
-    the final prediction_real_target.pkl holds one record per target image."""
+def chain_phase(root: str, dev, detector: str = "yolov8") -> dict:
+    """Phase 30 (and 34 with ``detector`` faster-rcnn): the port's
+    cli/pipeline --device cuda through all 21 stages on fabricated sets:
+    --until-stage label_synthetic_target; a rerun that skips every stage;
+    the target predictions doctored to fill the refine buckets; --from-stage
+    refine. Each stage leaves its marker and manifest line, launches the
+    kernels CHAIN_KERNELS names for it (and no other), and the final
+    prediction_real_target.pkl holds one record per target image."""
     import pickle
 
     import numpy as np
@@ -3003,7 +3028,7 @@ def chain_phase(root: str, dev) -> dict:
         token_steps_stage1=1, token_steps_stage2=1, resolution=32, image_size=112,
         real_train_root=os.path.join(root, "real"), real_train_ann="ann.json",
         real_target_test_root=os.path.join(root, "real"), real_target_test_ann="ann.json",
-        thresh_conf=0.0, extra_args=CHAIN_ARGS)
+        thresh_conf=0.0, extra_args=CHAIN_ARGS, detector=detector)
     path = os.path.join(root, "chain.json")
     cfg.to_json(path)
     run = ["--config", path, "--device", dev.type]
@@ -3022,7 +3047,7 @@ def chain_phase(root: str, dev) -> dict:
         first = dict(per_stage)
         pl.main(run + ["--until-stage", "label_synthetic_target"])
         rerun = len(per_stage) - len(first)
-        pred_tgt = os.path.join(cfg.work_dir, "work_dirs", "yolov8_synthetic_heatmap",
+        pred_tgt = os.path.join(cfg.work_dir, "work_dirs", f"{detector}_synthetic_heatmap",
                                 "prediction_syn_target.pkl")
         with open(pred_tgt, "rb") as f:
             records = pickle.load(f)
@@ -3038,7 +3063,7 @@ def chain_phase(root: str, dev) -> dict:
     with open(os.path.join(cfg.work_dir, "pipeline_manifest.jsonl")) as f:
         manifest = [json.loads(line) for line in f]
     markers = sorted(os.listdir(os.path.join(cfg.work_dir, ".stage_done")))
-    with open(os.path.join(cfg.work_dir, "work_dirs", "yolov8_synthetic_target",
+    with open(os.path.join(cfg.work_dir, "work_dirs", f"{detector}_synthetic_target",
                            "prediction_real_target.pkl"), "rb") as f:
         final = pickle.load(f)
     wrong = {n: {k: v for k, v in counts.items() if not k.startswith("fused_adamw8bit_leaves")
@@ -3046,7 +3071,8 @@ def chain_phase(root: str, dev) -> dict:
              for n, (_, counts) in per_stage.items()}
     wrong = {n: w for n, w in wrong.items() if w}
     wall = time.perf_counter() - t0
-    print(f"[chain] cli/pipeline --device {dev.type}, {len(names)} stages: "
+    print(f"[chain] detector {detector}: cli/pipeline --device {dev.type}, {len(names)} "
+          f"stages: "
           + ", ".join(f"{n} {s:.1f} s" for n, (s, _) in per_stage.items())
           + f"; kernel launches by stage "
           + "; ".join(f"{n} {({k: v for k, v in c.items() if v})}" for n, (_, c)
@@ -3064,6 +3090,447 @@ def chain_phase(root: str, dev) -> dict:
     require(not wrong, f"kernel launches differ from CHAIN_KERNELS: {wrong}")
     require(len(final) == CHAIN_REAL_TILES, f"{len(final)} final records")
     return {"stages": {n: s for n, (s, _) in per_stage.items()}, "wall": wall}
+
+
+# the other detector families (phases 31-34): Faster R-CNN R50-FPN, YOLOv5m and
+# YOLOv5s, ViTDet ViT-B, each at its reference config's widths at 128 px
+FAMILIES = ("faster-rcnn", "yolov5", "yolov5s", "vitdet")
+# phase 31: one train step at FAM_BATCH of the stacks (the real_source preset's
+# recipe and optimizer, update FAM_STEP: past the warmup of the plain SGD and
+# AdamW, 1/3 into the yolo one's), card vs CPU, both f32 with TF32 off and the
+# CPU's RCNN targets on both sides (a proposal whose IoU sits at a sampling
+# threshold goes either way under 1e-6 of noise); each reading (relative:
+# the loss, its largest part, the gradients, the update and the statistics'
+# move, as L2 norms of the difference over the CPU's) within its family's
+# limit, and the TF32 control beyond every limit. The limits sit between the
+# sound runs' readings and the TF32 controls' (read on an H100 80GB HBM3 at
+# 700 W; sound / TF32): Faster R-CNN's fresh ResNet-50 in train mode is
+# chaotic, as the refine step's (gradients 1.7e-2 / 0.48, update 1.7e-2 /
+# 0.46, parts 8.7e-6 / 4.5e-3, statistics 3.3e-5 / 1.8e-2); YOLOv5m (loss
+# 5.8e-7 / 2.8e-4, gradients 4.1e-4 / 0.22, statistics 1.1e-5 / 6.1e-3);
+# YOLOv5s, whose TF32 control moves the loss least and by a varying amount
+# over three calls (loss 2.3e-7 / 3.4e-6 to 7.7e-5, parts 2.4e-7 / 1.1e-5 to
+# 9.1e-5, gradients 6.8e-5 / 4.0e-2, statistics 7.1e-6 / 3.3e-3); ViTDet's
+# layer norms keep it tame (gradients 7.8e-5 / 2.1e-3) and its first AdamW
+# update moves every weight by about lr, so a gradient's 1e-4 noise flips
+# an element's sign (update 3.6e-3 / 4.7e-2). Each limit sits near the
+# geometric mean of its two readings.
+# Predictions on the calibrated weights: each kept box matched one to one
+# (corners within FAM_BOX_TOL px, the score within DET_SCORE_TOL); at most
+# FAM_UNMATCHED_MAX of an image's go unmatched (the two-stage families' NMS
+# over near-tied proposals: 4 of Faster R-CNN's 800, 2 in the worst image)
+FAM_BATCH, FAM_STEP, FAM_SEED = 8, 1000, 5
+FAM_BOX_TOL, FAM_UNMATCHED_MAX = 0.05, 0.05
+FAM_LIMITS = {
+    "faster-rcnn": {"loss": 1e-5, "parts": 1e-4, "grads": 0.1, "update": 0.1, "stats": 1e-3},
+    "yolov5": {"loss": 1e-5, "parts": 1e-5, "grads": 5e-3, "update": 5e-3, "stats": 1e-4},
+    "yolov5s": {"loss": 1e-6, "parts": 2e-6, "grads": 2e-3, "update": 2e-3, "stats": 1.5e-4},
+    "vitdet": {"loss": 1e-5, "parts": 1e-5, "grads": 4e-4, "update": 1.5e-2},
+}
+# phase 32: cli/det_train --preset real_source (each family's batch) with
+# --pretrained on a fabricated mm checkpoint, FAM_EPOCHS epochs on phase 22's
+# split, a resume for one more, det_test; Faster R-CNN once more with
+# --device-aug; phase 33: timing at the real_source and synthetic_target
+# batches (FAM_WARM synchronised steps after a cold one, the batch on the
+# card) and labelling at LABEL_BATCH over the 512 stacks
+FAM_EPOCHS, FAM_WARM = 1, 3
+
+
+def family_preset(root: str, ann: str, detector: str, stage: str = "real_source"):
+    from agenda_tpu_torch.detect.configs import DatasetSpec, preset
+
+    return preset(stage, detector, [DatasetSpec(root, ann, "")],
+                  output_dir=os.path.join(root, f"fam_{detector}"))
+
+
+def family_weights(cfg, seed: int = 0) -> dict:
+    """A family's seeded init, batch-norm statistics measured on noise."""
+    import torch
+
+    from agenda_tpu_torch.detect.fabricate import calibrate_batch_norm
+
+    fam = cfg.build_family()
+    gen = torch.Generator().manual_seed(seed)
+    state = fam.init_variables(gen)
+    return calibrate_batch_norm(fam, state, torch.rand(16, LABEL_IMG, LABEL_IMG, 3,
+                                                       generator=gen))
+
+
+def rel_l2(got: dict, want: dict, base: dict = None) -> float:
+    """||got - want|| / ||want - base|| over all tensors (base 0: ||want||)."""
+    num = den = 0.0
+    for k, w in want.items():
+        w = w.double()
+        b = base[k].double() if base is not None else 0.0
+        num += float((got[k].double() - w).square().sum())
+        den += float((w - b).square().sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def family_step_on(dev, cfg, state: dict, batch: dict, targets=None, mode: str = "f32") -> dict:
+    """One train step of ``cfg``'s family through the runner's optimizer on
+    ``dev`` from ``state`` (CPU tensors), update FAM_STEP, the samplers' and
+    drop path's uniforms from a CPU generator on both sides; the two-stage
+    families take ``targets`` (the CPU's RCNN targets) where given. Also
+    predicts on ``state``. ``mode`` "tf32" is the control. All on the CPU."""
+    import torch
+
+    from agenda_tpu_torch.detect import faster_rcnn
+    from agenda_tpu_torch.detect.optim import make_optimizer
+    from agenda_tpu_torch.detect.runner import DetectorRunner, batch_to_device, full_f32
+
+    fam = cfg.build_family()
+    runner = DetectorRunner(fam, cfg.runner, device=dev)
+    opt = make_optimizer(cfg.runner, steps_per_epoch=FAM_STEP + 1, total_bs=FAM_BATCH)
+    st = runner.init_train_state(opt, state)
+    st.opt.count = FAM_STEP
+    tb = batch_to_device(batch, dev)
+    names = list(st.params)
+    seen = {}
+    real = faster_rcnn.rcnn_targets
+
+    def rcnn_targets(*args, **kw):
+        out = real(*args, **kw) if targets is None else tuple(t.to(dev) for t in targets)
+        seen["targets"] = tuple(t.cpu() for t in out)
+        return out
+
+    arith = tf32_on() if mode == "tf32" else full_f32(dev)
+    with arith, mock.patch.object(faster_rcnn, "rcnn_targets", rcnn_targets):
+        boxes, scores, valid = fam.predict_fn(runner.variables_on_device(state), tb["image"])
+        loss, parts, stats = fam.loss_fn({**st.params, **st.stats, **st.counters}, tb,
+                                         torch.Generator().manual_seed(FAM_SEED))
+        grads = torch.autograd.grad(loss, [st.params[k] for k in names])
+        before = {k: v.detach().to("cpu", copy=True) for k, v in st.params.items()}
+        opt.update(dict(zip(names, grads)), st.opt, st.params)
+    return {"loss": loss.item(), "parts": {k: v.item() for k, v in parts.items()},
+            "grads": {k: g.cpu() for k, g in zip(names, grads)},
+            "old_stats": {k: v.to("cpu", copy=True) for k, v in st.stats.items()},
+            "stats": {k: v.cpu() for k, v in stats.items()}, "before": before,
+            "params": {k: v.detach().cpu() for k, v in st.params.items()},
+            "targets": seen.get("targets"),
+            "pred": [(boxes[i][valid[i]].cpu(), scores[i][valid[i]].cpu())
+                     for i in range(valid.shape[0])]}
+
+
+def match_boxes(boxes, scores, ref_boxes, ref_scores) -> int:
+    """How many detections have no partner among the reference's with every
+    corner within FAM_BOX_TOL px and |d score| <= DET_SCORE_TOL (one to one;
+    by corners, not IoU: the two-stage families keep zero-area boxes at the
+    image's edge, whose IoU with themselves is 0)."""
+    ok = (((boxes[:, None, :] - ref_boxes[None, :, :]).abs().amax(-1) <= FAM_BOX_TOL)
+          & ((scores[:, None] - ref_scores[None, :]).abs() <= DET_SCORE_TOL))
+    free = [True] * len(ref_scores)
+    unmatched = 0
+    for row in ok.tolist():
+        j = next((j for j, hit in enumerate(row) if hit and free[j]), None)
+        if j is None:
+            unmatched += 1
+        else:
+            free[j] = False
+    return unmatched
+
+
+def family_readings(side: dict, ref: dict) -> dict:
+    return {"loss": abs(side["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "parts": max(abs(side["parts"][k] - ref["parts"][k]) / max(abs(ref["parts"][k]), 1e-6)
+                         for k in ref["parts"]),
+            "grads": rel_l2(side["grads"], ref["grads"]),
+            "update": rel_l2(side["params"], ref["params"], ref["before"]),
+            "stats": rel_l2(side["stats"], ref["stats"], ref["old_stats"]) if ref["stats"] else 0.0}
+
+
+def family_parity(labels: dict, root: str, dev) -> dict:
+    """Phase 31: for each family, one train step on FAM_BATCH host-augmented
+    stacks (the real_source recipe) from seeded weights with measured
+    batch-norm statistics, on the card and on the CPU (both f32): the loss
+    and its parts, the gradients, the update and the batch statistics' move
+    within FAM_LIMITS; the same with TF32 on beyond every limit; the
+    predictions on those weights matched as phase 18's."""
+    import torch
+
+    cpu = torch.device("cpu")
+    out = {}
+    for det in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = family_preset(root, labels["all"], det)
+        limits = FAM_LIMITS[det]
+        batch = det_first_batch(cfg, FAM_BATCH)
+        state = family_weights(cfg)
+        ref = family_step_on(cpu, cfg, state, batch)
+        card = family_step_on(dev, cfg, state, batch, ref["targets"])
+        control = family_step_on(dev, cfg, state, batch, ref["targets"], mode="tf32")
+        sound, tf32 = family_readings(card, ref), family_readings(control, ref)
+        kept = sum(len(s) for _, s in ref["pred"])
+        unmatched = [(match_boxes(b, s, rb, rs), match_boxes(rb, rs, b, s))
+                     for (b, s), (rb, rs) in zip(card["pred"], ref["pred"])]
+        worst = max(max(u) / max(1, len(rs)) for u, (_, rs) in zip(unmatched, ref["pred"]))
+        print(f"[fam-parity] {det}: train step at batch {FAM_BATCH}, {LABEL_IMG} px, update "
+              f"{FAM_STEP} ({cfg.runner.optimizer}, lr {cfg.runner.lr}), loss {card['loss']:.6f} "
+              f"vs {ref['loss']:.6f} (parts {ref['parts']}); limits {limits}; card (f32) "
+              f"against the CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in sound.items())
+              + "; TF32 control: " + ", ".join(f"{k} {v:.3e}" for k, v in tf32.items())
+              + f"; predictions: {kept} kept on the CPU, unmatched (card, CPU) {unmatched}, "
+              f"worst share {worst:.4f} (limit {FAM_UNMATCHED_MAX}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        require(bool(ref["stats"]) == ("stats" in limits), f"{det}: batch-norm statistics")
+        for k, limit in limits.items():
+            require(sound[k] <= limit, f"{det}: the train step's {k} differs on the card: "
+                    f"{sound[k]:.3e} > {limit}")
+            require(tf32[k] > limit, f"{det}: the TF32 control passes the {k} limit ({limit})")
+        require(kept > 0 and worst <= FAM_UNMATCHED_MAX, f"{det}: predictions differ")
+        out[det] = {"sound": sound, "tf32": tf32, "limits": limits}
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_cli_phase(labels: dict, root: str, dev) -> dict:
+    """Phase 32: cli/det_train --preset real_source --detector <family> on the
+    card over phase 22's split (384 stacks, 64 to validate), at the preset's
+    batch, --pretrained from a fabricated mmdet/mmyolo checkpoint with
+    80-class COCO heads: the import report (every tensor but the heads
+    imported, the heads shape-skipped, nothing unmatched), FAM_EPOCHS epochs
+    with validation each, a resume from latest.safetensors for one more,
+    det_test on the validation set; Faster R-CNN once more with
+    --device-aug for one epoch."""
+    import pickle
+
+    from agenda_tpu_torch.cli import det_test, det_train
+    from agenda_tpu_torch.detect.fabricate import write_mm_checkpoint
+    from agenda_tpu_torch.detect.runner import SIDECAR, DetectorRunner
+    from agenda_tpu_torch.io.safetensors_io import load_file
+
+    train_ann, val_ann = det_split(labels, root)
+    checkpoints, out = {}, {}
+    runs = [(det, ()) for det in FAMILIES] + [("faster-rcnn", ("--device-aug",))]
+    for det, extra in runs:
+        t0 = time.perf_counter()
+        tag = det + ("-devaug" if extra else "")
+        work = os.path.join(root, f"fam_cli_{tag}")
+        pth = os.path.join(root, f"coco_{det}.pth")
+        if det not in checkpoints:
+            checkpoints[det] = write_mm_checkpoint(pth, det, seed=1)
+        sd = checkpoints[det]
+        heads = {k for k in sd if re.search(r"fc_cls|fc_reg|convs_pred", k)}
+        expect = {k for k in sd if not k.endswith("num_batches_tracked")} - heads
+        reports, runners = [], []
+        train = DetectorRunner.train
+
+        def spy(self, *args, **kw):
+            runners.append(self)
+            result = train(self, *args, **kw)
+            reports.append(self.import_report)
+            return result
+
+        args = ["--preset", "real_source", "--detector", det, "--train-root", root,
+                "--train-ann", train_ann, "--train-prefix", "", "--val-root", root,
+                "--val-ann", val_ann, "--val-prefix", "", "--work-dir", work, "--pretrained", pth,
+                "--device", dev.type, *extra]
+        epochs = 1 if extra else FAM_EPOCHS
+        with mock.patch.object(DetectorRunner, "train", spy):
+            det_train.main(args + ["--max-epochs", str(epochs)])
+            t_train = time.perf_counter() - t0
+            if not extra:
+                det_train.main(args + ["--max-epochs", str(epochs + 1), "--resume",
+                                       os.path.join(work, "latest.safetensors")])
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = [r for r in rows if "loss" in r]  # logged at steps 1, 2, 20, 40, ...
+        vals = [r for r in rows if "bbox_mAP" in r]
+        side = load_file(os.path.join(work, SIDECAR))
+        bs = runners[0].cfg.batch_size
+        n_steps = -(-DET_TRAIN_TILES // bs) * (epochs + (0 if extra else 1))
+        recs = det_test.main(["--config", os.path.join(work, "config.json"), "--checkpoint",
+                              os.path.join(work, "latest.safetensors"), "--test-root", root,
+                              "--test-ann", val_ann, "--test-prefix", "", "--out",
+                              os.path.join(work, "pred.pkl"), "--device", dev.type])
+        with open(os.path.join(work, "pred.pkl"), "rb") as f:
+            n_pkl = len(pickle.load(f))
+        rep = reports[0]
+        wall = time.perf_counter() - t0
+        print(f"[fam-cli] {tag}: det_train real_source, batch {bs}, "
+              f"--pretrained ({len(rep.imported)} tensors imported of {len(expect)} expected, "
+              f"{len(rep.skipped_shape)} shape-skipped: {sorted(k for k, _, _ in rep.skipped_shape)}"
+              f", {len(rep.unmatched)} unmatched, {len(rep.missing_target)} missing); "
+              f"{int(side['gstep'])} steps to epoch {int(side['epoch'])} (sidecar), validations "
+              f"after epochs {[r['epoch'] for r in vals]}, logged losses "
+              f"{[round(r['loss'], 4) for r in steps]}; aug path {runners[0].aug_path}; "
+              f"det_test {len(recs)} "
+              f"records ({n_pkl} in the pkl); train {t_train:.1f} s, all {wall:.1f} s", flush=True)
+        require(all(set(r.imported) == expect and {k for k, _, _ in r.skipped_shape} == heads
+                    and not r.unmatched and not r.missing_target for r in reports),
+                f"{tag}: the import report differs from the checkpoint's schema")
+        require(all(math.isfinite(r["loss"]) for r in steps), f"{tag}: a loss is not finite")
+        want_epochs = list(range(epochs + (0 if extra else 1)))
+        require(int(side["gstep"]) == n_steps and int(side["epoch"]) == want_epochs[-1]
+                and [r["epoch"] for r in vals] == want_epochs, f"{tag}: steps or validations")
+        require(runners[0].aug_path == ("device" if extra else "host"), f"{tag}: aug path")
+        require(len(recs) == n_pkl == DET_VAL_TILES, f"{tag}: det_test records")
+        out[tag] = {"steps": n_steps, "wall": wall, "train_s": t_train}
+        shutil.rmtree(work)
+    return out
+
+
+def nms_counter():
+    """Patches for the families' nms_images that count calls and ranks (two
+    launches a rank in the rank loop)."""
+    from agenda_tpu_torch.detect import faster_rcnn, ops, yolov5
+
+    counts = {"calls": 0, "ranks": 0}
+    real = ops.nms_images
+
+    def counted(boxes, scores, *args, **kw):
+        counts["calls"] += 1
+        counts["ranks"] += scores.shape[1]
+        return real(boxes, scores, *args, **kw)
+
+    stack = contextlib.ExitStack()
+    for mod in (faster_rcnn, yolov5):
+        stack.enter_context(mock.patch.object(mod, "nms_images", counted))
+    return stack, counts
+
+
+def family_timing(labels: dict, root: str, dev) -> dict:
+    """Phase 33: for each family at its real_source and synthetic_target
+    batches: the train step (make_train_step, the batch on the card) cold
+    and warm, images/s, peak memory, the card's busy share of a profiled
+    step and its kernel launches, the NMS ranks and launches a step; then
+    labelling the 512 stacks at LABEL_BATCH (DetectorRunner.test, PNG
+    decode included, the second pass timed), its images/s and NMS launches
+    a batch."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.detect.configs import DatasetSpec
+    from agenda_tpu_torch.detect.optim import make_optimizer
+    from agenda_tpu_torch.detect.runner import DetectorRunner, batch_to_device, full_f32
+
+    out = {}
+    for det in FAMILIES:
+        state = family_weights(family_preset(root, labels["all"], det))
+        base = det_first_batch(family_preset(root, labels["all"], det), 64)
+        for stage in ("real_source", "synthetic_target"):
+            cfg = family_preset(root, labels["all"], det, stage)
+            bs = cfg.runner.batch_size
+            if (det, bs) in out:
+                continue  # ViTDet's stages share a batch
+            reps = -(-bs // 64)
+            batch = {k: np.concatenate([v] * reps)[:bs] for k, v in base.items()}
+            fam = cfg.build_family()
+            runner = DetectorRunner(fam, cfg.runner, device=dev)
+            opt = make_optimizer(cfg.runner, steps_per_epoch=1000, total_bs=bs)
+            st = runner.init_train_state(opt, state)
+            step = runner.make_train_step(opt)
+            tb = batch_to_device(batch, dev)
+            patches, nms = nms_counter()
+            with full_f32(dev), patches:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                step(st, tb, 0)
+                torch.cuda.synchronize()
+                cold = time.perf_counter() - t0
+                walls = []
+                for g in range(1, FAM_WARM + 1):
+                    nms.update(calls=0, ranks=0)
+                    t0 = time.perf_counter()
+                    step(st, tb, g)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                peak = torch.cuda.max_memory_allocated()
+                warm = sum(walls) / len(walls)
+                nms_step = dict(nms)  # the last warm step's
+                per_name, wall = device_times(lambda: (step(st, tb, 9), torch.cuda.synchronize()))
+            busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+            launches = sum(n for _, n in per_name.values())
+            row = {"warm_s": warm, "images_per_s": bs / warm, "cold_s": cold, "peak": peak,
+                   "busy": busy_ms / (1e3 * wall), "busy_ms": busy_ms, "launches": launches,
+                   "nms_calls": nms_step["calls"], "nms_launches": 2 * nms_step["ranks"]}
+            out[(det, bs)] = row
+            print(f"[fam-timing] {det} {stage} batch {bs}: step cold {cold:.3f} s, warm "
+                  + ", ".join(f"{w:.4f}" for w in walls) + f" -> {warm:.4f} s/step, "
+                  f"{bs / warm:.1f} images/s; peak {peak / 2**30:.2f} GiB; a profiled step: "
+                  f"device busy {busy_ms:.1f} ms of {wall * 1e3:.1f} ms wall "
+                  f"({100 * row['busy']:.1f}%), {launches} kernel launches; NMS "
+                  f"{nms_step['calls']} calls, {nms_step['ranks']} ranks = "
+                  f"{2 * nms_step['ranks']} loop launches a step", flush=True)
+            require(all(math.isfinite(w) for w in walls), f"{det}: step time")
+            del st, tb, step, opt
+            torch.cuda.empty_cache()
+        # labelling the 512 stacks at LABEL_BATCH
+        cfg = family_preset(root, labels["all"], det)
+        ds = cfg.build_eval_dataset(DatasetSpec(root, labels["all"], ""))
+        runner = DetectorRunner(cfg.build_family(), cfg.runner, device=dev)
+        patches, nms = nms_counter()
+        with patches:
+            runner.test(state, ds, batch_size=LABEL_BATCH)  # cold
+            nms.update(calls=0, ranks=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs = runner.test(state, ds, batch_size=LABEL_BATCH)
+            wall = time.perf_counter() - t0
+        n_batches = -(-len(ds) // LABEL_BATCH)
+        out[(det, "label")] = {"images_per_s": len(ds) / wall,
+                               "nms_launches": 2 * nms["ranks"] // n_batches}
+        print(f"[fam-timing] {det} labelling {len(ds)} stacks at batch {LABEL_BATCH}: "
+              f"{len(ds) / wall:.1f} images/s warm (host clock, PNG decode included), NMS "
+              f"{nms['calls'] // n_batches} calls and {2 * nms['ranks'] // n_batches} loop "
+              f"launches a batch; {sum(len(r['pred_instances']['scores']) for r in recs)} "
+              f"detections", flush=True)
+        require(len(recs) == len(ds), f"{det}: labelling records")
+        del runner
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_phases(tmp: str, dev, phase_s: dict) -> dict:
+    """Phases 31-34 over fresh heatmap stacks (phase 17's fabricator): the
+    step card vs CPU, det_train/det_test with --pretrained, timing, and the
+    chain with detector faster-rcnn."""
+    import torch
+
+    label_root = os.path.join(tmp, "fam_labels")
+    labels = labels_fabricate(label_root)
+    t_phase = time.perf_counter()
+    parity = family_parity(labels, label_root, dev)
+    phase_s["family parity (31)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    cli = family_cli_phase(labels, label_root, dev)
+    phase_s["family det_train/det_test (32)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    timing = family_timing(labels, label_root, dev)
+    phase_s["family timing (33)"] = time.perf_counter() - t_phase
+    shutil.rmtree(label_root)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    chain = chain_phase(os.path.join(tmp, "chain_frcnn"), dev, "faster-rcnn")
+    phase_s["chain with faster-rcnn (34)"] = time.perf_counter() - t_phase
+    return {"parity": parity, "cli": cli, "timing": timing, "chain": chain}
+
+
+def family_reports(fam: dict, card: str) -> None:
+    for det, r in fam["parity"].items():
+        print(f"[report] {det} train step card vs CPU at batch {FAM_BATCH} ({card}): "
+              + ", ".join(f"{k} {r['sound'][k]:.3e} (TF32 control {r['tf32'][k]:.3e}, limit "
+                          f"{limit})" for k, limit in r["limits"].items()), flush=True)
+    for key, r in fam["timing"].items():
+        det, what = key
+        if what == "label":
+            print(f"[report] {det} labelling at batch {LABEL_BATCH}, {LABEL_IMG} px ({card}): "
+                  f"{r['images_per_s']:.1f} images/s, NMS {r['nms_launches']} loop launches a "
+                  f"batch", flush=True)
+        else:
+            print(f"[report] {det} training at batch {what}, {LABEL_IMG} px ({card}): "
+                  f"{r['warm_s']:.4f} s a step ({r['images_per_s']:.1f} images/s), card busy "
+                  f"{100 * r['busy']:.1f}% of a profiled step, {r['launches']} kernel launches "
+                  f"of which {r['nms_launches']} in the NMS rank loop, peak "
+                  f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    print(f"[report] det_train real_source with --pretrained ({card}): "
+          + "; ".join(f"{tag} {r['steps']} steps, {r['train_s']:.1f} s" for tag, r
+                      in fam["cli"].items())
+          + f"; the chain with faster-rcnn in {fam['chain']['wall']:.1f} s. No TPU kernel lies "
+          "on these families' path (the reference's ViTDet attention is attention_reference, "
+          "agenda_tpu/detect/vitdet.py:40; its RoIAlign, NMS, assigners and losses are jnp, "
+          "agenda_tpu/detect/ops.py:207)", flush=True)
 
 
 def summarize(name, route, source, replaces, rows, launches):
@@ -3291,6 +3758,9 @@ def main() -> int:
         chain = chain_phase(os.path.join(tmp, "chain"), dev)
         phase_s["chain (30)"] = time.perf_counter() - t_phase
 
+        # 31-34. the other detector families: Faster R-CNN, YOLOv5m/s, ViTDet
+        fam = family_phases(tmp, dev, phase_s)
+
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
                   "agenda_tpu/kernels/flash.py:55", flash, launches["flash_attention_fwd"]),
@@ -3379,6 +3849,7 @@ def main() -> int:
           "version a leaf. library_ms of both flash backward entries is SDPA's whole backward "
           "(dQ, dK, dV in one call); the fused AdamW has no single-call PyTorch equivalent "
           "(library_ms null)", flush=True)
+    family_reports(fam, card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,9 +20,14 @@ Both packages run on the CPU in f32 on the same seeded inputs, YOLOv8n at
 - the CLI: ``det_train --device cpu`` over both recipes with validation,
   its files, the JAX package's ``load_variables`` and ``predict_fn`` on the
   port's ``latest.safetensors``, a resume at the next epoch and step; the
-  ``synthetic_target`` preset's ``ConcatDataset``; every yolov8 preset and
-  ``config.json`` both ways; the refusals (``--device-aug`` runs:
-  tests/test_torch_device_aug.py).
+  ``synthetic_target`` preset's ``ConcatDataset``; every family's presets
+  and ``config.json`` both ways (``test_presets_and_config_json_match_jax_both_ways``,
+  one case a stage and family); ``test_det_train_refusals``: ``--pretrained``
+  runs on a fabricated mmyolo checkpoint, every family builds from its
+  preset, AdamW is the runner's optimizer for ``adamw``, CUDA without a GPU
+  raises (``--device-aug`` runs: tests/test_torch_device_aug.py; the other
+  families' training and import: tests/test_torch_det_families.py and
+  tests/test_torch_det_import.py).
 
 The whole-model gradients are held within GRAD_TOL_RMS of their rms: at the
 2x2 level a batch-norm channel's statistics come from 16 values, and there
@@ -64,13 +69,14 @@ from agenda_tpu_torch.detect.assign import task_aligned_assign
 from agenda_tpu_torch.detect.configs import DatasetSpec, DetectionConfig, preset
 from agenda_tpu_torch.detect.dataset import ConcatDataset
 from agenda_tpu_torch.detect.fabricate import (calibrate_batch_norm, fabricate_detector,
-                                               write_square_set)
+                                               write_mm_checkpoint, write_square_set)
 from agenda_tpu_torch.detect.families import build_family
-from agenda_tpu_torch.detect.optim import DetectorSGD, trace_from_flax
+from agenda_tpu_torch.detect.optim import (DetectorAdamW, DetectorSGD, make_optimizer,
+                                           trace_from_flax)
 from agenda_tpu_torch.detect.runner import (SIDECAR, DetectorRunner, RunnerConfig,
                                             load_variables, read_checkpoint)
-from agenda_tpu_torch.detect.yolov8 import (YOLOv8Config, flax_to_state_dict,
-                                            state_dict_to_flax, yolov8_loss)
+from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict, state_dict_to_flax
+from agenda_tpu_torch.detect.yolov8 import YOLOv8Config, yolov8_loss
 
 IMG, MAX_GT, B = 64, 8, 4
 LOSS_RTOL = 1e-5
@@ -478,9 +484,14 @@ def test_synthetic_target_preset_builds_the_concat_dataset(tmp_path):
         assert np.abs(got["image"] - want["image"]).max() * 255 <= 1.0
 
 
+DETECTORS = {"yolov8": ("yolov8", "yolov8n", "yolov8s"), "yolov5": ("yolov5", "yolov5m", "yolov5s"),
+             "faster-rcnn": ("faster-rcnn", "faster_rcnn"), "vitdet": ("vitdet",)}
+
+
+@pytest.mark.parametrize("family", sorted(DETECTORS))
 @pytest.mark.parametrize("stage", ["real_source", "synthetic_heatmap", "synthetic_target"])
-def test_presets_and_config_json_match_jax_both_ways(tmp_path, stage):
-    for detector in ("yolov8", "yolov8n", "yolov8s"):
+def test_presets_and_config_json_match_jax_both_ways(tmp_path, stage, family):
+    for detector in DETECTORS[family]:
         ours = preset(stage, detector, [DatasetSpec("r", "a.json")],
                       val=DatasetSpec("v", "b.json"), output_dir="w")
         want = jax_preset(stage, detector, [JaxSpec("r", "a.json")],
@@ -503,13 +514,22 @@ def test_det_train_refusals(tmp_path):
     write_square_set(root, 2)
     base = ["--preset", "synthetic_heatmap", "--train-root", root, "--train-ann", "ann.json",
             "--work-dir", os.path.join(root, "work"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det_train.main(base + ["--pretrained", "x.pth"])
-    for detector in ("faster-rcnn", "yolov5", "vitdet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            det_train.main(base + ["--detector", detector])
+    # --pretrained runs: a fabricated mmyolo checkpoint, its 80-class heads skipped
+    pth = os.path.join(root, "coco.pth")
+    write_mm_checkpoint(pth, "yolov8")
+    det_train.main(base + ["--pretrained", pth, "--max-epochs", "1", "--batch-size", "2"])
+    with open(os.path.join(root, "work", "config.json")) as f:
+        assert json.load(f)["pretrained"] == pth
+    # every family of the JAX package builds from its preset
+    for detector, family in (("faster-rcnn", "FasterRCNNFamily"), ("yolov5", "YOLOv5Family"),
+                             ("vitdet", "ViTDetFamily")):
+        cfg = preset("synthetic_heatmap", detector, [DatasetSpec(root, "ann.json")])
+        assert type(cfg.build_family()).__name__ == family
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             det_train.main(base[:-2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # AdamW (with layer decay) is the runner's optimizer for adamw; SGD refuses it
+    assert isinstance(make_optimizer(RunnerConfig(optimizer="adamw", layer_decay_rate=0.7),
+                                     steps_per_epoch=1), DetectorAdamW)
+    with pytest.raises(ValueError, match="adamw"):
         DetectorSGD(RunnerConfig(optimizer="adamw"), steps_per_epoch=1)

@@ -179,7 +179,7 @@ def jax_checkpoints(tmp_path_factory):
     ``calibrate_batch_norm``, so that every layer counts in the heads and a
     swapped name shows."""
     from agenda_tpu_torch.detect.fabricate import calibrate_batch_norm
-    from agenda_tpu_torch.detect.yolov8 import flax_to_state_dict, state_dict_to_flax
+    from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict, state_dict_to_flax
 
     fam = jax_build_family("yolov8", model=dict(img_size=IMG))
     init = jax.device_get(jax.jit(fam.init_variables)(jax.random.key(0)))
@@ -232,7 +232,7 @@ def test_checkpoint_maps_both_ways(jax_checkpoint, tmp_path):
     for key, want in flat_want:
         np.testing.assert_array_equal(np.asarray(flat_got[key]), want)
     # a name the map does not know raises
-    from agenda_tpu_torch.detect.yolov8 import flax_to_state_dict
+    from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict
 
     with pytest.raises(KeyError):
         flax_to_state_dict({"params.stem.conv.gamma": np.zeros(3, np.float32)})
@@ -247,7 +247,7 @@ def test_yolov8s_names_and_shapes_match_jax():
     flat = {".".join([col] + [p.key for p in path]): np.zeros(leaf.shape, np.float32)
             for col, tree in shapes.items()
             for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
-    from agenda_tpu_torch.detect.yolov8 import flax_to_state_dict
+    from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict
 
     build_family("yolov8s", model=dict(img_size=IMG)).check_variables(flax_to_state_dict(flat))
 
@@ -470,9 +470,13 @@ def test_config_json_from_jax_parses(tmp_path):
     ours.to_json(str(tmp_path / "again.json"))
     with open(p) as f, open(tmp_path / "again.json") as g:
         assert json.load(f) == json.load(g)
-    for name in ("faster-rcnn", "yolov5", "vitdet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_family(name)
+    # the other families' configs parse and build too
+    for name, family in (("faster-rcnn", "FasterRCNNFamily"), ("yolov5", "YOLOv5Family"),
+                         ("vitdet", "ViTDetFamily")):
+        jax_preset("synthetic_heatmap", name, [JaxSpec(str(tmp_path), "a.json")]).to_json(p)
+        fam = DetectionConfig.from_json(p).build_family()
+        assert type(fam).__name__ == family and fam.config.img_size == 128
+        assert type(build_family(name)).__name__ == family
 
 
 def test_det_test_cuda_without_a_gpu_raises(tmp_path):

@@ -15,6 +15,7 @@
   target predictions doctored to fill the refine buckets, then
   ``--from-stage refine`` through ``evaluate``; every stage leaves its
   marker and its manifest line, and nothing of ``agenda_tpu`` is called.
+  The same chain with ``detector: faster-rcnn`` runs its labelling stages.
 """
 
 import dataclasses
@@ -247,3 +248,25 @@ def test_tiny_chain_end_to_end_on_the_cpu(tmp_path):
     assert [e["stage"] for e in entries] == names
     assert all(e["seconds"] >= 0 for e in entries)
     assert sorted(os.listdir(os.path.join(wd, ".stage_done"))) == sorted(names)
+
+
+def test_tiny_chain_with_faster_rcnn_on_the_cpu(tmp_path):
+    """``detector: faster-rcnn`` through the labelling stages: the two-stage
+    family trains on the real tiles and the heatmap stacks (its ``plain``
+    heatmap recipe) and labels the synthetic target set."""
+    root = str(tmp_path)
+    make_chain_fixtures(root)
+    cfg = _cfg(pl.PipelineConfig, root)
+    cfg.detector = "faster-rcnn"
+    path = os.path.join(root, "cfg.json")
+    cfg.to_json(path)
+    pl.main(["--config", path, "--device", "cpu", "--until-stage", "label_synthetic_target"])
+    wd = cfg.work_dir
+    for stage in ("real_source", "synthetic_heatmap"):
+        with open(os.path.join(wd, "work_dirs", f"faster-rcnn_{stage}", "config.json")) as f:
+            assert json.load(f)["detector"] == "faster-rcnn"
+    with open(os.path.join(wd, "work_dirs", "faster-rcnn_synthetic_heatmap",
+                           "prediction_syn_target.pkl"), "rb") as f:
+        assert len(pickle.load(f)) == 4
+    assert glob.glob(os.path.join(wd, "Synthetic", "LINZ-with-cars",
+                                  "annotations_coco_FakeBBoxes*Pseudo-faster-rcnn*.json"))
