@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from agenda_tpu_torch.models.resnet import ResNet50, init_resnet_, normalize_imagenet
-from agenda_tpu_torch.train.optim import AdamState, Optimizer, lr_schedule, make_adamw
+from agenda_tpu_torch.train.optim import AdamState, Optimizer, make_adam  # noqa: F401
 
 
 def default_compute_dtype(device: torch.device) -> torch.dtype:
@@ -40,11 +40,6 @@ def default_compute_dtype(device: torch.device) -> torch.dtype:
     if os.environ.get("AGENDA_TPU_CLASSIFIER_BF16", "1") != "1":
         return torch.float32
     return torch.bfloat16 if device.type == "cuda" else torch.float32
-
-
-def make_adam(lr: float) -> Optimizer:
-    """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8, no decay, no clip."""
-    return make_adamw(lr_schedule("constant", lr, 0, 0), weight_decay=0.0, max_grad_norm=None)
 
 
 def init_classifier(generator: torch.Generator, tx: Optimizer, device: torch.device,

@@ -10,6 +10,8 @@ i+1 while the host writes batch i's PNGs). The word maps are upscaled to
 with the port's stdlib writer. Any ``--resolution`` the UNet takes (a
 multiple of 64) runs on the card, 384 and 640 included: the GroupNorm
 kernel takes their 6x6 and 10x10 levels (H*W % 8 != 0) as any other.
+``--tgate-step m`` turns on TGATE sampling from step m (off by default;
+``generate/pipeline.py``).
 
     python -m agenda_tpu_torch.cli.data_generation --pretrained-model-path <dir> \\
         --learnable-tokens-embedding-path <embeds.bin> --save-dir out \\
@@ -52,7 +54,11 @@ def parse_args(argv=None):
     p.add_argument("--guidance-scale", type=float, default=7.5)
     p.add_argument("--resolution", type=int, default=512, help="Sampling resolution before resize.")
     p.add_argument("--tgate-step", type=int, default=0,
-                   help="TGATE fast sampling; not ported yet (see ROADMAP.md), only 0 is accepted.")
+                   help="TGATE fast sampling (arXiv:2404.02747): freeze cross-"
+                        "attention at this step and run the rest CFG-collapsed "
+                        "at half batch. APPROXIMATE (changes images and DAAM "
+                        "heatmaps) — off (0) by default; 0 keeps the exact "
+                        "reference-parity sampler.")
     p.add_argument("--device", type=str, choices=("cuda", "cpu"), default="cuda",
                    help="Run on the card (default) or on the CPU.")
     return p.parse_args(argv)
@@ -60,9 +66,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tgate_step > 0:
-        raise NotImplementedError(
-            "--tgate-step is not ported to agenda_tpu_torch yet; see ROADMAP.md (TGATE)")
 
     from agenda_tpu_torch.generate.pipeline import StableDiffusionPipeline
     from agenda_tpu_torch.io.learned_embeds import load_learned_embeddings
@@ -107,6 +110,7 @@ def main(argv=None):
             words=words,
             out_size=args.image_size,
             heatmap_size=args.image_size,
+            tgate_step=args.tgate_step,
         )
 
     def write(batch_seeds, result):

@@ -57,6 +57,32 @@
 //   query tiles shrink to 32 rows (the scores then take 16 registers each).
 //   Blocks are sized for one an SM; the producer warp's spare registers
 //   would not buy another warpgroup, so no setmaxnreg.
+//
+// D > 160 (the VAE's single-head mid-block attention, D = 512): two
+// mma.sync kernels in the shape of the wide forward (flash_fwd.cu), for any
+// D up to 512 that is a multiple of 8. Neither a 64 x 512 f32 accumulator
+// (dK and dV need two) nor 64-row tiles of 512 bf16 fit a warpgroup's
+// registers or a block's shared memory, so:
+// - A block owns 32 rows (keys in dK/dV, queries in dQ) and loops over
+//   tiles of 32 rows of the other side, double-buffered by cp.async; owned
+//   rows and two stages of two tiles, 512 columns each, are 195 KB.
+// - Eight warps: two row slices of 16 owned rows times four quarters of D.
+//   Each warp accumulates its 16 rows x 128 columns of each gradient (dK and
+//   dV: 128 f32 registers a thread).
+// - The score products split by columns, not by D: for each looped tile,
+//   warp (slice, quarter) computes the 16 x 8 block of S (and dP) of its
+//   slice's rows and the quarter's 8 looped rows over all of D, so no
+//   product is computed twice and no partial sum crosses warps. It rounds P
+//   and dS of its block to bf16 into shared memory; after a barrier every
+//   warp of the slice reads the whole 16 x 32 block as its A operand and
+//   multiplies it into its own 128 columns (V, dO, Q or K read transposed by
+//   ldmatrix).
+// - Ragged S: a tile row past S is loaded as row S - 1 (every read in
+//   bounds, no zero fill), and the kernels mask those rows: a query past S
+//   gets lse = +inf and delta = 0 in dK/dV (P = dS = 0), a key past S gets
+//   P = 0 in dQ. Columns past D are zero-filled in shared memory, and only
+//   ceil(D / 32) * 2 k-steps of the score products are issued.
+// - Each gradient element has one owner: no atomics, deterministic sums.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -64,6 +90,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -88,7 +115,8 @@ using hopper::wgmma_wait;
 using hopper::WgmmaRS;
 using hopper::WgmmaSS;
 
-constexpr int kMaxHeadDim = 160;
+constexpr int kMaxWgmmaHeadDim = 160;
+constexpr int kMaxHeadDim = 512;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
@@ -443,6 +471,304 @@ __global__ void __launch_bounds__(DqTile<ND>::kThreads, 1)
   store_acc<ND / 2>(p.dq + off, dq, q0 + 64 * wg, p.scale, p);
 }
 
+
+// -- D > 160: mma.sync ---------------------------------------------------------
+
+struct WideBwdParams {
+  const __nv_bfloat16* in[4];   // q, k, v, dO: (B, S, H, D) bf16, D unit-stride
+  int64_t sb[4], ss[4], sh[4];  // their element strides: batch, seq, head
+  const float* lse;             // (B*H, S) f32, contiguous
+  const float* delta;           // (B*H, S) f32, contiguous
+  __nv_bfloat16* dq;            // (B, S, H, D) bf16, contiguous
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int S, H, D;
+  float scale, scale_log2;
+};
+
+namespace wide {
+constexpr int kDP = kMaxHeadDim;               // D zero-padded to 512 in shared memory
+constexpr int kRows = 32;                      // owned rows a block, and rows a looped tile
+constexpr int kQuarters = 4;                   // warps a row slice, one for each quarter of D
+constexpr int kThreads = 32 * (kRows / 16) * kQuarters;  // 256
+constexpr int kRow = kDP + 8;                  // bf16 a tile row; 16 bytes of pad
+constexpr int kCols = kDP / kQuarters;         // 128 gradient columns a warp
+constexpr int kNT = kCols / 8;                 // its 8-column accumulator tiles
+constexpr int kPRow = kRows + 8;               // bf16 a row of a 16 x 32 P or dS block
+constexpr int kTile = kRows * kRow;            // elements of a tile
+constexpr int kBlock = 16 * kPRow;             // elements of a slice's P or dS block
+// two owned tiles, two stages of two looped tiles; P and dS blocks of both slices
+constexpr size_t kSmem = (size_t)(6 * kTile + 4 * kBlock) * sizeof(__nv_bfloat16);
+}  // namespace wide
+
+// Rows [row0, row0 + 32) of tensor t's (batch, head) slice -> a 32 x 512 smem
+// tile. A row past S is read as row S - 1 (the kernels mask it); columns past
+// D are zero-filled.
+__device__ __forceinline__ void load_wide(__nv_bfloat16* dst, const WideBwdParams& p, int t,
+                                          int b, int h, int row0) {
+  constexpr int chunks = wide::kDP / 8;
+  const __nv_bfloat16* src = p.in[t] + b * p.sb[t] + h * p.sh[t];
+  for (int i = threadIdx.x; i < wide::kRows * chunks; i += wide::kThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    const bool valid = c < p.D;
+    const __nv_bfloat16* g = valid ? src + (int64_t)min(row0 + r, p.S - 1) * p.ss[t] + c : src;
+    flash::cp_async16(flash::smem_u32(dst + r * wide::kRow + c), g, valid);
+  }
+}
+
+// s = X[x0, x0 + 16) . Y[y0, y0 + 8)^T and dp = U[x0, x0 + 16) . W[y0, y0 + 8)^T
+// (16 x 8 f32 each) over the first kt k-steps of D (kt even), from 512-wide
+// smem tiles
+__device__ __forceinline__ void score_blocks(float* s, const __nv_bfloat16* X,
+                                             const __nv_bfloat16* Y, float* dp,
+                                             const __nv_bfloat16* U, const __nv_bfloat16* W,
+                                             int x0, int y0, int kt) {
+  const int lane = threadIdx.x % 32;
+  const int a_off = (x0 + lane % 16) * wide::kRow + (lane / 16) * 8;
+  const int b_off = (y0 + lane % 8) * wide::kRow + (lane / 8) * 8;  // two k-steps a load
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] = dp[e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < kt; kk += 2) {
+    uint32_t by[4], bw[4], a[4];
+    flash::ldmatrix_x4(flash::smem_u32(Y + b_off + kk * 16), by);
+    flash::ldmatrix_x4(flash::smem_u32(W + b_off + kk * 16), bw);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      flash::ldmatrix_x4(flash::smem_u32(X + a_off + (kk + u) * 16), a);
+      flash::mma_bf16(s, a, by[2 * u], by[2 * u + 1]);
+      flash::ldmatrix_x4(flash::smem_u32(U + a_off + (kk + u) * 16), a);
+      flash::mma_bf16(dp, a, bw[2 * u], bw[2 * u + 1]);
+    }
+  }
+}
+
+// A warp's 16 x 8 f32 block (rows gr, gr + 8; columns 2 * tq, + 1) rounded to
+// bf16 into columns [c, c + 8) of a 16 x 32 smem block
+__device__ __forceinline__ void put_block(__nv_bfloat16* blk, const float* x, int c) {
+  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  *reinterpret_cast<uint32_t*>(blk + gr * wide::kPRow + c + 2 * tq) = flash::pack_bf16(x[0], x[1]);
+  *reinterpret_cast<uint32_t*>(blk + (gr + 8) * wide::kPRow + c + 2 * tq) =
+      flash::pack_bf16(x[2], x[3]);
+}
+
+// acc (16 x 128 f32 from column c0) += A (a 16 x 32 smem block) . Y (a 32-row
+// tile, read transposed), over the first nt 8-column tiles (nt even)
+__device__ __forceinline__ void grad_product(float (*acc)[4], const __nv_bfloat16* A,
+                                             const __nv_bfloat16* Y, int c0, int nt) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < wide::kRows / 16; ++kk) {
+    uint32_t a[4];
+    flash::ldmatrix_x4(flash::smem_u32(A + (lane % 16) * wide::kPRow + (lane / 16) * 8 + kk * 16),
+                       a);
+#pragma unroll
+    for (int n = 0; n < wide::kNT; n += 2) {
+      if (n < nt) {
+        uint32_t b[4];
+        flash::ldmatrix_x4_trans(
+            flash::smem_u32(Y + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * wide::kRow + c0 +
+                            n * 8 + (lane / 16) * 8),
+            b);
+        flash::mma_bf16(acc[n], a, b[0], b[1]);
+        flash::mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Rows row0 + gr (+ 8) of a warp's 16 x 128 accumulator from column c0, times
+// mul, as bf16 into a contiguous (B, S, H, D) slice; rows past S and columns
+// past D are dropped
+__device__ __forceinline__ void store_wide(__nv_bfloat16* out, const float (*acc)[4], int row0,
+                                           int c0, float mul, const WideBwdParams& p) {
+  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const int64_t rs = (int64_t)p.H * p.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + gr + 8 * r;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int n = 0; n < wide::kNT; ++n) {
+      const int col = c0 + 8 * n + 2 * tq;
+      if (col < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(out + row * rs + col) =
+            __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+    }
+  }
+}
+
+// The warp's place: row slice (16 owned rows), quarter of D (its gradient
+// columns and its 8 rows of each looped tile), and the k-steps and column
+// tiles that D needs
+struct WideWarp {
+  int slice, quarter, c0, nt, kt;
+  __device__ explicit WideWarp(int D) {
+    const int warp = threadIdx.x / 32;
+    slice = warp % 2;
+    quarter = warp / 2;
+    c0 = quarter * wide::kCols;
+    nt = min(wide::kNT, max(0, (D - c0 + 15) / 16 * 2));
+    kt = (D + 31) / 32 * 2;
+  }
+};
+
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_bwd_dkv_wide_kernel(const __grid_constant__ WideBwdParams p) {
+  using namespace wide;
+  extern __shared__ __align__(128) unsigned char wide_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(wide_smem);
+  __nv_bfloat16* Vs = Ks + kTile;
+  __nv_bfloat16* Qs = Vs + kTile;      // two stages
+  __nv_bfloat16* Ds = Qs + 2 * kTile;  // dO, two stages
+  __nv_bfloat16* Pt = Ds + 2 * kTile;  // P^T blocks of both slices
+  __nv_bfloat16* St = Pt + 2 * kBlock; // dS^T blocks
+
+  const int g = blockIdx.y, b = g / p.H, h = g % p.H;
+  const int k0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, tq = lane % 4;
+  const WideWarp w(p.D);
+  const int n_tiles = (p.S + kRows - 1) / kRows;
+  const float* lse = p.lse + (int64_t)g * p.S;
+  const float* delta = p.delta + (int64_t)g * p.S;
+
+  load_wide(Ks, p, 1, b, h, k0);
+  load_wide(Vs, p, 2, b, h, k0);
+  load_wide(Qs, p, 0, b, h, 0);
+  load_wide(Ds, p, 3, b, h, 0);
+  flash::cp_async_commit();
+
+  float dk[kNT][4], dv[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  __nv_bfloat16* pt = Pt + w.slice * kBlock;
+  __nv_bfloat16* dst = St + w.slice * kBlock;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < n_tiles) {  // prefetch the next Q and dO tiles into the other stage
+      load_wide(Qs + (stage ^ 1) * kTile, p, 0, b, h, (i + 1) * kRows);
+      load_wide(Ds + (stage ^ 1) * kTile, p, 3, b, h, (i + 1) * kRows);
+      flash::cp_async_commit();
+      flash::cp_async_wait<1>();
+    } else {
+      flash::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Qt = Qs + stage * kTile;
+    const __nv_bfloat16* Dt = Ds + stage * kTile;
+
+    // this warp's queries: 8 * quarter + 2 * tq (+1) of the tile; a query
+    // past S gets lse = +inf and delta = 0, so P = dS = 0
+    const int qc = 8 * w.quarter;
+    float l[2], e[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int q = i * kRows + qc + 2 * tq + u, qr = min(q, p.S - 1);
+      l[u] = q < p.S ? lse[qr] * kLog2e : INFINITY;
+      e[u] = q < p.S ? delta[qr] : 0.f;
+    }
+    // S^T = K Q^T and dP^T = V dO^T on (16 keys of the slice) x (8 queries)
+    float s[4], dp[4];
+    score_blocks(s, Ks, Qt, dp, Vs, Dt, 16 * w.slice, qc, w.kt);
+    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      s[x] = exp2f(s[x] * p.scale_log2 - l[x & 1]);
+      dp[x] = s[x] * (dp[x] - e[x & 1]);
+    }
+    put_block(pt, s, qc);
+    put_block(dst, dp, qc);
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q on this warp's columns
+    grad_product(dv, pt, Dt, w.c0, w.nt);
+    grad_product(dk, dst, Qt, w.c0, w.nt);
+    __syncthreads();  // the stage and the blocks are free
+  }
+
+  const int64_t off = (int64_t)b * p.S * p.H * p.D + (int64_t)h * p.D;
+  store_wide(p.dk + off, dk, k0 + 16 * w.slice, w.c0, p.scale, p);
+  store_wide(p.dv + off, dv, k0 + 16 * w.slice, w.c0, 1.f, p);
+}
+
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ WideBwdParams p) {
+  using namespace wide;
+  extern __shared__ __align__(128) unsigned char wide_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(wide_smem);
+  __nv_bfloat16* Ds = Qs + kTile;      // dO
+  __nv_bfloat16* Ks = Ds + kTile;      // two stages
+  __nv_bfloat16* Vs = Ks + 2 * kTile;  // two stages
+  __nv_bfloat16* Sb = Vs + 2 * kTile;  // dS blocks of both slices
+
+  const int g = blockIdx.y, b = g / p.H, h = g % p.H;
+  const int q0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+  const WideWarp w(p.D);
+  const int n_tiles = (p.S + kRows - 1) / kRows;
+
+  load_wide(Qs, p, 0, b, h, q0);
+  load_wide(Ds, p, 3, b, h, q0);
+  load_wide(Ks, p, 1, b, h, 0);
+  load_wide(Vs, p, 2, b, h, 0);
+  flash::cp_async_commit();
+
+  // this thread's queries q0 + 16 * slice + gr (+8); one past S is not stored
+  float l[2], e[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = min(q0 + 16 * w.slice + gr + 8 * r, p.S - 1);
+    l[r] = p.lse[(int64_t)g * p.S + row] * kLog2e;
+    e[r] = p.delta[(int64_t)g * p.S + row];
+  }
+  float dq[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dq[n][x] = 0.f;
+  __nv_bfloat16* dsb = Sb + w.slice * kBlock;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < n_tiles) {  // prefetch the next K and V tiles into the other stage
+      load_wide(Ks + (stage ^ 1) * kTile, p, 1, b, h, (j + 1) * kRows);
+      load_wide(Vs + (stage ^ 1) * kTile, p, 2, b, h, (j + 1) * kRows);
+      flash::cp_async_commit();
+      flash::cp_async_wait<1>();
+    } else {
+      flash::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kt = Ks + stage * kTile;
+    const __nv_bfloat16* Vt = Vs + stage * kTile;
+
+    // S = Q K^T and dP = dO V^T on (16 queries of the slice) x (8 keys)
+    const int kc = 8 * w.quarter;
+    float s[4], dp[4];
+    score_blocks(s, Qs, Kt, dp, Ds, Vt, 16 * w.slice, kc, w.kt);
+    // P = exp2(S * scale * log2(e) - lse * log2(e)), 0 for a key past S;
+    // dS = P (dP - delta)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int key = j * kRows + kc + 2 * tq + (x & 1);
+      const float pv = key < p.S ? exp2f(s[x] * p.scale_log2 - l[x >> 1]) : 0.f;
+      dp[x] = pv * (dp[x] - e[x >> 1]);
+    }
+    put_block(dsb, dp, kc);
+    __syncthreads();
+
+    // dQ += dS K on this warp's columns (times scale at the store)
+    grad_product(dq, dsb, Kt, w.c0, w.nt);
+    __syncthreads();  // the stage and the blocks are free
+  }
+
+  const int64_t off = (int64_t)b * p.S * p.H * p.D + (int64_t)h * p.D;
+  store_wide(p.dq + off, dq, q0 + 16 * w.slice, w.c0, p.scale, p);
+}
+
 // -- host side ----------------------------------------------------------------
 
 struct Inputs {
@@ -493,6 +819,38 @@ cudaError_t launch_dq(BwdParams* p, const Inputs& in, cudaStream_t stream) {
   return launch<T>(flash_bwd_dq_kernel<ND>, *p, in.B * p->H, stream, &attr_set);
 }
 
+// The wide kernels (D > 160): strides and pointers straight from the caller
+template <typename Kernel>
+cudaError_t launch_wide(Kernel kernel, const BwdParams& bp, const Inputs& in,
+                        cudaStream_t stream, bool* attr_set) {
+  WideBwdParams p;
+  for (int t = 0; t < 4; ++t) {
+    p.in[t] = static_cast<const __nv_bfloat16*>(in.ptr[t]);
+    p.sb[t] = in.strides[3 * t];
+    p.ss[t] = in.strides[3 * t + 1];
+    p.sh[t] = in.strides[3 * t + 2];
+  }
+  p.lse = bp.lse;
+  p.delta = bp.delta;
+  p.dq = bp.dq;
+  p.dk = bp.dk;
+  p.dv = bp.dv;
+  p.S = bp.S;
+  p.H = bp.H;
+  p.D = bp.D;
+  p.scale = bp.scale;
+  p.scale_log2 = bp.scale_log2;
+  if (!*attr_set) {  // opt in to > 48 KB of dynamic shared memory once
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)wide::kSmem);
+    if (err != cudaSuccess) return err;
+    *attr_set = true;
+  }
+  dim3 grid((p.S + wide::kRows - 1) / wide::kRows, in.B * p.H);
+  kernel<<<grid, wide::kThreads, wide::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // Checks shared by both entries; fills p's scalars. Returns cudaSuccess or
 // cudaErrorInvalidValue.
 cudaError_t make_params(BwdParams* p, const Inputs& in, const void* lse, const void* delta,
@@ -523,6 +881,7 @@ extern "C" int agenda_flash_bwd_max_head_dim() { return kMaxHeadDim; }
 // the dK/dV kernel, else dQ), in bytes; 0 for a D the kernels do not take.
 extern "C" int agenda_flash_bwd_smem_bytes(int dkv, int D) {
   if (D <= 0 || D > kMaxHeadDim) return 0;
+  if (D > kMaxWgmmaHeadDim) return (int)wide::kSmem;
   if (D <= 40) return (int)(dkv ? DkvTile<40>::kSmem : DqTile<40>::kSmem);
   if (D <= 80) return (int)(dkv ? DkvTile<80>::kSmem : DqTile<80>::kSmem);
   return (int)(dkv ? DkvTile<160>::kSmem : DqTile<160>::kSmem);
@@ -530,7 +889,8 @@ extern "C" int agenda_flash_bwd_smem_bytes(int dkv, int D) {
 
 // q, k, v, dout: (B, S, H, D) bf16 with the given element strides (q, k, v,
 // dout; batch, seq, head each; D unit-stride), 16-byte-aligned bases and
-// strides that are multiples of 8; D a multiple of 8 up to 160; lse, delta:
+// strides that are multiples of 8; D a multiple of 8 up to 512 (above 160
+// the mma.sync kernels); lse, delta:
 // (B*H, S) f32 contiguous; dk, dv: contiguous (B, S, H, D) bf16. Returns a
 // cudaError_t (0 on success).
 extern "C" int agenda_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -544,6 +904,10 @@ extern "C" int agenda_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > kMaxWgmmaHeadDim) {
+    static bool attr_set = false;
+    return (int)launch_wide(flash_bwd_dkv_wide_kernel, p, in, st, &attr_set);
+  }
   if (D <= 40) return (int)launch_dkv<40>(&p, in, st);
   if (D <= 80) return (int)launch_dkv<80>(&p, in, st);
   return (int)launch_dkv<160>(&p, in, st);
@@ -560,6 +924,10 @@ extern "C" int agenda_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > kMaxWgmmaHeadDim) {
+    static bool attr_set = false;
+    return (int)launch_wide(flash_bwd_dq_wide_kernel, p, in, st, &attr_set);
+  }
   if (D <= 40) return (int)launch_dq<40>(&p, in, st);
   if (D <= 80) return (int)launch_dq<80>(&p, in, st);
   return (int)launch_dq<160>(&p, in, st);

@@ -13,6 +13,17 @@ is Python and the kernels are queued on the current CUDA stream without a
 host synchronisation, so ``generate_async`` returns while the card is still
 sampling.
 
+TGATE (arXiv:2404.02747; opt-in, off by default): with ``tgate_step=m``,
+0 < m < ``num_inference_steps``, the steps before m run exactly; the gate
+step m runs at 2B, applies CFG and caches the mean of the two halves'
+cross-attention output contributions; every later step runs at batch B on
+the conditional context with those contributions replayed and no CFG (the
+halves differ only through cross-attention). The gate's heatmap counts
+once for itself and each replayed step: ``len(timesteps) - m`` times, from
+the timestep table (PLMS's has T + 1 entries), as
+``agenda_tpu/generate/pipeline.py:217-337`` does. It approximates the exact
+sampler.
+
 Initial noise: without ``latents``, each seed draws its (h, w, 4) latents
 from its own CPU ``torch.Generator(seed)``. This stream is the port's own:
 the JAX package draws from jax threefry, which torch cannot reproduce, so
@@ -161,6 +172,7 @@ class StableDiffusionPipeline:
         collect_heatmaps: bool,
         num_inference_steps: int,
         out_size: int,
+        tgate_step: int = 0,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         b = latents.shape[0]
         hw = self.latent_hw
@@ -169,16 +181,29 @@ class StableDiffusionPipeline:
         hcnt = 0
         state = plms_init_state()
         step_ratio = self.schedule.num_train_timesteps // num_inference_steps
-        for t in self.timestep_table(num_inference_steps).tolist():
-            eps, maps = self.unet(torch.cat([latents, latents], dim=0),
-                                  torch.full((2 * b,), float(t), device=self.device),
-                                  context, collect_attn=collect_heatmaps)
-            eps_u, eps_c = eps.chunk(2, dim=0)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-            if collect_heatmaps:
-                for m in maps:  # drop the unconditional half
-                    hsum += torch.clamp(resize_bicubic(m[b:], hw, hw), min=0.0)
-                hcnt += len(maps)
+        timesteps = self.timestep_table(num_inference_steps).tolist()
+        gate = tgate_step if 0 < tgate_step < num_inference_steps else len(timesteps)
+        cross_avg = None
+        for i, t in enumerate(timesteps):
+            if i <= gate:  # exact, or the gate: 2B with CFG
+                eps, maps, *cross = self.unet(
+                    torch.cat([latents, latents], dim=0),
+                    torch.full((2 * b,), float(t), device=self.device), context,
+                    collect_attn=collect_heatmaps, collect_cross=i == gate)
+                eps_u, eps_c = eps.chunk(2, dim=0)
+                eps = eps_u + guidance_scale * (eps_c - eps_u)
+                if collect_heatmaps:
+                    # the gate's maps stand for it and every replayed step
+                    weight = len(timesteps) - gate if i == gate else 1
+                    heat = sum(torch.clamp(resize_bicubic(m[b:], hw, hw), min=0.0)
+                               for m in maps)  # the unconditional half dropped
+                    hsum += heat * weight
+                    hcnt += len(maps) * weight
+                if cross:  # the gate: the mean of the two halves' contributions
+                    cross_avg = [0.5 * (c[:b] + c[b:]) for c in cross[0]]
+            else:  # gated: batch B, conditional context, contributions replayed
+                eps, _ = self.unet(latents, torch.full((b,), float(t), device=self.device),
+                                   context[b:], cached_cross=cross_avg)
             if self.scheduler_type == "pndm":
                 state, latents = plms_step(self.schedule, state, eps, latents, t,
                                            num_inference_steps)
@@ -239,6 +264,7 @@ class StableDiffusionPipeline:
         out_size: int = 0,
         latents: Optional[np.ndarray | torch.Tensor] = None,
         heatmap_size: int = 0,
+        tgate_step: int = 0,
     ) -> Callable[[], Tuple[np.ndarray, object]]:
         """Queue one batch on the device and return a thunk for its result.
 
@@ -247,7 +273,9 @@ class StableDiffusionPipeline:
         ``collect_heatmaps``, or with ``words`` a dict {word: uint8 (B, s, s)}
         of min-max per-word maps, s = ``heatmap_size`` (Pillow bicubic on
         the device) or ``latent_hw`` when it is 0. ``latents`` (B, h, w, 4)
-        replaces the per-seed noise. On CUDA the results come back through a
+        replaces the per-seed noise. ``tgate_step=m`` (0 < m <
+        ``num_inference_steps``) turns TGATE on (the module's docstring); 0,
+        the default, samples exactly. On CUDA the results come back through a
         non-blocking copy and an event, so the caller can write batch i while
         the card samples batch i+1.
         """
@@ -266,7 +294,7 @@ class StableDiffusionPipeline:
             raise ValueError(f"latents must be {(b, height // f, width // f, 4)}, "
                              f"got {tuple(lat.shape)}")
         images, heatmaps = self._sample(context, lat, float(guidance_scale), collect_heatmaps,
-                                        num_inference_steps, out_size)
+                                        num_inference_steps, out_size, tgate_step)
         second = heatmaps
         if words:
             second = self._word_maps(heatmaps, prompt, words, heatmap_size)

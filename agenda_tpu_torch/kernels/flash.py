@@ -192,7 +192,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     """dK, dV of non-causal unmasked attention over (B, S, H, D) for any S.
 
     lse and delta are (B*H, S) f32. CUDA tensors: as ``flash_attention_fwd``
-    takes them, with D up to 160; dk and dv come back contiguous bf16.
+    takes them, with D up to 512 (above 160 the wide mma.sync kernels); dk
+    and dv come back contiguous bf16.
     """
     _check(q, k, v, do)
     _stats_on(lse, delta, q)

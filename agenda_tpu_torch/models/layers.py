@@ -13,7 +13,7 @@ kernel on the card) and every unmasked self-attention through
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -138,7 +138,14 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, all residual."""
+    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, all residual.
+
+    TGATE (arXiv:2404.02747, ``agenda_tpu/models/layers.py:182-228``): with
+    ``collect_cross`` the block also returns the cross-attention's output
+    contribution (what ``attn2`` adds to x) as a third element; with
+    ``cached_cross`` it skips ``norm2`` and ``attn2`` and adds that tensor,
+    in x's dtype, instead.
+    """
 
     def __init__(self, dim: int, heads: int, context_dim: int):
         super().__init__()
@@ -149,20 +156,30 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, collect_probs: bool = False):
+    def forward(self, x: torch.Tensor, context: torch.Tensor, collect_probs: bool = False,
+                collect_cross: bool = False, cached_cross: Optional[torch.Tensor] = None):
         x = x + self.attn1(self.norm1(x))
         probs = None
-        if collect_probs:
+        if cached_cross is not None:  # TGATE replay: norm2 feeds only attn2
+            out = cached_cross.to(x.dtype)
+        elif collect_probs:
             out, probs = self.attn2(self.norm2(x), context, collect_probs=True)
         else:
             out = self.attn2(self.norm2(x), context)
         x = x + out
         x = x + self.ff(self.norm3(x))
+        if collect_cross:
+            return x, probs, out
         return x, probs
 
 
 class Transformer2D(nn.Module):
-    """GN -> 1x1 conv in -> transformer block -> 1x1 conv out, plus residual."""
+    """GN -> 1x1 conv in -> transformer block -> 1x1 conv out, plus residual.
+
+    ``collect_cross`` adds a third element, the list of its blocks'
+    cross-attention contributions; ``cached_cross`` (one tensor a block)
+    replays them (``BasicTransformerBlock``).
+    """
 
     def __init__(self, channels: int, heads: int, context_dim: int, depth: int = 1):
         super().__init__()
@@ -172,14 +189,19 @@ class Transformer2D(nn.Module):
             [BasicTransformerBlock(channels, heads, context_dim) for _ in range(depth)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, collect_probs: bool = False):
+    def forward(self, x: torch.Tensor, context: torch.Tensor, collect_probs: bool = False,
+                collect_cross: bool = False,
+                cached_cross: Optional[Sequence[torch.Tensor]] = None):
         b, c, h, w = x.shape
         residual = x
         x = self.proj_in(self.norm(x))
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
         probs = None
-        for block in self.transformer_blocks:
-            x, probs = block(x, context, collect_probs)
+        cross_outs: List[torch.Tensor] = []
+        for i, block in enumerate(self.transformer_blocks):
+            x, probs, *co = block(x, context, collect_probs, collect_cross,
+                                  None if cached_cross is None else cached_cross[i])
+            cross_outs += co
         # contiguous NCHW again: the next GroupNorm kernel reads contiguous input
         x = x.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
         x = self.proj_out(x) + residual
@@ -187,6 +209,8 @@ class Transformer2D(nn.Module):
         if collect_probs:
             # (B, HW, tokens) -> (B, tokens, h, w), the JAX package's maps layout
             maps = probs.transpose(1, 2).reshape(b, -1, h, w)
+        if collect_cross:
+            return x, maps, cross_outs
         return x, maps
 
 

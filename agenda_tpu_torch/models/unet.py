@@ -5,6 +5,10 @@ Counterpart of ``agenda_tpu/models/unet.py``. Notes carried over:
 - ``attention_head_dim`` holds the number of heads (diffusers' SD-1.x quirk).
 - ``collect_attn=True`` returns every cross-attention layer's head-mean
   probability map as (B, tokens, h, w), ordered down blocks, mid, up blocks.
+- TGATE (``agenda_tpu/models/unet.py:219-364``): ``collect_cross=True`` adds
+  a third element, every cross-attention layer's output contribution in the
+  same traversal order; ``cached_cross=<that list>`` replays them and skips
+  the cross-attention. The two are never set together.
 - The public layout is the JAX package's: sample (B, H, W, C) in, eps
   (B, H, W, C) f32 out. Inside, activations are NCHW in the compute dtype.
 - ``gradient_checkpointing = True`` recomputes each resnet and transformer
@@ -14,7 +18,7 @@ Counterpart of ``agenda_tpu/models/unet.py``. Notes carried over:
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -113,9 +117,14 @@ class UNet2DConditionModel(nn.Module):
         timesteps: torch.Tensor,
         encoder_hidden_states: torch.Tensor,
         collect_attn: bool = False,
-    ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
+        collect_cross: bool = False,
+        cached_cross: Optional[Sequence[torch.Tensor]] = None,
+    ):
         """sample (B, H, W, C), timesteps (B,) or scalar, context (B, 77, C)
-        -> (eps (B, H, W, C) f32, maps list[(B, tokens, h, w)] or None)."""
+        -> (eps (B, H, W, C) f32, maps list[(B, tokens, h, w)] or None), and
+        with ``collect_cross`` the list of cross-attention contributions
+        (B, h*w, C) as a third element."""
+        assert not (collect_cross and cached_cross is not None)
         cfg = self.config
         dtype = self.dtype
         if timesteps.dim() == 0:
@@ -136,10 +145,18 @@ class UNet2DConditionModel(nn.Module):
                 return checkpoint(module, *args, use_reentrant=False)
             return module(*args)
 
+        cross_outs: List[torch.Tensor] = []
+        cache = iter(cached_cross) if cached_cross is not None else None
+
         def transformer(attn, x):
-            x, m = run(attn, x, ctx, collect_attn)
+            cached = None
+            if cache is not None:  # this transformer's slice of the flat list
+                cached = [next(cache) for _ in attn.transformer_blocks]
+            x, m, *co = run(attn, x, ctx, collect_attn, collect_cross, cached)
             if m is not None:
                 maps.append(m)
+            if co:
+                cross_outs.extend(co[0])
             return x
 
         for block in self.down_blocks:
@@ -168,4 +185,6 @@ class UNet2DConditionModel(nn.Module):
 
         x = self.conv_out(self.conv_norm_out(x))
         eps = x.float().permute(0, 2, 3, 1).contiguous()
+        if collect_cross:
+            return eps, (maps if collect_attn else None), cross_outs
         return eps, (maps if collect_attn else None)

@@ -2,9 +2,10 @@
 
 Counterpart of ``agenda_tpu/models/vae.py``. The full encoder and decoder
 are here so that a diffusers VAE state dict loads strictly; generation only
-runs ``decode``, training ``encode`` (with logvar clamped to [-30, 20], as
-``vae.py:112-118``) and ``sample_latents``. Public layout: latents
-(B, h, w, 4) in, images (B, H, W, 3) f32 out.
+runs ``decode``, the SD fine-tunes ``encode`` (with logvar clamped to
+[-30, 20], as ``vae.py:112-118``) and ``sample_latents``, and VAE
+pretraining (``train/vae_pretrain.py``) the whole ``forward``. Public
+layout: latents (B, h, w, 4) in, images (B, H, W, 3) f32 out.
 """
 
 from __future__ import annotations
@@ -125,6 +126,14 @@ class AutoencoderKL(nn.Module):
         """Latents (B, h, w, 4) -> images (B, H, W, 3) f32 in about [-1, 1]."""
         z = self.post_quant_conv(z.to(self.dtype).permute(0, 3, 1, 2).contiguous())
         return self.decoder(z).float().permute(0, 2, 3, 1).contiguous()
+
+    def forward(self, x: torch.Tensor, eps: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(decode(sample_latents(mean, logvar, eps)), mean, logvar) of images
+        (B, H, W, 3) in [-1, 1]; ``eps`` is the (B, h, w, 4) standard-normal
+        draw (``vae.py:130-133``, where it is drawn from the key passed in)."""
+        mean, logvar = self.encode(x)
+        return self.decode(sample_latents(mean, logvar, eps)), mean, logvar
 
 
 def sample_latents(mean: torch.Tensor, logvar: torch.Tensor,

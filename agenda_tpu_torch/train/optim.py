@@ -294,6 +294,12 @@ def make_adamw(learning_rate_fn, b1: float = 0.9, b2: float = 0.999, eps: float 
     return Optimizer(init=init, apply=apply)
 
 
+def make_adam(lr: float) -> Optimizer:
+    """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8, no decay, no clip (the
+    refine classifier's and VAE pretraining's optimizer)."""
+    return make_adamw(lr_schedule("constant", lr, 0, 0), weight_decay=0.0, max_grad_norm=None)
+
+
 class MultiStepsState:
     """The accumulation state: the inner optimizer's state, the running mean
     of this update's micro-batch gradients (f32, by name) and how many

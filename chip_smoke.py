@@ -24,7 +24,9 @@ Phases, each fatal on failure:
   5. e2e     -- the port's CLI (cli/data_generation.main) generates 4 images
                 with 3 word heatmaps at 512x512, 20 PLMS steps, batch 2; the
                 kernel launch counts must equal the counts from the config;
-  6. profile -- torch.profiler breaks one more batch down by kernel group;
+  6. profile -- torch.profiler breaks one more batch down by kernel group,
+                and its trace goes through the port's cli/profile_report
+                (utils/xprof.py): its categories sum to its busy ms;
 then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
   8. train shapes -- one step through the trainer API (fused int8 AdamW +
                 EMA) records every flash shape and every quantized leaf, and
@@ -124,8 +126,8 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 batch; render_lsj_batch at 112 -> 128 px; the CPU tests'
                 limits; the render's ms a batch;
  25. device-aug training -- DetectorRunner.train with device_aug at batch
-                192 (the stacks) and 1024 (4096 fabricated tiles in two
-                parts, a 201 MB tensor), serial and with 4 plan workers: the
+                192 (the stacks) and 1024 (2048 fabricated tiles in two
+                parts, a 100 MB tensor), serial and with 4 plan workers: the
                 loop's s/step and images/s, the card's busy share, the
                 render's and the step's ms, the host's plan ms an image, the
                 plan upload ms, peak memory; aug_path "device", the step
@@ -168,7 +170,8 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 statistics' move within the family's FAM_LIMITS, the TF32
                 control beyond each; predictions matched box for box;
  32. family CLIs -- cli/det_train --preset real_source --detector <family>
-                at the preset's batch with --pretrained from a fabricated
+                on 128 of the stacks (64 to validate) at the preset's batch
+                with --pretrained from a fabricated
                 mmdet/mmyolo checkpoint (80-class COCO heads): the import
                 report (every tensor but the heads imported, the heads
                 shape-skipped), one epoch, a resume for one more, det_test;
@@ -179,7 +182,24 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 the NMS rank loop's launches), and labelling the 512 stacks
                 at batch 192 (images/s, NMS launches a batch);
  34. the chain with faster-rcnn -- phase 30 with `detector: faster-rcnn`;
- 35. report  -- a `kernels` JSON line (six kernels; none is on the labelling,
+ 35. TGATE   -- (run after phase 6, on its pipeline) one UNet call that
+                collects the cross-attention contributions and one that
+                replays them against the exact call; generation with
+                tgate_step 10 and the exact sampler through the API in
+                turns (s/batch), K1/K6 launches a TGATE batch against the
+                config's count, a profiled TGATE batch, and the CLI with
+                --tgate-step;
+ 36. VAE pretraining -- (run after phase 16) SD-1.4's VAE at 256 px, batch 8,
+                bf16 autocast: steps of make_vae_pretrain_step (losses finite,
+                the reconstruction falling, warm s/step, peak memory, K1, the
+                wide K2/K3 and K6 launches a step against the VAE's count),
+                then pretrain_vae and its scaling_factor;
+ 37. wide flash backward -- dK/dV and dQ at D > 160 (the mma.sync kernels)
+                against their plain versions at the VAE step's (8, 1024, 1,
+                512), at (2, 4096, 1, 512) and a ragged (1, 333, 2, 264),
+                timed beside their bound and SDPA's backward;
+ 38. report  -- a `kernels` JSON line (the six kernels, the flash backward's
+                wide kernels as entries of their own; none is on the labelling,
                 detector, refine or orchestrator path: the render is einsums
                 and elementwise PyTorch, as it is jnp in the reference,
                 ResNet-50 is cuDNN and ATen as it is flax without Pallas
@@ -318,14 +338,36 @@ DET_TAL_MAX = 13  # anchors whose fg or assigned GT differ
 # can flip at a tie); LSJ within one level on at most LSJ_DIFF_SHARE of the
 # values (one of its two roundings can flip at .5); RENDER_FORCED
 # passthrough samples forced into the mix batch. Timing at the
-# synthetic_heatmap (192, the 512 stacks, 4 epochs of 3 steps) and
-# synthetic_target (1024, two parts of 2048 fabricated tiles: a 201 MB
-# tensor, 3 epochs of 4 steps) batches
+# synthetic_heatmap (192, the 512 stacks, 3 epochs of 3 steps) and
+# synthetic_target (1024, two parts of 1024 fabricated tiles: a 100 MB
+# tensor, 3 epochs of 2 steps) batches, the loop timed from epoch 1 (cut
+# from 4096 tiles and 4 epochs at 192 to keep the script within its limit)
 RENDER_MEAN_TOL, RENDER_FAR_SHARE, LSJ_DIFF_SHARE = 1e-3, 1e-4, 1e-3
 RENDER_SLOTS, RENDER_FORCED = 24, 4
-DEVICE_AUG_TILES = 4096
-DEVICE_AUG_TIMING = (("synthetic_heatmap", 192, 4), ("synthetic_target", 1024, 3))
+DEVICE_AUG_TILES = 2048
+DEVICE_AUG_TIMING = (("synthetic_heatmap", 192, 3), ("synthetic_target", 1024, 3))
 
+
+# TGATE (phase 35): the main path's generation with --tgate-step 10 of 20 PLMS
+# steps (11 UNet calls at 2B, 10 at B). The replay gate: one UNet call at 2B
+# in bf16 that collects the cross-attention contributions, the same call
+# replaying them, and the exact call, against one another, max |d| over
+# rms(exact eps): the collecting call runs the exact call's kernels and the
+# replay adds the very tensors the collecting call added, so the readings
+# are bitwise 0 unless a kernel's order of summation varies between calls
+# (bf16 rounds at 2^-8: the limit is a few of its ulps)
+TGATE_STEP = 10
+TGATE_REPLAY_TOL_RMS = 1e-2
+# VAE pretraining (phase 36): SD-1.4's VAE (128/256/512/512, fabricated) at
+# 256 px, batch 8, so the mid-block attention is S = 1024, D = 512 (the
+# wide K2/K3), under bf16 autocast; VAE_STEPS steps of Adam at VAE_LR, the
+# first two cold; then pretrain_vae end to end for 2 steps and its
+# scaling_factor
+VAE_RES, VAE_BATCH, VAE_STEPS, VAE_LR, VAE_IMAGES = 256, 8, 8, 1e-4, 32
+# the wide flash backward (D > 160) against its plain version (phase 37):
+# the VAE step's shape, a longer S, and a ragged S at a D the tiles pad
+WIDE_FLASH_BWD = {(8, 1024, 1, 512): None, (2, 4096, 1, 512): 0, (1, 333, 2, 264): 0}
+PROFILE_SUM_TOL = 0.01  # phase 6's report: its categories' sum over its busy ms, relative
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
@@ -480,9 +522,11 @@ def time_batches(pipe, batch: int) -> Tuple[float, float]:
     return walls[0], walls[1]
 
 
-def device_times(run) -> Tuple[dict, float]:
+def device_times(run, trace_dir: str = None) -> Tuple[dict, float]:
     """torch.profiler over one run(): ({CUDA kernel, memcpy or memset name:
-    (us, count)}, the run's wall seconds)."""
+    (us, count)}, the run's wall seconds); with ``trace_dir`` the Chrome
+    trace is written there as ``trace.json``, as ``utils/profiling.py::
+    maybe_profile`` writes it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -490,6 +534,9 @@ def device_times(run) -> Tuple[dict, float]:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
     per_name = {}  # CUDA kernel (and memcpy/memset) events only: the ops' rows would double count
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -498,10 +545,11 @@ def device_times(run) -> Tuple[dict, float]:
     return per_name, wall
 
 
-def profile_run(run, tag: str, what: str, warm_s: float, kernel_groups=KERNEL_GROUPS) -> None:
+def profile_run(run, tag: str, what: str, warm_s: float, kernel_groups=KERNEL_GROUPS,
+                trace_dir: str = None) -> None:
     """torch.profiler breakdown of one run() by kernel group (last in its path:
     the profiler's CUPTI hooks can slow later launches)."""
-    per_name, wall = device_times(run)
+    per_name, wall = device_times(run, trace_dir)
     busy_ms = sum(us for us, _ in per_name.values()) / 1e3
     groups = {}
     for name, (us, n) in per_name.items():
@@ -871,7 +919,8 @@ def ptxas_report(log: str):
     of the port's kernels, from the build's ptxas -v output."""
     import re
 
-    names = "flash_fwd_wgmma|flash_fwd_wide|flash_bwd_dkv|flash_bwd_dq|groupnorm|fused_adamw8bit"
+    names = ("flash_fwd_wgmma|flash_fwd_wide|flash_bwd_dkv_wide|flash_bwd_dq_wide|flash_bwd_dkv"
+             "|flash_bwd_dq|groupnorm|fused_adamw8bit")
     found, current = {}, None
     for line in log.splitlines():
         m = re.search(rf"({names})_kernel(?:I((?:L[ib]\d+E)+)E)?", line)
@@ -887,8 +936,10 @@ def ptxas_report(log: str):
     return found
 
 
-def flash_bwd_rows(per_step):
-    """Parity and timing of the dK/dV and dQ kernels at every training shape."""
+def flash_bwd_rows(per_step, extra=EXTRA_FLASH_BWD, tag: str = "flash bwd"):
+    """Parity and timing of the dK/dV and dQ kernels at every training shape
+    (and the off-path ``extra`` shapes); ptxas's report of the instantiations
+    with the first call."""
     import ctypes
 
     import torch
@@ -900,14 +951,14 @@ def flash_bwd_rows(per_step):
     kernels = _build.load_library()
     smem = kernels.function("agenda_flash_bwd_smem_bytes", [ctypes.c_int, ctypes.c_int])
     for name, text in sorted(ptxas_report(kernels.log).items()):
-        if name.startswith("flash_bwd_"):
-            nd = int(name[name.index("<") + 1:-1])
+        if name.startswith("flash_bwd_") and tag == "flash bwd":
+            nd = int(name[name.index("<") + 1:-1]) if "<" in name else 512  # wide: D <= 512
             print(f"[ptxas] {name}: {text}; {smem('dkv' in name, nd)} bytes of dynamic shared "
                   "memory", flush=True)
     rows = {"dkv": [], "dq": []}
     pair = []  # (shape, launches a step, dK/dV + dQ ms, SDPA backward ms)
     shapes = dict(per_step)
-    for shape in EXTRA_FLASH_BWD:
+    for shape in extra:
         shapes.setdefault(shape, 0)
     for shape, count in shapes.items():
         b, s, h, d = shape
@@ -931,7 +982,7 @@ def flash_bwd_rows(per_step):
                 err = max(err, diff.max().item())
                 worst = max(worst, (diff / (FLASH_ATOL_RMS * rms + FLASH_RTOL * ref_f.abs()))
                             .max().item())
-            require(worst <= 1.0, f"flash backward {kind} {shape}: max err {err}, {worst:.4g} "
+            require(worst <= 1.0, f"{tag} {kind} {shape}: max err {err}, {worst:.4g} "
                     f"of the limit {FLASH_ATOL_RMS} rms(ref) + {FLASH_RTOL}|ref|")
             errs[kind] = (err, worst)
         # SDPA's backward (dQ, dK, dV in one call) as the yardstick the port never calls,
@@ -968,7 +1019,7 @@ def flash_bwd_rows(per_step):
                                    plain_ms=plain, library_ms=lib,
                                    bound_ms=1e3 * terms[term],
                                    bound_by="bytes" if term == "bytes" else "operations"))
-            print(f"flash bwd {kind} (B,S,H,D)={shape} x{count}/step  err {errs[kind][0]:.3g}, "
+            print(f"{tag} {kind} (B,S,H,D)={shape} x{count}/step  err {errs[kind][0]:.3g}, "
                   f"{errs[kind][1]:.4g} of the limit  kernel {ms:.4f} ms (eager {eager:.4f})  "
                   f"plain {plain:.4f} ms  SDPA backward (dQ, dK, dV) {lib:.4f} ms (eager "
                   f"{lib_eager:.4f})  bound {1e3 * terms[term]:.4f} ms ({term}: {products} x "
@@ -977,12 +1028,12 @@ def flash_bwd_rows(per_step):
                   f"3.9e12/s = {1e3 * terms['exponentials']:.4f} ms; {nbytes:.4g} bytes over "
                   f"3.35e12/s = {1e3 * terms['bytes']:.4f} ms)", flush=True)
         pair.append((shape, count, rows["dkv"][-1]["ms"] + rows["dq"][-1]["ms"], lib))
-        print(f"flash bwd pair (B,S,H,D)={shape}: dK/dV + dQ {pair[-1][2]:.4f} ms against SDPA's "
+        print(f"{tag} pair (B,S,H,D)={shape}: dK/dV + dQ {pair[-1][2]:.4f} ms against SDPA's "
               f"backward {lib:.4f} ms ({pair[-1][2] / lib:.2f}x)", flush=True)
         del q, k, v, do, out, lse, delta, got, want, qt, kt, vt, o, dot
         torch.cuda.empty_cache()
     ours, sdpa = (sum(n * x[i] for _, n, *x in pair) for i in (0, 1))
-    print(f"flash bwd pair per training step: dK/dV + dQ {ours:.4f} ms against SDPA's backward "
+    print(f"{tag} pair per training step: dK/dV + dQ {ours:.4f} ms against SDPA's backward "
           f"{sdpa:.4f} ms ({ours / sdpa:.2f}x)", flush=True)
     return rows
 
@@ -1930,13 +1981,14 @@ def labelling_timing(labels: dict, root: str, dev) -> dict:
     return out
 
 
-def det_split(labels: dict, root: str) -> Tuple[str, str]:
-    """The 512 stacks' COCO split into DET_TRAIN_TILES to train on and
-    DET_VAL_TILES to validate on -> the two file names under root."""
+def det_split(labels: dict, root: str, n_train: int = DET_TRAIN_TILES) -> Tuple[str, str]:
+    """The 512 stacks' COCO split into n_train to train on and the
+    DET_VAL_TILES after DET_TRAIN_TILES to validate on -> the two file names
+    under root."""
     with open(os.path.join(root, labels["all"])) as f:
         coco = json.load(f)
     names = []
-    for name, images in (("det_train.json", coco["images"][:DET_TRAIN_TILES]),
+    for name, images in (("det_train.json", coco["images"][:n_train]),
                          ("det_val.json", coco["images"][DET_TRAIN_TILES:
                                                          DET_TRAIN_TILES + DET_VAL_TILES])):
         ids = {im["id"] for im in images}
@@ -2456,7 +2508,7 @@ def render_parity(labels: dict, root: str, dev) -> dict:
 def device_aug_timing(labels: dict, root: str, dev) -> dict:
     """Phase 25: YOLOv8n training through DetectorRunner.train with
     device_aug at batch 192 (synthetic_heatmap, the 512 stacks) and 1024
-    (synthetic_target, two fabricated parts of 2048 tiles), each serial and
+    (synthetic_target, two fabricated parts of 1024 tiles), each serial and
     with 4 plan workers: the loop's s/step from the first step of epoch 1 to
     the run's end (host clock; the last checkpoint's write included), the
     card's busy share of it (one profiled render + step), the render's and
@@ -3128,12 +3180,14 @@ FAM_LIMITS = {
     "vitdet": {"loss": 1e-5, "parts": 1e-5, "grads": 4e-4, "update": 1.5e-2},
 }
 # phase 32: cli/det_train --preset real_source (each family's batch) with
-# --pretrained on a fabricated mm checkpoint, FAM_EPOCHS epochs on phase 22's
-# split, a resume for one more, det_test; Faster R-CNN once more with
+# --pretrained on a fabricated mm checkpoint, FAM_EPOCHS epochs on the first
+# FAM_CLI_TILES stacks of phase 22's split (cut from its 384 to keep the
+# script within its time limit), a resume for one more, det_test on phase
+# 22's validation stacks; Faster R-CNN once more with
 # --device-aug; phase 33: timing at the real_source and synthetic_target
 # batches (FAM_WARM synchronised steps after a cold one, the batch on the
 # card) and labelling at LABEL_BATCH over the 512 stacks
-FAM_EPOCHS, FAM_WARM = 1, 3
+FAM_EPOCHS, FAM_WARM, FAM_CLI_TILES = 1, 2, 128
 
 
 def family_preset(root: str, ann: str, detector: str, stage: str = "real_source"):
@@ -3285,8 +3339,9 @@ def family_parity(labels: dict, root: str, dev) -> dict:
 
 def family_cli_phase(labels: dict, root: str, dev) -> dict:
     """Phase 32: cli/det_train --preset real_source --detector <family> on the
-    card over phase 22's split (384 stacks, 64 to validate), at the preset's
-    batch, --pretrained from a fabricated mmdet/mmyolo checkpoint with
+    card over the first FAM_CLI_TILES stacks of phase 22's split (64 to
+    validate), at the preset's batch (padded past the stacks: YOLOv5's 200),
+    --pretrained from a fabricated mmdet/mmyolo checkpoint with
     80-class COCO heads: the import report (every tensor but the heads
     imported, the heads shape-skipped, nothing unmatched), FAM_EPOCHS epochs
     with validation each, a resume from latest.safetensors for one more,
@@ -3299,7 +3354,7 @@ def family_cli_phase(labels: dict, root: str, dev) -> dict:
     from agenda_tpu_torch.detect.runner import SIDECAR, DetectorRunner
     from agenda_tpu_torch.io.safetensors_io import load_file
 
-    train_ann, val_ann = det_split(labels, root)
+    train_ann, val_ann = det_split(labels, root, FAM_CLI_TILES)
     checkpoints, out = {}, {}
     runs = [(det, ()) for det in FAMILIES] + [("faster-rcnn", ("--device-aug",))]
     for det, extra in runs:
@@ -3338,7 +3393,7 @@ def family_cli_phase(labels: dict, root: str, dev) -> dict:
         vals = [r for r in rows if "bbox_mAP" in r]
         side = load_file(os.path.join(work, SIDECAR))
         bs = runners[0].cfg.batch_size
-        n_steps = -(-DET_TRAIN_TILES // bs) * (epochs + (0 if extra else 1))
+        n_steps = -(-FAM_CLI_TILES // bs) * (epochs + (0 if extra else 1))
         recs = det_test.main(["--config", os.path.join(work, "config.json"), "--checkpoint",
                               os.path.join(work, "latest.safetensors"), "--test-root", root,
                               "--test-ann", val_ann, "--test-prefix", "", "--out",
@@ -3533,6 +3588,200 @@ def family_reports(fam: dict, card: str) -> None:
           "agenda_tpu/detect/ops.py:207)", flush=True)
 
 
+def profile_report_phase(trace_dir: str, busy_ms: float) -> dict:
+    """Phase 6's trace through cli/profile_report (utils/xprof.py): it exits
+    0 and its categories sum to its busy ms within PROFILE_SUM_TOL (one
+    stream: nothing overlaps); the profiler's own kernel sum is printed
+    beside it."""
+    import contextlib
+    import io
+
+    from agenda_tpu_torch.cli import profile_report
+    from agenda_tpu_torch.utils import xprof
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = profile_report.main([trace_dir, "--iters", "1", "--top", "8"])
+    require(rc == 0, f"profile_report exited {rc}:\n{out.getvalue()}")
+    rep = xprof.device_op_report(trace_dir, iters=1)
+    total = sum(ms for _, ms in rep.by_category)
+    print(f"[profile-report] plane {rep.plane}: busy {rep.total_ms:.2f} ms "
+          f"({100 * rep.busy_share:.1f}% of the traced {rep.window_ms:.1f} ms), categories sum "
+          f"to {total:.2f} ms ({100 * (total / rep.total_ms - 1):+.3f}%, limit "
+          f"{100 * PROFILE_SUM_TOL:.0f}%); the profiler's own kernel sum {busy_ms:.2f} ms",
+          flush=True)
+    for line in out.getvalue().splitlines()[:14]:
+        print(f"[profile-report] {line}", flush=True)
+    require(abs(total - rep.total_ms) <= PROFILE_SUM_TOL * rep.total_ms,
+            "the report's categories do not sum to its busy time")
+    return {"busy_ms": rep.total_ms, "share": rep.busy_share,
+            "top": rep.by_category[:5]}
+
+
+def tgate_phase(pipe, model_dir: str, embeds: str, tmp: str, expected: dict,
+                exact_warm_s: float) -> dict:
+    """Phase 35: TGATE at the main path's size. The replay gate (one UNet
+    call at 2B collecting the contributions, replayed, against the exact
+    call); s/batch of the TGATE and the exact sampler through the API in
+    turns; K1 and K6 launches a TGATE batch against the config's count (the
+    exact path's: attn1 and every GroupNorm run on every call); the busy
+    share of a profiled TGATE batch; the CLI with --tgate-step."""
+    import torch
+
+    from agenda_tpu_torch.cli import data_generation
+    from agenda_tpu_torch.kernels.flash import flash_attention_fwd
+    from agenda_tpu_torch.kernels.groupnorm import group_norm_act
+
+    dev, hw, b = pipe.device, pipe.latent_hw, E2E_BATCH
+    g = torch.Generator(device=dev).manual_seed(35)
+    x = torch.randn(2 * b, hw, hw, 4, device=dev, generator=g)
+    t = torch.full((2 * b,), 500.0, device=dev)
+    ctx = torch.randn(2 * b, 77, pipe.unet.config.cross_attention_dim, device=dev, generator=g)
+    with torch.no_grad():
+        exact, _ = pipe.unet(x, t, ctx)
+        collected, _, cross = pipe.unet(x, t, ctx, collect_cross=True)
+        replayed, _ = pipe.unet(x, t, ctx, cached_cross=cross)
+    rms = exact.float().square().mean().sqrt().item()
+    readings = {k: (v.float() - exact.float()).abs().max().item() / rms
+                for k, v in (("collect", collected), ("replay", replayed))}
+    print(f"[tgate] replay gate, one UNet call at batch {2 * b}: {len(cross)} cross-attention "
+          f"contributions; max |d| / rms(exact eps) collecting {readings['collect']:.3g}, "
+          f"replaying {readings['replay']:.3g} (limit {TGATE_REPLAY_TOL_RMS})", flush=True)
+    require(len(cross) == 16, f"{len(cross)} cross-attention layers, SD-1.x has 16")
+    require(all(r <= TGATE_REPLAY_TOL_RMS for r in readings.values()),
+            "a replayed UNet call differs from the exact call")
+    del exact, collected, replayed, cross
+
+    seeds = list(range(b))
+    kw = generate_kwargs()
+    pipe.generate_async(PROFILE_PROMPT, seeds, tgate_step=TGATE_STEP, **kw)()  # cold
+    walls = {"exact": [], "tgate": []}
+    for kind in ("exact", "tgate", "tgate", "exact"):
+        extra = {"tgate_step": TGATE_STEP} if kind == "tgate" else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.generate_async(PROFILE_PROMPT, seeds, **kw, **extra)()
+        walls[kind].append(time.perf_counter() - t0)
+    warm = {k: sum(v) / len(v) for k, v in walls.items()}
+    flash_attention_fwd.launches = group_norm_act.launches = 0
+    images, maps = pipe.generate_async(PROFILE_PROMPT, seeds, tgate_step=TGATE_STEP, **kw)()
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "group_norm_act": group_norm_act.launches}
+    print(f"[tgate] batch {b} at 512x512, {E2E_STEPS} PLMS steps, gate at step {TGATE_STEP} "
+          f"({TGATE_STEP + 1} UNet calls at {2 * b}, {len(pipe.timestep_table(E2E_STEPS)) - TGATE_STEP - 1}"
+          f" at {b}): TGATE {warm['tgate']:.4f} s/batch against the exact sampler's "
+          f"{warm['exact']:.4f} s in turns ({100 * (1 - warm['tgate'] / warm['exact']):.1f}% "
+          f"less; phase 2's exact warm batch {exact_warm_s:.4f} s); launches a batch "
+          f"{launches} (the config's {expected})", flush=True)
+    require(launches == expected, "TGATE's K1/K6 launches differ from the config's count")
+    require(images.shape == (b, 112, 112, 3) and all(m.shape == (b, 112, 112)
+                                                     for m in maps.values()),
+            "TGATE outputs have the wrong shapes")
+    busy_ms, _ = profile_run(
+        lambda: pipe.generate_async(PROFILE_PROMPT, seeds, tgate_step=TGATE_STEP, **kw)(),
+        "tgate-profile", f"TGATE batch {b}, gate at {TGATE_STEP}", warm["tgate"])
+
+    save_dir = os.path.join(tmp, "tgate_out")
+    flash_attention_fwd.launches = group_norm_act.launches = 0
+    stats = data_generation.main([
+        "--pretrained-model-path", model_dir, "--learnable-tokens-embedding-path", embeds,
+        "--save-dir", save_dir, "--device", "cuda", *E2E_ARGS, "--tgate-step", str(TGATE_STEP)])
+    torch.cuda.synchronize()
+    cli = {"flash_attention_fwd": flash_attention_fwd.launches,
+           "group_norm_act": group_norm_act.launches}
+    want = {k: v * stats["batches"] for k, v in expected.items()}
+    print(f"[tgate] CLI --tgate-step {TGATE_STEP}: {stats['batches']} batches, "
+          f"{stats['seconds'] / stats['batches']:.3f} s/batch; launches {cli} (expected {want})",
+          flush=True)
+    require(cli == want, "the TGATE CLI's launch counts differ from the config's count")
+    check_outputs(save_dir)
+    shutil.rmtree(save_dir)
+    return {"warm": warm, "busy_ms": busy_ms, "replay": readings, "launches": launches}
+
+
+def vae_images(n: int, res: int, seed: int):
+    """n smooth uint8 images (res x res): blocks of 8x8 noise upsampled."""
+    import numpy as np
+
+    low = np.random.default_rng(seed).uniform(0, 255, (n, 8, 8, 3))
+    return np.kron(low, np.ones((1, res // 8, res // 8, 1))).astype(np.uint8)
+
+
+def vae_pretrain_phase(model_dir: str, dev) -> dict:
+    """Phase 36: SD-1.4's VAE from the fabricated pipeline at VAE_RES px and
+    VAE_BATCH, under bf16 autocast: VAE_STEPS steps of make_vae_pretrain_step
+    (each synchronised; the first two cold), the losses (finite, the
+    reconstruction falling), the warm s/step, peak memory and the launches
+    of K1, K2, K3 and K6 a step against the VAE's count (two mid-block
+    attentions, one per GroupNorm module; the GroupNorm backward is the
+    plain recompute); then pretrain_vae end to end and its scaling_factor."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.models.layers import GroupNormAct, VAEAttention
+    from agenda_tpu_torch.models.vae import AutoencoderKL
+    from agenda_tpu_torch.train import vae_pretrain as vp
+    from agenda_tpu_torch.train.optim import make_adam
+
+    bundle = load_pipeline(model_dir)
+    vae = AutoencoderKL(bundle.vae_config)
+    vae.load_state_dict(bundle.vae_state, strict=True)
+    vae.to(dev)
+    images = vae_images(VAE_IMAGES, VAE_RES, 36)
+    pixels = images.astype(np.float32) / 127.5 - 1.0
+    tx = make_adam(VAE_LR)
+    opt_state = tx.init(dict(vae.named_parameters()))
+    step = vp.make_vae_pretrain_step(vae, tx, kl_weight=1e-4)
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = vp.latent_shape(vae, VAE_BATCH, VAE_RES, VAE_RES)
+    want = {"flash_attention_fwd": 2, "flash_attention_bwd_dkv": 2,
+            "flash_attention_bwd_dq": 2,
+            "group_norm_act": sum(isinstance(m, GroupNormAct) for m in vae.modules())}
+    require(sum(isinstance(m, VAEAttention) for m in vae.modules()) == 2,
+            "the VAE should have two mid-block attentions")
+    losses, walls, counts = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(VAE_STEPS):
+        batch = torch.from_numpy(pixels[rng.randint(0, len(pixels), VAE_BATCH)]).to(dev)
+        eps = torch.randn(shape, generator=gen, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        m = step(opt_state, batch, eps)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append({k: v for k, v in read_counts().items() if k in want})
+        losses.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    warm = sum(walls[2:]) / len(walls[2:])
+    print(f"[vae] SD-1.4 VAE {tuple(bundle.vae_config.block_out_channels)} at {VAE_RES} px, batch "
+          f"{VAE_BATCH}, bf16 autocast, Adam lr {VAE_LR}: steps " + ", ".join(
+              f"{w:.4f}" for w in walls) + f" s -> warm {warm:.4f} s/step "
+          f"({VAE_BATCH / warm:.1f} images/s); peak {peak / 2**30:.2f} GiB", flush=True)
+    print("[vae] recon " + ", ".join(f"{x['recon']:.5f}" for x in losses) + "; kl " + ", ".join(
+        f"{x['kl']:.3f}" for x in losses), flush=True)
+    print(f"[vae] launches a step {counts[-1]} (expected {want})", flush=True)
+    require(all(math.isfinite(v) for x in losses for v in x.values()), "VAE losses not finite")
+    require(losses[-1]["recon"] < losses[0]["recon"], "the VAE's reconstruction did not fall")
+    require(all(c == want for c in counts), f"VAE step launches {counts} differ from {want}")
+
+    t0 = time.perf_counter()
+    _, scale, recon = vp.pretrain_vae(vae, images, steps=2, batch_size=VAE_BATCH, lr=VAE_LR,
+                                      seed=1)
+    torch.cuda.synchronize()
+    print(f"[vae] pretrain_vae, 2 steps over {VAE_IMAGES} images: scaling_factor {scale:.5f}, "
+          f"recon {recon:.5f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(math.isfinite(scale) and scale > 0 and math.isfinite(recon),
+            "pretrain_vae's scaling_factor or recon is not finite")
+    del vae, opt_state, step
+    torch.cuda.empty_cache()
+    return {"warm_s": warm, "peak": peak, "losses": losses, "scale": scale,
+            "launches": counts[-1]}
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -3668,13 +3917,22 @@ def main() -> int:
         print(f"[e2e] {E2E_IMAGES} images 112x112x3 uint8 and {len(E2E_WORDS)}x{E2E_IMAGES} "
               f"heatmaps 112x112 uint8 written; final latents finite", flush=True)
 
-        # 6. where the time goes
-        profile_run(lambda: pipe.generate_async(PROFILE_PROMPT, list(range(E2E_BATCH)),
-                                                **generate_kwargs())(),
-                    "profile", f"batch {E2E_BATCH} at 512x512, {E2E_STEPS} steps", warm_s)
+        # 6. where the time goes, and the port's profile report on its trace
+        trace_dir = os.path.join(tmp, "profile_trace")
+        busy_ms, _ = profile_run(
+            lambda: pipe.generate_async(PROFILE_PROMPT, list(range(E2E_BATCH)),
+                                        **generate_kwargs())(),
+            "profile", f"batch {E2E_BATCH} at 512x512, {E2E_STEPS} steps", warm_s,
+            trace_dir=trace_dir)
+        report = profile_report_phase(trace_dir, busy_ms)
+        phase_s["generation (phases 2-6)"] = time.perf_counter() - t_phase
+
+        # 35. TGATE: the replay gate, the API against the exact sampler, the CLI
+        t_phase = time.perf_counter()
+        tgate = tgate_phase(pipe, model_dir, embeds, tmp, expected, warm_s)
         del pipe, latents
         torch.cuda.empty_cache()
-        phase_s["generation (phases 2-6)"] = time.perf_counter() - t_phase
+        phase_s["TGATE (35)"] = time.perf_counter() - t_phase
 
         # 8 + 9. the training path through the trainer API, then the no-EMA (K4) path
         t_phase = time.perf_counter()
@@ -3714,6 +3972,16 @@ def main() -> int:
         t_phase = time.perf_counter()
         accum_launches = accumulation_e2e(model_dir, tmp, unet_cfg, vae_cfg)
         phase_s["accumulation (16)"] = time.perf_counter() - t_phase
+
+        # 36-37. VAE pretraining at SD-1.4's widths; the wide flash backward's rows
+        t_phase = time.perf_counter()
+        vae = vae_pretrain_phase(model_dir, dev)
+        phase_s["VAE pretraining (36)"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        wide_shapes = {shape: vae["launches"]["flash_attention_bwd_dkv"] if n is None else n
+                       for shape, n in WIDE_FLASH_BWD.items()}
+        wide = flash_bwd_rows(wide_shapes, extra=(), tag="wide flash bwd")
+        phase_s["wide flash backward (37)"] = time.perf_counter() - t_phase
 
         # 17-20. the labelling stages: heatmap stacks, YOLOv8n/s on the card
         t_phase = time.perf_counter()
@@ -3772,6 +4040,12 @@ def main() -> int:
         summarize("flash_attention_bwd_dq", "cuda", "agenda_tpu_torch/csrc/flash_bwd.cu",
                   "agenda_tpu/kernels/flash.py:192", bwd["dq"],
                   train_launches["flash_attention_bwd_dq"]),
+        summarize("flash_attention_bwd_dkv_wide", "cuda", "agenda_tpu_torch/csrc/flash_bwd.cu",
+                  "agenda_tpu/kernels/flash.py:153", wide["dkv"],
+                  vae["launches"]["flash_attention_bwd_dkv"]),
+        summarize("flash_attention_bwd_dq_wide", "cuda", "agenda_tpu_torch/csrc/flash_bwd.cu",
+                  "agenda_tpu/kernels/flash.py:192", wide["dq"],
+                  vae["launches"]["flash_attention_bwd_dq"]),
         summarize("fused_adamw8bit", "cuda", "agenda_tpu_torch/csrc/fused_adamw.cu",
                   "agenda_tpu/kernels/fused_adamw.py:111", adamw,
                   k4_launches["fused_adamw8bit"]),
@@ -3850,6 +4124,22 @@ def main() -> int:
           "(dQ, dK, dV in one call); the fused AdamW has no single-call PyTorch equivalent "
           "(library_ms null)", flush=True)
     family_reports(fam, card)
+    print(f"[report] TGATE (gate at step {TGATE_STEP} of {E2E_STEPS}, batch {E2E_BATCH}, "
+          f"512x512): {tgate['warm']['tgate']:.4f} s/batch against the exact sampler's "
+          f"{tgate['warm']['exact']:.4f} s in the same turns, a profiled TGATE batch busy "
+          f"{tgate['busy_ms'] / 1e3:.3f} s; replay gate {tgate['replay']['replay']:.3g} of rms "
+          f"(limit {TGATE_REPLAY_TOL_RMS}); launches a batch {tgate['launches']}", flush=True)
+    print(f"[report] VAE pretraining (SD-1.4 VAE, {VAE_RES} px, batch {VAE_BATCH}, bf16 "
+          f"autocast): warm {vae['warm_s']:.4f} s/step, peak {vae['peak'] / 2**30:.2f} GiB, "
+          f"recon {vae['losses'][0]['recon']:.5f} -> {vae['losses'][-1]['recon']:.5f}, "
+          f"scaling_factor {vae['scale']:.5f}; launches a step {vae['launches']}", flush=True)
+    print(f"[report] profile report of phase 6's trace: busy {report['busy_ms']:.2f} ms, "
+          f"{100 * report['share']:.1f}% of the traced window; top categories " + ", ".join(
+              f"{k} {ms:.2f} ms" for k, ms in report["top"]), flush=True)
+    print("[report] units: the wide flash backward entries (flash_attention_bwd_dkv_wide, "
+          "flash_attention_bwd_dq_wide; D > 160) sum over one VAE pretraining step (batch "
+          f"{VAE_BATCH}, {VAE_RES} px: (8, 1024, 1, 512) twice); launches from phase 36's last "
+          "step; library_ms is SDPA's whole backward at the same shape", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

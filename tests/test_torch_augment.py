@@ -37,6 +37,10 @@ from agenda_tpu.detect.dataset import ConcatDataset as JaxConcat
 from agenda_tpu_torch.detect import augment as pa
 from agenda_tpu_torch.detect.dataset import CocoDetDataset, ConcatDataset, resize_u8_host
 from agenda_tpu_torch.detect.fabricate import write_square_set
+from test_torch_native import native_library  # noqa: F401 (the fixture)
+
+# the JAX side of every pixel comparison takes the native resize
+pytestmark = pytest.mark.usefixtures("native_library")
 
 LEVEL_TOL = 1.0  # images, in 8-bit levels
 BOX_TOL = 1e-5  # boxes, px

@@ -358,10 +358,15 @@ def test_groupnorm_is_deterministic(shape):
 ADAMW_KW = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
 
 
+# the wide backward (D > 160, mma.sync): the VAE step's shape, a longer S,
+# and ragged S at D = 264 (zero-padded to the tiles' 512) and at D = 512
+WIDE_BWD_SHAPES = [(8, 1024, 1, 512), (2, 4096, 1, 512), (1, 333, 2, 264), (1, 77, 2, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160),
                                    (4, 64, 8, 160), (2, 1000, 8, 40), (1, 333, 2, 152),
-                                   (1, 77, 3, 24)])
+                                   (1, 77, 3, 24), *WIDE_BWD_SHAPES])
 def test_flash_backward_kernels_match_plain(shape):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
@@ -381,7 +386,8 @@ def test_flash_backward_kernels_match_plain(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 333, 2, 152)])
+@pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 333, 2, 152),
+                                   (8, 1024, 1, 512), (1, 333, 2, 264)])
 def test_flash_backward_kernels_are_deterministic(shape):
     """Each gradient element has one owner and a fixed summation order: two
     launches on the same inputs give bitwise-equal dK, dV and dQ."""
@@ -412,9 +418,29 @@ FLASH_BWD_MUTATIONS = {
     "skip_last_key_tile_of_dq": (
         "    mbar_wait(&full[st], (j / T::kStages) & 1);\n",
         "    mbar_wait(&full[st], (j / T::kStages) & 1);\n    if (j + 1 == n_tiles) break;\n"),
+    # the wide kernels: a query past S keeps its probabilities (the rows past S
+    # are loaded as row S - 1), a key past S likewise, and dK written from the
+    # next quarter of D's columns
+    "wide_query_mask_dropped": (
+        "l[u] = q < p.S ? lse[qr] * kLog2e : INFINITY;",
+        "l[u] = lse[qr] * kLog2e;"),
+    "wide_key_mask_dropped": (
+        "const float pv = key < p.S ? exp2f(s[x] * p.scale_log2 - l[x >> 1]) : 0.f;",
+        "const float pv = exp2f(s[x] * p.scale_log2 - l[x >> 1]);"),
+    "wide_dk_from_wrong_d_slice": (
+        "store_wide(p.dk + off, dk, k0 + 16 * w.slice, w.c0, p.scale, p);",
+        "store_wide(p.dk + off, dk, k0 + 16 * w.slice, (w.c0 + kCols) % kDP, p.scale, p);"),
 }
 FLASH_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
                     (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24)]
+# each broken copy is held to the shapes where the code it breaks runs: the
+# wgmma kernels' at D <= 160, the wide masks' only on a ragged S
+FLASH_BWD_MUTATION_SHAPES = {
+    **{name: FLASH_BWD_SHAPES for name in FLASH_BWD_MUTATIONS if not name.startswith("wide_")},
+    "wide_query_mask_dropped": [(1, 333, 2, 264), (1, 77, 2, 512)],
+    "wide_key_mask_dropped": [(1, 333, 2, 264), (1, 77, 2, 512)],
+    "wide_dk_from_wrong_d_slice": [(8, 1024, 1, 512), (1, 333, 2, 264)],
+}
 _WORST_BWD_ERROR_OVER_LIMIT = """
 import json, torch
 from agenda_tpu_torch.kernels import flash as fl
@@ -491,7 +517,7 @@ def test_flash_backward_limit_fails_broken_kernels(mutation, tmp_path):
     _need_cuda()
     _broken_copy(tmp_path, "flash_bwd.cu", [FLASH_BWD_MUTATIONS[mutation]])
     worst = _worst_over_limit(tmp_path, _WORST_BWD_ERROR_OVER_LIMIT % (
-        FLASH_BWD_SHAPES, FLASH_ATOL_RMS, FLASH_RTOL))
+        FLASH_BWD_MUTATION_SHAPES[mutation], FLASH_ATOL_RMS, FLASH_RTOL))
     print(f"{mutation}: worst |grad - ref| / limit per shape {worst}")
     assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
 
@@ -537,8 +563,8 @@ def test_flash_backward_wrapper_raises_instead_of_falling_back():
     lse = torch.zeros(2, 64, device="cuda")
     with pytest.raises(TypeError):
         fl.flash_attention_bwd_dkv(x, x, x, x, lse, lse)  # f32 on the card
-    wide = torch.zeros(1, 64, 1, 168, device="cuda").bfloat16()
-    with pytest.raises(ValueError):  # D above the backward's 160
+    wide = torch.zeros(1, 64, 1, 520, device="cuda").bfloat16()
+    with pytest.raises(ValueError):  # D above the backward's 512
         fl.flash_attention_bwd_dq(wide, wide, wide, wide, lse[:1], lse[:1])
     xb = x.bfloat16()
     with pytest.raises(ValueError):  # lse of the wrong shape
@@ -943,6 +969,70 @@ def test_resnet50_train_step_on_the_card_as_on_the_cpu():
     card64 = _classifier_step(dev, sd, images, labels, mask, torch.float64)
     worst64 = max(float((card64[1][k] - v).norm() / v.norm()) for k, v in ref64[1].items())
     assert worst64 <= 1e-6, worst64
+
+
+# VAE pretraining's step on the card (bf16 autocast) against the CPU (f32),
+# at a VAE whose mid-block attention takes the wide flash backward (two
+# levels of 64 and 256 channels: D = 256, S = 32 x 32 at 64 px): the loss
+# within VAE_LOSS_RTOL, each gradient (read from Adam's first moment) within
+# VAE_GRAD_TOL_L2 relative L2, over the tensors whose CPU gradient is not
+# float noise (norm above VAE_NULL_GRAD of the largest). The limit lies
+# between the bf16 reading and a control that drops the attention's gradient
+# (the wide kernels' dK, dV and dQ zeroed); read on an H100 80GB HBM3 at
+# 700 W: loss 2.8e-4, gradients 3.1e-2 / the control's 1.07
+VAE_LOSS_RTOL, VAE_GRAD_TOL_L2, VAE_NULL_GRAD = 2e-3, 0.15, 1e-4
+
+
+def _vae_step(dev, state_dict, pixels, eps):
+    """One vae_pretrain step -> (loss, gradients by name on the CPU in f32)."""
+    from agenda_tpu_torch.io.configs import VAEConfig
+    from agenda_tpu_torch.models.vae import AutoencoderKL
+    from agenda_tpu_torch.train.optim import make_adam
+    from agenda_tpu_torch.train.vae_pretrain import make_vae_pretrain_step
+
+    vae = AutoencoderKL(VAEConfig(block_out_channels=(64, 256), layers_per_block=1))
+    vae.load_state_dict(state_dict)
+    vae.to(dev)
+    tx = make_adam(1e-4)
+    opt_state = tx.init(dict(vae.named_parameters()))
+    m = make_vae_pretrain_step(vae, tx, 1e-2)(opt_state, pixels.to(dev), eps.to(dev))
+    cpu = torch.device("cpu")
+    return float(m["loss"]), {k: (v / 0.1).to(cpu) for k, v in opt_state.mu.items()}
+
+
+def _vae_readings(card, ref):
+    top = max(float(v.norm()) for v in ref[1].values())
+    grads = max(float((card[1][k] - v).norm() / v.norm()) for k, v in ref[1].items()
+                if float(v.norm()) > VAE_NULL_GRAD * top)
+    return abs(card[0] - ref[0]) / abs(ref[0]), grads
+
+
+@pytest.mark.cuda
+def test_vae_pretrain_step_on_the_card_as_on_the_cpu(monkeypatch):
+    from agenda_tpu_torch.io.configs import VAEConfig
+    from agenda_tpu_torch.models.vae import AutoencoderKL
+
+    _need_cuda()
+    torch.manual_seed(0)
+    sd = AutoencoderKL(VAEConfig(block_out_channels=(64, 256), layers_per_block=1)).state_dict()
+    g = torch.Generator().manual_seed(1)
+    pixels = torch.rand(2, 64, 64, 3, generator=g) * 2 - 1
+    eps = torch.randn(2, 32, 32, 4, generator=g)
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    ref = _vae_step(cpu, sd, pixels, eps)
+    before = (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches)
+    sound = _vae_readings(_vae_step(dev, sd, pixels, eps), ref)
+    assert (fl.flash_attention_bwd_dkv.launches - before[0],
+            fl.flash_attention_bwd_dq.launches - before[1]) == (2, 2)
+    monkeypatch.setattr(fl, "flash_attention_bwd_dkv",
+                        lambda q, *a: (torch.zeros_like(q), torch.zeros_like(q)))
+    monkeypatch.setattr(fl, "flash_attention_bwd_dq", lambda q, *a: torch.zeros_like(q))
+    control = _vae_readings(_vae_step(dev, sd, pixels, eps), ref)
+    print(f"VAE step, card (bf16) against the CPU (f32): loss {sound[0]:.3g}, gradients "
+          f"{sound[1]:.3g} relative L2; control without the attention's gradient: loss "
+          f"{control[0]:.3g}, gradients {control[1]:.3g}")
+    assert sound[0] <= VAE_LOSS_RTOL and sound[1] <= VAE_GRAD_TOL_L2, sound
+    assert control[1] > VAE_GRAD_TOL_L2, control
 
 
 @pytest.mark.cuda

@@ -77,6 +77,7 @@ from agenda_tpu_torch.detect.runner import (SIDECAR, DetectorRunner, RunnerConfi
                                             load_variables, read_checkpoint)
 from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict, state_dict_to_flax
 from agenda_tpu_torch.detect.yolov8 import YOLOv8Config, yolov8_loss
+from test_torch_native import native_library  # noqa: F401 (the fixture)
 
 IMG, MAX_GT, B = 64, 8, 4
 LOSS_RTOL = 1e-5
@@ -465,6 +466,7 @@ def test_det_train_cli_trains_validates_and_resumes(tmp_path, caplog):
     assert [r["epoch"] for r in vals] == [1, 2, 3]
 
 
+@pytest.mark.usefixtures("native_library")
 def test_synthetic_target_preset_builds_the_concat_dataset(tmp_path):
     a, b = str(tmp_path / "cars"), str(tmp_path / "empty")
     write_square_set(a, 5, seed=1)

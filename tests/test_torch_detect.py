@@ -44,6 +44,7 @@ from agenda_tpu_torch.detect.families import build_family
 from agenda_tpu_torch.detect.runner import (DetectorRunner, RunnerConfig, load_variables,
                                             save_variables)
 from agenda_tpu_torch.utils.png import write_png
+from test_torch_native import native_library  # noqa: F401 (the fixture)
 
 # At unit-scale activations (the calibrated checkpoint) XLA's and oneDNN's
 # f32 convolutions differ by up to HEAD_TOL in the logits. A DFL box edge
@@ -310,6 +311,7 @@ def _write_tiles(root, sizes, seed=0, n_boxes=2):
                    "annotations": anns}, f)
 
 
+@pytest.mark.usefixtures("native_library")
 def test_eval_dataset_and_resize_match_jax(tmp_path):
     from agenda_tpu.data.device_resize import resize_weights as jax_resize_weights
     from agenda_tpu.detect.dataset import CocoDetDataset as JaxDataset
@@ -399,6 +401,7 @@ def _assert_records_match(ours, want):
     assert n_valid > len(want)
 
 
+@pytest.mark.usefixtures("native_library")
 def test_det_test_cli_matches_jax(jax_checkpoint, tmp_path):
     """det_test CLI to CLI: 12 tiles of 112 px, batch 4 (the last batch
     full, then a set of 10: the last batch padded)."""

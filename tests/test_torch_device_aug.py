@@ -64,6 +64,10 @@ from agenda_tpu_torch.detect.configs import DatasetSpec, preset
 from agenda_tpu_torch.detect.dataset import CocoDetDataset, ConcatDataset
 from agenda_tpu_torch.detect.fabricate import fabricate_detector, write_square_set
 from agenda_tpu_torch.detect.runner import DetectorRunner
+from test_torch_native import native_library  # noqa: F401 (the fixture)
+
+# the JAX side of every pixel comparison takes the native resize
+pytestmark = pytest.mark.usefixtures("native_library")
 
 BOX_TOL = 1e-5  # plan float fields (inverse maps, clips, HSV gains, boxes)
 SLAB_TOL = 1e-3  # the passthrough slab, levels

@@ -147,9 +147,9 @@ def test_cli_writes_the_same_tree_as_the_jax_cli(fixture_dir, tmp_path):
         ours = read_png(str(tmp_path / "port" / rel))
         theirs = np.asarray(Image.open(str(tmp_path / "jax" / rel)))
         assert ours.shape == theirs.shape and ours.dtype == theirs.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(_cli_args(fixture_dir, embeds, str(tmp_path / "t"),
-                                ["--device", "cpu", "--tgate-step", "5"]))
+    # TGATE is accepted (tests/test_torch_tgate.py runs it)
+    assert port_cli.parse_args(_cli_args(fixture_dir, embeds, str(tmp_path / "t"),
+                                         ["--tgate-step", "5"])).tgate_step == 5
 
 
 def _parser_flags(parse_args):
