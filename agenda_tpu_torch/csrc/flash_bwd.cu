@@ -65,10 +65,11 @@
 //
 // dK/dV (flash_bwd_dkv_wide_wgmma_kernel), wgmma and TMA. Its bound is the
 // tensor operations, four S^2 D products a head (0.0347 ms at the VAE step's
-// (8, 1024, 1, 512)); the mma.sync kernel it replaces reached 12% of that,
-// held back by 16-row ldmatrix-fed products and cp.async under block-wide
-// barriers. The accumulators of R owned keys take R x 4 KB at D = 512, so a
-// block owns 32 keys and wgmma's 64 rows run over D, not over keys:
+// (8, 1024, 1, 512)); the warp-level kernel it replaces reached 12% of that,
+// held back by 16-row products fed warp by warp from shared memory and by
+// tile copies under block-wide barriers. The accumulators of R owned keys
+// take R x 4 KB at D = 512, so a block owns 32 keys and wgmma's 64 rows run
+// over D, not over keys:
 // - dV^T = dO^T P and dK^T = Q^T dS, one 64 x 32 f32 accumulator for each
 //   64-column chunk of D (16 registers a thread; 8 chunks of one gradient a
 //   warpgroup), A = dO^T or Q^T read MN-major (transposed) from the chunk's
@@ -105,25 +106,43 @@
 //   read there would make 0 * P NaN. A key past S is not stored: its rows
 //   belong to the next batch element, or lie past the end of dK and dV.
 //
-// dQ (flash_bwd_dq_wide_kernel): mma.sync, in the forward's former wide
-// shape; a later slice gives it the dK/dV kernel's design.
-// - A block owns 32 queries and loops over tiles of 32 keys, double-buffered
-//   by cp.async; owned rows and two stages of two tiles, 512 columns each,
-//   are 195 KB.
-// - Eight warps: two row slices of 16 owned rows times four quarters of D.
-//   Each warp accumulates its 16 rows x 128 columns of dQ.
-// - The score products split by columns, not by D: for each key tile, warp
-//   (slice, quarter) computes the 16 x 8 block of S (and dP) of its slice's
-//   rows and the quarter's 8 keys over all of D, so no product is computed
-//   twice and no partial sum crosses warps. It rounds dS of its block to bf16
-//   into shared memory; after a barrier every warp of the slice reads the
-//   whole 16 x 32 block as its A operand and multiplies it into its own 128
-//   columns (K read transposed by ldmatrix).
-// - Ragged S: a tile row past S is loaded as row S - 1 (every read in
-//   bounds, no zero fill), and a key past S gets P = 0. Columns past D are
-//   zero-filled in shared memory, and only ceil(D / 32) * 2 k-steps of the
-//   score products are issued.
-// - Each gradient element has one owner: no atomics, deterministic sums.
+// dQ (flash_bwd_dq_wide_wgmma_kernel), wgmma and TMA, the dK/dV kernel's
+// design with queries and keys swapped. Its bound is three S^2 D products a
+// head (0.0261 ms at (8, 1024, 1, 512)). A block owns 32 queries and loops
+// over tiles of 64 keys:
+// - dQ^T = K^T dS^T, one 64 x 32 f32 accumulator for each 64-column chunk of
+//   D (16 registers a thread), A = K^T read MN-major from the chunk's K box,
+//   B = dS^T (32 queries x 64 keys, bf16) from shared memory. Group c owns
+//   chunks 4 c to 4 c + 3: 64 accumulator registers, with S^T's or dP^T's 16
+//   and eight lse or delta values beside them, well under the cap of 168.
+// - Group 0 computes S^T = K Q^T (64 keys x 32 queries, SS over D) and P,
+//   group 1 dP^T = V dO^T and dS^T = P^T (dP^T - delta) with P in f32; each
+//   reads one ring (group 0 K's, group 1 V's) and the owned Q or dO. P and
+//   dS^T pass between them in shared memory under named barriers (ready and
+//   free, both ways); both groups then run their dQ chunks from K's ring.
+// - Two producer warps stream the key tiles as 64-row x 64-column boxes by
+//   TMA, each ring a tile and a box (nine boxes): a K box is freed once every
+//   warp that reads it is done with it (group 0's S^T, and the dQ chunk's
+//   group), a V box once dP^T is done. Q and dO (32 KB each), the rings (144
+//   KB), dS^T and P (12 KB) fill 221 KB: one block an SM, 256 blocks at (8,
+//   1024, 1, 512).
+// - The accumulators are rounded to bf16 into the group's own owned tile
+//   (Q's or dO's, each done with by then) and stored as 16-byte pieces of
+//   whole query rows.
+// - Ragged S and D: TMA zero-fills K and V rows past S and boxes past D, so
+//   that every D issues the same products (no run-time branch around a
+//   wgmma, which ptxas would read as divergence); a key past S gets P = 0. A
+//   query past S gets lse = +inf and delta = 0 without reading either, as in
+//   the dK/dV kernel, and is not stored: its rows belong to the next batch
+//   element, or lie past the end of dq.
+// - Each gradient element has one owner (a block, a group, a chunk): no
+//   atomics, deterministic sums.
+// - ptxas gives it 128 registers without spills and keeps its wgmma products
+//   in flight (no C7512, unlike the two wide kernels above). What bounds it
+//   is the K and V supply into each SM, 128 KB a key tile: a copy without
+//   its dQ products takes nearly all of its time on the H100, and clusters
+//   of two blocks that shared each box by TMA multicast halved the L2 reads
+//   and gained nothing (kernel_variants.py, PERF.md).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -131,7 +150,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -513,220 +531,6 @@ __global__ void __launch_bounds__(DqTile<ND>::kThreads, 1)
 }
 
 
-// -- D > 160, dQ: mma.sync -----------------------------------------------------
-
-struct WideBwdParams {
-  const __nv_bfloat16* in[4];   // q, k, v, dO: (B, S, H, D) bf16, D unit-stride
-  int64_t sb[4], ss[4], sh[4];  // their element strides: batch, seq, head
-  const float* lse;             // (B*H, S) f32, contiguous
-  const float* delta;           // (B*H, S) f32, contiguous
-  __nv_bfloat16* dq;            // (B, S, H, D) bf16, contiguous
-  int S, H, D;
-  float scale, scale_log2;
-};
-
-namespace wide {
-constexpr int kDP = kMaxHeadDim;               // D zero-padded to 512 in shared memory
-constexpr int kRows = 32;                      // owned rows a block, and rows a looped tile
-constexpr int kQuarters = 4;                   // warps a row slice, one for each quarter of D
-constexpr int kThreads = 32 * (kRows / 16) * kQuarters;  // 256
-constexpr int kRow = kDP + 8;                  // bf16 a tile row; 16 bytes of pad
-constexpr int kCols = kDP / kQuarters;         // 128 gradient columns a warp
-constexpr int kNT = kCols / 8;                 // its 8-column accumulator tiles
-constexpr int kPRow = kRows + 8;               // bf16 a row of a 16 x 32 dS block
-constexpr int kTile = kRows * kRow;            // elements of a tile
-constexpr int kBlock = 16 * kPRow;             // elements of a slice's dS block
-// two owned tiles, two stages of two looped tiles; the dS blocks of both slices
-constexpr size_t kSmem = (size_t)(6 * kTile + 2 * kBlock) * sizeof(__nv_bfloat16);
-}  // namespace wide
-
-// Rows [row0, row0 + 32) of tensor t's (batch, head) slice -> a 32 x 512 smem
-// tile. A row past S is read as row S - 1 (the kernel masks it); columns past
-// D are zero-filled.
-__device__ __forceinline__ void load_wide(__nv_bfloat16* dst, const WideBwdParams& p, int t,
-                                          int b, int h, int row0) {
-  constexpr int chunks = wide::kDP / 8;
-  const __nv_bfloat16* src = p.in[t] + b * p.sb[t] + h * p.sh[t];
-  for (int i = threadIdx.x; i < wide::kRows * chunks; i += wide::kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    const bool valid = c < p.D;
-    const __nv_bfloat16* g = valid ? src + (int64_t)min(row0 + r, p.S - 1) * p.ss[t] + c : src;
-    flash::cp_async16(flash::smem_u32(dst + r * wide::kRow + c), g, valid);
-  }
-}
-
-// s = X[x0, x0 + 16) . Y[y0, y0 + 8)^T and dp = U[x0, x0 + 16) . W[y0, y0 + 8)^T
-// (16 x 8 f32 each) over the first kt k-steps of D (kt even), from 512-wide
-// smem tiles
-__device__ __forceinline__ void score_blocks(float* s, const __nv_bfloat16* X,
-                                             const __nv_bfloat16* Y, float* dp,
-                                             const __nv_bfloat16* U, const __nv_bfloat16* W,
-                                             int x0, int y0, int kt) {
-  const int lane = threadIdx.x % 32;
-  const int a_off = (x0 + lane % 16) * wide::kRow + (lane / 16) * 8;
-  const int b_off = (y0 + lane % 8) * wide::kRow + (lane / 8) * 8;  // two k-steps a load
-#pragma unroll
-  for (int e = 0; e < 4; ++e) s[e] = dp[e] = 0.f;
-#pragma unroll 2
-  for (int kk = 0; kk < kt; kk += 2) {
-    uint32_t by[4], bw[4], a[4];
-    flash::ldmatrix_x4(flash::smem_u32(Y + b_off + kk * 16), by);
-    flash::ldmatrix_x4(flash::smem_u32(W + b_off + kk * 16), bw);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      flash::ldmatrix_x4(flash::smem_u32(X + a_off + (kk + u) * 16), a);
-      flash::mma_bf16(s, a, by[2 * u], by[2 * u + 1]);
-      flash::ldmatrix_x4(flash::smem_u32(U + a_off + (kk + u) * 16), a);
-      flash::mma_bf16(dp, a, bw[2 * u], bw[2 * u + 1]);
-    }
-  }
-}
-
-// A warp's 16 x 8 f32 block (rows gr, gr + 8; columns 2 * tq, + 1) rounded to
-// bf16 into columns [c, c + 8) of a 16 x 32 smem block
-__device__ __forceinline__ void put_block(__nv_bfloat16* blk, const float* x, int c) {
-  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
-  *reinterpret_cast<uint32_t*>(blk + gr * wide::kPRow + c + 2 * tq) = flash::pack_bf16(x[0], x[1]);
-  *reinterpret_cast<uint32_t*>(blk + (gr + 8) * wide::kPRow + c + 2 * tq) =
-      flash::pack_bf16(x[2], x[3]);
-}
-
-// acc (16 x 128 f32 from column c0) += A (a 16 x 32 smem block) . Y (a 32-row
-// tile, read transposed), over the first nt 8-column tiles (nt even)
-__device__ __forceinline__ void grad_product(float (*acc)[4], const __nv_bfloat16* A,
-                                             const __nv_bfloat16* Y, int c0, int nt) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < wide::kRows / 16; ++kk) {
-    uint32_t a[4];
-    flash::ldmatrix_x4(flash::smem_u32(A + (lane % 16) * wide::kPRow + (lane / 16) * 8 + kk * 16),
-                       a);
-#pragma unroll
-    for (int n = 0; n < wide::kNT; n += 2) {
-      if (n < nt) {
-        uint32_t b[4];
-        flash::ldmatrix_x4_trans(
-            flash::smem_u32(Y + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * wide::kRow + c0 +
-                            n * 8 + (lane / 16) * 8),
-            b);
-        flash::mma_bf16(acc[n], a, b[0], b[1]);
-        flash::mma_bf16(acc[n + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// Rows row0 + gr (+ 8) of a warp's 16 x 128 accumulator from column c0, times
-// mul, as bf16 into a contiguous (B, S, H, D) slice; rows past S and columns
-// past D are dropped
-__device__ __forceinline__ void store_wide(__nv_bfloat16* out, const float (*acc)[4], int row0,
-                                           int c0, float mul, const WideBwdParams& p) {
-  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
-  const int64_t rs = (int64_t)p.H * p.D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + gr + 8 * r;
-    if (row >= p.S) continue;
-#pragma unroll
-    for (int n = 0; n < wide::kNT; ++n) {
-      const int col = c0 + 8 * n + 2 * tq;
-      if (col < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(out + row * rs + col) =
-            __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
-    }
-  }
-}
-
-// The warp's place: row slice (16 owned rows), quarter of D (its gradient
-// columns and its 8 rows of each looped tile), and the k-steps and column
-// tiles that D needs
-struct WideWarp {
-  int slice, quarter, c0, nt, kt;
-  __device__ explicit WideWarp(int D) {
-    const int warp = threadIdx.x / 32;
-    slice = warp % 2;
-    quarter = warp / 2;
-    c0 = quarter * wide::kCols;
-    nt = min(wide::kNT, max(0, (D - c0 + 15) / 16 * 2));
-    kt = (D + 31) / 32 * 2;
-  }
-};
-
-__global__ void __launch_bounds__(wide::kThreads, 1)
-    flash_bwd_dq_wide_kernel(const __grid_constant__ WideBwdParams p) {
-  using namespace wide;
-  extern __shared__ __align__(128) unsigned char wide_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(wide_smem);
-  __nv_bfloat16* Ds = Qs + kTile;      // dO
-  __nv_bfloat16* Ks = Ds + kTile;      // two stages
-  __nv_bfloat16* Vs = Ks + 2 * kTile;  // two stages
-  __nv_bfloat16* Sb = Vs + 2 * kTile;  // dS blocks of both slices
-
-  const int g = blockIdx.y, b = g / p.H, h = g % p.H;
-  const int q0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
-  const WideWarp w(p.D);
-  const int n_tiles = (p.S + kRows - 1) / kRows;
-
-  load_wide(Qs, p, 0, b, h, q0);
-  load_wide(Ds, p, 3, b, h, q0);
-  load_wide(Ks, p, 1, b, h, 0);
-  load_wide(Vs, p, 2, b, h, 0);
-  flash::cp_async_commit();
-
-  // this thread's queries q0 + 16 * slice + gr (+8); one past S is not stored
-  float l[2], e[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = min(q0 + 16 * w.slice + gr + 8 * r, p.S - 1);
-    l[r] = p.lse[(int64_t)g * p.S + row] * kLog2e;
-    e[r] = p.delta[(int64_t)g * p.S + row];
-  }
-  float dq[kNT][4];
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) dq[n][x] = 0.f;
-  __nv_bfloat16* dsb = Sb + w.slice * kBlock;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {  // prefetch the next K and V tiles into the other stage
-      load_wide(Ks + (stage ^ 1) * kTile, p, 1, b, h, (j + 1) * kRows);
-      load_wide(Vs + (stage ^ 1) * kTile, p, 2, b, h, (j + 1) * kRows);
-      flash::cp_async_commit();
-      flash::cp_async_wait<1>();
-    } else {
-      flash::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + stage * kTile;
-    const __nv_bfloat16* Vt = Vs + stage * kTile;
-
-    // S = Q K^T and dP = dO V^T on (16 queries of the slice) x (8 keys)
-    const int kc = 8 * w.quarter;
-    float s[4], dp[4];
-    score_blocks(s, Qs, Kt, dp, Ds, Vt, 16 * w.slice, kc, w.kt);
-    // P = exp2(S * scale * log2(e) - lse * log2(e)), 0 for a key past S;
-    // dS = P (dP - delta)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int key = j * kRows + kc + 2 * tq + (x & 1);
-      const float pv = key < p.S ? exp2f(s[x] * p.scale_log2 - l[x >> 1]) : 0.f;
-      dp[x] = pv * (dp[x] - e[x >> 1]);
-    }
-    put_block(dsb, dp, kc);
-    __syncthreads();
-
-    // dQ += dS K on this warp's columns (times scale at the store)
-    grad_product(dq, dsb, Kt, w.c0, w.nt);
-    __syncthreads();  // the stage and the blocks are free
-  }
-
-  const int64_t off = (int64_t)b * p.S * p.H * p.D + (int64_t)h * p.D;
-  store_wide(p.dq + off, dq, q0 + 16 * w.slice, w.c0, p.scale, p);
-}
-
 // -- D > 160, dK/dV: wgmma and TMA, the gradient products transposed ----------
 
 using hopper::bar_arrive;
@@ -755,11 +559,13 @@ struct DkvWide {
                                   (4 * kSlots + 1) * sizeof(uint64_t) + 1024;
 };
 
-// named barriers between the two consumer warpgroups (256 threads)
-enum DkvBarrier { kPReady = 1, kDsReady = 2, kPFree = 3, kDsFree = 4 };
+// named barriers of the wide kernels: between their two consumer warpgroups
+// (256 threads), and kStaged + c within group c (128 threads)
+enum WideBarrier { kPReady = 1, kDsReady = 2, kPFree = 3, kDsFree = 4, kStaged = 5 };
 
-// bf16 x into a 32 x 64 tile of rows n (keys) and columns m (queries), as a
-// TMA load with 128-byte swizzle lays one out (hopper_common.cuh)
+// bf16 x into a 32 x 64 tile at row n and column m (keys and queries in the
+// dK/dV kernel, queries and keys in the dQ kernel), as a TMA load with
+// 128-byte swizzle lays one out (hopper_common.cuh)
 __device__ __forceinline__ void put_t(unsigned char* tile, int n, int m, float x) {
   *reinterpret_cast<__nv_bfloat16*>(tile + n * 128 + (((m >> 3) ^ (n & 7)) << 4) + (m & 7) * 2) =
       __float2bfloat16_rn(x);
@@ -953,6 +759,238 @@ __global__ void __launch_bounds__(DkvWide::kThreads, 1)
   }
 }
 
+// -- D > 160, dQ: wgmma and TMA, the gradient product transposed -------------
+
+// Block shape of the wide dQ kernel: 32 owned queries (Q and dO tiles of
+// eight 64-column blocks, 32 KB each), key tiles of 64 rows streamed as
+// 64-row x 64-column boxes through two rings (K's and V's) of a tile and a
+// box each; dS^T as a 32 x 64 bf16 tile (queries x keys), P as 64 x 32 f32.
+struct DqWide {
+  static constexpr int kOwn = 32;
+  static constexpr int kBK = 64;
+  static constexpr int kAtoms = kMaxHeadDim / 64;
+  static constexpr int kKSlots = kAtoms + 1;
+  static constexpr int kVSlots = kAtoms + 1;
+  static constexpr int kConsumers = 256;
+  static constexpr int kThreads = kConsumers + 64;  // + the two producer warps, last
+  static constexpr uint32_t kOwnBytes = kOwn * kAtoms * 128;
+  static constexpr uint32_t kBoxBytes = kBK * 128;
+  static constexpr uint32_t kDsBytes = kOwn * 128;
+  static constexpr uint32_t kXBytes = kBK * kOwn * 4;
+  static constexpr int kPitch = 4 * 64 + 8;  // bf16 a row of a group's staged dQ; 16 bytes of pad
+  // Q, dO; both rings; dS^T; P; barriers; alignment slack
+  static constexpr size_t kSmem = 2 * kOwnBytes + (kKSlots + kVSlots) * kBoxBytes + kDsBytes +
+                                  kXBytes + (2 * (kKSlots + kVSlots) + 1) * sizeof(uint64_t) +
+                                  1024;
+  static_assert(kOwn * kPitch * 2 <= kOwnBytes, "a group's staged dQ fits its owned tile");
+};
+
+__global__ void __launch_bounds__(DqWide::kThreads, 1)
+    flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ BwdParams p) {
+  using W = DqWide;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ds = Qs + W::kOwnBytes;               // dO
+  unsigned char* Kr = Ds + W::kOwnBytes;               // K's ring
+  unsigned char* Vr = Kr + W::kKSlots * W::kBoxBytes;  // V's ring
+  unsigned char* St = Vr + W::kVSlots * W::kBoxBytes;  // dS^T, bf16
+  float* Xp = reinterpret_cast<float*>(St + W::kDsBytes);  // P, f32, in fragment order
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(St + W::kDsBytes + W::kXBytes);
+  uint64_t* empty_k = full_k + W::kKSlots;
+  uint64_t* full_v = empty_k + W::kKSlots;
+  uint64_t* empty_v = full_v + W::kVSlots;
+  uint64_t* own = empty_v + W::kVSlots;
+
+  const int g = blockIdx.y, b = g / p.H, h = g % p.H;
+  const int q0 = blockIdx.x * W::kOwn;
+  const int n_tiles = (p.S + W::kBK - 1) / W::kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::kKSlots; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty_k[s], 8);  // every consumer warp: group 0 reads each K box, group 1 half
+    }
+    for (int s = 0; s < W::kVSlots; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], 4);  // the four warps of group 1
+    }
+    mbar_init(own, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = hopper::warpgroup_index();
+  if (wg == 2) {  // the producer warps: the first feeds K's ring (and loads Q, dO), the second V's
+    const int pw = (threadIdx.x - W::kConsumers) / 32;
+    if (threadIdx.x % 32 == 0) {
+      if (pw == 0) {
+        mbar_arrive_expect_tx(own, 2 * W::kOwnBytes);
+        load_rows<W::kAtoms, W::kOwn>(Qs, &p.tq, own, q0, h, b);
+        load_rows<W::kAtoms, W::kOwn>(Ds, &p.tdo, own, q0, h, b);
+      }
+      const CUtensorMap* map = pw == 0 ? &p.tk : &p.tv;
+      unsigned char* ring = pw == 0 ? Kr : Vr;
+      uint64_t* full = pw == 0 ? full_k : full_v;
+      uint64_t* empty = pw == 0 ? empty_k : empty_v;
+      const int slots = pw == 0 ? W::kKSlots : W::kVSlots;
+      // box n: column block n % 8 of key tile n / 8, into slot n % slots
+      for (int n = 0; n < n_tiles * W::kAtoms; ++n) {
+        const int slot = n % slots;
+        mbar_wait(&empty[slot], ((n / slots) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[slot], W::kBoxBytes);
+        tma_load_4d(ring + slot * W::kBoxBytes, map, &full[slot], 64 * (n % W::kAtoms), h,
+                    n / W::kAtoms * W::kBK, b);
+      }
+    }
+    __syncwarp();
+  } else {
+    // Group 0 reads K's ring: S^T = K Q^T and P. Group 1 reads V's: dP^T = V
+    // dO^T and dS. Both then take dQ^T += K^T dS^T over the tile's keys,
+    // group c D's 64-column chunks 4 c to 4 c + 3, A read from K's ring. This
+    // thread holds keys 16 * warp + gr (+8) of a tile in S^T or dP^T (s[4 j +
+    // e] at owned query 8 j + 2 tq + (e & 1), key half e >> 1), and D columns
+    // 64 (4 c + a) + 16 * warp + gr (+8) of chunk a (acc[a][4 j + e] at the
+    // same queries).
+    const int c = wg, t = threadIdx.x % 128, w = t / 32;
+    const int lane = threadIdx.x % 32, gr = lane / 4, tq = lane % 4;
+    unsigned char* ring = c == 0 ? Kr : Vr;
+    uint64_t* full = c == 0 ? full_k : full_v;
+    const int slots = c == 0 ? W::kKSlots : W::kVSlots;
+    const uint32_t own_s = smem_u32(c == 0 ? Qs : Ds);  // B of S^T or dP^T
+    const uint32_t ds_s = smem_u32(St);                 // B of dQ^T
+    // lse (group 0) or delta (group 1) of this thread's eight queries, read
+    // once; a query past S gets lse = +inf (P = 0) and delta = 0, read from
+    // nowhere (past the last (batch, head)'s S they lie past the buffers' end)
+    const float* stats = (c == 0 ? p.lse : p.delta) + (int64_t)g * p.S;
+    float st[8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int q = q0 + 8 * (x >> 1) + 2 * tq + (x & 1);
+      st[x] = q < p.S ? (c == 0 ? stats[q] * kLog2e : stats[q]) : (c == 0 ? INFINITY : 0.f);
+    }
+    float acc[4][16], s[16];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) zero<16>(acc[a]);
+    mbar_wait(own, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int n0 = j * W::kAtoms;
+      // S^T = K Q^T or dP^T = V dO^T (64 keys x 32 queries) over D
+      wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < W::kAtoms; ++a) {
+        const int slot = (n0 + a) % slots;
+        mbar_wait(&full[slot], ((n0 + a) / slots) & 1);
+        const uint32_t box = smem_u32(ring + slot * W::kBoxBytes);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaSS<32>::run(s, desc_k_major<W::kBK>(box, kk),
+                           desc_k_major<W::kOwn>(own_s, 4 * a + kk), a > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<16>(s);
+
+      if (c == 0) {
+        // the K boxes of group 1's chunks are done with here
+        if (lane == 0) {
+#pragma unroll
+          for (int a = 4; a < W::kAtoms; ++a) mbar_arrive(&empty_k[(n0 + a) % W::kKSlots]);
+        }
+        // P = exp2(S * scale * log2(e) - lse * log2(e)), 0 for a key past S
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          s[x] = exp2_ftz(s[x] * p.scale_log2 - st[2 * (x >> 2) + (x & 1)]);
+        if ((j + 1) * W::kBK > p.S) {  // the last tile, ragged
+#pragma unroll
+          for (int x = 0; x < 16; ++x)
+            if (j * W::kBK + 16 * w + gr + 8 * ((x >> 1) & 1) >= p.S) s[x] = 0.f;
+        }
+        if (j > 0) bar_sync(kPFree, W::kConsumers);  // group 1 has read the last tile's
+#pragma unroll
+        for (int x = 0; x < 16; x += 4)
+          *reinterpret_cast<float4*>(Xp + (x / 4 * 128 + t) * 4) =
+              make_float4(s[x], s[x + 1], s[x + 2], s[x + 3]);
+        bar_arrive(kPReady, W::kConsumers);
+        bar_sync(kDsReady, W::kConsumers);  // group 1's dS^T of this tile
+      } else {
+        if (lane == 0) {  // this tile's V boxes are done with
+#pragma unroll
+          for (int a = 0; a < W::kAtoms; ++a) mbar_arrive(&empty_v[(n0 + a) % W::kVSlots]);
+        }
+        // dS = P * (dP - delta) into dS^T (bf16)
+        bar_sync(kPReady, W::kConsumers);
+#pragma unroll
+        for (int x = 0; x < 16; x += 4) {
+          const float4 pf = *reinterpret_cast<const float4*>(Xp + (x / 4 * 128 + t) * 4);
+          s[x] = pf.x * (s[x] - st[2 * (x >> 2)]);
+          s[x + 1] = pf.y * (s[x + 1] - st[2 * (x >> 2) + 1]);
+          s[x + 2] = pf.z * (s[x + 2] - st[2 * (x >> 2)]);
+          s[x + 3] = pf.w * (s[x + 3] - st[2 * (x >> 2) + 1]);
+        }
+        if (j + 1 < n_tiles) bar_arrive(kPFree, W::kConsumers);
+        if (j > 0) bar_sync(kDsFree, W::kConsumers);  // both groups' last products are done
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          put_t(St, 8 * (x >> 2) + 2 * tq + (x & 1), 16 * w + gr + 8 * ((x >> 1) & 1), s[x]);
+        fence_async_smem();
+        bar_arrive(kDsReady, W::kConsumers);
+        // this tile's K boxes: waited for so that this warp's arrivals count
+        // in their phase; those of group 0's chunks are not read here
+#pragma unroll
+        for (int a = 0; a < W::kAtoms; ++a)
+          mbar_wait(&full_k[(n0 + a) % W::kKSlots], ((n0 + a) / W::kKSlots) & 1);
+        if (lane == 0) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) mbar_arrive(&empty_k[(n0 + a) % W::kKSlots]);
+        }
+      }
+
+      // dQ^T += K^T dS^T: chunk a is 64 columns of D x 32 queries over the
+      // tile's 64 keys, A read MN-major from the chunk's K box; one wgmma
+      // group a chunk, and each box is freed once its product is done
+      wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const uint32_t box = smem_u32(Kr + (n0 + 4 * c + a) % W::kKSlots * W::kBoxBytes);
+#pragma unroll
+        for (int kk = 0; kk < W::kBK / 16; ++kk)
+          WgmmaSS<32, 1, 0>::run(acc[a], desc_mn_major<W::kBK>(box, kk),
+                                 desc_k_major<W::kOwn>(ds_s, kk), 1);
+        wgmma_commit();
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        wgmma_wait_upto(3 - a);
+        if (lane == 0) mbar_arrive(&empty_k[(n0 + 4 * c + a) % W::kKSlots]);
+      }
+      if (c == 0 && j + 1 < n_tiles) bar_arrive(kDsFree, W::kConsumers);  // dS^T is free
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) fence_regs<16>(acc[a]);
+
+    // dQ times scale, rounded to bf16 and staged in shared memory (group 0
+    // in Q's tile, group 1 in dO's: each is done with its own), then stored
+    // as 16-byte pieces of the owned rows. A query past S is not stored (its
+    // rows belong to the next batch element, or lie past the end of dq), nor
+    // a column past D.
+    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(c == 0 ? Qs : Ds);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int x = 0; x < 16; ++x)
+        stage[(8 * (x >> 2) + 2 * tq + (x & 1)) * W::kPitch + 64 * a + 16 * w + gr +
+              8 * ((x >> 1) & 1)] = __float2bfloat16_rn(acc[a][x] * p.scale);
+    bar_sync(kStaged + c, 128);
+    const int64_t rs = (int64_t)p.H * p.D;
+    __nv_bfloat16* out = p.dq + (int64_t)b * p.S * rs + (int64_t)h * p.D;
+    for (int i = t; i < W::kOwn * 32; i += 128) {
+      const int row = i / 32, piece = i % 32, q = q0 + row, col = 256 * c + 8 * piece;
+      if (q < p.S && col < p.D)
+        *reinterpret_cast<uint4*>(out + q * rs + col) =
+            *reinterpret_cast<const uint4*>(stage + row * W::kPitch + 8 * piece);
+    }
+  }
+}
+
 // -- host side ----------------------------------------------------------------
 
 struct Inputs {
@@ -1012,33 +1050,13 @@ cudaError_t launch_dq(BwdParams* p, const Inputs& in, cudaStream_t stream) {
   return launch<T>(flash_bwd_dq_kernel<ND>, *p, in.B * p->H, stream, &attr_set);
 }
 
-// The wide dQ (D > 160): strides and pointers straight from the caller
-cudaError_t launch_dq_wide(const BwdParams& bp, const Inputs& in, cudaStream_t stream) {
+// The wide dQ: q and dO in boxes of 32 rows, k and v in boxes of 64; one
+// block a 32-query tile of a (batch, head)
+cudaError_t launch_dq_wide(BwdParams* p, const Inputs& in, cudaStream_t stream) {
   static bool attr_set = false;
-  WideBwdParams p;
-  for (int t = 0; t < 4; ++t) {
-    p.in[t] = static_cast<const __nv_bfloat16*>(in.ptr[t]);
-    p.sb[t] = in.strides[3 * t];
-    p.ss[t] = in.strides[3 * t + 1];
-    p.sh[t] = in.strides[3 * t + 2];
-  }
-  p.lse = bp.lse;
-  p.delta = bp.delta;
-  p.dq = bp.dq;
-  p.S = bp.S;
-  p.H = bp.H;
-  p.D = bp.D;
-  p.scale = bp.scale;
-  p.scale_log2 = bp.scale_log2;
-  if (!attr_set) {  // opt in to > 48 KB of dynamic shared memory once
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide::kSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
-  dim3 grid((p.S + wide::kRows - 1) / wide::kRows, in.B * p.H);
-  flash_bwd_dq_wide_kernel<<<grid, wide::kThreads, wide::kSmem, stream>>>(p);
-  return cudaGetLastError();
+  using T = DqWide;
+  if (!encode_maps(p, in, T::kOwn, T::kBK)) return cudaErrorInvalidValue;
+  return launch<T>(flash_bwd_dq_wide_wgmma_kernel, *p, in.B * p->H, stream, &attr_set);
 }
 
 // Checks shared by both entries; fills p's scalars. Returns cudaSuccess or
@@ -1071,7 +1089,7 @@ extern "C" int agenda_flash_bwd_max_head_dim() { return kMaxHeadDim; }
 // the dK/dV kernel, else dQ), in bytes; 0 for a D the kernels do not take.
 extern "C" int agenda_flash_bwd_smem_bytes(int dkv, int D) {
   if (D <= 0 || D > kMaxHeadDim) return 0;
-  if (D > kMaxWgmmaHeadDim) return (int)(dkv ? DkvWide::kSmem : wide::kSmem);
+  if (D > kMaxWgmmaHeadDim) return (int)(dkv ? DkvWide::kSmem : DqWide::kSmem);
   if (D <= 40) return (int)(dkv ? DkvTile<40>::kSmem : DqTile<40>::kSmem);
   if (D <= 80) return (int)(dkv ? DkvTile<80>::kSmem : DqTile<80>::kSmem);
   return (int)(dkv ? DkvTile<160>::kSmem : DqTile<160>::kSmem);
@@ -1111,7 +1129,7 @@ extern "C" int agenda_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D > kMaxWgmmaHeadDim) return (int)launch_dq_wide(p, in, st);
+  if (D > kMaxWgmmaHeadDim) return (int)launch_dq_wide(&p, in, st);
   if (D <= 40) return (int)launch_dq<40>(&p, in, st);
   if (D <= 80) return (int)launch_dq<80>(&p, in, st);
   return (int)launch_dq<160>(&p, in, st);

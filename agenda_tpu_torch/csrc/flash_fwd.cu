@@ -47,12 +47,12 @@
 // D > 160 (the VAE's single-head D = 512): flash_fwd_wide_wgmma_kernel, the
 // same TMA ring and wgmma products with D split between two consumer
 // warpgroups. Its bound is the tensor operations, 4*B*H*S^2*D (0.0695 ms at
-// the VAE decode's (2, 4096, 1, 512)). The mma.sync kernel it replaces
+// the VAE decode's (2, 4096, 1, 512)). The warp-level kernel it replaces
 // reached 15% of that: its 16-row warps re-read every K and V tile and their
-// Q slice from shared memory through ldmatrix (about 512 KB of shared-memory
+// Q slice from shared memory, warp by warp (about 512 KB of shared-memory
 // reads a 32-key tile, some 4 100 clocks at 128 bytes a clock), the two warps
 // of each row slice computed the same 16 x 32 scores, and every tile waited
-// on cp.async under __syncthreads.
+// on its copies under __syncthreads.
 // - A 64 x 512 f32 accumulator does not fit one warpgroup (256 registers a
 //   thread), so group c owns O's columns [256 c, 256 c + 256), 128 registers.
 // - Scores once: group c computes the partial S = Q K^T over its own half of

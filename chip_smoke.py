@@ -196,7 +196,7 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 the reconstruction falling, warm s/step, peak memory, the wide
                 K1/K2/K3 and K6 launches a step against the VAE's count),
                 then pretrain_vae and its scaling_factor;
- 37. wide flash backward -- dK/dV (wgmma and TMA) and dQ (mma.sync) at
+ 37. wide flash backward -- dK/dV and dQ (both wgmma and TMA) at
                 D > 160 against their plain versions at the VAE step's (8, 1024, 1,
                 512), at (2, 4096, 1, 512) and a ragged (1, 333, 2, 264),
                 timed beside their bound and SDPA's backward;
@@ -923,7 +923,7 @@ def ptxas_report(log: str):
     of the port's kernels, from the build's ptxas -v output."""
     import re
 
-    names = ("flash_fwd_wgmma|flash_fwd_wide_wgmma|flash_bwd_dkv_wide_wgmma|flash_bwd_dq_wide"
+    names = ("flash_fwd_wgmma|flash_fwd_wide_wgmma|flash_bwd_dkv_wide_wgmma|flash_bwd_dq_wide_wgmma"
              "|flash_bwd_dkv|flash_bwd_dq|groupnorm|fused_adamw8bit")
     found, current = {}, None
     for line in log.splitlines():
@@ -938,6 +938,17 @@ def ptxas_report(log: str):
             found[current] = f"{regs.group(1) if regs else '?'} registers, {found.get(current, '')}"
             current = None
     return found
+
+
+def serialized_report(log: str):
+    """'<note code> <kernel>' for each of the port's kernels whose wgmma products
+    ptxas serializes (C7512: not enough registers), from the build's ptxas -v
+    output."""
+    import re
+
+    return sorted({" ".join(m.groups()) for m in (
+        re.search(r"\((C75\d\d)\).*serialized.*\d((?:flash|groupnorm|fused)\w*?_kernel)", line)
+        for line in log.splitlines()) if m})
 
 
 def flash_bwd_rows(per_step, extra=EXTRA_FLASH_BWD, tag: str = "flash bwd"):
@@ -959,6 +970,9 @@ def flash_bwd_rows(per_step, extra=EXTRA_FLASH_BWD, tag: str = "flash bwd"):
             nd = int(name[name.index("<") + 1:-1]) if "<" in name else 512  # wide: D <= 512
             print(f"[ptxas] {name}: {text}; {smem('dkv' in name, nd)} bytes of dynamic shared "
                   "memory", flush=True)
+    if tag == "flash bwd":
+        print(f"[ptxas] wgmma serialized in: {serialized_report(kernels.log) or 'none'}",
+              flush=True)
     rows = {"dkv": [], "dq": []}
     pair = []  # (shape, launches a step, dK/dV + dQ ms, SDPA backward ms)
     shapes = dict(per_step)
@@ -4159,7 +4173,8 @@ def main() -> int:
           "(the VAE decode's (2, 4096, 1, 512), once; its (8, 1024, 1, 512) row, 2 launches a "
           "VAE pretraining step, is printed in phase 4), launches from the generation CLI run, "
           "and flash_attention_fwd's launches there exclude it; the wide flash backward "
-          "entries (flash_attention_bwd_dkv_wide, flash_attention_bwd_dq_wide) sum over one VAE "
+          "entries (flash_attention_bwd_dkv_wide, flash_attention_bwd_dq_wide, both wgmma and TMA) "
+          "sum over one VAE "
           f"pretraining step (batch {VAE_BATCH}, {VAE_RES} px: (8, 1024, 1, 512) twice); "
           "launches from phase 36's last step; library_ms is SDPA's whole backward at the "
           "same shape", flush=True)

@@ -17,7 +17,7 @@ over the UNet's 293 quantized leaves, without and with the EMA shadow, as
 the trainer launches it: one launch a step where the package has
 fused_adamw8bit_leaves, else one a leaf). The VAE pretraining step's wide
 flash shape, (8, 1024, 1, 512), is timed beside the others and left out of
-the sums:
+the sums, as is (2, 4096, 1, 512), its mid-block attention at 512 px:
 
   base                   the kernels as they are (adamw_base: the AdamW alone);
   fwd_no_exp             exponentials replaced by the identity;
@@ -51,6 +51,16 @@ the sums:
   bwd_no_exp             the backward's exponentials replaced by the identity;
   bwd_loads_and_s_only   only its tile loads and S product left (no dP, no RS
                          products, no exponentials): the supply floor;
+  bwd_wide_dq_loads_and_scores  the wide dQ (D > 160) without its dQ
+                         products: the K and V rings' supply, S^T, dP^T, P and
+                         dS alone;
+  bwd_wide_dq_k10_v8     the wide dQ's K ring a tile and two boxes, V's a tile
+                         (not a tile and a box each);
+  bwd_wide_dq_staggered  each of its blocks starting at another key tile
+                         (block x at tile x mod the tiles), so that a head's
+                         blocks read different K and V tiles at a time;
+  bwd_wide_dq_cluster2   clusters of two blocks that share each K and V box by
+                         TMA multicast: half the L2 reads;
   bwd_one_warpgroup      one consumer warpgroup a block in both backward kernels;
   bwd_two_stages         a ring of two stages in both;
   adamw_no_transcendentals  the AdamW's exponentials and logarithms (or their
@@ -120,7 +130,8 @@ GN_SHAPES = [  # (B, C, H, W), eps, act, launches a batch
 # training at batch 4: (B, S, H, D) and dK/dV (and dQ) launches a step
 BWD_SHAPES = [((4, 4096, 8, 40), 5), ((4, 1024, 8, 80), 5), ((4, 256, 8, 160), 5),
               ((4, 64, 8, 160), 1),
-              ((8, 1024, 1, 512), 0)]  # the VAE pretraining step's wide one, not summed
+              ((8, 1024, 1, 512), 0),  # the VAE pretraining step's wide one, not summed
+              ((2, 4096, 1, 512), 0)]  # and the VAE's at 512 px, not summed either
 
 _FWD, _GN, _BWD, _ADAMW = "flash_fwd.cu", "groupnorm.cu", "flash_bwd.cu", "fused_adamw.cu"
 KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd", _ADAMW: "adamw"}
@@ -135,6 +146,64 @@ _S_ONLY = [  # only the tile loads and S = Q K^T: no exponentials, no P V
     (_FWD, "        WgmmaRS<ND, 1>::run(o, pa[kk], desc_mn_major<BK>(v_prev, kk), 1);",
      "        " + _OFF + "WgmmaRS<ND, 1>::run(o, pa[kk], desc_mn_major<BK>(v_prev, kk), 1);")]
 _BWD_NO_EXP = (_BWD, "exp2_ftz(s", "(s")
+# the wide dQ as clusters of two blocks (neighbouring query tiles of one
+# head) that share each K and V box: each block loads every other box by TMA
+# multicast into both, and a box is freed once both blocks' readers are done
+_DQ_MULTICAST = r"""
+__device__ __forceinline__ void tma_load_4d_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               uint16_t mask, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(hopper::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hopper::smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+// this block's barrier, then the other block's (so that the other cannot see
+// the release before this block's own barrier has it)
+__device__ __forceinline__ void arrive_both(uint64_t* bar, uint32_t rank) {
+  hopper::mbar_arrive(bar);
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(hopper::smem_u32(bar)),
+      "r"(rank ^ 1)
+      : "memory");
+}
+"""
+_DQ_KERNEL = ("__global__ void __launch_bounds__(DqWide::kThreads, 1)\n"
+              "    flash_bwd_dq_wide_wgmma_kernel(")
+_DQ_INIT = ("      mbar_init(&empty_v[s], 4);  // the four warps of group 1\n    }\n"
+            "    mbar_init(own, 1);\n    mbar_fence_init();\n  }\n  __syncthreads();")
+_DQ_TMA = ("tma_load_4d(ring + slot * W::kBoxBytes, map, &full[slot], 64 * (n % W::kAtoms), h,\n"
+           "                    n / W::kAtoms * W::kBK, b);")
+_DQ_END = ("*reinterpret_cast<const uint4*>(stage + row * W::kPitch + 8 * piece);\n"
+           "    }\n  }\n}\n")
+_DQ_LAUNCH = ("  return launch<T>(flash_bwd_dq_wide_wgmma_kernel, *p, in.B * p->H, stream, "
+              "&attr_set);")
+_DQ_LAUNCH_EVEN = """  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_wgmma_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)T::kSmem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  dim3 grid(((p->S + T::kOwn - 1) / T::kOwn + 1) / 2 * 2, in.B * p->H);
+  flash_bwd_dq_wide_wgmma_kernel<<<grid, T::kThreads, T::kSmem, stream>>>(*p);
+  return cudaGetLastError();"""
+_DQ_CLUSTER2 = [
+    (_BWD, _DQ_KERNEL,
+     _DQ_MULTICAST + _DQ_KERNEL.replace("void __launch", "void __cluster_dims__(2, 1, 1) __launch")),
+    (_BWD, "mbar_init(&empty_k[s], 8);", "mbar_init(&empty_k[s], 16);"),
+    (_BWD, _DQ_INIT, _DQ_INIT.replace("(&empty_v[s], 4)", "(&empty_v[s], 8)").replace(
+        "  __syncthreads();", "  hopper::cluster_arrive();\n  hopper::cluster_wait();\n"
+        "  const uint32_t rank = hopper::cluster_rank();")),
+    (_BWD, _DQ_TMA, "if (n % 2 == (int)rank)\n          " + _DQ_TMA.replace(
+        "tma_load_4d(", "tma_load_4d_mc(").replace("&full[slot], 64", "&full[slot], 3, 64")),
+] + [(_BWD, f"mbar_arrive(&{bar}]);", f"arrive_both(&{bar}], rank);") for bar in (
+    "empty_k[(n0 + a) % W::kKSlots", "empty_v[(n0 + a) % W::kVSlots",
+    "empty_k[(n0 + 4 * c + a) % W::kKSlots")] + [
+    (_BWD, _DQ_END, _DQ_END[:-2] + "  hopper::cluster_arrive();\n  hopper::cluster_wait();\n}\n"),
+    (_BWD, _DQ_LAUNCH, _DQ_LAUNCH_EVEN)]
 
 
 _ADAMW_NO_TRANSCENDENTALS = [
@@ -227,6 +296,21 @@ VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replace
             "WgmmaRS<ND, 1>::run(dq, pa[kk]", "WgmmaRS<ND, 1>::run(dv, pa[kk]",
             "WgmmaRS<ND, 1>::run(dk, pb[kk]", "WgmmaSS<BK>::run(dp, ", "WgmmaSS<BQ>::run(dpt, ")
     ] + [_BWD_NO_EXP],
+    "bwd_wide_dq_k10_v8": [
+        (_BWD, "kKSlots = kAtoms + 1;\n  static constexpr int kVSlots = kAtoms + 1;",
+         "kKSlots = kAtoms + 2;\n  static constexpr int kVSlots = kAtoms;")],
+    "bwd_wide_dq_staggered": [
+        (_BWD, "const int q0 = blockIdx.x * W::kOwn;", "const int q0 = blockIdx.x * W::kOwn;\n"
+         "  const int tile0 = blockIdx.x % ((p.S + W::kBK - 1) / W::kBK);"),
+        (_BWD, "                    n / W::kAtoms * W::kBK, b);",
+         "                    (n / W::kAtoms + tile0) % n_tiles * W::kBK, b);"),
+        (_BWD, "        if ((j + 1) * W::kBK > p.S) {",
+         "        const int kt = (j + tile0) % n_tiles;\n        if ((kt + 1) * W::kBK > p.S) {"),
+        (_BWD, "if (j * W::kBK + 16 * w + gr", "if (kt * W::kBK + 16 * w + gr")],
+    "bwd_wide_dq_cluster2": _DQ_CLUSTER2,
+    "bwd_wide_dq_loads_and_scores": [
+        (_BWD, "WgmmaSS<32, 1, 0>::run(acc[a], desc_mn_major<W::kBK>",
+         _OFF + "WgmmaSS<32, 1, 0>::run(acc[a], desc_mn_major<W::kBK>")],
     "bwd_one_warpgroup": [
         (_BWD, "constexpr int dkv_warpgroups(int nd) { return nd > 80 ? 1 : 2; }",
          "constexpr int dkv_warpgroups(int nd) { return 1; }"),
@@ -293,21 +377,20 @@ def copy_package(dest, edits, tree: str = REPO) -> str:
 
 
 CHILD = r"""
-import json, re, sys
+import json, sys
 sys.path.insert(0, sys.argv[1])
 sys.path.append(sys.argv[2])
 import torch
 from agenda_tpu_torch.kernels import _build, flash as fl
 from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
-from chip_smoke import FLASH_ATOL_RMS, FLASH_RTOL, GN_ATOL, GN_RTOL, ptxas_report, time_ms
+from chip_smoke import (FLASH_ATOL_RMS, FLASH_RTOL, GN_ATOL, GN_RTOL, ptxas_report,
+                        serialized_report, time_ms)
 kernels, shapes = json.loads(sys.argv[3]), json.loads(sys.argv[4])
 lib = _build.load_library()
 out = {"build_s": round(lib.build_seconds, 1),
        "ptxas": ptxas_report(lib.log),
        "warnings": [line.strip()[:200] for line in lib.log.splitlines() if "warning" in line][:8],
-       "serialized": sorted({" ".join(m.groups()) for m in (
-           re.search(r"\((C75\d\d)\).*serialized.*\d((?:flash|groupnorm|fused)\w*?_kernel)", line)
-           for line in lib.log.splitlines()) if m})}
+       "serialized": serialized_report(lib.log)}
 
 
 def flash_over_limit(got, ref):

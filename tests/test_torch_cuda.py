@@ -433,17 +433,14 @@ FLASH_BWD_MUTATIONS = {
     # the wide kernels. dK/dV: the query mask keeps a query past S from
     # reading lse and delta past its (batch, head) row (past the end of both
     # buffers in the last one), and its value reaches the products: an
-    # inverted mask (lse = -inf, so P = +inf) must fail. dQ: a key past S
-    # keeps its probability (its rows are loaded as row S - 1). dK/dV again:
-    # dK written from the next chunk of D's columns, each chunk's gradient
+    # inverted mask (lse = -inf, so P = +inf) must fail. dK/dV again: dK
+    # written from the next chunk of D's columns, each chunk's gradient
     # product reading the box of the ring slot after its own, and the keys
-    # past S stored too (into the next batch element's first rows).
+    # past S stored too (into the next batch element's first rows, and past
+    # the end of dK and dV).
     "wide_query_mask_dropped": (
         "row < p.S ? (c == 0 ? stats[row] * kLog2e : stats[row]) : (c == 0 ? INFINITY : 0.f);",
         "row < p.S ? (c == 0 ? stats[row] * kLog2e : stats[row]) : (c == 0 ? -INFINITY : 0.f);"),
-    "wide_key_mask_dropped": (
-        "const float pv = key < p.S ? exp2f(s[x] * p.scale_log2 - l[x >> 1]) : 0.f;",
-        "const float pv = exp2f(s[x] * p.scale_log2 - l[x >> 1]);"),
     "wide_dk_from_wrong_d_slice": (
         "store_chunk(p.dk + off, acc[a], 64 * a, k0, p.scale, p);",
         "store_chunk(p.dk + off, acc[a], 64 * ((a + 1) % W::kAtoms), k0, p.scale, p);"),
@@ -453,6 +450,19 @@ FLASH_BWD_MUTATIONS = {
     "wide_key_guard_dropped": (
         "if (key < p.S && col < p.D) out[key * rs + col]",
         "if (col < p.D) out[key * rs + col]"),
+    # dQ: the owned queries' mask inverted (every query before S gets lse =
+    # +inf, so P = 0), a chunk staged at the next 64-column block of its
+    # group's half of D, each chunk's product reading the K box of the ring
+    # slot after its own, and the queries past S stored too. Those are zeros
+    # (their Q and dO rows are zero-filled), written into the next batch
+    # element's first rows, where the owner's store may come later, and past
+    # the end of dq: the guard band of the harness below.
+    "wide_dq_lse_mask_inverted": ("st[x] = q < p.S ?", "st[x] = q >= p.S ?"),
+    "wide_dq_to_wrong_d_block": ("* W::kPitch + 64 * a + 16 * w",
+                                 "* W::kPitch + 64 * ((a + 1) % 4) + 16 * w"),
+    "wide_dq_box_from_wrong_ring_slot": ("Kr + (n0 + 4 * c + a) % W::kKSlots",
+                                         "Kr + (n0 + 4 * c + a + 1) % W::kKSlots"),
+    "wide_dq_store_guard_dropped": ("if (q < p.S && col < p.D)", "if (col < p.D)"),
 }
 FLASH_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
                     (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24)]
@@ -461,22 +471,36 @@ FLASH_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64
 FLASH_BWD_MUTATION_SHAPES = {
     **{name: FLASH_BWD_SHAPES for name in FLASH_BWD_MUTATIONS if not name.startswith("wide_")},
     "wide_query_mask_dropped": [(1, 333, 2, 264), (1, 77, 2, 512)],
-    "wide_key_mask_dropped": [(1, 333, 2, 264), (1, 77, 2, 512)],
     "wide_dk_from_wrong_d_slice": [(8, 1024, 1, 512), (1, 333, 2, 264)],
     "wide_grad_box_from_wrong_ring_slot": [(8, 1024, 1, 512), (1, 333, 2, 264)],
     "wide_key_guard_dropped": [(2, 333, 2, 264), (4, 77, 2, 512)],
+    "wide_dq_lse_mask_inverted": [(1, 333, 2, 264), (1, 77, 2, 512)],
+    "wide_dq_to_wrong_d_block": [(8, 1024, 1, 512), (1, 333, 2, 264)],
+    "wide_dq_box_from_wrong_ring_slot": [(8, 1024, 1, 512), (1, 333, 2, 264)],
+    "wide_dq_store_guard_dropped": [(2, 333, 2, 264), (4, 77, 2, 512)],
 }
+# The kernels are launched as the wrappers launch them, but each gradient is
+# written into the head of a NaN-filled buffer: a kernel that writes past the
+# end of its output (up to 64 rows) fails as one that writes a NaN does.
 _WORST_BWD_ERROR_OVER_LIMIT = """
-import json, torch
-from agenda_tpu_torch.kernels import flash as fl
+import json, math, torch
+from agenda_tpu_torch.kernels import _build, flash as fl
+dkv_fn, dq_fn, _ = fl._bwd_kernels()
 worst = {}
 for shape in %r:
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
     q, k, v, do = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(4))
     out, lse = fl.flash_attention_fwd(q, k, v)
     delta = fl.flash_delta(out, do)
-    got = (*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-           fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+    n, pad = math.prod(shape), 64 * shape[2] * shape[3]
+    bufs = [torch.full((n + pad,), float("nan"), dtype=torch.bfloat16, device="cuda")
+            for _ in range(3)]
+    got = [buf[:n].view(shape) for buf in bufs]
+    ptrs, dims, strides = fl._bwd_args(q, k, v, do, lse, delta)
+    stream = _build.stream_ptr(q.device)
+    _build.check(dkv_fn(*ptrs, got[0].data_ptr(), got[1].data_ptr(), *dims, strides, stream),
+                 "flash_attention_bwd_dkv")
+    _build.check(dq_fn(*ptrs, got[2].data_ptr(), *dims, strides, stream), "flash_attention_bwd_dq")
     want = (*fl.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta),
             fl.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta))
     ratio = 0.0
@@ -485,6 +509,8 @@ for shape in %r:
         limit = %r * ref.square().mean().sqrt() + %r * ref.abs()
         r = ((x.float() - ref).abs() / limit).max().item()
         ratio = r if r != r else max(ratio, r)  # NaN stays NaN
+    if not all(bool(buf[n:].isnan().all()) for buf in bufs):
+        ratio = float("inf")  # written past the end of an output
     worst[str(shape)] = ratio
 print(json.dumps(worst))
 """
@@ -505,6 +531,8 @@ def test_chip_smoke_reads_ptxas_registers_and_spills():
     name = "_ZN45_GLOBAL__N__c8e2eb60_12_flash_bwd_cu_2c9866a3{}ILi{}EEEvNS_9BwdParamsE"
     fwd = "_ZN45_GLOBAL__N__0d1c2e3f_12_flash_fwd_cu_1a2b3c4d22flash_fwd_wgmma_kernelILi40ELi3EEEvNS_9FwdParamsE"
     wide = "_ZN45_GLOBAL__N__0d1c2e3f_12_flash_fwd_cu_1a2b3c4d27flash_fwd_wide_wgmma_kernelENS_9FwdParamsE"
+    wide_dq = ("_ZN45_GLOBAL__N__c8e2eb60_12_flash_bwd_cu_2c9866a330flash_bwd_dq_wide_wgmma_kernel"
+               "ENS_9BwdParamsE")
     log = "\n".join([
         "== flash_bwd.cu",
         f"ptxas info    : Compiling entry function '{name.format('19flash_bwd_dq_kernel', 40)}' "
@@ -526,6 +554,11 @@ def test_chip_smoke_reads_ptxas_registers_and_spills():
         f"ptxas info    : Function properties for {wide}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 2 barriers",
+        "== flash_bwd.cu",
+        f"ptxas info    : Compiling entry function '{wide_dq}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {wide_dq}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 3 barriers",
         "== groupnorm.cu",
         "    8 bytes stack frame, 12 bytes spill stores, 32 bytes spill loads",
         "ptxas info    : Used 32 registers, used 1 barriers, 132 bytes smem",
@@ -538,7 +571,9 @@ def test_chip_smoke_reads_ptxas_registers_and_spills():
         "flash_fwd_wgmma_kernel<40, 3>": "150 registers, 0 bytes stack frame, 0 bytes spill "
                                          "stores, 0 bytes spill loads",
         "flash_fwd_wide_wgmma_kernel": "168 registers, 0 bytes stack frame, 0 bytes spill "
-                                       "stores, 0 bytes spill loads"}
+                                       "stores, 0 bytes spill loads",
+        "flash_bwd_dq_wide_wgmma_kernel": "128 registers, 0 bytes stack frame, 0 bytes spill "
+                                          "stores, 0 bytes spill loads"}
 
 
 @pytest.mark.cuda
@@ -552,6 +587,20 @@ def test_flash_backward_limit_fails_broken_kernels(mutation, tmp_path):
         FLASH_BWD_MUTATION_SHAPES[mutation], FLASH_ATOL_RMS, FLASH_RTOL))
     print(f"{mutation}: worst |grad - ref| / limit per shape {worst}")
     assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
+
+
+def test_chip_smoke_reads_serialized_wgmma():
+    """Runs anywhere: chip_smoke.py names each kernel whose wgmma products
+    ptxas serializes, with the note's code, from the build's log."""
+    chip_smoke = _root_module("chip_smoke")
+    note = ("ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions "
+            "are serialized due to insufficient register resources for the wgmma pipeline in the "
+            "function '_ZN45_GLOBAL__N__c8e2eb60_12_flash_bwd_cu_2c9866a3{}ENS_9BwdParamsE'")
+    for kernel in ("flash_bwd_dkv_wide_wgmma_kernel", "flash_bwd_dq_wide_wgmma_kernel"):
+        line = note.format(f"{len(kernel)}{kernel}")
+        log = "\n".join([line, line, "ptxas info    : Used 128 registers, used 3 barriers"])
+        assert chip_smoke.serialized_report(log) == [f"C7512 {kernel}"]
+    assert chip_smoke.serialized_report("ptxas info    : Used 128 registers") == []
 
 
 def test_chip_smoke_reads_adamw_ptxas():
@@ -1112,7 +1161,8 @@ def _variant_applies(name):
 
 
 @pytest.mark.parametrize("variant", ["no_exp", "loads_and_s_only", "one_warpgroup", "two_stages",
-                                     "wide_maxnreg"])
+                                     "wide_maxnreg", "wide_dq_loads_and_scores", "wide_dq_k10_v8",
+                                     "wide_dq_staggered", "wide_dq_cluster2"])
 def test_flash_bwd_variants_apply_to_the_source(variant):
     """Runs anywhere: every edit of kernel_variants.py's backward variants
     finds its line in the backward's source, so the tool keeps measuring what
