@@ -13,6 +13,13 @@ kernel takes their 6x6 and 10x10 levels (H*W % 8 != 0) as any other.
 ``--tgate-step m`` turns on TGATE sampling from step m (off by default;
 ``generate/pipeline.py``).
 
+Under ``torchrun --nproc_per_node N`` the N ranks split the seeds, as the
+JAX CLI shards them over its chips (``agenda_tpu/cli/data_generation.py:
+70-78``): ``--batch-size`` is a rank's, a global batch is N times it (the
+tail padded as one process pads it), and each rank writes the files of its
+seeds, the same file set one process writes. ``--dist-backend`` names the
+process group's backend (nccl on the cards by default).
+
     python -m agenda_tpu_torch.cli.data_generation --pretrained-model-path <dir> \\
         --learnable-tokens-embedding-path <embeds.bin> --save-dir out \\
         --word_token_heatmaps cars --num-images 8 --batch-size 4
@@ -61,6 +68,9 @@ def parse_args(argv=None):
                         "reference-parity sampler.")
     p.add_argument("--device", type=str, choices=("cuda", "cpu"), default="cuda",
                    help="Run on the card (default) or on the CPU.")
+    p.add_argument("--dist-backend", type=str, choices=("nccl", "gloo"), default=None,
+                   help="The process group's backend under torchrun (default: nccl on the "
+                        "card, gloo on the CPU; gloo puts several ranks on one card).")
     return p.parse_args(argv)
 
 
@@ -69,13 +79,18 @@ def main(argv=None):
 
     from agenda_tpu_torch.generate.pipeline import StableDiffusionPipeline
     from agenda_tpu_torch.io.learned_embeds import load_learned_embeddings
+    from agenda_tpu_torch.parallel.mesh import make_mesh
     from agenda_tpu_torch.utils.png import write_png
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     log = logging.getLogger("agenda_tpu_torch.cli.data_generation")
     os.makedirs(args.save_dir, exist_ok=True)
+    mesh = make_mesh(device=args.device, backend=args.dist_backend)
     pipeline = StableDiffusionPipeline.from_pretrained(args.pretrained_model_path,
-                                                       device=args.device)
+                                                       device=mesh.device)
+    pipeline.mesh = mesh
+    batch_size = args.batch_size * mesh.dp  # the global batch
+    rows = mesh.rows(batch_size)
 
     embeds_dict = load_learned_embeddings(args.learnable_tokens_embedding_path)
     all_new_tokens = list(embeds_dict.keys())
@@ -99,7 +114,7 @@ def main(argv=None):
 
     def dispatch(batch_seeds):
         # A fixed batch shape: pad the tail with the last seed.
-        padded = batch_seeds + [batch_seeds[-1]] * (args.batch_size - len(batch_seeds))
+        padded = batch_seeds + [batch_seeds[-1]] * (batch_size - len(batch_seeds))
         return pipeline.generate_async(
             prompt,
             padded,
@@ -114,8 +129,11 @@ def main(argv=None):
         )
 
     def write(batch_seeds, result):
-        images, word_maps = result()
-        for j, seed in enumerate(batch_seeds):
+        images, word_maps = result()  # this rank's rows of the padded batch
+        for j, pos in enumerate(range(rows.start, rows.stop)):
+            if pos >= len(batch_seeds):
+                break  # the tail's padding
+            seed = batch_seeds[pos]
             if images[j].max() < 1:
                 continue  # all-black output (the reference's NSFW-filter skip)
             write_png(os.path.join(img_dir, f"{seed}.png"), images[j])
@@ -126,8 +144,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     pending = None
     n_batches = 0
-    for i in range(0, len(seeds), args.batch_size):
-        batch_seeds = seeds[i : i + args.batch_size]
+    for i in range(0, len(seeds), batch_size):
+        batch_seeds = seeds[i : i + batch_size]
         result = dispatch(batch_seeds)
         if pending is not None:
             write(*pending)

@@ -1,7 +1,10 @@
 """CLI: detector training (== ``mmdetection/tools/train.py <config>``).
 
 Counterpart of ``agenda_tpu/cli/det_train.py``: the same flags plus
-``--device {cuda,cpu}`` (default cuda; with cuda and no GPU it raises).
+``--device {cuda,cpu}`` (default cuda; with cuda and no GPU it raises) and
+``--dist-backend``. Under ``torchrun --nproc_per_node N`` it trains data
+parallel over the N ranks, ``--batch-size`` a rank (the global batch is N
+times it, as the JAX runner's is ``batch_size x dp``).
 
     python -m agenda_tpu_torch.cli.det_train --config run.json
     python -m agenda_tpu_torch.cli.det_train --preset synthetic_heatmap --detector yolov8 \\
@@ -57,18 +60,21 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, choices=("cuda", "cpu"), default="cuda",
                    help="Train on the card (default) or on the CPU.")
+    p.add_argument("--dist-backend", type=str, choices=("nccl", "gloo"), default=None,
+                   help="The process group's backend under torchrun (default: nccl on the "
+                        "card, gloo on the CPU; gloo puts several ranks on one card).")
     return p.parse_args(argv)
 
 
 def main(argv=None):
-    from agenda_tpu_torch._device import resolve_device
     from agenda_tpu_torch.detect.configs import DatasetSpec, DetectionConfig, preset
     from agenda_tpu_torch.detect.runner import DetectorRunner
+    from agenda_tpu_torch.parallel.mesh import make_mesh
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device, backend=args.dist_backend)
 
     if args.config:
         cfg = DetectionConfig.from_json(args.config)
@@ -99,10 +105,11 @@ def main(argv=None):
     cfg.runner.output_dir = args.work_dir if args.work_dir else cfg.runner.output_dir
 
     os.makedirs(cfg.runner.output_dir, exist_ok=True)
-    cfg.to_json(os.path.join(cfg.runner.output_dir, "config.json"))
+    if mesh.is_main:
+        cfg.to_json(os.path.join(cfg.runner.output_dir, "config.json"))
 
     family = cfg.build_family()
-    runner = DetectorRunner(family, cfg.runner, device=device)
+    runner = DetectorRunner(family, cfg.runner, mesh=mesh)
     train_ds = cfg.build_train_dataset()
     val_ds = cfg.build_eval_dataset(cfg.val_dataset) if cfg.val_dataset else None
     return runner.train(train_ds, val_ds, resume=args.resume, pretrained=cfg.pretrained)

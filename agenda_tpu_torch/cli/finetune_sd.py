@@ -6,8 +6,16 @@ with cuda and no GPU it raises), the same loop and cadences, validation
 from the EMA shadow through the port's pipeline, and the final diffusers
 export. What differs:
 
-- one process drives one card; ``--fsdp`` above 1 raises (multi-GPU is not
-  ported yet);
+- one process drives one card; under ``torchrun --nproc_per_node N`` the N
+  ranks train one model data parallel (``parallel/mesh.py``): the global
+  batch is ``--train_batch_size x dp`` in the one loader order a single
+  process draws, split over the ranks, each sample with its single-process
+  draws, the gradients averaged before the clip, ``--scale_lr`` by the world
+  size; only rank 0 logs, validates, checkpoints and exports, and a resume at
+  any world size goes on where the data stopped. ``--fsdp f`` (dp = N / f)
+  splits the optimizer state and EMA of the large leaves over each f ranks in
+  runs of whole 256-element blocks (``parallel/blocks.py``); checkpoints keep
+  the one-card layout. ``--dist-backend`` names the backend;
 - ``--gradient_accumulation_steps`` k averages k micro-batches' gradients
   into one update (optax ``MultiSteps`` semantics); the global step counts
   updates, and every cadence keys off it;
@@ -95,7 +103,11 @@ def parse_args(argv=None):
     p.add_argument("--validation_steps", type=int, default=100)
     p.add_argument("--tracker_project_name", type=str, default="text2image-fine-tune")
     p.add_argument("--fsdp", type=int, default=1,
-                   help="Parameter-sharding degree; only 1 (one card) is ported.")
+                   help="Ranks that split each large leaf's optimizer state and EMA "
+                        "(in 256-element blocks); dp = world / fsdp.")
+    p.add_argument("--dist-backend", type=str, choices=("nccl", "gloo"), default=None,
+                   help="The process group's backend under torchrun (default: nccl on the "
+                        "card, gloo on the CPU; gloo puts several ranks on one card).")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="Write a torch.profiler trace of the training loop here.")
     p.add_argument("--cache_latents", action="store_true", default=True,
@@ -133,7 +145,7 @@ def batch_to_device(batch, dev):
 def main(argv=None):
     import torch
 
-    from agenda_tpu_torch._device import compute_dtype, resolve_device
+    from agenda_tpu_torch._device import compute_dtype
     from agenda_tpu_torch.core.schedules import make_schedule
     from agenda_tpu_torch.data.datasets import BaseDataset, DataLoader
     from agenda_tpu_torch.data.device_resize import resize_weights
@@ -143,10 +155,13 @@ def main(argv=None):
     from agenda_tpu_torch.models.clip_text import CLIPTextModel
     from agenda_tpu_torch.models.unet import UNet2DConditionModel
     from agenda_tpu_torch.models.vae import AutoencoderKL
+    from agenda_tpu_torch.parallel.mesh import barrier, make_mesh
     from agenda_tpu_torch.train.checkpoint import (
         AsyncCheckpointer,
         find_resume_checkpoint,
+        full_ema,
         load_checkpoint,
+        snapshot_state,
     )
     from agenda_tpu_torch.train.finetune_sd import LossConfig, init_train_state, make_train_step
     from agenda_tpu_torch.train.latent_cache import (
@@ -154,15 +169,14 @@ def main(argv=None):
         precompute_latent_moments,
     )
     from agenda_tpu_torch.train.optim import lr_schedule, make_optimizer
-    from agenda_tpu_torch.train.trackers import Tracker
+    from agenda_tpu_torch.train.trackers import NullTracker, Tracker
     from agenda_tpu_torch.utils.profiling import StepTimer, maybe_profile
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
-    if args.fsdp > 1:
-        raise NotImplementedError("--fsdp > 1 (multi-GPU) is not ported yet; see ROADMAP.md")
-    dev = resolve_device(args.device)
+    mesh = make_mesh(dp=-1, fsdp=args.fsdp, device=args.device, backend=args.dist_backend)
+    dev = mesh.device
     if dev.type == "cuda" and args.mixed_precision == "no":
         raise NotImplementedError("the flash and GroupNorm kernels take bf16: "
                                   "--mixed_precision no runs only with --device cpu")
@@ -207,10 +221,11 @@ def main(argv=None):
                     resize_weights(sw, args.resolution, "lanczos"))
         logger.info("device resize: %dx%d uint8 tiles -> %d^2 on %s", sw, sh, args.resolution,
                     dev)
-    global_bs = args.train_batch_size
+    global_bs = args.train_batch_size * mesh.dp
+    rows = mesh.rows(global_bs) if mesh.world > 1 else None  # raises unless it splits
     workers = max(1, args.dataloader_num_workers)
     loader = DataLoader(dataset, global_bs, shuffle=True, seed=seed, num_workers=workers,
-                        pad_to_full=True)
+                        pad_to_full=True, rows=rows)
     steps_per_epoch = math.ceil(len(loader) / args.gradient_accumulation_steps)
     if args.max_train_steps is None:
         args.max_train_steps = args.num_train_epochs * steps_per_epoch
@@ -218,12 +233,12 @@ def main(argv=None):
 
     lr = args.learning_rate
     if args.scale_lr:
-        lr = lr * args.gradient_accumulation_steps * args.train_batch_size
+        lr = lr * args.gradient_accumulation_steps * args.train_batch_size * mesh.size
     lr_fn = lr_schedule(args.lr_scheduler, lr, args.lr_warmup_steps, args.max_train_steps)
     tx = make_optimizer(lr_fn, args.adam_beta1, args.adam_beta2, args.adam_weight_decay,
                         args.adam_epsilon, args.max_grad_norm, args.gradient_accumulation_steps,
                         use_8bit_adam=args.use_8bit_adam)
-    state = init_train_state(unet, tx, args.use_ema)
+    state = init_train_state(unet, tx, args.use_ema, mesh)
 
     initial_step = 0
     if args.resume_from_checkpoint:
@@ -243,15 +258,17 @@ def main(argv=None):
         dataset = LatentMomentsDataset(dataset, moments)
         # the same loader settings give the same epoch shuffle
         loader = DataLoader(dataset, global_bs, shuffle=True, seed=seed, num_workers=workers,
-                            pad_to_full=True)
+                            pad_to_full=True, rows=rows)
 
     loss_cfg = LossConfig(snr_gamma=args.snr_gamma, noise_offset=args.noise_offset,
                           input_perturbation=args.input_perturbation,
                           prediction_type=args.prediction_type)
     step_fn = make_train_step(unet, vae, text_encoder, schedule, tx, loss_cfg, args.use_ema,
-                              resize_weights=resize_w)
-    tracker = Tracker(os.path.join(args.output_dir, args.logging_dir), args.report_to,
-                      config=vars(args))
+                              resize_weights=resize_w, mesh=mesh)
+    tracker = (Tracker(os.path.join(args.output_dir, args.logging_dir), args.report_to,
+                       config=vars(args)) if mesh.is_main else NullTracker())
+    if not mesh.is_main:
+        logger.setLevel(logging.WARNING)
     generator = torch.Generator(device=dev)
 
     logger.info("***** Running training *****")
@@ -259,12 +276,14 @@ def main(argv=None):
     logger.info("  Num Epochs = %d", args.num_train_epochs)
     logger.info("  Batch size = %d", global_bs)
     logger.info("  Total optimization steps = %d", args.max_train_steps)
-    logger.info("  Device = %s, optimizer = %s", dev,
-                "fused int8 AdamW" if tx.fused else "AdamW")
+    logger.info("  Device = %s, optimizer = %s, mesh = %s", dev,
+                "fused int8 AdamW" if tx.fused else "AdamW", mesh.shape)
 
     def run_validation(step):
         # from the EMA shadow when enabled, as the reference swaps it in
-        src = state.ema.params if (args.use_ema and state.ema is not None) else state.params
+        src = full_ema(state) if (args.use_ema and state.ema is not None) else state.params
+        if not mesh.is_main:
+            return
         val_unet = _build(UNet2DConditionModel, bundle.unet_config,
                           {k: v.detach().clone() for k, v in src.items()}, dev, frozen_dtype)
         pipe = StableDiffusionPipeline(unet=val_unet, vae=vae, text_encoder=text_encoder,
@@ -314,8 +333,12 @@ def main(argv=None):
                     logger.info("step %d: loss=%.5f (%.2f img/s)", global_step, m["loss"],
                                 m["images_per_sec"])
                 if global_step % args.checkpointing_steps == 0:
-                    ckpt_writer.save(args.output_dir, global_step, bundle.unet_config, state,
-                                     args.checkpoints_total_limit)
+                    if mesh.is_main or state.shard is not None:  # it gathers --fsdp's runs
+                        snap = snapshot_state(state)
+                    if mesh.is_main:
+                        ckpt_writer.save_snapshot(args.output_dir, global_step,
+                                                  bundle.unet_config, snap,
+                                                  args.checkpoints_total_limit)
                     logger.info("Saving state to %s/checkpoint-%d (async)", args.output_dir,
                                 global_step)
                 if args.validation_prompts and global_step % args.validation_steps == 0:
@@ -325,13 +348,16 @@ def main(argv=None):
                     break
     seconds = time.perf_counter() - t0
 
-    final = state.ema.params if (args.use_ema and state.ema is not None) else state.params
-    save_pipeline(args.output_dir, bundle.unet_config,
-                  {k: v.detach().cpu() for k, v in final.items()}, bundle.vae_config,
-                  bundle.vae_state, bundle.text_config, bundle.text_state,
-                  tokenizer_dir=bundle.tokenizer_dir, scheduler_config=bundle.scheduler_config)
-    logger.info("Saved pipeline to %s", args.output_dir)
+    final = full_ema(state) if (args.use_ema and state.ema is not None) else state.params
+    if mesh.is_main:
+        save_pipeline(args.output_dir, bundle.unet_config,
+                      {k: v.detach().cpu() for k, v in final.items()}, bundle.vae_config,
+                      bundle.vae_state, bundle.text_config, bundle.text_state,
+                      tokenizer_dir=bundle.tokenizer_dir,
+                      scheduler_config=bundle.scheduler_config)
+        logger.info("Saved pipeline to %s", args.output_dir)
     tracker.close()
+    barrier(mesh)
     steps = global_step - initial_step
     return {"steps": steps, "seconds": seconds, "images": steps * global_bs * accum,
             "losses": [float(x) for x in losses], "grad_norms": [float(x) for x in grad_norms],

@@ -9,7 +9,13 @@ same artifacts: ``learned_embeds_steps_N.bin`` and ``full_model_step_N/``
 pipeline exports (with the extended token table and the tokenizer's added
 tokens). What differs, as in the port's ``cli/finetune_sd.py``:
 
-- one process drives one card; ``--fsdp`` above 1 raises;
+- one process drives one card; under ``torchrun --nproc_per_node N`` the N
+  ranks train data parallel as ``cli/finetune_sd.py``'s do (global batch
+  ``--train_batch_size x dp``, each sample with its single-process draws,
+  gradients summed before the UNet's clip, ``--scale_lr`` by the world
+  size, rank 0 writing every artifact); ``--fsdp f`` only sets dp = N / f,
+  since the JAX CLI replicates the token state (its ``:303``);
+  ``--dist-backend`` names the backend;
 - bf16 compute under autocast on the card, f32 on the CPU;
   ``--mixed_precision no`` raises on the card;
 - ``--use_8bit_adam`` selects the fused int8 AdamW kernel, also under
@@ -105,7 +111,11 @@ def parse_args(argv=None):
     p.add_argument("--load_from_checkpoint", type=str, default=None)
     p.add_argument("--tracker_project_name", type=str, default="tensorboard")
     p.add_argument("--fsdp", type=int, default=1,
-                   help="Parameter-sharding degree; only 1 (one card) is ported.")
+                   help="The mesh's fsdp axis (dp = world / fsdp); the token state stays "
+                        "replicated, as in the JAX CLI.")
+    p.add_argument("--dist-backend", type=str, choices=("nccl", "gloo"), default=None,
+                   help="The process group's backend under torchrun (default: nccl on the "
+                        "card, gloo on the CPU; gloo puts several ranks on one card).")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="Write a torch.profiler trace of the training loop here.")
     p.add_argument("--cache_latents", action="store_true", default=True,
@@ -154,7 +164,7 @@ def extend_token_table(table: np.ndarray, token_ids, seed: int, rows=None) -> np
 def main(argv=None):
     import torch
 
-    from agenda_tpu_torch._device import compute_dtype, resolve_device
+    from agenda_tpu_torch._device import compute_dtype
     from agenda_tpu_torch.cli.finetune_sd import _seed_for, batch_to_device
     from agenda_tpu_torch.core.schedules import make_schedule
     from agenda_tpu_torch.data.datasets import DataLoader, TokenDataset
@@ -169,6 +179,7 @@ def main(argv=None):
     from agenda_tpu_torch.models.clip_text import CLIPTextModel
     from agenda_tpu_torch.models.unet import UNet2DConditionModel
     from agenda_tpu_torch.models.vae import AutoencoderKL
+    from agenda_tpu_torch.parallel.mesh import barrier, make_mesh, replicate
     from agenda_tpu_torch.train.checkpoint import (
         AsyncCheckpointer,
         find_resume_checkpoint,
@@ -186,15 +197,14 @@ def main(argv=None):
         precompute_latent_moments,
     )
     from agenda_tpu_torch.train.optim import lr_schedule, make_optimizer
-    from agenda_tpu_torch.train.trackers import Tracker
+    from agenda_tpu_torch.train.trackers import NullTracker, Tracker
     from agenda_tpu_torch.utils.profiling import StepTimer, maybe_profile
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
-    if args.fsdp > 1:
-        raise NotImplementedError("--fsdp > 1 (multi-GPU) is not ported yet; see ROADMAP.md")
-    dev = resolve_device(args.device)
+    mesh = make_mesh(dp=-1, fsdp=args.fsdp, device=args.device, backend=args.dist_backend)
+    dev = mesh.device
     if dev.type == "cuda" and args.mixed_precision == "no":
         raise NotImplementedError("the flash and GroupNorm kernels take bf16: "
                                   "--mixed_precision no runs only with --device cpu")
@@ -279,10 +289,11 @@ def main(argv=None):
                     resize_weights(sw, args.resolution, "bilinear"))
         logger.info("device resize: %dx%d uint8 tiles -> %d^2 (bilinear) on %s", sw, sh,
                     args.resolution, dev)
-    global_bs = args.train_batch_size
+    global_bs = args.train_batch_size * mesh.dp
+    rows = mesh.rows(global_bs) if mesh.world > 1 else None  # raises unless it splits
     workers = max(1, args.dataloader_num_workers)
     loader = DataLoader(dataset, global_bs, shuffle=True, seed=seed, num_workers=workers,
-                        pad_to_full=True)
+                        pad_to_full=True, rows=rows)
     steps_per_epoch = math.ceil(len(loader) / args.gradient_accumulation_steps)
     if args.max_train_steps is None:
         args.max_train_steps = args.num_train_epochs * steps_per_epoch
@@ -290,7 +301,7 @@ def main(argv=None):
 
     lr = args.learning_rate
     if args.scale_lr:
-        lr = lr * args.gradient_accumulation_steps * args.train_batch_size
+        lr = lr * args.gradient_accumulation_steps * args.train_batch_size * mesh.size
     lr_fn = lr_schedule(args.lr_scheduler, lr, args.lr_warmup_steps, args.max_train_steps,
                         args.lr_num_cycles, args.lr_power)
     tx = make_optimizer(lr_fn, args.adam_beta1, args.adam_beta2, args.adam_weight_decay,
@@ -302,6 +313,7 @@ def main(argv=None):
         n_tokens=len(object_tokens), hidden_size=text_cfg.hidden_size,
         generator=torch.Generator(device=dev).manual_seed(seed),
         init_embedding=resume_embedding)
+    replicate(state.opt_params().values(), mesh)
     if resume_path is not None:
         state.step = int(load_optimizer_state(resume_path, state.opt_state)["step"])
 
@@ -312,7 +324,7 @@ def main(argv=None):
         dataset = LatentMomentsDataset(dataset, moments)
         # the same loader settings give the same epoch shuffle
         loader = DataLoader(dataset, global_bs, shuffle=True, seed=seed, num_workers=workers,
-                            pad_to_full=True)
+                            pad_to_full=True, rows=rows)
 
     loss_cfg = TokenLossConfig(snr_gamma=args.snr_gamma, offset_noise=args.offset_noise,
                                with_cross_attn_reg=args.with_cross_attn_reg,
@@ -320,9 +332,11 @@ def main(argv=None):
                                n_object_embedding=args.n_object_embedding,
                                train_token=args.train_token, max_grad_norm=args.max_grad_norm)
     step_fn = make_token_train_step(unet, vae, text_encoder, schedule, tx, loss_cfg,
-                                    resize_weights=resize_w)
-    tracker = Tracker(os.path.join(args.output_dir, args.logging_dir), args.report_to,
-                      config=vars(args))
+                                    resize_weights=resize_w, mesh=mesh)
+    tracker = (Tracker(os.path.join(args.output_dir, args.logging_dir), args.report_to,
+                       config=vars(args)) if mesh.is_main else NullTracker())
+    if not mesh.is_main:
+        logger.setLevel(logging.WARNING)
     generator = torch.Generator(device=dev)
 
     logger.info("***** Running training *****")
@@ -397,25 +411,27 @@ def main(argv=None):
                     tracker.log(m, global_step)
                     logger.info("step %d: loss=%.5f attn=%.5f fg=%.5f bg=%.5f", global_step,
                                 m["loss"], m["attn_loss"], m["fg_loss"], m["bg_loss"])
-                if global_step % args.checkpointing_steps == 0:
+                if global_step % args.checkpointing_steps == 0 and mesh.is_main:
                     ckpt_writer.save_snapshot(args.output_dir, global_step, unet_cfg,
                                               snapshot_token_state(state, object_tokens),
                                               args.checkpoints_total_limit)
                     logger.info("Saving state to %s/checkpoint-%d (async)", args.output_dir,
                                 global_step)
-                if args.validation_prompts and global_step % args.validation_steps == 0:
+                if (args.validation_prompts and global_step % args.validation_steps == 0
+                        and mesh.is_main):
                     run_validation(global_step)
                 if global_step >= args.max_train_steps:
                     done = True
                     break
     seconds = time.perf_counter() - t0
 
-    # final artifacts (finetune_sd_token.py:1175-1187)
-    if args.train_token:
+    # final artifacts (finetune_sd_token.py:1175-1187), rank 0's
+    if args.train_token and mesh.is_main:
         save_learned_embeddings(
             object_tokens, state.embedding.detach().cpu().numpy(),
             os.path.join(args.output_dir, f"learned_embeds_steps_{global_step}.bin"))
-    if not args.only_save_checkpoint and (args.train_unet or args.train_cross_attn):
+    if (not args.only_save_checkpoint and (args.train_unet or args.train_cross_attn)
+            and mesh.is_main):
         save_path = os.path.join(args.output_dir, f"full_model_step_{global_step}")
         if not os.path.exists(save_path):
             save_pipeline(save_path, unet_cfg, current_unet_state(), bundle.vae_config,
@@ -424,6 +440,7 @@ def main(argv=None):
                           scheduler_config=bundle.scheduler_config, tokenizer=tokenizer)
             logger.info("Saved pipeline to %s", save_path)
     tracker.close()
+    barrier(mesh)
     steps = global_step - initial_step
     return {"steps": steps, "seconds": seconds, "global_step": global_step,
             "micro_batches": state.step, "losses": [float(x) for x in losses],

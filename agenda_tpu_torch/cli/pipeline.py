@@ -10,7 +10,11 @@ completion markers, ``--trust-outputs``, ``--list``, ``--dry-run``,
 imported. ``--device {cuda,cpu}`` (default cuda) is appended to the argv of
 the stages whose CLIs take it (``finetune_sd``, ``finetune_sd_token``,
 ``data_generation``, ``det_train``, ``det_test``, ``refine_label``); with
-cuda and no GPU those stages raise.
+cuda and no GPU those stages raise. Under ``torchrun --nproc_per_node N``
+every rank runs the stages that split over ranks (``MESH_MODULES``: the
+fine-tunes, generation, detector training and labelling, the JAX package's
+mesh call sites) and rank 0 alone runs the others and writes the markers
+and the manifest, the ranks meeting after each stage.
 
     python -m agenda_tpu_torch.cli.pipeline --init my_run.json      # write template
     python -m agenda_tpu_torch.cli.pipeline --config my_run.json --list
@@ -160,6 +164,8 @@ def _learned_embeds(stage_dir: str, steps: int) -> str:
 # the stage CLIs that take --device
 DEVICE_MODULES = ("finetune_sd", "finetune_sd_token", "data_generation", "det_train",
                   "det_test", "refine_label")
+# the stages every rank of a multi-card run takes part in
+MESH_MODULES = ("finetune_sd", "finetune_sd_token", "data_generation", "det_train", "det_test")
 
 
 def build_stages(cfg: PipelineConfig, device: Optional[str] = None) -> List[Stage]:
@@ -531,10 +537,12 @@ def main(argv=None):
             print(f"{sel} [{mark}] {s.name:24s} {s.note}")
         return 0
 
+    mesh = None
     if not args.dry_run:
-        from agenda_tpu_torch._device import resolve_device
+        from agenda_tpu_torch.parallel.mesh import barrier, make_mesh
 
-        resolve_device(args.device)  # no GPU with cuda: raise before any stage runs
+        mesh = make_mesh(device=args.device)  # no GPU with cuda: raise before any stage runs
+    main_rank = mesh is None or mesh.is_main
     os.makedirs(cfg.work_dir, exist_ok=True)
     os.makedirs(os.path.join(cfg.work_dir, ".stage_done"), exist_ok=True)
     manifest = os.path.join(cfg.work_dir, "pipeline_manifest.jsonl")
@@ -558,7 +566,11 @@ def main(argv=None):
         # re-resolve glob-dependent inputs now that earlier stages ran
         fresh = build_stages(cfg, args.device)
         stage = next(x for x in fresh if x.name == s.name)
-        run_stage(stage, cfg)
+        if main_rank or stage.module in MESH_MODULES:
+            run_stage(stage, cfg)
+        barrier(mesh)
+        if not main_rank:
+            continue
         with open(_marker(cfg, s.name), "w") as f:
             f.write(str(time.time()))
         with open(manifest, "a") as f:

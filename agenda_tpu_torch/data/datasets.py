@@ -141,13 +141,22 @@ def _stack(batch: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class DataLoader:
-    """Shuffled, epoch-seeded, prefetching batch iterator (drop_last=False)."""
+    """Shuffled, epoch-seeded, prefetching batch iterator (drop_last=False).
+
+    ``rows`` (a slice of the batch, one rank's share of a global batch of
+    ``batch_size``, ``parallel.Mesh.rows``) reads and yields only those rows
+    of each batch. A dataset whose items depend on how many it has served
+    before (the detector's augmentation seeds) is told of each row it does
+    not read through its ``skip_call(index)``, so every row read is the one
+    a single process reads."""
 
     prefetch = 2  # batches decoded ahead
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 num_workers: int = 2, pad_to_full: bool = False):
+                 num_workers: int = 2, pad_to_full: bool = False,
+                 rows: Optional[slice] = None):
         self.dataset = dataset
+        self.rows = rows
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -172,6 +181,19 @@ class DataLoader:
                    for b in out]
         return out
 
+    def _read(self, batch: np.ndarray) -> Dict[str, np.ndarray]:
+        if self.rows is None:
+            return _stack([self.dataset[int(i)] for i in batch])
+        lo, hi, _ = self.rows.indices(len(batch))
+        skip = getattr(self.dataset, "skip_call", None)
+        items = []
+        for k, i in enumerate(batch):
+            if lo <= k < hi:
+                items.append(self.dataset[int(i)])
+            elif skip is not None:
+                skip(int(i))
+        return _stack(items)
+
     def iter_from(self, epoch: int, start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """The batches of ``epoch`` from its ``start``-th on: where a resumed
         run left its epoch (the skipped batches are not read)."""
@@ -185,7 +207,7 @@ class DataLoader:
         self.epoch += 1
         if self.num_workers == 0:
             for b in batches:
-                yield _stack([self.dataset[int(i)] for i in b])
+                yield self._read(b)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -195,7 +217,7 @@ class DataLoader:
                 for b in batches:
                     if stop.is_set():
                         return
-                    q.put(_stack([self.dataset[int(i)] for i in b]))
+                    q.put(self._read(b))
                 q.put(None)
             except BaseException as e:  # handed to the consumer
                 q.put(("__error__", e))

@@ -230,6 +230,12 @@ class CocoDetDataset:
             "scale_back": np.asarray([sx, sy, sx, sy], np.float32),
         }
 
+    def skip_call(self, index: int) -> None:
+        """Count a call for ``index`` that another rank serves: the next call
+        draws what it draws in a single process (``DataLoader``'s ``rows``)."""
+        if self.train:
+            self._aug_calls += 1
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         if not self.train:
             img, boxes = self._resized(index)
@@ -328,6 +334,14 @@ class ConcatDataset:
     def __len__(self):
         return int(self._offsets[-1])
 
-    def __getitem__(self, index: int):
+    def _part(self, index: int):
         di = int(np.searchsorted(self._offsets, index, side="right") - 1)
-        return self.datasets[di][index - int(self._offsets[di])]
+        return self.datasets[di], index - int(self._offsets[di])
+
+    def skip_call(self, index: int) -> None:
+        part, i = self._part(index)
+        part.skip_call(i)
+
+    def __getitem__(self, index: int):
+        part, i = self._part(index)
+        return part[i]

@@ -45,6 +45,7 @@ from agenda_tpu_torch.detect.losses import bce_with_logits, smooth_l1
 from agenda_tpu_torch.detect.ops import (decode_deltas, encode_deltas, grid_anchors, nms_images,
                                          roi_align)
 from agenda_tpu_torch.models.resnet import ResNet50, _module_from_flax, _module_to_flax
+from agenda_tpu_torch.parallel.mesh import batch_mean, draw_rows, global_sum
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -237,7 +238,7 @@ def rpn_loss(rpn_outs, anchors: torch.Tensor, batch: Tensors, cfg: FasterRCNNCon
     t = encode_deltas(anchors[idx], _take(gtb, torch.gather(assigned, 1, idx).clamp(min=0)))
     reg_w = (is_pos & valid).to(scores.dtype)
     reg_l = (smooth_l1(_take(deltas, idx), t, beta=1.0 / 9.0).sum(-1) * reg_w).sum(dim=1) / denom
-    return cls_l.mean(), reg_l.mean()
+    return batch_mean(cls_l), batch_mean(reg_l)
 
 
 @torch.no_grad()
@@ -263,7 +264,7 @@ def rcnn_loss(cls_logits: torch.Tensor, reg: torch.Tensor, targets, cfg: FasterR
     _, is_pos, tgt_deltas, valid = targets
     w = valid.to(cls_logits.dtype)
     fg = (is_pos & valid).to(cls_logits.dtype)
-    denom = w.sum().clamp(min=1.0)
+    denom = global_sum(w.sum()).clamp(min=1.0)  # over every RoI of the global batch
     # softmax CE over (num_classes + 1); one class: fg label 0, bg label 1
     labels = torch.where(is_pos, 0, cfg.num_classes)
     ce = -torch.gather(F.log_softmax(cls_logits, dim=-1), -1, labels[..., None])[..., 0]
@@ -329,10 +330,12 @@ class TwoStageFamily(FamilyVariables):
         b, dev = batch["gt_boxes"].shape[0], batch["gt_boxes"].device
         n_anchors = self.anchors_np.shape[0]
         n_rois = self.config.num_proposals + batch["gt_boxes"].shape[1]
-        return {"rpn_pos": draw_uniforms(generator, (b, n_anchors), dev),
-                "rpn_neg": draw_uniforms(generator, (b, n_anchors), dev),
-                "rcnn_pos": draw_uniforms(generator, (b, n_rois), dev),
-                "rcnn_neg": draw_uniforms(generator, (b, n_rois), dev)}
+
+        def draw(n):  # this rank's rows of the global batch's draws
+            return draw_rows(lambda g: draw_uniforms(generator, (g, n), dev), b)
+
+        return {"rpn_pos": draw(n_anchors), "rpn_neg": draw(n_anchors),
+                "rcnn_pos": draw(n_rois), "rcnn_neg": draw(n_rois)}
 
     def _extract(self, variables: Tensors, images: torch.Tensor, **kw):
         return functional_call(self.model, variables, (images.permute(0, 3, 1, 2).contiguous(),),

@@ -53,8 +53,20 @@ Counterpart of ``agenda_tpu/detect/runner.py``:
 
 The detector runs in f32 on the card with TF32 off (``allow_tf32=False``
 for cuDNN and cuBLAS), as the reference's f32 convolutions, in training
-too. The JAX package's dp-mesh sharding of the batch is not ported
-(ROADMAP.md §A).
+too.
+
+Over several ranks (``mesh``, ``parallel/mesh.py``; ``agenda_tpu/detect/
+runner.py:317-321, 687-703``): training takes a global batch of
+``batch_size x dp`` in a single process's sample order, and each rank reads
+(host path) or renders (device path, from the global batch's plans) its
+rows. The step runs under ``parallel.batch_split``, so the batch-norm
+statistics, the losses' normalizers and batch size, and the samplers' and
+drop path's per-sample draws are the global batch's; the ranks' losses are
+shares of the global loss and their gradients are summed. Only rank 0
+validates, logs and writes checkpoints. ``test`` splits each batch over the
+ranks when the batch divides by the world (else every rank predicts it
+whole) and gathers the records, in a single process's order, on every rank;
+rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -79,6 +91,8 @@ from agenda_tpu_torch.detect.device_aug import (PLAN_SEED, SELECTORS, AugPlanner
 from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict, state_dict_to_flax
 from agenda_tpu_torch.detect.optim import global_norm, make_optimizer
 from agenda_tpu_torch.io.safetensors_io import load_file, save_file
+from agenda_tpu_torch.parallel.mesh import (Mesh, all_gather_objects, all_reduce_sum_,
+                                            batch_split, shard_batch)
 
 
 @dataclasses.dataclass
@@ -235,10 +249,11 @@ class DeviceAugFeed:
     without autograd."""
 
     def __init__(self, planner, n_tiles: int, batch_size: int, seed: int, max_gt: int,
-                 workers: int, stop_epoch: Optional[int], dev: torch.device):
+                 workers: int, stop_epoch: Optional[int], dev: torch.device,
+                 mesh: Optional[Mesh] = None):
         from agenda_tpu_torch.data.datasets import DataLoader
 
-        self.planner, self.dev, self.max_gt = planner, dev, max_gt
+        self.planner, self.dev, self.max_gt, self.mesh = planner, dev, max_gt, mesh
         self.seed_base = (seed + 1) * PLAN_SEED
         # the batches' indices only: nothing augments images on the host
         self.loader = DataLoader(range(n_tiles), batch_size, shuffle=True, seed=seed,
@@ -304,8 +319,13 @@ class DeviceAugFeed:
             return render_batch(self.data, scratch, plans, (p.th, p.tw), separable=p.separable)
 
     def batches(self, epoch: int):
-        """The epoch's train batches on the card: image, gt_boxes, gt_valid."""
+        """The epoch's train batches on the card: image, gt_boxes, gt_valid
+        (with ``mesh``, this rank's rows of the global batch's plans)."""
         for packed, scratch in self.plans(epoch):
+            if self.mesh is not None:
+                packed = shard_batch(packed, self.mesh)
+                if not (packed["pass_slot"] >= 0).any():
+                    scratch = None
             plans, slab = self.upload(packed, scratch)
             yield {"image": self.render(plans, slab), "gt_boxes": plans["gt_boxes"],
                    "gt_valid": plans["gt_valid"]}
@@ -317,10 +337,19 @@ class DeviceAugFeed:
 
 
 class DetectorRunner:
-    def __init__(self, family, cfg: Optional[RunnerConfig] = None, device: Any = "cuda"):
+    def __init__(self, family, cfg: Optional[RunnerConfig] = None, device: Any = "cuda",
+                 mesh: Optional[Mesh] = None):
+        """``mesh``: the ranks to train and predict over (its device is the
+        runner's); one process without it."""
         self.family = family
         self.cfg = cfg or RunnerConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.is_main = self.mesh is None or self.mesh.is_main
+
+    @property
+    def dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
 
     def variables_on_device(self, variables: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The checked variables on the runner's device."""
@@ -354,13 +383,23 @@ class DetectorRunner:
         from a batch on the device; returns the step's metrics (0-dim tensors
         on the device: the family's loss parts, loss, grad_norm)."""
         family, ema_decay, seed, dev = self.family, self.cfg.ema_decay, self.cfg.seed, self.device
+        mesh = self.mesh
 
         def step(state: TrainState, batch: Dict[str, torch.Tensor], gstep: int):
             variables = {**state.params, **state.stats, **state.counters}
-            loss, metrics, new_stats = family.loss_fn(variables, batch,
-                                                      step_generator(seed, gstep, dev))
             names = list(state.params)
-            grads = dict(zip(names, torch.autograd.grad(loss, [state.params[k] for k in names])))
+            with batch_split(mesh):
+                loss, metrics, new_stats = family.loss_fn(variables, batch,
+                                                          step_generator(seed, gstep, dev))
+                grads = dict(zip(names, torch.autograd.grad(loss, [state.params[k]
+                                                                   for k in names])))
+            if mesh is not None:  # the ranks' losses are shares of the global one
+                all_reduce_sum_(grads.values(), mesh)
+                parts = list(metrics)
+                total = torch.stack([metrics[k].detach() for k in parts] + [loss.detach()])
+                all_reduce_sum_([total], mesh)
+                metrics = dict(zip(parts, total[:-1]))
+                loss = total[-1]
             opt.update(grads, state.opt, state.params)
             state.stats = new_stats
             if state.ema is not None:
@@ -382,7 +421,8 @@ class DetectorRunner:
         from agenda_tpu_torch.train.checkpoint import AsyncWriter
 
         cfg, dev = self.cfg, self.device
-        global_bs = cfg.batch_size
+        global_bs = cfg.batch_size * self.dp
+        rows = None if self.mesh is None else self.mesh.rows(global_bs)
         switch_epoch = cfg.max_epochs - cfg.close_mosaic_epochs \
             if cfg.close_mosaic_epochs > 0 else None
         planner = feed = None
@@ -394,13 +434,14 @@ class DetectorRunner:
         self.aug_path = "host" if planner is None else "device"
         if planner is None:
             loader = DataLoader(train_dataset, global_bs, shuffle=True, seed=cfg.seed,
-                                num_workers=1, pad_to_full=True)
+                                num_workers=1, pad_to_full=True, rows=rows)
 
             def epoch_batches(epoch):
                 return (batch_to_device(b, dev) for b in loader)
         else:
             feed = DeviceAugFeed(planner, len(train_dataset), global_bs, cfg.seed,
-                                 train_dataset.max_gt, cfg.device_aug_workers, switch_epoch, dev)
+                                 train_dataset.max_gt, cfg.device_aug_workers, switch_epoch, dev,
+                                 self.mesh)
             loader, epoch_batches = feed.loader, feed.batches
         saver = AsyncWriter()
         try:
@@ -418,7 +459,7 @@ class DetectorRunner:
         from agenda_tpu_torch.utils.profiling import StepTimer
 
         cfg, dev = self.cfg, self.device
-        global_bs = cfg.batch_size
+        global_bs = cfg.batch_size * self.dp
         base_lr = cfg.lr
         if cfg.auto_scale_lr and cfg.base_batch_size:
             base_lr = cfg.lr * global_bs / cfg.base_batch_size
@@ -464,8 +505,8 @@ class DetectorRunner:
 
         best: Dict[str, float] = {k: -1.0 for k in cfg.save_best}
         timer = StepTimer()
-        with open(os.path.join(cfg.output_dir, "metrics.jsonl"), "a") as metrics_log, \
-                full_f32(dev):
+        log_path = os.path.join(cfg.output_dir, "metrics.jsonl") if self.is_main else os.devnull
+        with open(log_path, "a") as metrics_log, full_f32(dev):
             for epoch in range(start_epoch, cfg.max_epochs):
                 if switch_epoch is not None and epoch >= switch_epoch:
                     self._apply_stage2_aug(train_dataset)
@@ -486,6 +527,8 @@ class DetectorRunner:
                 if (switch_epoch is not None and epoch >= switch_epoch
                         and cfg.val_interval_stage2 is not None):
                     val_every = cfg.val_interval_stage2
+                if not self.is_main:
+                    continue  # rank 0 validates and checkpoints
                 if val_dataset is not None and (epoch + 1) % val_every == 0:
                     variables = state.variables(use_ema=cfg.ema_decay > 0)
                     results = self.evaluate(variables, val_dataset)
@@ -552,11 +595,18 @@ class DetectorRunner:
 
     # -- evaluation / test --------------------------------------------------
 
-    def _predict_batches(self, variables, dataset, batch_size: Optional[int] = None):
+    def _predict_batches(self, variables, dataset, batch_size: Optional[int] = None,
+                         split: bool = False):
+        """The records of ``dataset`` in order. With ``split`` and a batch that
+        divides by the mesh's world, each rank predicts its rows of every
+        batch and the records are gathered on every rank."""
         bs = batch_size or self.cfg.batch_size
         dev = self.device
         cuda = dev.type == "cuda"
         n = len(dataset)
+        mesh = self.mesh if split else None
+        if mesh is not None and bs % mesh.world:
+            mesh = None  # every rank runs the whole batch (runner.py:691)
         params = self.variables_on_device(variables)
         out_w, out_h = dataset.img_scale
         src = dataset.source_size()  # one size: a batched resize; else tile by tile
@@ -585,16 +635,24 @@ class DetectorRunner:
             return buf.to(dev, non_blocking=True)
 
         def dispatch(i: int, slot: int):
+            lo, hi = i, min(i + bs, n)
+            size = bs
+            if mesh is not None:  # this rank's rows of the batch padded to bs
+                size = bs // mesh.world
+                r = mesh.rows(bs)
+                lo, hi = i + r.start, min(i + r.stop, n)
+                if lo >= hi:
+                    return lo, [], None, None
             if src is not None:
-                items = [dataset.item_u8(j, expect_size=src) for j in range(i, min(i + bs, n))]
-                pad = bs - len(items)
+                items = [dataset.item_u8(j, expect_size=src) for j in range(lo, hi)]
+                pad = size - len(items)
                 u8 = np.stack([it["image_u8"] for it in items]
                               + [items[-1]["image_u8"]] * pad)
                 wy, wx = resize_weights_on_device(*src)
                 x = resize_levels(upload(slot, u8), wy, wx) / 255.0
             else:
-                items = [dataset.item_u8(j) for j in range(i, min(i + bs, n))]
-                pad = bs - len(items)
+                items = [dataset.item_u8(j) for j in range(lo, hi)]
+                pad = size - len(items)
                 tiles = []
                 for it in items + [items[-1]] * pad:
                     u8 = torch.from_numpy(it["image_u8"]).to(dev)
@@ -606,7 +664,7 @@ class DetectorRunner:
             packed = torch.cat([boxes, scores[..., None], valid[..., None].to(boxes.dtype)],
                                dim=-1)
             if not cuda:
-                return items, packed, None
+                return lo, items, packed, None
             host = staged_out[slot]
             if host is None or host.shape != packed.shape:
                 host = staged_out[slot] = torch.empty(packed.shape, dtype=packed.dtype,
@@ -614,12 +672,14 @@ class DetectorRunner:
             host.copy_(packed, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-            return items, host, done
+            return lo, items, host, done
 
-        records = []
+        records = []  # (index in the set, record)
 
         def collect(pending):
-            items, host, done = pending
+            lo, items, host, done = pending
+            if not items:
+                return
             if done is not None:
                 done.synchronize()
             res = host.numpy()
@@ -627,8 +687,8 @@ class DetectorRunner:
                 valid = res[k, :, 5] > 0
                 scores = res[k, :, 4]
                 keep = valid & (scores > 0)
-                records.append({"item": it, "boxes": res[k, :, :4][keep],  # copies: a mask
-                                "scores": scores[keep]})
+                records.append((lo + k, {"item": it, "boxes": res[k, :, :4][keep],  # a copy
+                                         "scores": scores[keep]}))
 
         pending = None
         with full_f32(dev):
@@ -639,7 +699,10 @@ class DetectorRunner:
                 pending = cur
             if pending is not None:
                 collect(pending)
-        return records
+        if mesh is not None:  # every rank's rows, back in the set's order
+            records = sorted((r for part in all_gather_objects(records, mesh) for r in part),
+                             key=lambda r: r[0])
+        return [rec for _, rec in records]
 
     def evaluate(self, variables, dataset) -> Dict[str, float]:
         recs = self._predict_batches(variables, dataset)
@@ -650,7 +713,7 @@ class DetectorRunner:
              img_dir: Optional[str] = None,
              batch_size: Optional[int] = None) -> List[dict]:
         """Produce prediction records (== mmdet tools/test.py --out)."""
-        recs = self._predict_batches(variables, dataset, batch_size=batch_size)
+        recs = self._predict_batches(variables, dataset, batch_size=batch_size, split=True)
         out = []
         for r in recs:
             it = r["item"]
@@ -669,6 +732,6 @@ class DetectorRunner:
                     "labels": np.zeros(len(r["scores"]), np.int64),
                 },
             })
-        if out_pkl:
+        if out_pkl and self.is_main:
             save_predictions(out, out_pkl)
         return out

@@ -40,6 +40,7 @@ from agenda_tpu_torch.detect.augment import pil_float_matrix
 from agenda_tpu_torch.detect.faster_rcnn import (FasterRCNNConfig, RPNHead, TwoStageFamily,
                                                  roi_heads, subsample2)
 from agenda_tpu_torch.detect.flax_layout import lecun_init_
+from agenda_tpu_torch.parallel.mesh import draw_rows
 
 Tensors = Dict[str, torch.Tensor]
 LN_EPS = 1e-6  # flax nn.LayerNorm's
@@ -135,7 +136,7 @@ def drop_path(t: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     if generator is None:
         raise ValueError("drop path in train mode needs the step's generator")
     keep = 1.0 - rate
-    m = draw_uniforms(generator, (t.shape[0], 1, 1, 1), t.device) < keep
+    m = draw_rows(lambda n: draw_uniforms(generator, (n, 1, 1, 1), t.device), t.shape[0]) < keep
     return t * m.to(t.dtype) / keep
 
 

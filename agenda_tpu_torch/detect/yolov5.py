@@ -40,6 +40,7 @@ from agenda_tpu_torch.detect.flax_layout import FamilyVariables, lecun_init_
 from agenda_tpu_torch.detect.losses import bce_with_logits, ciou
 from agenda_tpu_torch.detect.ops import device_constant, nested_tuple, nms_images
 from agenda_tpu_torch.detect.yolov8 import ConvBNAct
+from agenda_tpu_torch.parallel.mesh import batch_mean, global_rows
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -272,12 +273,13 @@ def yolov5_loss(heads: List[torch.Tensor], batch: Tensors, cfg: YOLOv5Config
         n_match = n_match + m.flatten(1).sum(1)
         tobj = torch.where(tmask, iou.detach().clamp(0.0, 1.0), torch.zeros_like(iou))
         lobj = lobj + cfg.obj_balance[li] * bce_with_logits(obj_logit, tobj).flatten(1).mean(1)
-    lbox = (lbox / n_match.clamp(min=1.0)).mean()
-    lobj = lobj.mean()
+    # over several ranks: this rank's shares of the global batch's means
+    lbox = batch_mean(lbox / n_match.clamp(min=1.0))
+    lobj = batch_mean(lobj)
     # mmyolo/ultralytics scale the loss by the global batch size; the presets'
     # learning rates assume that gradient scale
-    loss = (cfg.box_weight * lbox + cfg.obj_weight * lobj) * b
-    return loss, {"box": lbox, "obj": lobj, "n_match": n_match.mean()}
+    loss = (cfg.box_weight * lbox + cfg.obj_weight * lobj) * global_rows(b)[0]
+    return loss, {"box": lbox, "obj": lobj, "n_match": batch_mean(n_match)}
 
 
 def yolov5_predict(heads: List[torch.Tensor], cfg: YOLOv5Config, score_thr: float = 0.001,

@@ -38,6 +38,7 @@ from agenda_tpu_torch.detect.assign import task_aligned_assign
 from agenda_tpu_torch.detect.losses import bce_with_logits, ciou, dfl_loss
 from agenda_tpu_torch.detect.ops import anchor_points, nms_images
 from agenda_tpu_torch.models.batch_norm import batch_norm_train
+from agenda_tpu_torch.parallel.mesh import global_rows, global_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,10 +288,12 @@ def yolov8_loss(outs, batch: Dict[str, torch.Tensor], cfg: YOLOv8Config
     tdist = torch.cat([lt, rb], dim=-1).clamp(0, cfg.reg_max - 1.01)
     dfl_l = (dfl_loss(dist, tdist, cfg.reg_max - 1).sum(dim=-1) * w).sum()
 
-    denom = w.sum().clamp(min=1.0)
+    # over several ranks the normalizer and the batch size are the global
+    # batch's, and each rank's loss is its share of the global one
+    denom = global_sum(w.sum()).clamp(min=1.0)
     total_cls, total_iou, total_dfl = cls_l / denom, iou_l / denom, dfl_l / denom
     loss = cfg.cls_weight * total_cls + cfg.box_weight * total_iou + cfg.dfl_weight * total_dfl
     # mmyolo/ultralytics scale the loss by the global batch size; the presets'
     # learning rates assume that gradient scale
-    loss = loss * scores.shape[0]
+    loss = loss * global_rows(scores.shape[0])[0]
     return loss, {"cls": total_cls, "iou": total_iou, "dfl": total_dfl}

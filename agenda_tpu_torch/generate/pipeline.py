@@ -29,6 +29,11 @@ from its own CPU ``torch.Generator(seed)``. This stream is the port's own:
 the JAX package draws from jax threefry, which torch cannot reproduce, so
 the two packages give different images for the same seed. The parity tests
 feed the port the JAX latents.
+
+Over several ranks (``mesh``, ``parallel/mesh.py``; ``agenda_tpu/generate/
+pipeline.py:490-498``) a call's seeds are the global batch and each rank
+samples its rows of it: a seed's latents depend on the seed alone, so every
+image and heatmap is the one a single process makes.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from agenda_tpu_torch.models.clip_text import CLIPTextModel
 from agenda_tpu_torch.models.layers import cast_for_compute
 from agenda_tpu_torch.models.unet import UNet2DConditionModel
 from agenda_tpu_torch.models.vae import AutoencoderKL
+from agenda_tpu_torch.parallel.mesh import Mesh
 
 log = logging.getLogger(__name__)
 
@@ -79,6 +85,7 @@ class StableDiffusionPipeline:
     device: torch.device
     scheduler_type: str = "pndm"  # SD-1.x pipeline default
     latent_hw: int = 64  # heatmap aggregation resolution
+    mesh: Optional[Mesh] = None  # split each call's seeds over its ranks
 
     @classmethod
     def from_pretrained(cls, model_dir: str, device: str = "cuda") -> "StableDiffusionPipeline":
@@ -277,8 +284,14 @@ class StableDiffusionPipeline:
         ``num_inference_steps``) turns TGATE on (the module's docstring); 0,
         the default, samples exactly. On CUDA the results come back through a
         non-blocking copy and an event, so the caller can write batch i while
-        the card samples batch i+1.
+        the card samples batch i+1. With ``mesh`` over several ranks, ``seeds``
+        (and ``latents``) are the global batch, which divides by the world,
+        and the result holds this rank's rows (``mesh.rows``).
         """
+        if self.mesh is not None and self.mesh.world > 1:
+            rows = self.mesh.rows(len(seeds))
+            seeds = list(seeds)[rows]
+            latents = None if latents is None else latents[rows]
         b = len(seeds)
         if words:
             collect_heatmaps = True

@@ -26,6 +26,10 @@ step and mini-step; ``load_optimizer_state`` restores it on resume.
 
 This replaces the JAX package's orbax PyTree for the optimizer, step and
 EMA step; reading a JAX orbax checkpoint is not supported (see ROADMAP.md).
+Under ``--fsdp`` (``parallel/blocks.py``) every rank takes part in the
+snapshot, which gathers the block runs into the one-card layout on rank 0,
+and a resume takes each rank's runs of it: a checkpoint of any world
+resumes at any other.
 A checkpoint is written into ``.tmp-checkpoint-<step>`` and renamed into
 place, so resume never sees a partial one.
 """
@@ -46,7 +50,12 @@ from agenda_tpu_torch.io.configs import unet_config_to_json
 from agenda_tpu_torch.io.diffusers_io import _read_tensor_file
 from agenda_tpu_torch.io.learned_embeds import save_learned_embeddings
 from agenda_tpu_torch.io.safetensors_io import load_file, save_file
-from agenda_tpu_torch.train.optim import MultiStepsState, ScaleByAdam8bitState, _Quantized
+from agenda_tpu_torch.train.optim import (
+    MIN_QUANTIZE_SIZE,
+    MultiStepsState,
+    ScaleByAdam8bitState,
+    _Quantized,
+)
 
 _CKPT_RE = re.compile(r"^checkpoint-(\d+)$")
 _WEIGHTS = "diffusion_pytorch_model"
@@ -97,8 +106,11 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def _opt_tensors(opt_state) -> Tuple[str, Dict[str, torch.Tensor], Optional[int]]:
-    """(kind, tensors, mini_step or None without accumulation)."""
+def _opt_tensors(opt_state, shard=None,
+                 params=None) -> Tuple[str, Dict[str, torch.Tensor], Optional[int]]:
+    """(kind, tensors, mini_step or None without accumulation). With
+    ``shard`` (the ``BlockRuns`` of ``params``) the sharded leaves' runs are
+    gathered into their one-card tensors, on every rank."""
     mini, acc = None, {}
     if isinstance(opt_state, MultiStepsState):
         mini = opt_state.mini_step
@@ -106,25 +118,55 @@ def _opt_tensors(opt_state) -> Tuple[str, Dict[str, torch.Tensor], Optional[int]
         opt_state = opt_state.inner
     kind = "adam8bit" if isinstance(opt_state, ScaleByAdam8bitState) else "adamw"
     out = {"count": _host(opt_state.count)}
+    names = list(params) if shard is not None else list(opt_state.mu)
     for part in ("mu", "nu"):
-        for name, m in getattr(opt_state, part).items():
-            if isinstance(m, _Quantized):
+        moments = getattr(opt_state, part)
+        for name in names:
+            m = moments.get(name)
+            if shard is not None and name in shard.runs:
+                shape = params[name].shape
+                if kind == "adam8bit" and shard.sizes[name] >= MIN_QUANTIZE_SIZE:
+                    nb = -(-shard.sizes[name] // 256)
+                    out[f"{part}.{name}.q"] = _host(shard.full(
+                        name, None if m is None else m.q, shape, torch.int8))
+                    out[f"{part}.{name}.scale"] = _host(shard.full(
+                        name, None if m is None else m.scale, (nb,), torch.float32, True))
+                else:
+                    out[f"{part}.{name}"] = _host(shard.full(name, m, shape, torch.float32))
+            elif isinstance(m, _Quantized):
                 out[f"{part}.{name}.q"] = _host(m.q)
                 out[f"{part}.{name}.scale"] = _host(m.scale)
             else:
                 out[f"{part}.{name}"] = _host(m)
+    if shard is not None and mini:
+        acc = {name: (shard.full(name, acc.get(name), params[name].shape, torch.float32)
+                      if name in shard.runs else acc[name]) for name in names}
     out.update({f"acc.{name}": _host(a) for name, a in acc.items()})
     return kind, out, mini
+
+
+def full_ema(state) -> Optional[Dict[str, torch.Tensor]]:
+    """The SD train state's EMA shadow in the one-card layout (gathered from
+    the block runs under ``--fsdp``, on every rank), or None without EMA."""
+    shard = getattr(state, "shard", None)
+    if state.ema is None:
+        return None
+    if shard is None:
+        return state.ema.params
+    return {k: (shard.full(k, state.ema.params.get(k), p.shape, torch.float32)
+                if k in shard.runs else state.ema.params[k])
+            for k, p in state.params.items()}
 
 
 def snapshot_state(state, ema_as_unet_ema: bool = True) -> dict:
     """Host copies of everything a checkpoint writes (the copy from the card
     waits for the step's work, so the snapshot is of this step)."""
-    kind, opt, mini = _opt_tensors(state.opt_state)
+    shard = getattr(state, "shard", None)
+    kind, opt, mini = _opt_tensors(state.opt_state, shard, state.params)
+    ema = full_ema(state) if ema_as_unet_ema else None
     return {
         "params": {k: _host(v) for k, v in state.params.items()},
-        "ema_params": ({k: _host(v) for k, v in state.ema.params.items()}
-                       if ema_as_unet_ema and state.ema is not None else None),
+        "ema_params": None if ema is None else {k: _host(v) for k, v in ema.items()},
         "optimizer": kind,
         "opt": opt,
         "step": int(state.step),
@@ -267,9 +309,13 @@ def find_resume_checkpoint(output_dir: str, resume_from: str) -> Optional[Tuple[
 
 
 @torch.no_grad()
-def load_optimizer_state(path: str, opt_state) -> dict:
+def load_optimizer_state(path: str, opt_state, shard=None) -> dict:
     """Restore ``<path>/train_state`` into ``opt_state`` in place (its
-    structure stays) and return the checkpoint's state.json."""
+    structure stays) and return the checkpoint's state.json; with ``shard``
+    (``BlockRuns``) each sharded leaf takes this rank's runs of it."""
+    def take(name, t, per_block=False):
+        return t if shard is None else shard.take(name, t, per_block)
+
     with open(os.path.join(path, "train_state", "state.json")) as f:
         meta = json.load(f)
     opt = load_file(os.path.join(path, "train_state", "optimizer.safetensors"))
@@ -282,15 +328,15 @@ def load_optimizer_state(path: str, opt_state) -> dict:
     for part in ("mu", "nu"):
         for name, m in getattr(inner, part).items():
             if isinstance(m, _Quantized):
-                m.q.copy_(opt[f"{part}.{name}.q"])
-                m.scale.copy_(opt[f"{part}.{name}.scale"])
+                m.q.copy_(take(name, opt[f"{part}.{name}.q"]))
+                m.scale.copy_(take(name, opt[f"{part}.{name}.scale"], True))
             else:
-                m.copy_(opt[f"{part}.{name}"])
+                m.copy_(take(name, opt[f"{part}.{name}"]))
     if outer is not None:
         outer.mini_step = int(meta.get("mini_step", 0))
         for name, a in outer.acc.items():
             if outer.mini_step:
-                a.copy_(opt[f"acc.{name}"])
+                a.copy_(take(name, opt[f"acc.{name}"]))
             else:
                 a.zero_()
     return meta
@@ -305,12 +351,13 @@ def load_checkpoint(path: str, state) -> Any:
         raise ValueError(f"{path}: the checkpoint's UNet keys differ from the model's")
     for k, p in state.params.items():
         p.copy_(params[k])
-    meta = load_optimizer_state(path, state.opt_state)
+    shard = getattr(state, "shard", None)
+    meta = load_optimizer_state(path, state.opt_state, shard)
     state.step = int(meta["step"])
     if state.ema is not None:
         ema_file = os.path.join(path, "unet_ema", _WEIGHTS)
         ema = _read_tensor_file(ema_file) if os.path.exists(ema_file + ".safetensors") else params
         for k, e in state.ema.params.items():
-            e.copy_(ema[k])
+            e.copy_(ema[k] if shard is None else shard.take(k, ema[k]))
         state.ema.step.fill_(int(meta["ema_step"] or 0))
     return state

@@ -18,6 +18,15 @@ offset noise and the input perturbation, ``finetune_sd.py:81-87,155-157``)
 come in a ``StepDraws``; without one the step makes its own from a
 ``torch.Generator``. That stream is the port's own, so the parity tests pass
 in the draws of the JAX key stream.
+
+Over several ranks (``mesh``, ``parallel/mesh.py``) each rank's batch is its
+rows of the global batch. The generator draws for the global batch on every
+rank and each takes its rows, so every sample sees the draws it sees on one
+card; the gradients and the loss are averaged over the world before the
+clip. With ``mesh.fsdp`` > 1 the large leaves' optimizer state and EMA are
+this rank's block runs (``parallel/blocks.py``): ``TrainState.opt_params``
+holds views of those runs, the optimizer updates them, and the runs are
+broadcast back into every rank's parameters.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from agenda_tpu_torch.core.schedules import (
 )
 from agenda_tpu_torch.data.device_resize import apply_resize
 from agenda_tpu_torch.models.vae import sample_latents
-from agenda_tpu_torch.train.optim import Optimizer, updated
+from agenda_tpu_torch.parallel.blocks import BlockRuns
+from agenda_tpu_torch.parallel.mesh import MIN_SHARD_SIZE, Mesh, all_reduce_sum_, replicate
+from agenda_tpu_torch.train.optim import Optimizer, global_norm, updated
 
 
 @dataclasses.dataclass
@@ -47,15 +58,42 @@ class TrainState:
     params: Dict[str, nn.Parameter]  # the UNet's own f32 parameters, by name
     opt_state: Any
     step: int
-    ema: Optional[EMAState]
+    ema: Optional[EMAState]  # of opt_params
+    shard: Optional[BlockRuns] = None  # with --fsdp > 1: this rank's block runs
+    opt_params: Optional[Dict[str, torch.Tensor]] = None  # what the optimizer updates
+
+    def __post_init__(self):
+        if self.opt_params is None:
+            self.opt_params = self.params
 
 
-def init_train_state(unet: nn.Module, tx: Optimizer, use_ema: bool) -> TrainState:
-    """f32 master parameters (the UNet is cast to f32 in place) and fresh state."""
+def init_train_state(unet: nn.Module, tx: Optimizer, use_ema: bool,
+                     mesh: Optional[Mesh] = None,
+                     min_shard_size: int = MIN_SHARD_SIZE) -> TrainState:
+    """f32 master parameters (the UNet is cast to f32 in place, rank 0's on
+    every rank) and fresh state; with ``mesh.fsdp`` > 1 the optimizer state
+    and EMA of the leaves of ``min_shard_size`` elements or more
+    (``param_sharding_rules``) are this rank's block runs."""
     unet.float()
     params = dict(unet.named_parameters())
-    return TrainState(params=params, opt_state=tx.init(params), step=0,
-                      ema=ema_init(params) if use_ema else None)
+    if mesh is not None:
+        replicate(params.values(), mesh)
+    if mesh is None or mesh.fsdp == 1:
+        return TrainState(params=params, opt_state=tx.init(params), step=0,
+                          ema=ema_init(params) if use_ema else None)
+    shard = BlockRuns(params, mesh, min_shard_size)
+    local = shard.local(params)
+    return TrainState(params=params, opt_state=tx.init(local, shard.sizes), step=0,
+                      ema=ema_init(local) if use_ema else None, shard=shard, opt_params=local)
+
+
+def mean_over_world_(tensors, mesh: Optional[Mesh]) -> None:
+    """Each tensor replaced in place by its mean over the world."""
+    if mesh is None or mesh.world == 1:
+        return
+    tensors = list(tensors)
+    all_reduce_sum_(tensors, mesh)
+    torch._foreach_mul_(tensors, 1.0 / mesh.world)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,21 +116,28 @@ class StepDraws:
 
 
 def make_draws(generator: torch.Generator, shape, num_train_timesteps: int,
-               cfg: LossConfig, device: torch.device) -> StepDraws:
-    """One step's draws from the port's own generator (on ``device``)."""
+               cfg: LossConfig, device: torch.device, mesh: Optional[Mesh] = None) -> StepDraws:
+    """One step's draws from the port's own generator (on ``device``) for a
+    batch of ``shape``; over the ranks of ``mesh``, the global batch's draws
+    and this rank's rows of them (each sample's are the ones one card draws)."""
     b, c = shape[0], shape[-1]
+    rows = slice(None)
+    if mesh is not None and mesh.world > 1:
+        b *= mesh.world
+        shape, rows = (b,) + tuple(shape[1:]), mesh.rows(b)
 
     def normal(s):
-        return torch.randn(s, generator=generator, device=device)
+        return torch.randn(s, generator=generator, device=device)[rows]
 
     return StepDraws(
         latent_eps=normal(shape),
         noise=normal(shape),
         timesteps=torch.randint(0, num_train_timesteps, (b,), generator=generator,
-                                device=device),
+                                device=device)[rows],
         offset_noise=normal((b, 1, 1, c)) if cfg.noise_offset else None,
         perturbation=normal(shape) if cfg.input_perturbation else None,
     )
+
 
 
 def diffusion_loss(unet: nn.Module, schedule: DiffusionSchedule, latents: torch.Tensor,
@@ -139,6 +184,7 @@ def make_train_step(
     use_ema: bool = False,
     ema_decay: float = 0.9999,
     resize_weights: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Build ``step(state, batch, draws=None, generator=None) -> (state, metrics)``.
 
@@ -150,6 +196,8 @@ def make_train_step(
     of this micro-batch's gradient), so the step never waits on the host.
     ``state.step`` counts micro-batches; with ``tx`` accumulating (``multi_steps``)
     the parameters, the optimizer count and the EMA move on every k-th.
+    Over the ranks of ``mesh``, ``batch`` and ``draws`` are this rank's rows
+    and the metrics are the global batch's.
     """
     scaling = vae.config.scaling_factor
     device = next(unet.parameters()).device
@@ -166,7 +214,7 @@ def make_train_step(
                 mean, logvar = vae.encode(pixels)
             if draws is None:
                 draws = make_draws(generator, mean.shape, schedule.num_train_timesteps,
-                                   loss_cfg, device)
+                                   loss_cfg, device, mesh)
             latents = sample_latents(mean, logvar, draws.latent_eps.float()) * scaling
             context = text_encoder(batch["input_ids"])[0]
         with _autocast(device):
@@ -174,22 +222,29 @@ def make_train_step(
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in state.params.items()}
+        loss = loss.detach()
+        mean_over_world_(list(grads.values()) + [loss], mesh)
+        norm = global_norm
+        if state.shard is not None:
+            grads, norm = state.shard.local(grads), state.shard.global_norm
         # under gradient accumulation only the update micro-batch moves the
         # parameters and blends the EMA (finetune_sd.py:211-217)
         if tx.fused and use_ema and state.ema is not None:
             # the shadow is blended inside the kernel, from the new params in registers
             decay = ema_decay_at(state.ema.step, ema_decay)
-            _, _, grad_norm, _ = tx.apply(grads, state.opt_state, state.params,
-                                          ema=state.ema.params, ema_decay=decay)
+            _, _, grad_norm, _ = tx.apply(grads, state.opt_state, state.opt_params,
+                                          ema=state.ema.params, ema_decay=decay, norm=norm)
             if updated(state.opt_state):
                 state.ema.step += 1
         else:
-            _, _, grad_norm = tx.apply(grads, state.opt_state, state.params)
+            _, _, grad_norm = tx.apply(grads, state.opt_state, state.opt_params, norm=norm)
             if use_ema and state.ema is not None and updated(state.opt_state):
-                ema_update(state.ema, state.params, ema_decay)
+                ema_update(state.ema, state.opt_params, ema_decay)
+        if state.shard is not None and updated(state.opt_state):
+            state.shard.gather_(state.params)
         for p in state.params.values():
             p.grad = None
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

@@ -27,6 +27,13 @@ learned rows through it while its weights stay frozen. The DAAM maps of
 a ``StepDraws`` (``train/finetune_sd.py``), so the parity tests can pass in
 the JAX key stream's; the initial embedding is an argument for the same
 reason.
+
+Over several ranks (``mesh``) each rank's batch is its rows of the global
+batch, with the global batch's draws (``train/finetune_sd.py``); the
+regularizer divides by the global batch's valid samples, each rank's loss is
+its share of the global loss, and the gradients are summed over the world
+before the UNet's clip. The state is replicated, as the JAX CLI replicates
+it.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from agenda_tpu_torch.core.schedules import (
 )
 from agenda_tpu_torch.data.device_resize import apply_resize
 from agenda_tpu_torch.models.vae import sample_latents
+from agenda_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, batch_split, global_sum
 from agenda_tpu_torch.train.finetune_sd import LossConfig, StepDraws, _autocast, make_draws
 from agenda_tpu_torch.train.optim import Optimizer, global_norm
 
@@ -87,12 +95,14 @@ def attn_reg_loss(maps: List[torch.Tensor], starts: torch.Tensor, n_object_embed
 
     fg token = starts[:, 0]; object word = starts[:, 0] + n_object_embedding;
     bg token = the last start > -1. Samples with starts[:, 0] <= 0 add
-    nothing; the terms divide by the valid samples, the totals by the layers.
+    nothing; the terms divide by the valid samples (of the global batch under
+    a ``batch_split``: each rank's terms are then its share), the totals by
+    the layers.
     """
     t = maps[0].shape[1]
     starts = starts.long()
     valid = starts[:, 0] > 0
-    n_valid = torch.clamp(valid.float().sum(), min=1.0)
+    n_valid = torch.clamp(global_sum(valid.float().sum()), min=1.0)  # the global batch's
     fg_idx = torch.clamp(starts[:, 0], 0, t - 1)
     obj_idx = torch.clamp(starts[:, 0] + n_object_embedding, 0, t - 1)
     k = starts.shape[1]
@@ -199,8 +209,8 @@ def init_token_train_state(unet: nn.Module, tx: Optimizer, train_token: bool, tr
 
 def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Module,
                           schedule: DiffusionSchedule, tx: Optimizer, cfg: TokenLossConfig,
-                          resize_weights: Optional[Tuple[np.ndarray, np.ndarray]] = None
-                          ) -> Callable:
+                          resize_weights: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                          mesh: Optional[Mesh] = None) -> Callable:
     """Build ``step(state, batch, draws=None, generator=None) -> (state, metrics)``.
 
     ``batch`` holds device tensors: ``input_ids`` (B, 77), ``new_tokens_start``
@@ -209,12 +219,13 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
     token table is the text encoder's own (f32, extended by the caller with
     the new tokens' rows). Parameters, embedding and optimizer state are
     updated in place; ``metrics`` are device scalars (loss, mse, attn_loss,
-    fg_loss, bg_loss).
+    fg_loss, bg_loss), the global batch's over the ranks of ``mesh``.
     """
     scaling = vae.config.scaling_factor
     device = next(unet.parameters()).device
     draw_cfg = LossConfig(noise_offset=OFFSET_NOISE if cfg.offset_noise else 0.0)
     table = text_encoder.text_model.embeddings.token_embedding.weight
+    world = 1 if mesh is None else mesh.world
 
     def step(state: TokenTrainState, batch: Dict[str, torch.Tensor],
              draws: Optional[StepDraws] = None,
@@ -228,7 +239,7 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
                 mean, logvar = vae.encode(pixels)
             if draws is None:
                 draws = make_draws(generator, mean.shape, schedule.num_train_timesteps,
-                                   draw_cfg, device)
+                                   draw_cfg, device, mesh)
             latents = sample_latents(mean, logvar, draws.latent_eps.float()) * scaling
             noise = draws.noise.float()
             if cfg.offset_noise:
@@ -261,15 +272,25 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
             mse = (err.mean(dim=(1, 2, 3)) * min_snr_weights(schedule, timesteps,
                                                              cfg.snr_gamma)).mean()
         if cfg.with_cross_attn_reg:
-            attn, fg, bg = attn_reg_loss(maps, starts, cfg.n_object_embedding, cfg.reg_weight)
+            with batch_split(mesh):
+                attn, fg, bg = attn_reg_loss(maps, starts, cfg.n_object_embedding,
+                                             cfg.reg_weight)
         else:
             attn = fg = bg = torch.zeros((), dtype=torch.float32, device=device)
+        if world > 1:
+            mse = mse / world  # this rank's share of the global mean
         loss = mse + attn
         loss.backward()
 
         params = state.opt_params()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        metrics = {"loss": loss.detach(), "mse": mse.detach(), "attn_loss": attn.detach(),
+                   "fg_loss": fg.detach(), "bg_loss": bg.detach()}
+        if world > 1:  # the shares add up to the global loss and gradient
+            total = torch.stack(list(metrics.values()))
+            all_reduce_sum_(list(grads.values()) + [total], mesh)
+            metrics = dict(zip(metrics, total))
         unet_grads = {k: g for k, g in grads.items() if k != "embedding"}
         if cfg.train_token and cfg.max_grad_norm is not None and unet_grads:
             # the reference clips the UNet's gradient only, and only when tokens
@@ -280,7 +301,6 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
         for p in params.values():
             p.grad = None
         state.step += 1
-        return state, {"loss": loss.detach(), "mse": mse.detach(), "attn_loss": attn.detach(),
-                       "fg_loss": fg.detach(), "bg_loss": bg.detach()}
+        return state, metrics
 
     return step

@@ -148,8 +148,8 @@ def dequantize(z: _Quantized) -> torch.Tensor:
     return val.reshape(-1)[:n].reshape(z.q.shape)
 
 
-def _zero_moment(p: torch.Tensor, min_quantize_size: int):
-    if p.numel() >= min_quantize_size:
+def _zero_moment(p: torch.Tensor, min_quantize_size: int, size: int):
+    if size >= min_quantize_size:
         nb = (p.numel() + BLOCK - 1) // BLOCK
         return _Quantized(torch.zeros(p.shape, dtype=torch.int8, device=p.device),
                           torch.zeros(nb, dtype=torch.float32, device=p.device))
@@ -157,12 +157,16 @@ def _zero_moment(p: torch.Tensor, min_quantize_size: int):
 
 
 def _init_8bit(min_quantize_size: int):
-    def init(params: Tensors) -> ScaleByAdam8bitState:
+    def init(params: Tensors, sizes: Optional[Dict[str, int]] = None) -> ScaleByAdam8bitState:
+        """``sizes``: the whole leaves' element counts where ``params`` holds
+        runs of them (``parallel/blocks.py``): the int8-or-f32 choice is the
+        whole leaf's."""
         device = next(iter(params.values())).device
+        size = {k: (sizes or {}).get(k, p.numel()) for k, p in params.items()}
         return ScaleByAdam8bitState(
             count=torch.zeros((), dtype=torch.int32, device=device),
-            mu={k: _zero_moment(p, min_quantize_size) for k, p in params.items()},
-            nu={k: _zero_moment(p, min_quantize_size) for k, p in params.items()},
+            mu={k: _zero_moment(p, min_quantize_size, size[k]) for k, p in params.items()},
+            nu={k: _zero_moment(p, min_quantize_size, size[k]) for k, p in params.items()},
         )
     return init
 
@@ -190,14 +194,17 @@ def make_fused_adamw_8bit(learning_rate_fn, b1: float = 0.9, b2: float = 0.999,
     lr = learning_rate_fn(count) before the increment; c1, c2 = 1 - b^(count+1);
     p' = p - lr (adam_update + weight_decay p). The leaves' checked pointers
     are kept while the parameter, moment and EMA tensors stay the same
-    objects; a step checks and packs only its gradients.
+    objects; a step checks and packs only its gradients. ``norm`` computes
+    the clip's global norm from ``grads`` (a sharded run's is
+    ``BlockRuns.global_norm``).
     """
     cached = []  # the last step's FusedLeaves
 
     @torch.no_grad()
     def apply(grads: Tensors, state: ScaleByAdam8bitState, params: Tensors,
-              ema: Optional[Tensors] = None, ema_decay: Optional[torch.Tensor] = None):
-        gnorm = global_norm(grads)
+              ema: Optional[Tensors] = None, ema_decay: Optional[torch.Tensor] = None,
+              norm: Callable[[Tensors], torch.Tensor] = global_norm):
+        gnorm = norm(grads)
         gscale = _clip_scale(gnorm, max_grad_norm)
         count1 = state.count + 1
         cf = count1.float()
@@ -256,7 +263,7 @@ def make_adamw(learning_rate_fn, b1: float = 0.9, b2: float = 0.999, eps: float 
     g' = g if ||g|| < max_norm else (g / ||g||) max_norm; mu, nu EMAs of g' and
     g'^2; u = mu_hat / (sqrt(nu_hat) + eps) + wd p; p += -lr(count) u."""
 
-    def init(params: Tensors) -> AdamState:
+    def init(params: Tensors, sizes: Optional[Dict[str, int]] = None) -> AdamState:
         device = next(iter(params.values())).device
         zeros = lambda: {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
                          for k, p in params.items()}
@@ -264,11 +271,12 @@ def make_adamw(learning_rate_fn, b1: float = 0.9, b2: float = 0.999, eps: float 
                          mu=zeros(), nu=zeros())
 
     @torch.no_grad()
-    def apply(grads: Tensors, state: AdamState, params: Tensors):
+    def apply(grads: Tensors, state: AdamState, params: Tensors,
+              norm: Callable[[Tensors], torch.Tensor] = global_norm):
         names = list(params)
         ps = [params[k] for k in names]
         gs = [grads[k].float() for k in names]
-        gnorm = global_norm(grads)
+        gnorm = norm(grads)
         if max_grad_norm is not None:
             clipped = torch._foreach_mul(torch._foreach_div(gs, gnorm), max_grad_norm)
             keep = gnorm < max_grad_norm
@@ -326,14 +334,14 @@ def multi_steps(inner: Optimizer, every_k: int) -> Optimizer:
     once an update). ``apply`` returns the micro-batch gradient's global
     norm, as the JAX trainer reports it."""
 
-    def init(params: Tensors) -> MultiStepsState:
-        return MultiStepsState(inner.init(params), {
+    def init(params: Tensors, sizes: Optional[Dict[str, int]] = None) -> MultiStepsState:
+        return MultiStepsState(inner.init(params, sizes), {
             k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for k, p in params.items()})
 
     @torch.no_grad()
     def apply(grads: Tensors, state: MultiStepsState, params: Tensors, **kw):
-        gnorm = global_norm(grads)
+        gnorm = kw.get("norm", global_norm)(grads)
         accs = [state.acc[k] for k in params]
         gs = [grads[k].float() for k in params]
         n = state.mini_step

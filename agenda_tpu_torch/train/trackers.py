@@ -68,3 +68,17 @@ def _jsonable(v):
         return v
     except TypeError:
         return str(v)
+
+
+class NullTracker:
+    """The tracker of a rank that does not log (every rank but 0 of a
+    multi-card run)."""
+
+    def log(self, scalars: Dict[str, float], step: int) -> None:
+        pass
+
+    def log_images(self, tag: str, images: np.ndarray, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -49,7 +49,7 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 backward's bound counts its exponentials too, its pair is set
                 against SDPA's backward per shape and per step, and ptxas's
                 registers and spills of each of its instantiations are shown;
- 11. train e2e -- cli/finetune_sd.main trains 6 steps on 8 fabricated PNG
+ 11. train e2e -- cli/finetune_sd.main trains 3 steps on 8 fabricated PNG
                 tiles, writes checkpoint-3/ and the final export, which
                 loads back; the kernel launch counts must equal the config's;
  12. GN tail  -- the group norm at H*W % 8 != 0 (the UNet's 6x6 and
@@ -63,10 +63,10 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 moved; warm s/step, peak memory, a profiled step; then a
                 token-only step, whose flash backward skips the first attn1;
  14. token CLI, stage 1 -- cli/finetune_sd_token.main with the recipe's flags,
-                4 steps on the 8 tiles, checkpoints at 2 and 4, one validation
-                image at step 4: checkpoint-2/, learned_embeds_steps_4.bin and
-                full_model_step_4/ load back;
- 15. token CLI, stage 2 -- from full_model_step_4/ with --embedding_path, 2
+                2 steps on the 8 tiles, a checkpoint at 2, one validation
+                image at step 2: checkpoint-2/, learned_embeds_steps_2.bin and
+                full_model_step_2/ load back;
+ 15. token CLI, stage 2 -- from full_model_step_2/ with --embedding_path, 2
                 updates of the UNet with the reg loss under --use_8bit_adam
                 and --gradient_accumulation_steps 2 (4 micro-batches): the
                 loaded rows are the exported table's, K4 launches once an
@@ -128,8 +128,8 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 batch; render_lsj_batch at 112 -> 128 px; the CPU tests'
                 limits; the render's ms a batch;
  25. device-aug training -- DetectorRunner.train with device_aug at batch
-                192 (the stacks) and 1024 (2048 fabricated tiles in two
-                parts, a 100 MB tensor), serial and with 4 plan workers: the
+                192 (the stacks) and 1024 (1024 fabricated tiles in two
+                parts, a 50 MB tensor), serial and with 4 plan workers: the
                 loop's s/step and images/s, the card's busy share, the
                 render's and the step's ms, the host's plan ms an image, the
                 plan upload ms, peak memory; aug_path "device", the step
@@ -172,7 +172,7 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 statistics' move within the family's FAM_LIMITS, the TF32
                 control beyond each; predictions matched box for box;
  32. family CLIs -- cli/det_train --preset real_source --detector <family>
-                on 128 of the stacks (64 to validate) at the preset's batch
+                on 48 of the stacks (64 to validate) at the preset's batch
                 with --pretrained from a fabricated
                 mmdet/mmyolo checkpoint (80-class COCO heads): the import
                 report (every tensor but the heads imported, the heads
@@ -181,7 +181,7 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
  33. family timing -- each family's train step at its real_source and
                 synthetic_target batches (cold, warm, images/s, peak memory,
                 the card's busy share and kernel launches of a profiled step,
-                the NMS rank loop's launches), and labelling the 512 stacks
+                the NMS rank loop's launches), and labelling 256 of the stacks
                 at batch 192 (images/s, NMS launches a batch);
  34. the chain with faster-rcnn -- phase 30 with `detector: faster-rcnn`;
  35. TGATE   -- (run after phase 6, on its pipeline) one UNet call that
@@ -200,7 +200,20 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 D > 160 against their plain versions at the VAE step's (8, 1024, 1,
                 512), at (2, 4096, 1, 512) and a ragged (1, 333, 2, 264),
                 timed beside their bound and SDPA's backward;
- 38. report  -- a `kernels` JSON line (the six kernels, the flash forward's and
+ 38. multi-rank -- (run after phase 20) two ranks spawned on the one card
+                over gloo, as torchrun would start them: the generation CLI
+                at batch 1 a rank (512x512, 20 PLMS steps, 3 word heatmaps)
+                over phase 5's first batch of 2 seeds, against phase 5's
+                PNGs one by one; one SD step at batch 2
+                a rank (global 4) with --fsdp 2 and the fused int8 AdamW +
+                EMA against one process's step over the same global batch
+                and draws (each element's update, the loss, the global
+                gradient norm, the gathered EMA), each rank's peak memory
+                beside the one-process peak at its batch and its K1-K6
+                launches against the config's; det_test split over the
+                ranks against phase 19's records. Two ranks share one card,
+                so no speed of NCCL or of several cards is measured;
+ 39. report  -- a `kernels` JSON line (the six kernels, the flash forward's and
                 backward's wide kernels as entries of their own; none is on the labelling,
                 detector, refine or orchestrator path: the render is einsums
                 and elementwise PyTorch, as it is jnp in the reference,
@@ -253,7 +266,7 @@ E2E_ARGS = ["--resolution", "512", "--image-size", "112", "--num-inference-steps
 E2E_BATCH, E2E_IMAGES, E2E_STEPS, E2E_WORDS = 2, 4, 20, ("cars", "aerial", "utah")
 PROFILE_PROMPT = "an aerial view image with cars in utah"
 
-TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TILES, TILE = 4, 512, 6, 8, 112
+TRAIN_BATCH, TRAIN_RES, TRAIN_STEPS, TRAIN_TILES, TILE = 4, 512, 3, 8, 112
 TRAIN_ARGS = ["--resolution", str(TRAIN_RES), "--train_batch_size", str(TRAIN_BATCH),
               "--max_train_steps", str(TRAIN_STEPS), "--use_8bit_adam", "--use_ema",
               "--snr_gamma", "5", "--learning_rate", "1e-6", "--checkpointing_steps", "3",
@@ -283,7 +296,7 @@ TOKEN_ARGS = ["--resolution", str(TRAIN_RES), "--train_batch_size", str(TRAIN_BA
               "--n_object_embedding", "1", "--object_token", "new_token",
               "--initialize_token", *TOKEN_WORDS, "--with_cross_attn_reg", "--train_unet",
               "--seed", "0", "--device", "cuda", "--report_to", "jsonl"]
-STAGE1_STEPS, STAGE2_STEPS = 4, 2
+STAGE1_STEPS, STAGE2_STEPS = 2, 2
 ACCUM, ACCUM_UPDATES = 2, 2
 
 # labelling: the synthetic_heatmap yolov8 preset's batch, DetectionConfig's 128 px
@@ -342,14 +355,15 @@ DET_TAL_MAX = 13  # anchors whose fg or assigned GT differ
 # can flip at a tie); LSJ within one level on at most LSJ_DIFF_SHARE of the
 # values (one of its two roundings can flip at .5); RENDER_FORCED
 # passthrough samples forced into the mix batch. Timing at the
-# synthetic_heatmap (192, the 512 stacks, 3 epochs of 3 steps) and
-# synthetic_target (1024, two parts of 1024 fabricated tiles: a 100 MB
-# tensor, 3 epochs of 2 steps) batches, the loop timed from epoch 1 (cut
-# from 4096 tiles and 4 epochs at 192 to keep the script within its limit)
+# synthetic_heatmap (192, the 512 stacks, 2 epochs of 3 steps) and
+# synthetic_target (1024, two parts of 512 fabricated tiles: a 50 MB
+# tensor, 2 epochs of 1 step) batches, the loop timed over epoch 1 (cut
+# from 4096 tiles and 4 epochs at 192, then from 3 epochs and 2048 tiles,
+# to keep the script within its limit)
 RENDER_MEAN_TOL, RENDER_FAR_SHARE, LSJ_DIFF_SHARE = 1e-3, 1e-4, 1e-3
 RENDER_SLOTS, RENDER_FORCED = 24, 4
-DEVICE_AUG_TILES = 2048
-DEVICE_AUG_TIMING = (("synthetic_heatmap", 192, 3), ("synthetic_target", 1024, 3))
+DEVICE_AUG_TILES = 1024
+DEVICE_AUG_TIMING = (("synthetic_heatmap", 192, 2), ("synthetic_target", 1024, 2))
 
 
 # TGATE (phase 35): the main path's generation with --tgate-step 10 of 20 PLMS
@@ -409,9 +423,10 @@ def time_ms(fn, target_ms: float = 40.0, max_iters: int = 200,
         for _ in range(n):
             fn()
 
-    eager(2)  # warm up (workspace allocation, lazy module loading)
+    eager(1)  # warm up (workspace allocation, lazy module loading)
     torch.cuda.synchronize()
-    iters = int(min(max_iters, max(3, target_ms / max(timed(eager, 1), 1e-3))))
+    probe = timed(eager, 1)  # a second warm call; one call of a slow function is timed once
+    iters = 1 if probe >= target_ms else int(min(max_iters, max(3, target_ms / max(probe, 1e-3))))
     eager_ms = timed(eager, iters) / iters
     graph_iters = min(iters, 20)
     graph = torch.cuda.CUDAGraph()
@@ -740,9 +755,10 @@ def train_expected(unet_cfg, vae_cfg) -> dict:
             "gn_per_cache_batch": 2 * enc_resnets + 2}  # + mid attention, conv_norm_out
 
 
-def build_trainer(model_dir: str, dev):
+def build_trainer(model_dir: str, dev, lr: float = 1e-6, mesh=None):
     """The full-width model through the trainer API, as cli/finetune_sd builds
-    it; returns (unet, make, vocab size) with make(use_ema) -> (state, step)."""
+    it (over ``mesh``'s ranks with one); returns (unet, make, vocab size) with
+    make(use_ema) -> (state, step)."""
     import torch
 
     from agenda_tpu_torch.core.schedules import make_schedule
@@ -762,12 +778,12 @@ def build_trainer(model_dir: str, dev):
     frozen = torch.bfloat16 if dev.type == "cuda" else torch.float32
     vae = _build(AutoencoderKL, bundle.vae_config, bundle.vae_state, dev, frozen)
     text = _build(CLIPTextModel, bundle.text_config, bundle.text_state, dev, frozen)
-    tx = make_optimizer(lr_schedule("constant", 1e-6, 0, 100), use_8bit_adam=True)
+    tx = make_optimizer(lr_schedule("constant", lr, 0, 100), use_8bit_adam=True)
 
     def make(use_ema: bool):
-        state = init_train_state(unet.train(), tx, use_ema)
+        state = init_train_state(unet.train(), tx, use_ema, mesh)
         return state, make_train_step(unet, vae, text, make_schedule(), tx,
-                                      LossConfig(snr_gamma=5.0), use_ema)
+                                      LossConfig(snr_gamma=5.0), use_ema, mesh=mesh)
 
     return unet, make, bundle.text_config.vocab_size
 
@@ -1263,7 +1279,7 @@ def train_e2e(model_dir: str, tmp: str, unet_cfg, vae_cfg):
     peak = torch.cuda.max_memory_allocated()
     print(f"[train e2e] cli/finetune_sd: {stats['steps']} steps in {stats['seconds']:.3f} s "
           f"({stats['seconds'] / stats['steps']:.4f} s/step with the cold first step, the logging "
-          f"syncs of steps 1-3 and the checkpoint snapshots of steps 3 and 6); peak memory "
+          f"syncs of steps 1-3 and the checkpoint snapshot of step 3); peak memory "
           f"{peak / 2**30:.2f} GiB; losses {stats['losses']}; grad norms "
           f"{stats['grad_norms']}", flush=True)
     print(f"[train e2e] launches {launches} (expected {want})", flush=True)
@@ -2398,7 +2414,7 @@ def det_timing(labels: dict, root: str, dev) -> dict:
             for j in range(len(ds)):
                 ds._load_scaled(j)
             loader = DataLoader(ds, bs, shuffle=True, seed=0, num_workers=1, pad_to_full=True)
-            n_loop = 2 if bs > LABEL_BATCH else 3
+            n_loop = 1 if bs > LABEL_BATCH else 2
             # as many epochs of the loader as n_loop steps take (one batch an
             # epoch at 1024: each epoch's producer starts with its first batch)
             epochs = itertools.chain.from_iterable(itertools.repeat(loader))
@@ -3205,13 +3221,14 @@ FAM_LIMITS = {
 }
 # phase 32: cli/det_train --preset real_source (each family's batch) with
 # --pretrained on a fabricated mm checkpoint, FAM_EPOCHS epochs on the first
-# FAM_CLI_TILES stacks of phase 22's split (cut from its 384 to keep the
-# script within its time limit), a resume for one more, det_test on phase
+# FAM_CLI_TILES stacks of phase 22's split (cut from its 384, then from 128,
+# to keep the script within its time limit), a resume for one more, det_test on phase
 # 22's validation stacks; Faster R-CNN once more with
 # --device-aug; phase 33: timing at the real_source and synthetic_target
 # batches (FAM_WARM synchronised steps after a cold one, the batch on the
-# card) and labelling at LABEL_BATCH over the 512 stacks
-FAM_EPOCHS, FAM_WARM, FAM_CLI_TILES = 1, 2, 128
+# card) and labelling at LABEL_BATCH over FAM_LABEL_TILES of the stacks (cut
+# from all 512 to keep the script within its time limit)
+FAM_EPOCHS, FAM_WARM, FAM_CLI_TILES, FAM_LABEL_TILES = 1, 1, 48, 256
 
 
 def family_preset(root: str, ann: str, detector: str, stage: str = "real_source"):
@@ -3473,7 +3490,7 @@ def family_timing(labels: dict, root: str, dev) -> dict:
     batches: the train step (make_train_step, the batch on the card) cold
     and warm, images/s, peak memory, the card's busy share of a profiled
     step and its kernel launches, the NMS ranks and launches a step; then
-    labelling the 512 stacks at LABEL_BATCH (DetectorRunner.test, PNG
+    labelling FAM_LABEL_TILES stacks at LABEL_BATCH (DetectorRunner.test, PNG
     decode included, the second pass timed), its images/s and NMS launches
     a batch."""
     import numpy as np
@@ -3535,9 +3552,10 @@ def family_timing(labels: dict, root: str, dev) -> dict:
             require(all(math.isfinite(w) for w in walls), f"{det}: step time")
             del st, tb, step, opt
             torch.cuda.empty_cache()
-        # labelling the 512 stacks at LABEL_BATCH
+        # labelling FAM_LABEL_TILES of the stacks at LABEL_BATCH
         cfg = family_preset(root, labels["all"], det)
-        ds = cfg.build_eval_dataset(DatasetSpec(root, labels["all"], ""))
+        ds = cfg.build_eval_dataset(DatasetSpec(root, det_split(labels, root,
+                                                                FAM_LABEL_TILES)[0], ""))
         runner = DetectorRunner(cfg.build_family(), cfg.runner, device=dev)
         patches, nms = nms_counter()
         with patches:
@@ -3806,6 +3824,325 @@ def vae_pretrain_phase(model_dir: str, dev) -> dict:
             "launches": counts[-1]}
 
 
+# phase 38: two ranks on the one card, over gloo (NCCL refuses two ranks on one
+# device), so no speed of NCCL or of several cards is measured here. Generation
+# at batch 1 a rank against phase 5's batch 2: a bf16 convolution takes another
+# algorithm at another batch, and 20 steps carry that rounding into the images
+# and maps, so each PNG's mean |d| stays within MR_PNG_MEAN_TOL levels. The SD
+# step at batch 2 a rank (global 4, --fsdp 2, fused int8 AdamW + EMA) against one
+# process over the same global batch and draws: step 1 moves an element by about
+# lr sign(g), and where a gradient within bf16 noise of 0 takes the other sign
+# the two updates differ by up to 2 lr; compared in units of lr / MR_UPDATE_UNIT
+# (int8 codes), at most MR_FLIP_SHARE of the elements differ by more than lr / 4
+# and none by more than 2 lr; the loss and the global gradient norm within
+# MR_LOSS_RTOL; the gathered EMA equal to its blend of the old and new weights
+# within MR_EMA_TOL; each rank's peak memory below the one-process peak at the
+# same batch by at least MR_SAVED_SHARE of the optimizer state and EMA it does
+# not hold. det_test split over the ranks against phase 19's records as phase 18
+# holds the card against the CPU.
+MR_WORLD, MR_LR, MR_UPDATE_UNIT, MR_SEED, MR_DEADLINE_S = 2, 1e-4, 32, 38, 420
+MR_PNG_MEAN_TOL, MR_FLIP_SHARE, MR_LOSS_RTOL, MR_EMA_TOL, MR_SAVED_SHARE = 3.0, 0.02, 2e-2, 1e-6, 0.6
+
+
+def update_codes(params: dict, before: dict, dev):
+    """Every parameter's move from ``before`` in units of MR_LR / MR_UPDATE_UNIT
+    (clamped to +-3.9 lr), int8, flat, on the host, in ``params``' order."""
+    import torch
+
+    out = []
+    for k, p in params.items():
+        d = p.detach().float() - before[k].to(dev, torch.float32)
+        q = torch.round(torch.clamp(d / MR_LR, -3.9, 3.9) * MR_UPDATE_UNIT)
+        out.append(q.to(torch.int8).reshape(-1).cpu())
+    return torch.cat(out)
+
+
+def held_bytes(state) -> int:
+    """The optimizer state's and the EMA's bytes on this process."""
+    from agenda_tpu_torch.train.optim import _Quantized
+
+    n = 0
+    for part in (state.opt_state.mu, state.opt_state.nu):
+        for m in part.values():
+            ts = (m.q, m.scale) if isinstance(m, _Quantized) else (m,)
+            n += sum(t.numel() * t.element_size() for t in ts)
+    return n + sum(e.numel() * e.element_size() for e in state.ema.params.values())
+
+
+def multirank_reference(model_dir: str, vae_cfg, dev, tmp: str) -> dict:
+    """Phase 38's one-process side: the SD step over the global batch of
+    TRAIN_BATCH (its batch and draws saved for the ranks), the update codes,
+    the peak memory, then a step at a rank's batch for its peak (both above
+    what the process held before, as a rank's are)."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.train.finetune_sd import LossConfig, StepDraws, make_draws
+
+    base = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    unet, make, vocab = build_trainer(model_dir, dev, lr=MR_LR)
+    state, step = make(True)
+    batch = synthetic_batch(vae_cfg, vocab, dev, MR_SEED)
+    shape = tuple(batch["latent_moments"].shape[:-1]) + (vae_cfg.latent_channels,)
+    draws = make_draws(torch_generator(dev, MR_SEED), shape, 1000, LossConfig(snr_gamma=5.0),
+                       dev)
+    fields = {"latent_eps": draws.latent_eps, "noise": draws.noise,
+              "timesteps": draws.timesteps}
+    paths = {"batch": os.path.join(tmp, "mr_batch.pt"), "codes": os.path.join(tmp, "mr_codes.npy")}
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                "draws": {k: v.cpu() for k, v in fields.items()}}, paths["batch"])
+    before = load_pipeline(model_dir).unet_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, m = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    out = {"peak_global": torch.cuda.max_memory_allocated() - base, "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]), "held": held_bytes(state), "paths": paths}
+    np.save(paths["codes"], update_codes(state.params, before, dev).numpy())
+    half = TRAIN_BATCH // MR_WORLD
+    torch.cuda.reset_peak_memory_stats()
+    step(state, {k: v[:half] for k, v in batch.items()},
+         draws=StepDraws(**{k: v[:half] for k, v in fields.items()}))
+    torch.cuda.synchronize()
+    out["peak_rank_batch"] = torch.cuda.max_memory_allocated() - base
+    del unet, make, state, step, batch, draws, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def mr_rank_work(job: dict) -> dict:
+    """One rank of phase 38: the generation CLI split over the ranks, the SD
+    step at --fsdp 2 on this rank's rows, det_test split over the ranks."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.cli import data_generation, det_test
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.parallel.mesh import make_mesh
+    from agenda_tpu_torch.train.checkpoint import full_ema
+    from agenda_tpu_torch.train.finetune_sd import StepDraws
+
+    mesh = make_mesh(fsdp=MR_WORLD, device="cuda", backend="gloo", timeout_s=MR_DEADLINE_S)
+    dev = mesh.device
+    out = {"rank": mesh.rank, "world": mesh.world, "backend": mesh.backend, "device": str(dev),
+           "mesh": mesh.shape}
+    # (a) generation, batch 1 a rank
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = data_generation.main(job["gen_argv"])
+    torch.cuda.synchronize()
+    c = read_counts()
+    out["gen"] = {"batches": stats["batches"], "seconds": time.perf_counter() - t0,
+                  "launches": {k: c[k] for k in ("flash_attention_fwd", "flash_attention_fwd_wide",
+                                                 "group_norm_act")}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the SD step at --fsdp 2: this rank's rows of the global batch and draws
+    saved = torch.load(job["batch"])
+    rows = mesh.rows(TRAIN_BATCH)
+    base = torch.cuda.memory_allocated()
+    unet, make, _ = build_trainer(job["model_dir"], dev, lr=MR_LR, mesh=mesh)
+    state, step = make(True)
+    batch = {k: v[rows].to(dev) for k, v in saved["batch"].items()}
+    draws = StepDraws(**{k: v[rows].to(dev) for k, v in saved["draws"].items()})
+    before = load_pipeline(job["model_dir"]).unet_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, m = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    out.update(step_s=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated() - base,
+               launches=read_counts(), loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               held=held_bytes(state), sharded=len(state.shard.sharded))
+    ema = full_ema(state)  # every rank takes part in the gather
+    if mesh.is_main:
+        codes = update_codes(state.params, before, dev).numpy().astype(np.int16)
+        diff = np.abs(codes - np.load(job["codes"]).astype(np.int16))
+        out["flip_share"] = float((diff > MR_UPDATE_UNIT // 4).mean())
+        out["worst"] = int(diff.max())
+        decay = 2.0 / 11.0  # ema_decay_at at the first update
+        out["ema_err"] = max(float((ema[k] - (decay * before[k].to(dev, torch.float32)
+                                              + (1 - decay) * p.detach())).abs().max())
+                             for k, p in state.params.items())
+    del unet, make, state, step, ema, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) det_test, each batch split over the ranks
+    out["det_records"] = len(det_test.main(job["det_argv"]))
+    return out
+
+
+def mr_rank(rank: int, port: int, job: dict, path: str) -> None:
+    """Phase 38's spawned rank: torchrun's environment (both ranks on card 0),
+    its work, its result or its error written to ``path``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(MR_WORLD), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        res = {"ok": mr_rank_work(job)}
+    except BaseException:
+        import traceback
+
+        res = {"error": traceback.format_exc()}
+    with open(path, "w") as f:
+        json.dump(res, f)
+    if "error" in res:
+        sys.exit(1)
+
+
+def png_mean_diffs(got_dir: str, want_dir: str) -> dict:
+    """mean |d| of each PNG of ``got_dir``'s tree against ``want_dir``'s."""
+    import numpy as np
+
+    from agenda_tpu_torch.utils.png import read_png
+
+    out = {}
+    for sub in sorted(os.listdir(got_dir)):
+        for name in sorted(os.listdir(os.path.join(got_dir, sub))):
+            a = read_png(os.path.join(got_dir, sub, name)).astype(np.float64)
+            b = read_png(os.path.join(want_dir, sub, name)).astype(np.float64)
+            out[f"{sub}/{name}"] = float(np.abs(a - b).mean())
+    return out
+
+
+def multirank_phase(model_dir: str, embeds: str, gen_dir: str, labels: dict, label_root: str,
+                    expected: dict, unet_cfg, vae_cfg, dev, tmp: str) -> dict:
+    """Phase 38: two ranks spawned on the card with explicit gloo: the
+    generation CLI at batch 1 a rank against phase 5's output, the SD step at
+    --fsdp 2 against one process's (peak memory, launches, update codes), and
+    det_test split over the ranks against phase 19's records."""
+    import socket
+
+    import torch
+
+    from agenda_tpu_torch.annotate.records import load_predictions
+
+    texp = train_expected(unet_cfg, vae_cfg)
+    ref = multirank_reference(model_dir, vae_cfg, dev, tmp)
+    gen_w2 = os.path.join(tmp, "out_w2")
+    gen_args = list(E2E_ARGS)  # phase 5's first batch: its 2 seeds, 1 a rank
+    gen_args[gen_args.index("--batch-size") + 1] = str(E2E_BATCH // MR_WORLD)
+    gen_args[gen_args.index("--num-images") + 1] = str(E2E_BATCH)
+    config, ckpt = labels["ckpts"]["yolov8"]
+    pred_w2 = os.path.join(label_root, "pred_real_w2.pkl")
+    job = {"model_dir": model_dir, "batch": ref["paths"]["batch"], "codes": ref["paths"]["codes"],
+           "gen_argv": ["--pretrained-model-path", model_dir, "--learnable-tokens-embedding-path",
+                        embeds, "--save-dir", gen_w2, "--device", "cuda", "--dist-backend", "gloo",
+                        *gen_args],
+           "det_argv": ["--config", config, "--checkpoint", ckpt, "--test-prefix",
+                        "daam_stack_heatmaps/", "--test-root", labels["gt"], "--test-ann",
+                        "ann.json", "--out", pred_w2, "--device", "cuda", "--dist-backend",
+                        "gloo"]}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    paths = [os.path.join(tmp, f"mr_rank{r}.json") for r in range(MR_WORLD)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mr_rank, args=(r, port, job, paths[r])) for r in range(MR_WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, MR_DEADLINE_S - (time.perf_counter() - t0)))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, path in enumerate(paths):
+        res = json.load(open(path)) if os.path.exists(path) else {"error": "no result written"}
+        if "error" in res:
+            print(f"[multi-rank] rank {r} failed:\n{res['error']}", flush=True)
+        ranks.append(res.get("ok"))
+    require(not hung and all(p.exitcode == 0 for p in procs) and all(ranks),
+            f"phase 38: ranks hung {len(hung)}, exit codes {[p.exitcode for p in procs]}")
+    r0 = ranks[0]
+    # (a) generation
+    n_batches = ranks[0]["gen"]["batches"]
+    want_gen = {"flash_attention_fwd": expected["flash_attention_fwd"] * n_batches,
+                "flash_attention_fwd_wide": n_batches,
+                "group_norm_act": expected["group_norm_act"] * n_batches}
+    diffs = png_mean_diffs(gen_w2, gen_dir)
+    worst_png = max(diffs.items(), key=lambda kv: kv[1])
+    print(f"[multi-rank] {MR_WORLD} ranks on {r0['device']} over {r0['backend']} (world "
+          f"{r0['world']}, mesh {r0['mesh']}), {wall:.1f} s with the spawn: generation CLI at "
+          f"batch {E2E_BATCH // MR_WORLD} a rank, {n_batches} global batches of {E2E_BATCH}: "
+          f"{[round(r['gen']['seconds'], 2) for r in ranks]} s; launches a rank "
+          f"{[r['gen']['launches'] for r in ranks]} (expected {want_gen}); {len(diffs)} PNGs "
+          f"against phase 5's batch {E2E_BATCH}: mean |d| {sum(diffs.values()) / len(diffs):.3f} "
+          f"levels, the worst {worst_png[0]} {worst_png[1]:.3f} (limit {MR_PNG_MEAN_TOL})",
+          flush=True)
+    require(all(r["gen"]["launches"] == want_gen for r in ranks),
+            "phase 38: a rank's generation launches differ from the config's")
+    require(len(diffs) == E2E_BATCH * (1 + len(E2E_WORDS)) and n_batches == 1
+            and worst_png[1] <= MR_PNG_MEAN_TOL, "phase 38: the split generation's files")
+    # (b) the SD step at --fsdp 2
+    step_want = {k: 0 for k in train_counters()}
+    step_want.update({"flash_attention_fwd": texp["flash_per_step"],
+                      "flash_attention_bwd_dkv": texp["flash_per_step"],
+                      "flash_attention_bwd_dq": texp["flash_per_step"],
+                      "fused_adamw8bit_ema": texp["adamw_per_step"],
+                      "fused_adamw8bit_leaves_ema": texp["quantized"],
+                      "group_norm_act": texp["gn_per_step"]})
+    saved = [ref["held"] - r["held"] for r in ranks]
+    print(f"[multi-rank] SD step at batch {TRAIN_BATCH // MR_WORLD} a rank (global {TRAIN_BATCH}, "
+          f"{TRAIN_RES}x{TRAIN_RES}, --fsdp {MR_WORLD}: {r0['sharded']} leaves in block runs), "
+          f"fused int8 AdamW + EMA at lr {MR_LR}: loss {[r['loss'] for r in ranks]} against one "
+          f"process's {ref['loss']}, grad norm {[r['grad_norm'] for r in ranks]} against "
+          f"{ref['grad_norm']}; updates differing by more than lr/4: "
+          f"{100 * r0['flip_share']:.4f}% (limit {100 * MR_FLIP_SHARE}%), the worst by "
+          f"{r0['worst'] / MR_UPDATE_UNIT:.3f} lr (limit 2); gathered EMA against its blend "
+          f"{r0['ema_err']:.2e} (limit {MR_EMA_TOL}); peak memory a rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB against one process's "
+          f"{ref['peak_rank_batch'] / 2**30:.2f} GiB at batch {TRAIN_BATCH // MR_WORLD} "
+          f"({ref['peak_global'] / 2**30:.2f} at {TRAIN_BATCH}); optimizer state + EMA held "
+          f"{[round(r['held'] / 2**30, 3) for r in ranks]} GiB against {ref['held'] / 2**30:.3f}; "
+          f"a rank's step {[round(r['step_s'], 2) for r in ranks]} s (two ranks share the card "
+          f"over gloo: context, not a multi-card speed); launches a rank "
+          f"{[r['launches'] for r in ranks]} (expected {step_want})", flush=True)
+    require(all(r["launches"] == step_want for r in ranks),
+            "phase 38: a rank's training-step launches differ from the config's")
+    require(all(abs(r["loss"] - ref["loss"]) <= MR_LOSS_RTOL * abs(ref["loss"])
+                and abs(r["grad_norm"] - ref["grad_norm"]) <= MR_LOSS_RTOL * ref["grad_norm"]
+                for r in ranks), "phase 38: the loss or the gradient norm")
+    require(r0["flip_share"] <= MR_FLIP_SHARE and r0["worst"] <= 2 * MR_UPDATE_UNIT + 1
+            and r0["ema_err"] <= MR_EMA_TOL, "phase 38: the update or the EMA")
+    require(all(ref["peak_rank_batch"] - r["peak"] >= MR_SAVED_SHARE * s
+                for r, s in zip(ranks, saved)) and min(saved) > 0.4 * ref["held"],
+            "phase 38: a rank's peak memory is not below one process's by the state it "
+            "does not hold")
+    # (c) det_test split over the ranks
+    import torch as _torch
+
+    got, want = load_predictions(pred_w2), load_predictions(
+        os.path.join(label_root, "pred_real.pkl"))
+    kept = ref_kept = unmatched = ref_unmatched = 0
+    same = len(got) == len(want) and all(a["img_path"] == b["img_path"]
+                                         for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        pa, pb = a["pred_instances"], b["pred_instances"]
+        u, ru = unmatched_both(*(_torch.from_numpy(p[k]) for p in (pa, pb)
+                                 for k in ("bboxes", "scores")))
+        kept, ref_kept = kept + len(pa["scores"]), ref_kept + len(pb["scores"])
+        unmatched, ref_unmatched = unmatched + u, ref_unmatched + ru
+    share = max(unmatched / max(kept, 1), ref_unmatched / max(ref_kept, 1))
+    print(f"[multi-rank] det_test over {len(got)} stacks at batch {LABEL_BATCH} split over the "
+          f"ranks: records in phase 19's order {same}; kept {kept} against {ref_kept}, "
+          f"{unmatched} and {ref_unmatched} without a partner ({100 * share:.2f}%, limit "
+          f"{100 * DET_UNMATCHED_MAX:.0f}%)", flush=True)
+    require(same and [r["det_records"] for r in ranks] == [len(want)] * MR_WORLD
+            and kept > 0 and share <= DET_UNMATCHED_MAX, "phase 38: det_test's records")
+    shutil.rmtree(gen_w2)
+    for path in list(ref["paths"].values()) + paths:
+        os.remove(path)
+    return {"ranks": ranks, "ref": ref, "png_worst": worst_png[1], "wall": wall}
+
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -4020,6 +4357,12 @@ def main() -> int:
         label_timing = labelling_timing(labels, label_root, dev)
         phase_s["labelling (17-20)"] = time.perf_counter() - t_phase
 
+        # 38. two ranks on the card: split generation, the SD step at --fsdp 2, det_test
+        t_phase = time.perf_counter()
+        multi = multirank_phase(model_dir, embeds, save_dir, labels, label_root, expected,
+                                unet_cfg, vae_cfg, dev, tmp)
+        phase_s["multi-rank (38)"] = time.perf_counter() - t_phase
+
         # 21-23. detector training: a train step card vs CPU, the CLI, timing
         t_phase = time.perf_counter()
         det_parity = det_train_parity(labels, label_root, dev)
@@ -4178,6 +4521,15 @@ def main() -> int:
           f"pretraining step (batch {VAE_BATCH}, {VAE_RES} px: (8, 1024, 1, 512) twice); "
           "launches from phase 36's last step; library_ms is SDPA's whole backward at the "
           "same shape", flush=True)
+    mr0 = multi["ranks"][0]
+    print(f"[report] multi-rank (phase 38, {MR_WORLD} ranks sharing the card over gloo): peak "
+          f"memory a rank at --fsdp {MR_WORLD} "
+          f"{', '.join(f'{r['peak'] / 2**30:.2f}' for r in multi['ranks'])} GiB against one "
+          f"process's {multi['ref']['peak_rank_batch'] / 2**30:.2f} GiB at batch "
+          f"{TRAIN_BATCH // MR_WORLD}; the update against one process's over the global batch: "
+          f"{100 * mr0['flip_share']:.4f}% of the elements past lr/4; generation's worst PNG "
+          f"mean |d| {multi['png_worst']:.3f} levels; no NCCL or multi-card speed measured",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

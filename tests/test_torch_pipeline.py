@@ -174,7 +174,7 @@ def test_cli_flags_match_the_jax_cli_plus_device():
     from agenda_tpu_torch.cli.data_generation import parse_args as port_parse
 
     theirs, ours = _parser_flags(jax_parse), _parser_flags(port_parse)
-    assert set(ours) - set(theirs) == {"--device"}
+    assert set(ours) - set(theirs) == {"--device", "--dist-backend"}
     assert set(theirs) <= set(ours)
     for flag in theirs:
         assert ours[flag].default == theirs[flag].default, flag

@@ -605,7 +605,8 @@ def test_cli_trains_checkpoints_and_exports_on_the_cpu(tiny, tmp_path):
     before = jax.tree.leaves(bundle.unet_params)
     after = jax.tree.leaves(exported.unet_params)
     assert any(not np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(before, after))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --fsdp 2 needs a world of two ranks (make_mesh's rule, as the JAX mesh's)
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
         finetune_sd.main(["--pretrained_model_name_or_path", d, "--dataset_folder", data,
                           "--json_file_name", "train.json", "--fsdp", "2", "--device", "cpu"])
 
@@ -634,14 +635,14 @@ def test_finetune_cli_flags_match_the_jax_cli_plus_device():
     required = ["--pretrained_model_name_or_path", "p", "--dataset_folder", "d",
                 "--json_file_name", "j.json"]
     theirs, ours = _parser_flags(jax_parse, required), _parser_flags(port_parse, required)
-    assert set(ours) - set(theirs) == {"--device"}
+    assert set(ours) - set(theirs) == {"--device", "--dist-backend"}
     for flag in theirs:
         assert ours[flag].default == theirs[flag].default, flag
         assert ours[flag].nargs == theirs[flag].nargs, flag
         assert ours[flag].dest == theirs[flag].dest, flag
     assert ours["--device"].default == "cuda"
     assert vars(jax_parse(required)) == {k: v for k, v in vars(port_parse(required)).items()
-                                         if k != "device"}
+                                         if k not in ("device", "dist_backend")}
     with pytest.raises(ValueError):
         port_parse(["--pretrained_model_name_or_path", "p"])
 
