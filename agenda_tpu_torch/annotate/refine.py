@@ -28,8 +28,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from agenda_tpu_torch.annotate.boxes import complete_edge_boxes
+from agenda_tpu_torch.data.native_image import load_rgb
 from agenda_tpu_torch.detect.augment import resize_pil
-from agenda_tpu_torch.utils.png import read_rgb
 
 DEFAULT_CATEGORIES = [{"id": 1, "name": "small"}]
 RESIZE_CHUNK = 256  # crops a resize call takes at once (its f64 temporaries: 1.2 MB a crop at 224)
@@ -79,7 +79,7 @@ def construct_data(
 
     for i_im, rec in enumerate(detection_results):
         file_name = os.path.basename(rec["img_path"])
-        rgb = read_rgb(os.path.join(rgb_image_base_path, file_name))
+        rgb = load_rgb(os.path.join(rgb_image_base_path, file_name))
         height, width = rgb.shape[:2]
         coco["images"].append(
             {"id": i_im, "file_name": file_name, "width": width, "height": height})

@@ -7,8 +7,9 @@ with the appended (p=0, r=1) terminal point, and the argmax-F1 confidence
 threshold (cell 17) that gates the pseudo-labels.
 
 The port's copy of ``agenda_tpu/annotate/threshold.py``. The greedy
-matcher is the numpy loop only: the JAX package's ctypes matcher
-(``agenda_tpu/detect/native.py``) is not ported.
+matcher is ``detect/native.py::match_per_gt_greedy`` (C++), as the JAX
+package's where its library loads; the numpy loop stays as its plain
+version, ``match_per_gt_reference``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ def match_predictions(
 
     Returns (scores, is_tp, n_gt) flattened over all images.
     """
+    from agenda_tpu_torch.detect import native
+
     all_scores, all_tp = [], []
     n_gt = 0
     for rec in records:
@@ -48,18 +51,25 @@ def match_predictions(
             continue
         order = np.argsort(-scores, kind="stable")
         boxes, scores = boxes[order], scores[order]
-        matched = np.zeros(len(boxes), bool)
-        ious = iou_matrix_xyxy(gt_boxes, boxes)  # (G, P)
-        for gi in range(len(gt_boxes)):
-            cand = (ious[gi] >= iou_thresh) & ~matched
-            if not cand.any():
-                continue
-            matched[int(np.argmax(cand))] = True
         all_scores.append(scores)
-        all_tp.append(matched)
+        all_tp.append(native.match_per_gt_greedy(boxes, gt_boxes, iou_thresh))
     if not all_scores:
         return np.zeros((0,)), np.zeros((0,), bool), n_gt
     return np.concatenate(all_scores), np.concatenate(all_tp), n_gt
+
+
+def match_per_gt_reference(boxes: np.ndarray, gt_boxes: np.ndarray,
+                           iou_thresh: float) -> np.ndarray:
+    """``native.match_per_gt_greedy`` in numpy: each GT in order takes the
+    first unmatched prediction (score-sorted) with IoU >= ``iou_thresh``."""
+    matched = np.zeros(len(boxes), bool)
+    ious = iou_matrix_xyxy(np.asarray(gt_boxes, np.float64).reshape(-1, 4),
+                           np.asarray(boxes, np.float64).reshape(-1, 4))  # (G, P)
+    for gi in range(len(ious)):
+        cand = (ious[gi] >= iou_thresh) & ~matched
+        if cand.any():
+            matched[int(np.argmax(cand))] = True
+    return matched
 
 
 def prediction_ious(records: List[dict]) -> np.ndarray:

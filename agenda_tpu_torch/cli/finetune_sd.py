@@ -9,7 +9,9 @@ export. What differs:
 - one process drives one card; under ``torchrun --nproc_per_node N`` the N
   ranks train one model data parallel (``parallel/mesh.py``): the global
   batch is ``--train_batch_size x dp`` in the one loader order a single
-  process draws, split over the ranks, each sample with its single-process
+  process draws, split over the ranks (over dp alone when the world does
+  not divide it: each fsdp rank of a dp row then takes the row's samples,
+  as the JAX CLI's ``P("dp")`` does), each sample with its single-process
   draws, the gradients averaged before the clip, ``--scale_lr`` by the world
   size; only rank 0 logs, validates, checkpoints and exports, and a resume at
   any world size goes on where the data stopped. ``--fsdp f`` (dp = N / f)
@@ -222,7 +224,8 @@ def main(argv=None):
         logger.info("device resize: %dx%d uint8 tiles -> %d^2 on %s", sw, sh, args.resolution,
                     dev)
     global_bs = args.train_batch_size * mesh.dp
-    rows = mesh.rows(global_bs) if mesh.world > 1 else None  # raises unless it splits
+    mesh = mesh.for_batch(global_bs)  # over dp alone when the world does not divide it
+    rows = mesh.rows(global_bs) if mesh.world > 1 else None
     workers = max(1, args.dataloader_num_workers)
     loader = DataLoader(dataset, global_bs, shuffle=True, seed=seed, num_workers=workers,
                         pad_to_full=True, rows=rows)

@@ -11,7 +11,8 @@ tokens). What differs, as in the port's ``cli/finetune_sd.py``:
 
 - one process drives one card; under ``torchrun --nproc_per_node N`` the N
   ranks train data parallel as ``cli/finetune_sd.py``'s do (global batch
-  ``--train_batch_size x dp``, each sample with its single-process draws,
+  ``--train_batch_size x dp``, split over dp alone when the world does not
+  divide it, each sample with its single-process draws,
   gradients summed before the UNet's clip, ``--scale_lr`` by the world
   size, rank 0 writing every artifact); ``--fsdp f`` only sets dp = N / f,
   since the JAX CLI replicates the token state (its ``:303``);
@@ -290,7 +291,8 @@ def main(argv=None):
         logger.info("device resize: %dx%d uint8 tiles -> %d^2 (bilinear) on %s", sw, sh,
                     args.resolution, dev)
     global_bs = args.train_batch_size * mesh.dp
-    rows = mesh.rows(global_bs) if mesh.world > 1 else None  # raises unless it splits
+    mesh = mesh.for_batch(global_bs)  # over dp alone when the world does not divide it
+    rows = mesh.rows(global_bs) if mesh.world > 1 else None
     workers = max(1, args.dataloader_num_workers)
     loader = DataLoader(dataset, global_bs, shuffle=True, seed=seed, num_workers=workers,
                         pad_to_full=True, rows=rows)

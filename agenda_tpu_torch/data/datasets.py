@@ -13,8 +13,10 @@ Counterpart of ``agenda_tpu/data/datasets.py:30-241``:
 - ``DataLoader``: the same epoch shuffle, ``default_rng(seed + epoch)``,
   ``pad_to_full`` and the thread-pool prefetch.
 
-Images are read with the port's stdlib PNG reader (``utils/png.py``): the
-machine that runs the port is not known to have Pillow. Other formats raise.
+Images are read by ``data/native_image.py::load_rgb`` (libpng and libjpeg,
+as the JAX package's native decode reads them; without those libraries'
+headers, PNGs through ``utils/png.py``) and the uniform size is probed
+from the headers, whatever the files' extensions.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from agenda_tpu_torch.data.device_resize import apply_resize, resize_weights
 from agenda_tpu_torch.data.tokens import insert_new_tokens
-from agenda_tpu_torch.utils.png import png_size, read_rgb
+from agenda_tpu_torch.data.native_image import image_size, load_rgb
 
 
 def load_prompt_json(dataset_folder: str, json_file_name: str) -> List[Tuple[str, str]]:
@@ -38,15 +40,9 @@ def load_prompt_json(dataset_folder: str, json_file_name: str) -> List[Tuple[str
         return list(json.load(f).items())
 
 
-def _png_path(path: str) -> str:
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: the port reads PNG training images only")
-    return path
-
-
 def load_image_u8(path: str) -> np.ndarray:
     """uint8 (H, W, 3) at the tile's own size."""
-    return read_rgb(_png_path(path))
+    return load_rgb(path)
 
 
 def load_image(path: str, resolution: int, filt: str = "lanczos") -> np.ndarray:
@@ -63,7 +59,7 @@ def probe_uniform_size(paths: Sequence[str]) -> Optional[Tuple[int, int]]:
     """(w, h) when every image shares one size, else None (headers only)."""
     size = None
     for p in paths:
-        s = png_size(_png_path(p))
+        s = image_size(p)
         if size is None:
             size = s
         elif s != size:

@@ -13,7 +13,7 @@ from the caller's ``numpy.random.Generator``, so the same seed gives the
 same boxes.
 
 The reference warps and resizes with Pillow and runs its HSV pass and its
-median in a native library. The machine that runs the port has neither, so:
+median in a native library. The port has no Pillow, so:
 
 - ``warp_affine_u8`` is Pillow's ``Image.transform(AFFINE, BILINEAR,
   fillcolor)``: the sample point at the output pixel's centre in double,
@@ -25,9 +25,11 @@ median in a native library. The machine that runs the port has neither, so:
   a batch of images (the refine classifier's crops): the filter
   coefficients in 22-bit fixed point, horizontal pass then vertical, each
   rounded half up to a level;
-- ``hsv_apply`` and ``median_blur_k`` are the numpy formulas the reference
-  keeps beside its native calls (``agenda_tpu/detect/augment.py:144-153,
-  203-210``).
+- ``hsv_apply`` and ``median_blur_k`` call the port's copy of that native
+  library (``data/native_image.py``), where the reference does
+  (``agenda_tpu/detect/augment.py:140-153, 198-210``); the numpy formulas
+  it keeps beside them stay as ``hsv_apply_reference`` and
+  ``median_blur_reference``, the plain versions the tests hold it to.
 """
 
 from __future__ import annotations
@@ -138,7 +140,17 @@ def _hsv_cv_to_rgb(h: np.ndarray, s: np.ndarray, v: np.ndarray) -> np.ndarray:
 
 
 def hsv_apply(img: np.ndarray, gains) -> np.ndarray:
-    """Apply fixed HSV gains: h wraps mod 180, s and v clip to 0..255."""
+    """Apply fixed HSV gains (h wraps mod 180, s and v clip to 0..255) with
+    the native fused pass, on a copy."""
+    from agenda_tpu_torch.data.native_image import hsv_jitter_inplace
+
+    out = np.array(img, np.float32, order="C")  # never the caller's array
+    hsv_jitter_inplace(out, gains[0], gains[1], gains[2])
+    return out
+
+
+def hsv_apply_reference(img: np.ndarray, gains) -> np.ndarray:
+    """``hsv_apply`` in numpy (the native pass agrees within half a level)."""
     h, s, v = _rgb_to_hsv_cv(img)
     h = (h + gains[0]) % 180.0
     s = np.clip(s + gains[1], 0, 255)
@@ -179,7 +191,16 @@ def box_blur_k(img: np.ndarray, k: int) -> np.ndarray:
 
 def median_blur_k(img: np.ndarray, k: int) -> np.ndarray:
     """Median filter with a fixed odd kernel, reflect borders, over the image
-    quantized to uint8 (Albu's MedianBlur runs cv2 on the uint8 image)."""
+    quantized to uint8 (Albu's MedianBlur runs cv2 on the uint8 image), with
+    the native sliding histogram."""
+    from agenda_tpu_torch.data.native_image import median_blur_u8
+
+    q = np.clip(np.rint(np.asarray(img, np.float32)), 0, 255).astype(np.uint8)
+    return median_blur_u8(q, k).astype(np.float32)
+
+
+def median_blur_reference(img: np.ndarray, k: int) -> np.ndarray:
+    """``median_blur_k`` in numpy: the median of the stacked windows."""
     q = np.clip(np.rint(np.asarray(img, np.float32)), 0, 255).astype(np.uint8)
     p = k // 2
     padded = np.pad(q, ((p, p), (p, p), (0, 0)), mode="reflect")

@@ -7,9 +7,10 @@ save_best criterion of every detector config,
 greedy best-IoU matching per image in score order — the standard COCOeval
 algorithm.
 
-The port's copy of ``agenda_tpu/detect/coco_eval.py``, on its numpy
-matcher (``_match_image``) only: the ctypes matcher of
-``agenda_tpu/detect/native.py`` is not ported.
+The port's copy of ``agenda_tpu/detect/coco_eval.py``. ``coco_map``
+matches each image with ``detect/native.py::match_image_greedy`` (C++), as
+the JAX package does where its library loads; the numpy matcher
+``_match_image`` stays as its plain version.
 """
 
 from __future__ import annotations
@@ -64,6 +65,8 @@ def coco_map(
     iou_thrs: Optional[Sequence[float]] = None,
 ) -> Dict[str, float]:
     """Single-category COCO AP. Returns bbox_mAP / bbox_mAP_50 / bbox_mAP_75."""
+    from agenda_tpu_torch.detect import native
+
     iou_thrs = np.asarray(iou_thrs if iou_thrs is not None else IOU_THRS)
     t = len(iou_thrs)
 
@@ -75,7 +78,7 @@ def coco_map(
         scores = np.asarray(scores, np.float64).reshape(-1)
         n_gt += len(gt)
         order = np.argsort(-scores, kind="mergesort")[:max_dets]
-        tp = _match_image(boxes, scores, gt, iou_thrs, max_dets)
+        tp = native.match_image_greedy(boxes[order], gt, iou_thrs)
         all_scores.append(scores[order])
         all_tp.append(tp)
 

@@ -32,7 +32,7 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     as flax reduces them (bf16 activations give f32 statistics)."""
     mesh = split_mesh()
     if mesh is not None:
-        return _batch_norm_global(x, bn, mesh.world)
+        return _batch_norm_global(x, bn, mesh.shares)
     y = F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
     m = bn.momentum
     with torch.no_grad():
@@ -43,11 +43,11 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y
 
 
-def _batch_norm_global(x: torch.Tensor, bn: nn.BatchNorm2d, world: int) -> torch.Tensor:
+def _batch_norm_global(x: torch.Tensor, bn: nn.BatchNorm2d, shares: int) -> torch.Tensor:
     """``batch_norm_train`` with the statistics of the global batch, of which
-    ``x`` is one of ``world`` equal shares."""
+    ``x`` is one of ``shares`` equal shares."""
     xs = x.to(torch.promote_types(x.dtype, torch.float32))
-    n = x.numel() // x.shape[1] * world
+    n = x.numel() // x.shape[1] * shares
     sums = global_sum(torch.stack([xs.sum(dim=(0, 2, 3)), (xs * xs).sum(dim=(0, 2, 3))]))
     mean = sums[0] / n
     var = torch.clamp(sums[1] / n - mean * mean, min=0.0)

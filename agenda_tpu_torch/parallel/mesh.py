@@ -17,9 +17,12 @@ explicitly:
   it, over ``gloo``). Rank ``r`` sits at ``(r // fsdp, r % fsdp)`` of the
   ``(dp, fsdp)`` grid, as ``mesh.py:38`` lays the devices out;
 - ``shard_batch`` (``mesh.py:43-49``): this rank's rows of a global host
-  batch. The global batch is split over every rank, fsdp included: the JAX
-  program splits it over ``dp`` and computes each dp row once on each of its
-  fsdp devices, which gives the same numbers;
+  batch. A batch that divides by the world is split over every rank, fsdp
+  included: the JAX program splits it over ``dp`` and computes each dp row
+  once on each of its fsdp devices, which gives the same numbers. A batch
+  that does not (``Mesh.for_batch``) is split over ``dp`` alone, as JAX's
+  ``P("dp")`` splits it: each fsdp rank of a dp row takes that row's
+  samples, and the sums over the batch count each row once;
 - ``replicate`` (``mesh.py:52-55``): tensors broadcast from rank 0 in place;
 - ``param_sharding_rules`` (``mesh.py:58-77``): which leaves shard (the
   placement of a selected leaf is ``parallel/blocks.py``'s);
@@ -64,6 +67,9 @@ class Mesh:
     backend: Optional[str] = None  # None: no process group (world 1)
     dp_group: Any = None  # the ranks of this rank's fsdp column (None: this rank alone)
     fsdp_group: Any = None  # the ranks of this rank's dp row (None: this rank alone)
+    # the global batch splits over every rank; False: over dp only, each row
+    # held by its fsdp ranks (``for_batch``)
+    fsdp_rows: bool = True
 
     @property
     def world(self) -> int:
@@ -91,13 +97,36 @@ class Mesh:
         """The global rank of fsdp index ``j`` in this rank's dp row."""
         return self.dp_index * self.fsdp + j
 
+    @property
+    def replicas(self) -> int:
+        """How many ranks hold each row of the global batch."""
+        return 1 if self.fsdp_rows else self.fsdp
+
+    @property
+    def shares(self) -> int:
+        """How many distinct runs of rows the global batch splits into."""
+        return self.world // self.replicas
+
     def rows(self, n: int) -> slice:
         """This rank's rows of a global batch of ``n``: the ``rank``-th of
-        ``world`` equal runs."""
-        if n % self.world:
-            raise ValueError(f"a global batch of {n} does not split over {self.world} ranks")
-        b = n // self.world
-        return slice(self.rank * b, (self.rank + 1) * b)
+        ``world`` equal runs, or without ``fsdp_rows`` its dp row's run of
+        ``dp``."""
+        if n % self.shares:
+            raise ValueError(f"a global batch of {n} does not split over {self.shares} "
+                             f"{'ranks' if self.fsdp_rows else 'dp rows'}")
+        b = n // self.shares
+        i = self.rank if self.fsdp_rows else self.dp_index
+        return slice(i * b, (i + 1) * b)
+
+    def for_batch(self, n: int) -> "Mesh":
+        """This mesh for a global batch of ``n``: split over every rank when
+        ``n`` divides by the world, else over dp alone (``mesh.py:43-49``'s
+        ``P("dp")``), each fsdp rank of a dp row taking the row's samples."""
+        if n % self.world == 0:
+            return self if self.fsdp_rows else dataclasses.replace(self, fsdp_rows=True)
+        if n % self.dp:
+            raise ValueError(f"a global batch of {n} does not split over {self.dp} dp rows")
+        return dataclasses.replace(self, fsdp_rows=False)
 
 
 def _rank_device(device, local_rank: int, world: int) -> torch.device:
@@ -190,11 +219,17 @@ def replicate(tensors: Iterable[torch.Tensor], mesh: Mesh) -> None:
 
 
 def all_reduce_sum_(tensors: Iterable[torch.Tensor], mesh: Mesh) -> None:
-    """Each tensor summed over the world, in place."""
+    """Each tensor, a rank's share of a sum over the global batch, summed
+    over the world in place. Where fsdp ranks hold the same rows
+    (``mesh.replicas`` > 1) the sum is divided by them, so each row counts
+    once: the sum over dp, the same on every rank."""
     if mesh.world == 1:
         return
+    tensors = list(tensors)
     for t in tensors:
         dist.all_reduce(t)
+    if mesh.replicas > 1:
+        torch._foreach_mul_(tensors, 1.0 / mesh.replicas)
 
 
 def all_gather_objects(obj: Any, mesh: Mesh) -> List[Any]:
@@ -251,26 +286,29 @@ def split_mesh() -> Optional[Mesh]:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the world; each rank's input gets the sum of every rank's
-    output gradient (the ranks' losses add up to the global loss)."""
+    """Sum over the world over ``replicas``; each rank's input gets that of
+    every rank's output gradient (the ranks' losses add up to the global
+    loss, as ``all_reduce_sum_`` adds them)."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, replicas: int):
+        ctx.replicas = replicas
         out = t.clone()
         dist.all_reduce(out)
-        return out
+        return out / replicas if replicas > 1 else out
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.contiguous().clone()
         dist.all_reduce(g)
-        return g
+        return (g / ctx.replicas if ctx.replicas > 1 else g), None
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks of the active ``batch_split`` (``t`` itself
-    without one); differentiable."""
-    return t if _SPLIT.get() is None else _AllReduceSum.apply(t)
+    """``t`` summed over the global batch's shares under the active
+    ``batch_split`` (``t`` itself without one); differentiable."""
+    mesh = _SPLIT.get()
+    return t if mesh is None else _AllReduceSum.apply(t, mesh.replicas)
 
 
 def global_rows(b: int) -> Tuple[int, slice]:
@@ -279,7 +317,7 @@ def global_rows(b: int) -> Tuple[int, slice]:
     mesh = _SPLIT.get()
     if mesh is None:
         return b, slice(None)
-    return b * mesh.world, mesh.rows(b * mesh.world)
+    return b * mesh.shares, mesh.rows(b * mesh.shares)
 
 
 def batch_mean(t: torch.Tensor) -> torch.Tensor:

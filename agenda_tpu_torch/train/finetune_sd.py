@@ -22,8 +22,10 @@ in the draws of the JAX key stream.
 Over several ranks (``mesh``, ``parallel/mesh.py``) each rank's batch is its
 rows of the global batch. The generator draws for the global batch on every
 rank and each takes its rows, so every sample sees the draws it sees on one
-card; the gradients and the loss are averaged over the world before the
-clip. With ``mesh.fsdp`` > 1 the large leaves' optimizer state and EMA are
+card; the gradients and the loss are averaged over the global batch's
+shares before the clip. A global batch that does not divide by the world
+splits over dp alone (``Mesh.for_batch``): the fsdp ranks of a dp row then
+compute its rows alike, and each row counts once in the mean. With ``mesh.fsdp`` > 1 the large leaves' optimizer state and EMA are
 this rank's block runs (``parallel/blocks.py``): ``TrainState.opt_params``
 holds views of those runs, the optimizer updates them, and the runs are
 broadcast back into every rank's parameters.
@@ -88,12 +90,14 @@ def init_train_state(unet: nn.Module, tx: Optimizer, use_ema: bool,
 
 
 def mean_over_world_(tensors, mesh: Optional[Mesh]) -> None:
-    """Each tensor replaced in place by its mean over the world."""
+    """Each tensor replaced in place by its mean over the world: the mean over
+    the global batch's shares, each dp row counted once where its fsdp ranks
+    hold the same rows (``Mesh.for_batch``)."""
     if mesh is None or mesh.world == 1:
         return
     tensors = list(tensors)
     all_reduce_sum_(tensors, mesh)
-    torch._foreach_mul_(tensors, 1.0 / mesh.world)
+    torch._foreach_mul_(tensors, 1.0 / mesh.shares)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +127,7 @@ def make_draws(generator: torch.Generator, shape, num_train_timesteps: int,
     b, c = shape[0], shape[-1]
     rows = slice(None)
     if mesh is not None and mesh.world > 1:
-        b *= mesh.world
+        b *= mesh.shares
         shape, rows = (b,) + tuple(shape[1:]), mesh.rows(b)
 
     def normal(s):

@@ -278,7 +278,7 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
         else:
             attn = fg = bg = torch.zeros((), dtype=torch.float32, device=device)
         if world > 1:
-            mse = mse / world  # this rank's share of the global mean
+            mse = mse / mesh.shares  # this rank's share of the global mean
         loss = mse + attn
         loss.backward()
 

@@ -213,7 +213,19 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 launches against the config's; det_test split over the
                 ranks against phase 19's records. Two ranks share one card,
                 so no speed of NCCL or of several cards is measured;
- 39. report  -- a `kernels` JSON line (the six kernels, the flash forward's and
+ 39. host libraries -- (run after phase 20) build both host libraries
+                (utils/host_build.py: the matchers, resize, HSV and median
+                without dependencies; the PNG/JPEG decode against libpng and
+                libjpeg, or the headers it lacks); the committed fixtures
+                (tests/data/images) against their expected pixels, or the
+                raise naming the missing library; the labelling decode a
+                tile, native against utils/png.py, on phase 17's stacks and a
+                512-px Pillow-written tile; the procedural domain (48 + 16
+                tiles); the bench's stack labeler trained 30 epochs on the
+                card (val AP >= 0.9), then from its cache (same threshold and
+                weights, no training); the box matchers, native against
+                numpy;
+ 40. report  -- a `kernels` JSON line (the six kernels, the flash forward's and
                 backward's wide kernels as entries of their own; none is on the labelling,
                 detector, refine or orchestrator path: the render is einsums
                 and elementwise PyTorch, as it is jnp in the reference,
@@ -3843,6 +3855,22 @@ def vae_pretrain_phase(model_dir: str, dev) -> dict:
 MR_WORLD, MR_LR, MR_UPDATE_UNIT, MR_SEED, MR_DEADLINE_S = 2, 1e-4, 32, 38, 420
 MR_PNG_MEAN_TOL, MR_FLIP_SHARE, MR_LOSS_RTOL, MR_EMA_TOL, MR_SAVED_SHARE = 3.0, 0.02, 2e-2, 1e-6, 0.6
 
+# phase 39: the host libraries (utils/host_build.py) and the bench's stack
+# labeler. The committed fixtures (tests/data/images, written by
+# scripts/make_image_fixtures.py) hold the decode to the JAX package's
+# libpng/libjpeg decode of them: bit for bit where the decode builds
+# (HOST_DECODE_TOL levels). Without the libpng/libjpeg headers the decode
+# does not build; a JPEG, or a PNG form utils/png.py refuses, must then raise
+# naming the missing library. The labelling decode is timed over
+# HOST_DECODE_TILES of phase 17's stacks and HOST_DECODE_REPS reads of the
+# 512-px Pillow-written fixture; the matchers over HOST_MATCH_IMAGES seeded
+# images (HOST_MATCH_DETS detections, HOST_MATCH_GTS ground truths each).
+HOST_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "images")
+HOST_DECODE_TOL, HOST_DECODE_TILES, HOST_DECODE_REPS = 0, 64, 3
+HOST_MATCH_IMAGES, HOST_MATCH_DETS, HOST_MATCH_GTS = 400, 30, 5
+LABELER_EPOCHS, LABELER_AP_MIN = 30, 0.9  # JAX on a CPU reached AP 1.000 at 30 epochs
+
 
 def update_codes(params: dict, before: dict, dev):
     """Every parameter's move from ``before`` in units of MR_LR / MR_UPDATE_UNIT
@@ -4143,6 +4171,154 @@ def multirank_phase(model_dir: str, embeds: str, gen_dir: str, labels: dict, lab
 
 
 
+def host_fixture_pairs():
+    """(file, expected pixels .npy) of every committed decode fixture."""
+    out = []
+    for npy in sorted(f for f in os.listdir(HOST_FIXTURES) if f.endswith(".npy")):
+        stem = npy[:-4]
+        ext = ".jpg" if stem.startswith("jpeg") else ".png"
+        out.append((os.path.join(HOST_FIXTURES, stem + ext), os.path.join(HOST_FIXTURES, npy)))
+    return out
+
+
+def host_phase(labels: dict, tmp: str) -> dict:
+    """Phase 39: build both host libraries; the committed fixtures through the
+    decode (or, without its headers, the raise that names the missing
+    library); the labelling decode a tile, native against utils/png.py; the
+    procedural domain; the stack labeler at 30 epochs on the card, then from
+    its cache; the box matchers, native against numpy."""
+    import numpy as np
+    import torch
+
+    from agenda_tpu_torch.annotate.threshold import match_per_gt_reference
+    from agenda_tpu_torch.data import native_image
+    from agenda_tpu_torch.detect import bench_labeler, native
+    from agenda_tpu_torch.detect.coco_eval import _match_image
+    from agenda_tpu_torch.io.procedural import make_heatmap_domain
+    from agenda_tpu_torch.utils import host_build
+    from agenda_tpu_torch.utils.png import read_png, read_rgb
+
+    out = {}
+    host = host_build.load("host")
+    out["host_build_s"] = host.build_seconds
+    try:
+        codecs = host_build.load("codecs")
+        out["codecs"] = f"built in {codecs.build_seconds:.2f} s"
+    except host_build.MissingHeaders as e:
+        codecs = None
+        out["codecs"] = f"not built: {e}"
+    print(f"[host] host library {os.path.basename(host.path)} built in "
+          f"{host.build_seconds:.2f} s; decode library {out['codecs']}", flush=True)
+
+    worst, raised = 0, []
+    pairs = host_fixture_pairs()
+    for path, npy in pairs:
+        want = np.load(npy)
+        name = os.path.basename(path)
+        try:
+            got = native_image.load_rgb(path)
+        except ValueError as e:
+            need = "libjpeg" if name.startswith("jpeg") else "libpng"
+            require(codecs is None and need in str(e),
+                    f"phase 39: {name} raised without naming {need}: {e}")
+            raised.append(name)
+            continue
+        require(got.shape == want.shape, f"phase 39: {name} decodes to {got.shape}")
+        worst = max(worst, int(np.abs(got.astype(int) - want.astype(int)).max()))
+    require(worst <= HOST_DECODE_TOL, f"phase 39: a fixture decodes {worst} levels off")
+    out["fixtures"] = {"max_abs": worst, "raised": raised,
+                       "decoded": len(pairs) - len(raised)}
+    print(f"[host] fixtures: {out['fixtures']['decoded']} decoded, max |d| {worst} levels "
+          f"(tolerance {HOST_DECODE_TOL}); raised naming the missing library: "
+          f"{raised or 'none'}", flush=True)
+
+    def per_read_ms(fn, paths):
+        t0 = time.perf_counter()
+        for p in paths:
+            fn(p)
+        return (time.perf_counter() - t0) * 1e3 / len(paths)
+
+    stack_dir = os.path.join(labels["gt"], "daam_stack_heatmaps")
+    stacks = [os.path.join(stack_dir, f) for f in sorted(os.listdir(stack_dir))][
+        :HOST_DECODE_TILES]
+    tile = os.path.join(HOST_FIXTURES, "png_tile_512.png")
+    for p in (stacks[0], tile):
+        require(np.array_equal(native_image.load_rgb(p), read_rgb(p)),
+                f"phase 39: {os.path.basename(p)}: load_rgb differs from utils/png.py")
+    decode = {"stack_python_ms": per_read_ms(read_rgb, stacks),
+              "tile_python_ms": per_read_ms(read_rgb, [tile] * HOST_DECODE_REPS)}
+    if codecs is not None:
+        decode["stack_native_ms"] = per_read_ms(native_image.load_rgb, stacks)
+        decode["tile_native_ms"] = per_read_ms(native_image.load_rgb, [tile] * HOST_DECODE_REPS)
+    out["decode"] = decode
+    print(f"[host] labelling decode a tile: {len(stacks)} of phase 17's {TILE}-px stacks "
+          f"(filter 0) utils/png.py {decode['stack_python_ms']:.3f} ms, native "
+          + (f"{decode['stack_native_ms']:.3f} ms" if codecs else "not built")
+          + f"; the 512-px Pillow-written tile utils/png.py {decode['tile_python_ms']:.1f} ms, "
+          + (f"native {decode['tile_native_ms']:.2f} ms" if codecs else "native not built"),
+          flush=True)
+
+    t0 = time.perf_counter()
+    dom = os.path.join(tmp, "procedural")
+    make_heatmap_domain(os.path.join(dom, "train"), bench_labeler.TRAIN_TILES,
+                        seed=bench_labeler.TRAIN_SEED, **bench_labeler.DOMAIN_KW)
+    make_heatmap_domain(os.path.join(dom, "val"), bench_labeler.VAL_TILES,
+                        seed=bench_labeler.VAL_SEED, **bench_labeler.DOMAIN_KW)
+    out["domain_s"] = time.perf_counter() - t0
+    stack = read_png(os.path.join(dom, "train", "daam_stack_heatmaps", "0.png"))
+    require(stack.shape == (112, 112, 3), f"phase 39: a procedural stack is {stack.shape}")
+    shutil.rmtree(dom)
+
+    cache = os.path.join(tmp, "stack_labeler")
+    t0 = time.perf_counter()
+    _, variables, thr = bench_labeler.prepare_stack_labeler(cache, epochs=LABELER_EPOCHS,
+                                                            log=lambda m: print(m, flush=True))
+    out["train_wall"] = time.perf_counter() - t0
+    with open(os.path.join(cache, bench_labeler.META)) as f:
+        meta = json.load(f)
+    require(meta["ap"] >= LABELER_AP_MIN, f"phase 39: the stack labeler's val AP {meta['ap']:.3f}"
+            f" < {LABELER_AP_MIN}")
+    t0 = time.perf_counter()
+    with mock.patch("agenda_tpu_torch.detect.runner.DetectorRunner.train",
+                    side_effect=AssertionError("the cached call trained")):
+        _, cached, cthr = bench_labeler.prepare_stack_labeler(
+            cache, epochs=LABELER_EPOCHS, log=lambda m: print(m, flush=True))
+    out["cached_wall"] = time.perf_counter() - t0
+    require(cthr == thr and set(cached) == set(variables)
+            and all(torch.equal(cached[k], variables[k]) for k in variables),
+            "phase 39: the cached labeler's threshold or weights differ")
+    out["labeler"] = {"ap": meta["ap"], "f1_max": meta["f1_max"], "threshold": thr}
+    print(f"[host] stack labeler ({LABELER_EPOCHS} epochs on the card): "
+          f"{out['train_wall']:.1f} s, val AP {meta['ap']:.4f}, F1-max {meta['f1_max']:.4f}, "
+          f"threshold {thr:.4f}; cached call {out['cached_wall']:.3f} s, same threshold and "
+          f"weights", flush=True)
+
+    rng = np.random.default_rng(39)
+
+    def boxes(n):
+        xy = rng.integers(0, 100, (n, 2))
+        return np.concatenate([xy, xy + rng.integers(4, 40, (n, 2))], 1).astype(np.float64)
+
+    sets = [(boxes(HOST_MATCH_DETS), boxes(HOST_MATCH_GTS)) for _ in range(HOST_MATCH_IMAGES)]
+    thrs = np.round(np.arange(0.5, 1.0, 0.05), 2)
+    t0 = time.perf_counter()
+    nat = [(native.match_image_greedy(d, g, thrs), native.match_per_gt_greedy(d, g, 0.5))
+           for d, g in sets]
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(sets)
+    t0 = time.perf_counter()
+    ref = [(_match_image(d, -np.arange(len(d), dtype=np.float64), g, thrs, len(d)),
+            match_per_gt_reference(d, g, 0.5)) for d, g in sets]
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / len(sets)
+    require(all(np.array_equal(a, c) and np.array_equal(b, e) for (a, b), (c, e) in zip(nat, ref)),
+            "phase 39: the native matchers differ from the numpy ones")
+    out["match"] = {"native_ms": native_ms, "numpy_ms": numpy_ms}
+    print(f"[host] matchers (COCO greedy at 10 IoU thresholds + per-GT at 0.5, "
+          f"{HOST_MATCH_DETS} x {HOST_MATCH_GTS} boxes an image): native {native_ms:.4f} ms, "
+          f"numpy {numpy_ms:.3f} ms an image, equal on {len(sets)} images", flush=True)
+    shutil.rmtree(cache)
+    return out
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -4357,6 +4533,11 @@ def main() -> int:
         label_timing = labelling_timing(labels, label_root, dev)
         phase_s["labelling (17-20)"] = time.perf_counter() - t_phase
 
+        # 39. the host libraries and the bench's stack labeler
+        t_phase = time.perf_counter()
+        hostlib = host_phase(labels, tmp)
+        phase_s["host libraries and stack labeler (39)"] = time.perf_counter() - t_phase
+
         # 38. two ranks on the card: split generation, the SD step at --fsdp 2, det_test
         t_phase = time.perf_counter()
         multi = multirank_phase(model_dir, embeds, save_dir, labels, label_root, expected,
@@ -4530,6 +4711,24 @@ def main() -> int:
           f"{100 * mr0['flip_share']:.4f}% of the elements past lr/4; generation's worst PNG "
           f"mean |d| {multi['png_worst']:.3f} levels; no NCCL or multi-card speed measured",
           flush=True)
+    print(f"[report] host libraries (phase 39): host library built in "
+          f"{hostlib['host_build_s']:.2f} s, decode library {hostlib['codecs']}; fixtures max "
+          f"|d| {hostlib['fixtures']['max_abs']} over {hostlib['fixtures']['decoded']} decoded, "
+          f"{len(hostlib['fixtures']['raised'])} raised naming the missing library; labelling "
+          f"decode {hostlib['decode']['stack_python_ms']:.3f} ms a stack with utils/png.py"
+          + (f", {hostlib['decode']['stack_native_ms']:.3f} native" if "stack_native_ms"
+             in hostlib["decode"] else ", native not built")
+          + f"; 512-px tile {hostlib['decode']['tile_python_ms']:.1f} ms"
+          + (f", {hostlib['decode']['tile_native_ms']:.2f} native" if "tile_native_ms"
+             in hostlib["decode"] else "")
+          + f"; procedural domain 48 + 16 in {hostlib['domain_s']:.2f} s; stack labeler "
+          f"{LABELER_EPOCHS} epochs {hostlib['train_wall']:.1f} s, val AP "
+          f"{hostlib['labeler']['ap']:.4f}, threshold {hostlib['labeler']['threshold']:.4f}, "
+          f"cached {hostlib['cached_wall']:.3f} s; matchers native "
+          f"{hostlib['match']['native_ms']:.4f} ms against numpy "
+          f"{hostlib['match']['numpy_ms']:.3f} ms an image. No TPU kernel lies on this path: "
+          "the procedural data, YOLOv8 training and prediction, and host decode and matching "
+          "call no Pallas in the reference", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -254,6 +254,14 @@ def ranks(tmp_path_factory, native_library):  # noqa: F811
                "--use_8bit_adam", "--use_ema", "--snr_gamma", "5", "--checkpointing_steps", "2",
                "--seed", "0", "--report_to", "jsonl", "--fsdp", "2"]
     ref["ft_out"] = str(root / "ft")
+    # the same CLI at a global batch of 1, which the world of 2 does not divide
+    ft1_args = [a if a != str(root / "ft") else str(root / "ft1") for a in ft_args]
+    ft1_args[ft1_args.index("--train_batch_size") + 1] = "1"
+    ft1_args[ft1_args.index("--max_train_steps") + 1] = "1"
+    # the SD step under --fsdp 2 at a global batch of 1: both ranks take the sample
+    sd1_batch = {k: v[:1] for k, v in sd_batch.items()}
+    sd1_draws = [{k: v[:1] for k, v in d.items()} for d in draws[:SD_STEPS]]
+    sd1_kw = dict(pipe_dir=pipe, batch=sd1_batch, draws=sd1_draws, lr=LR, generator_seeds=(17,))
     # the orchestrator's tiny chain up to the target's labels
     chain_root = str(root / "chain")
     make_chain_fixtures(chain_root)
@@ -280,6 +288,8 @@ def ranks(tmp_path_factory, native_library):  # noqa: F811
         ("runner_train", "runner_train", dict(config_json=port_cfg_path, resume=common)),
         ("det_test", "det_test", dict(argv=test_args + ["--out", str(root / "w2.pkl")])),
         ("finetune_cli", "finetune_cli", dict(argv=ft_args)),
+        ("sd_fsdp2_b1", "sd", dict(fsdp=2, fsdp_min=FSDP_MIN, **sd1_kw)),
+        ("finetune_cli_b1", "finetune_cli", dict(argv=ft1_args)),
         ("chain", "chain", dict(argv=["--config", chain_path, "--device", "cpu",
                                       "--until-stage", "label_synthetic_target"])),
     ]
@@ -296,6 +306,7 @@ def ranks(tmp_path_factory, native_library):  # noqa: F811
         ref["sd_jax"] = _jax_sd_steps(bundle, pixels, ids, key)
         ref["sd_port"], _ = W.sd_run(draws=draws[:SD_STEPS], **sd_kw)
         ref["sd_draws"] = draws
+        ref["sd1_port"], _ = W.sd_run(**sd1_kw)
         # the token step in one process
         ref["token"] = W.token_run(**token_kw)
         # YOLOv8's runner in one process over the same global batch of 4
@@ -514,6 +525,28 @@ def test_sd_step_over_two_ranks_matches_one_process_and_the_jax_mesh(ranks, job)
         assert len(info0["sharded"]) == 84 and "conv_in.weight" in info0["sharded"]
         assert info0["opt_numel"] + info1["opt_numel"] < 1.1 * total  # runs, not copies
         assert max(info0["ema_numel"], info1["ema_numel"]) < 0.75 * total
+
+
+def test_fsdp2_at_a_global_batch_of_1_matches_one_process(ranks):
+    """--fsdp 2 on two ranks at a global batch of 1, which the world does not
+    divide: the batch splits over dp alone (JAX's ``P("dp")``), both ranks
+    take the sample, and the gradient counts it once. Two steps on given
+    draws and one on the step's own generator against one process, within
+    ``_step_faults``; both ranks hold the same parameters and EMA, and the
+    optimizer state is still split in block runs. The CLI at
+    ``--train_batch_size 1 --fsdp 2`` trains."""
+    (steps0, info0), (steps1, info1) = W.result(ranks["out"], "sd_fsdp2_b1")
+    assert len(steps0) == len(ranks["sd1_port"]) == SD_STEPS + 1
+    assert _step_faults([s + (None,) for s in ranks["sd1_port"]], steps0) == []
+    for a, b in zip(steps0, steps1):
+        for k in a[0]:
+            assert torch.equal(a[0][k], b[0][k]) and torch.equal(a[1][k], b[1][k]), k
+    assert len(info0["sharded"]) == 84
+    total = sum(p.numel() for p in steps0[0][0].values())
+    assert info0["opt_numel"] + info1["opt_numel"] < 1.1 * total
+    cli = W.result(ranks["out"], "finetune_cli_b1")
+    assert cli[0] == cli[1]
+    assert cli[0]["steps"] == cli[0]["global_step"] == 1 and np.isfinite(cli[0]["losses"]).all()
 
 
 def test_fsdp2_checkpoint_resumes_at_world_1(ranks):

@@ -131,13 +131,17 @@ def sd_run(pipe_dir: str, batch, draws, lr: float, mesh=None, fsdp_min: int = 2 
     (global StepDraws fields as dicts), then one a seed of
     ``generator_seeds`` with the step's own draws; with ``ckpt_dir`` a
     checkpoint there after those, then a step a draw of ``after_ckpt``.
-    Per step: (params, EMA shadow, metrics), the one-card layout."""
+    Per step: (params, EMA shadow, metrics), the one-card layout. A global
+    batch that the world does not divide splits over dp alone
+    (``Mesh.for_batch``)."""
     from agenda_tpu_torch.core.schedules import make_schedule
     from agenda_tpu_torch.train import finetune_sd as ttrain
     from agenda_tpu_torch.train.checkpoint import full_ema, snapshot_state, write_checkpoint
     from agenda_tpu_torch.train.optim import lr_schedule, make_optimizer
 
     bundle, unet, vae, text = port_models(pipe_dir)
+    if mesh is not None:  # over dp alone when the world does not divide the batch
+        mesh = mesh.for_batch(len(batch["input_ids"]))
     tx = make_optimizer(lr_schedule("constant", lr, 0, 100), use_8bit_adam=True)
     state = ttrain.init_train_state(unet, tx, True, mesh, min_shard_size=fsdp_min)
     step = ttrain.make_train_step(unet, vae, text, make_schedule(), tx,
