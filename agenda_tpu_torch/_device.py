@@ -1,6 +1,10 @@
-"""Device resolution: CUDA unless the caller asks for the CPU, never a fallback."""
+"""Device resolution: CUDA unless the caller asks for the CPU, never a
+fallback; the compute dtype that ``--mixed_precision`` selects; and the
+full-f32 arithmetic (no TF32) of the f32 paths on the card."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -35,6 +39,39 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     return torch.device("cuda", index)
 
 
-def compute_dtype(device: torch.device) -> torch.dtype:
-    """bf16 on the card, f32 on the CPU (the JAX package's bf16 default)."""
-    return torch.bfloat16 if device.type == "cuda" else torch.float32
+def compute_dtype(device: torch.device, mixed_precision: str | None = None) -> torch.dtype:
+    """The compute dtype of a ``--mixed_precision`` choice on ``device``.
+
+    "no" gives f32 on every device, as the JAX CLIs compute in f32 under it
+    (``agenda_tpu/cli/finetune_sd.py:165``); any other choice (None, "bf16",
+    "fp16") gives bf16 on the card (the JAX package's bf16 default) and f32
+    on the CPU.
+    """
+    if mixed_precision == "no" or device.type != "cuda":
+        return torch.float32
+    return torch.bfloat16
+
+
+def full_f32(dev: torch.device, benchmark: bool = True):
+    """Full f32 convolutions and matmuls on the card (no TF32), cuDNN
+    autotuned for the fixed batch shape of a training loop (``benchmark``;
+    a one-off pass, such as a validation batch, takes cuDNN's heuristics
+    instead of paying the autotuning of every new shape); nothing on the
+    CPU."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.backends.cudnn.flags(enabled=True, benchmark=benchmark,
+                                                    deterministic=False, allow_tf32=False))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", prev)
+    return stack
+
+
+def full_f32_if(dtype: torch.dtype, dev: torch.device, benchmark: bool = True):
+    """``full_f32`` for the f32 compute dtype (``--mixed_precision no``);
+    nothing for another."""
+    if dtype == torch.float32:
+        return full_f32(dev, benchmark)
+    return contextlib.nullcontext()

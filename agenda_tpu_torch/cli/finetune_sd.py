@@ -21,8 +21,10 @@ export. What differs:
 - ``--gradient_accumulation_steps`` k averages k micro-batches' gradients
   into one update (optax ``MultiSteps`` semantics); the global step counts
   updates, and every cadence keys off it;
-- bf16 compute under autocast on the card, f32 on the CPU; the kernels take
-  bf16, so ``--mixed_precision no`` raises on the card;
+- bf16 compute under autocast on the card, f32 on the CPU;
+  ``--mixed_precision no`` computes in f32 on both (the UNet, the frozen
+  VAE and text encoder, validation), with TF32 off and the f32 kernels on
+  the card, as the JAX CLI computes in f32 under it (its ``:165``);
 - ``--use_8bit_adam`` selects the fused int8 AdamW kernel;
   the JAX package's TPU opt-outs (AGENDA_TPU_NO_FUSED_ADAMW,
   AGENDA_TPU_NO_DONATE) are not inherited;
@@ -179,9 +181,6 @@ def main(argv=None):
                         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
     mesh = make_mesh(dp=-1, fsdp=args.fsdp, device=args.device, backend=args.dist_backend)
     dev = mesh.device
-    if dev.type == "cuda" and args.mixed_precision == "no":
-        raise NotImplementedError("the flash and GroupNorm kernels take bf16: "
-                                  "--mixed_precision no runs only with --device cpu")
     for flag in ("allow_tf32", "enable_xformers_memory_efficient_attention", "push_to_hub",
                  "offload_ema", "foreach_ema"):
         if getattr(args, flag):
@@ -199,7 +198,7 @@ def main(argv=None):
         prediction_type=args.prediction_type or sc.get("prediction_type", "epsilon"),
         steps_offset=sc.get("steps_offset", 1),
     )
-    frozen_dtype = compute_dtype(dev)
+    frozen_dtype = compute_dtype(dev, args.mixed_precision)  # f32 under "no", as in JAX
     with torch.device("meta"):
         unet = UNet2DConditionModel(bundle.unet_config)
     unet.load_state_dict({k: v.to(dev, torch.float32, copy=True)
@@ -267,7 +266,7 @@ def main(argv=None):
                           input_perturbation=args.input_perturbation,
                           prediction_type=args.prediction_type)
     step_fn = make_train_step(unet, vae, text_encoder, schedule, tx, loss_cfg, args.use_ema,
-                              resize_weights=resize_w, mesh=mesh)
+                              resize_weights=resize_w, mesh=mesh, dtype=frozen_dtype)
     tracker = (Tracker(os.path.join(args.output_dir, args.logging_dir), args.report_to,
                        config=vars(args)) if mesh.is_main else NullTracker())
     if not mesh.is_main:

@@ -18,7 +18,9 @@ tokens). What differs, as in the port's ``cli/finetune_sd.py``:
   since the JAX CLI replicates the token state (its ``:303``);
   ``--dist-backend`` names the backend;
 - bf16 compute under autocast on the card, f32 on the CPU;
-  ``--mixed_precision no`` raises on the card;
+  ``--mixed_precision no`` computes in f32 on both (the UNet, the frozen
+  VAE and text encoder, validation), with TF32 off and the f32 kernels on
+  the card, as the JAX CLI computes in f32 under it (its ``:170``);
 - ``--use_8bit_adam`` selects the fused int8 AdamW kernel, also under
   ``--gradient_accumulation_steps`` (the JAX package switches to its unfused
   chain there);
@@ -206,9 +208,6 @@ def main(argv=None):
                         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s")
     mesh = make_mesh(dp=-1, fsdp=args.fsdp, device=args.device, backend=args.dist_backend)
     dev = mesh.device
-    if dev.type == "cuda" and args.mixed_precision == "no":
-        raise NotImplementedError("the flash and GroupNorm kernels take bf16: "
-                                  "--mixed_precision no runs only with --device cpu")
     for flag in ("allow_tf32", "enable_xformers_memory_efficient_attention", "push_to_hub",
                  "set_grads_to_none"):
         if getattr(args, flag):
@@ -226,7 +225,7 @@ def main(argv=None):
         prediction_type=sc.get("prediction_type", "epsilon"),
         steps_offset=sc.get("steps_offset", 1),
     )
-    frozen_dtype = compute_dtype(dev)
+    frozen_dtype = compute_dtype(dev, args.mixed_precision)  # f32 under "no", as in JAX
     tokenizer = CLIPTokenizer.from_pretrained(args.tokenizer_name or bundle.tokenizer_dir)
 
     # the new tokens: stage 1's embeddings, or object_token_v{i} names
@@ -334,7 +333,7 @@ def main(argv=None):
                                n_object_embedding=args.n_object_embedding,
                                train_token=args.train_token, max_grad_norm=args.max_grad_norm)
     step_fn = make_token_train_step(unet, vae, text_encoder, schedule, tx, loss_cfg,
-                                    resize_weights=resize_w, mesh=mesh)
+                                    resize_weights=resize_w, mesh=mesh, dtype=frozen_dtype)
     tracker = (Tracker(os.path.join(args.output_dir, args.logging_dir), args.report_to,
                        config=vars(args)) if mesh.is_main else NullTracker())
     if not mesh.is_main:

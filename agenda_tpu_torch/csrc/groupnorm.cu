@@ -1,4 +1,4 @@
-// Fused GroupNorm(+SiLU) for Hopper (sm_90a) on contiguous NCHW bf16.
+// Fused GroupNorm(+SiLU) for Hopper (sm_90a) on contiguous NCHW bf16 or f32.
 //
 // Replaces the TPU kernel agenda_tpu/kernels/groupnorm.py::_gn_kernel
 // (groupnorm.py:94, launched by _gn_pallas at groupnorm.py:143-163): f32
@@ -6,26 +6,36 @@
 //
 // Numerics follow flax's default nn.GroupNorm (_compute_stats with
 // use_fast_variance): var = max(0, E[x^2] - E[x]^2), biased, eps inside the
-// rsqrt, statistics in f32 from the bf16 input, y = x * a + (beta - mean * a)
+// rsqrt, statistics in f32 from the input, y = x * a + (beta - mean * a)
 // with a = rstd * gamma, as the TPU kernel's mul/add form.
 //
+// The element type T of x and y is a template parameter: bf16 (the default
+// and --mixed_precision bf16) or f32 (--mixed_precision no, where the TPU
+// kernel takes f32 as it takes bf16: groupnorm.py:94 reads x.astype(f32)
+// and writes x's dtype). Everything but the loads and stores is the same
+// f32 arithmetic for both.
+//
 // What bounds it on the H100: about ten f32 operations per element against
-// 4 bytes moved (2 read, 2 written) -- memory. The least time is 4 bytes per
-// element over 3.35 TB/s, which needs x read from device memory once.
+// 2 sizeof(T) bytes moved (4 in bf16, 8 in f32) -- memory. The least time is
+// those bytes per element over 3.35 TB/s, which needs x read from device
+// memory once.
 //
 // Design: on contiguous NCHW one (batch, group) is one contiguous span of
-// (C/G) * HW elements, moved as 16-byte chunks of 8.
+// (C/G) * HW elements, moved as 16-byte chunks of E = 16 / sizeof(T)
+// elements (8 in bf16, 4 in f32).
 // - Where HW % 8 == 0 and x is 16-byte aligned (every layer of a 512x512
 //   sample), each span starts on a chunk and a chunk lies in one channel.
 // - Otherwise (the tail path: the UNet's 6x6 and 10x10 levels at 384 and 640,
 //   any base alignment) a span keeps its 16-byte moves from its first aligned
-//   element on; the up to 7 elements before it (head) and after its last
+//   element on; the up to E - 1 elements before it (head) and after its last
 //   whole chunk (tail) are read and written one at a time by the first and
-//   the last block of the span, and a chunk's 8 elements take their own
+//   the last block of the span, and a chunk's E elements take their own
 //   channel's weight and bias, since a chunk may cross a channel boundary.
 //   The two are separate instantiations: the tail path, run at the aligned
 //   shapes, measured slower over a generation batch's group norms on an
 //   H100 (kernel_variants.py gn_tail_everywhere; PERF.md has the times).
+//   The rule HW % 8 == 0 serves both types: an f32 span with HW % 8 == 4
+//   takes the tail path, which is right for any HW.
 // - A span can be split over a thread-block cluster of up to 8 blocks: the
 //   largest cluster that keeps the launch at one block an SM at most (the
 //   card's SM count is read at run time). On the H100's 132 SMs the UNet's
@@ -42,10 +52,10 @@
 // - A block has 512 or 1024 threads. A thread keeps 8 of its chunks in
 //   registers and up to 13 more in shared memory between the statistics and
 //   the normalise, so x is read from device memory once wherever a block's
-//   slice fits in 1024 threads x 21 chunks (172 032 elements): at every UNet
-//   shape and the VAE's 64 x 64 and 128 x 128 ones. The VAE's spans of 0.5 to
-//   2 M elements read the rest of their slice a second time (chip_smoke.py
-//   prints how much).
+//   slice fits in 1024 threads x 21 chunks (172 032 bf16 elements, 86 016
+//   f32): at every UNet shape and the VAE's 64 x 64 and 128 x 128 ones in
+//   bf16. The VAE's larger spans read the rest of their slice a second time
+//   (chip_smoke.py prints how much).
 // - Loads are issued in batches before the first sum waits on one, so that
 //   a thread keeps several in flight.
 // - SiLU is v / (1 + e^-v) with the fast divide (__fdividef).
@@ -55,10 +65,31 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper_common.cuh"
 
 namespace {
+
+// An element of x and y: its chunk size and its conversions to and from f32
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kPerChunk = 8;
+  __device__ __forceinline__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ __forceinline__ static __nv_bfloat16 store(float v) { return __float2bfloat16_rn(v); }
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int kPerChunk = 4;
+  // the input as it is read: exact f32 (the card tests' broken copy rounds it
+  // to TF32 to show that the f32 limit catches it)
+  __device__ __forceinline__ static float load(float v) { return v; }
+  __device__ __forceinline__ static float store(float v) { return v; }
+};
 
 constexpr int kRegChunks = 8;       // chunks a thread keeps in registers
 constexpr int kMaxSmemChunks = 13;  // and at most this many in shared memory
@@ -69,13 +100,13 @@ constexpr int kSmallSpan = 1024;    // chunks: a span this small takes one block
 constexpr int kMinThreads = 512;    // fewer measured slower at the small spans
 
 struct GnParams {
-  const uint4* x;  // (B, C, HW) bf16, as 16-byte chunks where 16-byte aligned
+  const uint4* x;  // (B, C, HW) of T, as 16-byte chunks where 16-byte aligned
   const float* gamma;
   const float* beta;
   uint4* y;   // as x, with the same address mod 16
-  int span;   // the aligned path's chunks in one (batch, group) span: n / 8
+  int span;   // the aligned path's chunks in one (batch, group) span: n / E
   int slice;  // chunks of a span each block of its cluster takes
-  int hw8;        // the aligned path's chunks in one channel: HW / 8
+  int hwc;        // the aligned path's chunks in one channel: HW / E
   int cg;         // channels in one group
   int G;
   int smem_chunks;  // chunks a thread keeps in shared memory, after its kRegChunks
@@ -85,32 +116,28 @@ struct GnParams {
   int hw;  // elements in one channel
 };
 
+// bf16 takes its elements in pairs (one conversion of two), as it did before
+// f32 was added: the generic element-wise form measured 4-5% slower over a
+// generation batch's group norms
+template <typename T>
 __device__ __forceinline__ void accumulate(const uint4& raw, float& s, float& ss) {
-  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(v2[j]);
-    s += f.x + f.y;
-    ss += f.x * f.x + f.y * f.y;
-  }
-}
-
-// y = x * a + sh (+ SiLU) of one chunk
-__device__ __forceinline__ uint4 normalise(const uint4& raw, float a, float sh, int act_silu) {
-  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  uint4 out;
-  __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(v2[j]);
-    float u0 = f.x * a + sh, u1 = f.y * a + sh;
-    if (act_silu) {
-      u0 = __fdividef(u0, 1.f + __expf(-u0));
-      u1 = __fdividef(u1, 1.f + __expf(-u1));
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(v2[j]);
+      s += f.x + f.y;
+      ss += f.x * f.x + f.y * f.y;
     }
-    o2[j] = __floats2bfloat162_rn(u0, u1);
+  } else {
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < Elem<T>::kPerChunk; j += 2) {
+      const float f0 = Elem<T>::load(v[j]), f1 = Elem<T>::load(v[j + 1]);
+      s += f0 + f1;
+      ss += f0 * f0 + f1 * f1;
+    }
   }
-  return out;
 }
 
 __device__ __forceinline__ float affine_act(float v, float a, float sh, int act_silu) {
@@ -119,33 +146,62 @@ __device__ __forceinline__ float affine_act(float v, float a, float sh, int act_
   return u;
 }
 
-// the tail path's chunk: elements e .. e + 7 of the span, each with its own
-// channel's a and sh (the same arithmetic as normalise)
+// y = x * a + sh (+ SiLU) of one chunk
+template <typename T>
+__device__ __forceinline__ uint4 normalise(const uint4& raw, float a, float sh, int act_silu) {
+  uint4 out;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(v2[j]);
+      float u0 = f.x * a + sh, u1 = f.y * a + sh;
+      if (act_silu) {
+        u0 = __fdividef(u0, 1.f + __expf(-u0));
+        u1 = __fdividef(u1, 1.f + __expf(-u1));
+      }
+      o2[j] = __floats2bfloat162_rn(u0, u1);
+    }
+  } else {
+    const T* v = reinterpret_cast<const T*>(&raw);
+    T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int j = 0; j < Elem<T>::kPerChunk; ++j)
+      o[j] = Elem<T>::store(affine_act(Elem<T>::load(v[j]), a, sh, act_silu));
+  }
+  return out;
+}
+
+// the tail path's chunk: elements e .. e + E - 1 of the span, each with its
+// own channel's a and sh (the same arithmetic as normalise)
+template <typename T>
 __device__ __forceinline__ uint4 normalise_mixed(const uint4& raw, int e, const GnParams& p,
                                                  int ch0, float mean, float rstd) {
-  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  const T* v = reinterpret_cast<const T*>(&raw);
   uint4 out;
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+  T* o = reinterpret_cast<T*>(&out);
   int ch = e / p.hw;
   int left = (ch + 1) * p.hw - e;  // elements of channel ch from e on
   float a = rstd * __ldg(p.gamma + ch0 + ch);
   float sh = __ldg(p.beta + ch0 + ch) - mean * a;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < Elem<T>::kPerChunk; ++j) {
     if (j == left) {
       ++ch;
       left += p.hw;
       a = rstd * __ldg(p.gamma + ch0 + ch);
       sh = __ldg(p.beta + ch0 + ch) - mean * a;
     }
-    o[j] = __float2bfloat16_rn(affine_act(__bfloat162float(v[j]), a, sh, p.act_silu));
+    o[j] = Elem<T>::store(affine_act(Elem<T>::load(v[j]), a, sh, p.act_silu));
   }
   return out;
 }
 
-template <int THREADS, bool TAIL>
+template <typename T, int THREADS, bool TAIL>
 __global__ void __launch_bounds__(THREADS)
     groupnorm_kernel(const __grid_constant__ GnParams p) {
+  constexpr int E = Elem<T>::kPerChunk;
   extern __shared__ uint4 held[];  // [smem_chunks][THREADS]
   __shared__ float2 part[THREADS / 32];
   __shared__ float2 total;  // this block's pair, read by the cluster
@@ -155,16 +211,17 @@ __global__ void __launch_bounds__(THREADS)
   // the span's whole chunks start at xs, ys; on the tail path, the head
   // elements before its first 16-byte boundary and the tail ones after its
   // last whole chunk are moved one at a time
-  const __nv_bfloat16* const xe = reinterpret_cast<const __nv_bfloat16*>(p.x);
-  __nv_bfloat16* const ye = reinterpret_cast<__nv_bfloat16*>(p.y);
+  const T* const xe = reinterpret_cast<const T*>(p.x);
+  T* const ye = reinterpret_cast<T*>(p.y);
   const int64_t e0 = (int64_t)bg * p.n;  // the span's first element
   int head = 0, span = p.span, tail0 = p.n;
   const uint4* xs = p.x + (int64_t)bg * p.span;
   uint4* ys = p.y + (int64_t)bg * p.span;
   if constexpr (TAIL) {
-    head = min(p.n, (int)(((16u - (reinterpret_cast<uintptr_t>(xe + e0) & 15u)) & 15u) >> 1));
-    span = (p.n - head) >> 3;
-    tail0 = head + 8 * span;
+    head = min(p.n, (int)(((16u - (reinterpret_cast<uintptr_t>(xe + e0) & 15u)) & 15u) /
+                          sizeof(T)));
+    span = (p.n - head) / E;
+    tail0 = head + E * span;
     xs = reinterpret_cast<const uint4*>(xe + e0 + head);
     ys = reinterpret_cast<uint4*>(ye + e0 + head);
   }
@@ -188,7 +245,7 @@ __global__ void __launch_bounds__(THREADS)
       const int c = lo + (kRegChunks + i0 + j) * THREADS;
       if (i0 + j < p.smem_chunks && c < hi) {
         held[(i0 + j) * THREADS + t] = v[j];
-        accumulate(v[j], s, ss);
+        accumulate<T>(v[j], s, ss);
       }
     }
   }
@@ -199,7 +256,7 @@ __global__ void __launch_bounds__(THREADS)
       if (c0 + j * THREADS < hi) v[j] = xs[c0 + j * THREADS];
 #pragma unroll
     for (int j = 0; j < kBatch; ++j)
-      if (c0 + j * THREADS < hi) accumulate(v[j], s, ss);
+      if (c0 + j * THREADS < hi) accumulate<T>(v[j], s, ss);
   }
   uint4 reg[kRegChunks];
 #pragma unroll
@@ -207,19 +264,19 @@ __global__ void __launch_bounds__(THREADS)
     if (lo + i * THREADS < hi) reg[i] = xs[lo + i * THREADS];
 #pragma unroll
   for (int i = 0; i < kRegChunks; ++i)
-    if (lo + i * THREADS < hi) accumulate(reg[i], s, ss);
+    if (lo + i * THREADS < hi) accumulate<T>(reg[i], s, ss);
   float head_x = 0.f, tail_x = 0.f;  // this thread's head and tail elements, if any
   bool has_head = false, has_tail = false;
   if constexpr (TAIL) {
     has_head = rank == 0 && t < head;
     has_tail = rank == cs - 1 && t < p.n - tail0;
     if (has_head) {
-      head_x = __bfloat162float(xe[e0 + t]);
+      head_x = Elem<T>::load(xe[e0 + t]);
       s += head_x;
       ss += head_x * head_x;
     }
     if (has_tail) {
-      tail_x = __bfloat162float(xe[e0 + tail0 + t]);
+      tail_x = Elem<T>::load(xe[e0 + tail0 + t]);
       s += tail_x;
       ss += tail_x * tail_x;
     }
@@ -260,19 +317,18 @@ __global__ void __launch_bounds__(THREADS)
   const int ch0 = (bg % p.G) * p.cg;  // the group's first channel
   auto write = [&](int c, const uint4& v) {
     if constexpr (TAIL) {
-      ys[c] = normalise_mixed(v, head + 8 * c, p, ch0, mean, rstd);
+      ys[c] = normalise_mixed<T>(v, head + E * c, p, ch0, mean, rstd);
     } else {
-      const int ch = ch0 + c / p.hw8;
+      const int ch = ch0 + c / p.hwc;
       const float a = rstd * __ldg(p.gamma + ch);
-      ys[c] = normalise(v, a, __ldg(p.beta + ch) - mean * a, p.act_silu);
+      ys[c] = normalise<T>(v, a, __ldg(p.beta + ch) - mean * a, p.act_silu);
     }
   };
   if constexpr (TAIL) {
     auto write_one = [&](int e, float v) {
       const int ch = ch0 + e / p.hw;
       const float a = rstd * __ldg(p.gamma + ch);
-      ye[e0 + e] = __float2bfloat16_rn(affine_act(v, a, __ldg(p.beta + ch) - mean * a,
-                                                  p.act_silu));
+      ye[e0 + e] = Elem<T>::store(affine_act(v, a, __ldg(p.beta + ch) - mean * a, p.act_silu));
     };
     if (has_head) write_one(t, head_x);
     if (has_tail) write_one(tail0 + t, tail_x);
@@ -296,11 +352,11 @@ __global__ void __launch_bounds__(THREADS)
   if (cs > 1) hopper::cluster_wait();  // no block leaves while another may read its pair
 }
 
-template <int THREADS, bool TAIL>
+template <typename T, int THREADS, bool TAIL>
 cudaError_t launch(const GnParams& p, int blocks, int cluster, cudaStream_t stream) {
   static bool attr_set = false;  // opt in to > 48 KB of dynamic shared memory once
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(groupnorm_kernel<THREADS, TAIL>,
+    cudaError_t err = cudaFuncSetAttribute(groupnorm_kernel<T, THREADS, TAIL>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            THREADS * kMaxSmemChunks * 16);
     if (err != cudaSuccess) return err;
@@ -308,7 +364,7 @@ cudaError_t launch(const GnParams& p, int blocks, int cluster, cudaStream_t stre
   }
   const size_t smem = (size_t)p.smem_chunks * THREADS * 16;
   if (cluster == 1) {
-    groupnorm_kernel<THREADS, TAIL><<<blocks, THREADS, smem, stream>>>(p);
+    groupnorm_kernel<T, THREADS, TAIL><<<blocks, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
   }
   cudaLaunchAttribute attr[1];
@@ -323,7 +379,7 @@ cudaError_t launch(const GnParams& p, int blocks, int cluster, cudaStream_t stre
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, groupnorm_kernel<THREADS, TAIL>, p);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, groupnorm_kernel<T, THREADS, TAIL>, p);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -354,12 +410,15 @@ Plan plan(int spans, int span, int sms) {
 
 }  // namespace
 
-// The plan of a launch on (B, C, HW) with G groups on the current device,
-// into out[4]: cluster size, threads a block, chunks a thread keeps in shared
-// memory, and chunks of each slice read twice from device memory (0 where x
-// is read once). Returns 0.
-extern "C" int agenda_groupnorm_plan(int B, int C, int HW, int G, long long* out) {
-  const Plan pl = plan(B * G, (int)((long long)(C / G) * HW / 8), hopper::sm_count());
+// The plan of a launch on (B, C, HW) with G groups of `elem_bytes`-byte
+// elements (2: bf16, 4: f32) on the current device, into out[4]: cluster
+// size, threads a block, chunks a thread keeps in shared memory, and chunks
+// of each slice read twice from device memory (0 where x is read once).
+// Returns 0.
+extern "C" int agenda_groupnorm_plan(int B, int C, int HW, int G, int elem_bytes,
+                                     long long* out) {
+  const Plan pl = plan(B * G, (int)((long long)(C / G) * HW * elem_bytes / 16),
+                       hopper::sm_count());
   const int kept = pl.threads * (kRegChunks + pl.smem_chunks);
   out[0] = pl.cluster;
   out[1] = pl.threads;
@@ -368,16 +427,16 @@ extern "C" int agenda_groupnorm_plan(int B, int C, int HW, int G, long long* out
   return 0;
 }
 
-// x, y: contiguous (B, C, HW) bf16 at any 2-byte-aligned addresses that agree
-// mod 16 (the kernel moves 8 elements at a time from the same offsets of
-// both); gamma, beta: (C,) f32. Returns a cudaError_t.
-extern "C" int agenda_groupnorm(const void* x, const void* gamma, const void* beta, void* y,
-                                int B, int C, int HW, int G, float eps, int act_silu,
-                                void* stream) {
+namespace {
+
+template <typename T>
+int run(const void* x, const void* gamma, const void* beta, void* y, int B, int C, int HW, int G,
+        float eps, int act_silu, void* stream) {
+  constexpr int E = Elem<T>::kPerChunk;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x), ya = reinterpret_cast<uintptr_t>(y);
   if (B <= 0 || C <= 0 || HW <= 0 || G <= 0 || C % G != 0 ||
       (long long)B * G * kMaxCluster > 0x7fffffff || (long long)(C / G) * HW > 0x7ffffff0 ||
-      xa % 2 != 0 || xa % 16 != ya % 16)
+      xa % sizeof(T) != 0 || xa % 16 != ya % 16)
     return (int)cudaErrorInvalidValue;
   GnParams p;
   p.x = static_cast<const uint4*>(x);
@@ -386,10 +445,10 @@ extern "C" int agenda_groupnorm(const void* x, const void* gamma, const void* be
   p.y = static_cast<uint4*>(y);
   p.cg = C / G;
   p.hw = HW;
-  p.hw8 = HW / 8;
+  p.hwc = HW / E;
   p.G = G;
   p.n = p.cg * HW;
-  p.span = p.n / 8;
+  p.span = p.n / E;
   p.inv_n = 1.f / (float)p.n;
   p.eps = eps;
   p.act_silu = act_silu;
@@ -399,8 +458,29 @@ extern "C" int agenda_groupnorm(const void* x, const void* gamma, const void* be
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = B * G * pl.cluster;
   if (HW % 8 != 0 || xa % 16 != 0)  // the tail path
-    return (int)(pl.threads == kMinThreads ? launch<kMinThreads, true>(p, blocks, pl.cluster, st)
-                                           : launch<kMaxThreads, true>(p, blocks, pl.cluster, st));
-  return (int)(pl.threads == kMinThreads ? launch<kMinThreads, false>(p, blocks, pl.cluster, st)
-                                         : launch<kMaxThreads, false>(p, blocks, pl.cluster, st));
+    return (int)(pl.threads == kMinThreads
+                     ? launch<T, kMinThreads, true>(p, blocks, pl.cluster, st)
+                     : launch<T, kMaxThreads, true>(p, blocks, pl.cluster, st));
+  return (int)(pl.threads == kMinThreads
+                   ? launch<T, kMinThreads, false>(p, blocks, pl.cluster, st)
+                   : launch<T, kMaxThreads, false>(p, blocks, pl.cluster, st));
+}
+
+}  // namespace
+
+// x, y: contiguous (B, C, HW) bf16 at any 2-byte-aligned addresses that agree
+// mod 16 (the kernel moves 8 elements at a time from the same offsets of
+// both); gamma, beta: (C,) f32. Returns a cudaError_t.
+extern "C" int agenda_groupnorm(const void* x, const void* gamma, const void* beta, void* y,
+                                int B, int C, int HW, int G, float eps, int act_silu,
+                                void* stream) {
+  return run<__nv_bfloat16>(x, gamma, beta, y, B, C, HW, G, eps, act_silu, stream);
+}
+
+// The same on f32 x and y at any 4-byte-aligned addresses that agree mod 16
+// (4 elements at a time).
+extern "C" int agenda_groupnorm_f32(const void* x, const void* gamma, const void* beta, void* y,
+                                    int B, int C, int HW, int G, float eps, int act_silu,
+                                    void* stream) {
+  return run<float>(x, gamma, beta, y, B, C, HW, G, eps, act_silu, stream);
 }

@@ -71,7 +71,6 @@ rank 0 writes them.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import logging
@@ -81,7 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from agenda_tpu_torch._device import resolve_device
+from agenda_tpu_torch._device import full_f32, resolve_device
 from agenda_tpu_torch.annotate.records import save_predictions
 from agenda_tpu_torch.data.device_resize import resize_levels, resize_weights
 from agenda_tpu_torch.detect.coco_eval import coco_map
@@ -180,20 +179,6 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 IMPORT_KEYS = {"FasterRCNNFamily": "faster-rcnn", "YOLOv5Family": "yolov5",
                "YOLOv8Family": "yolov8", "ViTDetFamily": "vitdet"}
-
-
-def full_f32(dev: torch.device):
-    """Full f32 convolutions and matmuls on the card (no TF32), cuDNN
-    autotuned for the fixed batch shape."""
-    if dev.type != "cuda":
-        return contextlib.nullcontext()
-    stack = contextlib.ExitStack()
-    stack.enter_context(torch.backends.cudnn.flags(enabled=True, benchmark=True,
-                                                    deterministic=False, allow_tf32=False))
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    stack.callback(setattr, torch.backends.cuda.matmul, "allow_tf32", prev)
-    return stack
 
 
 @dataclasses.dataclass

@@ -45,7 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from agenda_tpu_torch._device import compute_dtype, resolve_device
+from agenda_tpu_torch._device import compute_dtype, full_f32_if, resolve_device
 from agenda_tpu_torch.core.schedules import (
     DiffusionSchedule,
     ddim_step,
@@ -286,7 +286,9 @@ class StableDiffusionPipeline:
         non-blocking copy and an event, so the caller can write batch i while
         the card samples batch i+1. With ``mesh`` over several ranks, ``seeds``
         (and ``latents``) are the global batch, which divides by the world,
-        and the result holds this rank's rows (``mesh.rows``).
+        and the result holds this rank's rows (``mesh.rows``). An f32
+        pipeline (``--mixed_precision no``) queues the batch on the card
+        with TF32 off in its convolutions and matmuls (``full_f32``).
         """
         if self.mesh is not None and self.mesh.world > 1:
             rows = self.mesh.rows(len(seeds))
@@ -295,22 +297,25 @@ class StableDiffusionPipeline:
         b = len(seeds)
         if words:
             collect_heatmaps = True
-        context = self.encode_prompts([negative_prompt] * b + [prompt] * b)
-        f = self.vae_scale_factor
-        if latents is None:
-            lat = self.initial_latents(seeds, height // f, width // f)
-        elif isinstance(latents, torch.Tensor):
-            lat = latents.to(self.device, torch.float32)
-        else:
-            lat = self._to_device(np.asarray(latents, np.float32))
-        if lat.shape != (b, height // f, width // f, 4):
-            raise ValueError(f"latents must be {(b, height // f, width // f, 4)}, "
-                             f"got {tuple(lat.shape)}")
-        images, heatmaps = self._sample(context, lat, float(guidance_scale), collect_heatmaps,
-                                        num_inference_steps, out_size, tgate_step)
-        second = heatmaps
-        if words:
-            second = self._word_maps(heatmaps, prompt, words, heatmap_size)
+        # cuDNN's heuristics, as the bf16 path has them: a validation batch is one-off
+        with full_f32_if(self.unet.dtype, self.device, benchmark=False):
+            context = self.encode_prompts([negative_prompt] * b + [prompt] * b)
+            f = self.vae_scale_factor
+            if latents is None:
+                lat = self.initial_latents(seeds, height // f, width // f)
+            elif isinstance(latents, torch.Tensor):
+                lat = latents.to(self.device, torch.float32)
+            else:
+                lat = self._to_device(np.asarray(latents, np.float32))
+            if lat.shape != (b, height // f, width // f, 4):
+                raise ValueError(f"latents must be {(b, height // f, width // f, 4)}, "
+                                 f"got {tuple(lat.shape)}")
+            images, heatmaps = self._sample(context, lat, float(guidance_scale),
+                                            collect_heatmaps, num_inference_steps, out_size,
+                                            tgate_step)
+            second = heatmaps
+            if words:
+                second = self._word_maps(heatmaps, prompt, words, heatmap_size)
         outs = [images] + ([second] if second is not None else [])
         if self.device.type == "cuda":
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]

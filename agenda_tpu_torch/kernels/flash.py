@@ -5,12 +5,18 @@ Replaces the Pallas TPU kernels of ``agenda_tpu/kernels/flash.py``:
 
 - ``flash_attention_fwd`` -> ``csrc/flash_fwd.cu`` (``_flash_fwd_kernel``);
 - ``flash_attention_bwd_dkv`` -> ``csrc/flash_bwd.cu`` (``_flash_bwd_dkv_kernel``);
-- ``flash_attention_bwd_dq`` -> ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``).
+- ``flash_attention_bwd_dq`` -> ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``);
+- on f32 operands (``--mixed_precision no``) all three -> ``csrc/flash_f32.cu``,
+  as the TPU kernels take f32 as they take bf16 (the forward up to D = 512,
+  the backward up to D = 160).
 
 Each wrapper launches its kernel on CUDA tensors and takes its plain version
-only for CPU tensors; on a CUDA tensor it launches the kernel or raises. Each
-counts its kernel launches in ``<wrapper>.launches``; the forward also counts
-those of its wide kernel (D > 160) in ``flash_attention_fwd.launches_wide``. ``flash_attention``
+only for CPU tensors; on a CUDA tensor it launches the bf16 kernel for bf16,
+the f32 kernel for f32, and raises for any other dtype. Each counts its
+kernel launches in ``<wrapper>.launches`` and the f32 kernel's among them in
+``<wrapper>.launches_f32``; the forward also counts its launches at D > 160
+(the wide kernel, or the f32 forward's wide instantiation) in
+``flash_attention_fwd.launches_wide``. ``flash_attention``
 mirrors the JAX ``custom_vjp`` (``flash.py:295-312``): the forward saves the
 output and the row logsumexp, the backward computes delta = rowsum(dO * O)
 in f32 outside the kernels (``flash.py:235``) and returns the gradients in
@@ -34,15 +40,22 @@ _L = ctypes.c_longlong
 WIDE_ABOVE = 160  # csrc/flash_fwd.cu's kMaxWgmmaHeadDim: a larger D runs the wide kernel
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in its own dtype where that is wider (float64: the
+    references the f32 kernels are held to on the card)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: f32 softmax(Q K^T / sqrt(D)) V and the row logsumexp.
+    """Plain version: f32 softmax(Q K^T / sqrt(D)) V and the row logsumexp
+    (float64 throughout for float64 inputs).
 
     q, k, v: (B, S, H, D) -> (out (B, S, H, D) in q.dtype, lse (B*H, S) f32).
     """
     b, s, h, d = q.shape
-    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    qf, kf, vf = (_wide(t).permute(0, 2, 1, 3) for t in (q, k, v))
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
     lse = torch.logsumexp(logits, dim=-1)
     out = torch.matmul(torch.exp(logits - lse[..., None]), vf)
@@ -65,14 +78,15 @@ def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta):
 
 
 def _bwd_terms(q, k, v, do, lse, delta):
-    """P = exp(Q K^T scale - lse) and dS = P (dO V^T - delta), all f32 (B, H, S, S)."""
+    """P = exp(Q K^T scale - lse) and dS = P (dO V^T - delta), all f32 (B, H, S, S)
+    (float64 for float64 inputs)."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    qf, kf, vf, dof = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    qf, kf, vf, dof = (_wide(t).permute(0, 2, 1, 3) for t in (q, k, v, do))
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    p = torch.exp(logits - lse.reshape(b, h, s, 1))
+    p = torch.exp(logits - _wide(lse).reshape(b, h, s, 1))
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta.reshape(b, h, s, 1))
+    ds = p * (dp - _wide(delta).reshape(b, h, s, 1))
     return qf, kf, vf, dof, p, ds, scale
 
 
@@ -82,9 +96,10 @@ def _from_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dO * O) in f32, (B, S, H, D) -> (B*H, S)."""
+    """delta = rowsum(dO * O) in f32 (float64 for float64 inputs), (B, S, H, D)
+    -> (B*H, S)."""
     b, s, h, _ = out.shape
-    delta = (do.float() * out.float()).sum(dim=-1)  # (B, S, H)
+    delta = (_wide(do) * _wide(out)).sum(dim=-1)  # (B, S, H)
     return delta.permute(0, 2, 1).reshape(b * h, s).contiguous()
 
 
@@ -101,6 +116,18 @@ def _kernel():
     fn = lib.function("agenda_flash_fwd", [_P] * 5 + [_I] * 4 + [_L] * 12 + [_P])
     max_d = lib.function("agenda_flash_fwd_max_head_dim", [])()
     return fn, max_d
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_kernels():
+    """``csrc/flash_f32.cu``: (forward, dK/dV, dQ, the forward's and the
+    backward's largest head dim)."""
+    lib = _build.load_library()
+    fwd = lib.function("agenda_flash_fwd_f32", [_P] * 5 + [_I] * 4 + [_L] * 9 + [_P])
+    dkv = lib.function("agenda_flash_bwd_dkv_f32", [_P] * 8 + [_I] * 4 + [_P, _P])
+    dq = lib.function("agenda_flash_bwd_dq_f32", [_P] * 7 + [_I] * 4 + [_P, _P])
+    max_d = lib.function("agenda_flash_f32_max_head_dim", [_I])
+    return fwd, dkv, dq, max_d(0), max_d(1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,16 +152,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tenso
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
+def _chunked(t: torch.Tensor) -> bool:
+    """16-byte-aligned with batch, sequence and head strides of whole 16-byte chunks."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % per == 0 for st in t.stride()[:3])
+
+
 def _check_cuda(name: str, tensors, max_d: int) -> None:
-    """What the CUDA kernels take: bf16, unit-stride D, 16-byte chunks, D <= max_d."""
+    """What the CUDA kernels take: bf16 or f32, unit-stride D, 16-byte chunks,
+    D <= max_d (the caller's, by dtype)."""
     q = tensors[0]
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the {name} kernel takes bf16, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the {name} kernels take bf16 or f32, got {q.dtype}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"the {name} kernel needs a unit-stride head dim")
-    if any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in tensors):
+    if not all(_chunked(t) for t in tensors):
         raise ValueError(f"the {name} kernel needs 16-byte-aligned inputs with batch, "
-                         "sequence and head strides that are multiples of 8")
+                         "sequence and head strides of whole 16-byte chunks")
     b, _, h, d = q.shape
     if d % 8 or d > max_d:
         raise ValueError(f"the {name} kernel takes a head dim that is a multiple of 8 up to "
@@ -149,33 +183,39 @@ def flash_attention_fwd(
     """Non-causal unmasked attention over (B, S, H, D) for any S.
 
     Returns (out (B, S, H, D), lse (B*H, S) f32). CUDA tensors must be bf16
-    with a unit-stride head dim that is a multiple of 8; the kernel copies
-    16-byte chunks, so the other strides must be multiples of 8 and the data
-    16-byte aligned. Such strides are read as they are.
+    (D up to 512) or f32 (``csrc/flash_f32.cu``, D up to 512) with a
+    unit-stride head dim that is a multiple of 8; the kernels copy 16-byte
+    chunks, so the other strides must be whole chunks (multiples of 8 bf16
+    or 4 f32 elements) and the data 16-byte aligned. Such strides are read
+    as they are.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
-    fn, max_d = _kernel()
+    f32 = q.dtype == torch.float32
+    if f32:
+        fn, _, _, max_d, _ = _f32_kernels()
+    else:
+        fn, max_d = _kernel()
     _check_cuda("flash", (q, k, v), max_d)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    if not f32:
+        strides += out.stride()[:3]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, s, h, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            _build.stream_ptr(q.device))
+            b, s, h, d, *strides, _build.stream_ptr(q.device))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_f32 += int(f32)
     if d > WIDE_ABOVE:
         flash_attention_fwd.launches_wide += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_f32 = 0
 flash_attention_fwd.launches_wide = 0
 
 
@@ -197,13 +237,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     """dK, dV of non-causal unmasked attention over (B, S, H, D) for any S.
 
     lse and delta are (B*H, S) f32. CUDA tensors: as ``flash_attention_fwd``
-    takes them, with D up to 512; dk and dv come back contiguous bf16.
+    takes them, with D up to 512 in bf16 and up to 160 in f32; dk and dv come
+    back contiguous in q's dtype.
     """
     _check(q, k, v, do)
     _stats_on(lse, delta, q)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta)
-    fn, _, max_d = _bwd_kernels()
+    fn, _, max_d = _bwd_cuda(q)
     _check_cuda("flash backward", (q, k, v, do), max_d)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -212,16 +253,18 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     rc = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides, _build.stream_ptr(q.device))
     _build.check(rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_f32 += int(q.dtype == torch.float32)
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta):
-    """dQ, same inputs as ``flash_attention_bwd_dkv``; dq contiguous bf16 on CUDA."""
+    """dQ, same inputs as ``flash_attention_bwd_dkv``; dq contiguous in q's
+    dtype on CUDA."""
     _check(q, k, v, do)
     _stats_on(lse, delta, q)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta)
-    _, fn, max_d = _bwd_kernels()
+    _, fn, max_d = _bwd_cuda(q)
     _check_cuda("flash backward", (q, k, v, do), max_d)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse, delta = lse.contiguous(), delta.contiguous()
@@ -229,11 +272,20 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
     rc = fn(*ptrs, dq.data_ptr(), *dims, strides, _build.stream_ptr(q.device))
     _build.check(rc, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_f32 += int(q.dtype == torch.float32)
     return dq
 
 
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dq.launches = 0
+def _bwd_cuda(q: torch.Tensor):
+    """(dK/dV entry, dQ entry, largest D) of the backward kernels for q's dtype."""
+    if q.dtype == torch.float32:
+        _, dkv, dq, _, max_d = _f32_kernels()
+        return dkv, dq, max_d
+    return _bwd_kernels()
+
+
+flash_attention_bwd_dkv.launches = flash_attention_bwd_dkv.launches_f32 = 0
+flash_attention_bwd_dq.launches = flash_attention_bwd_dq.launches_f32 = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -248,8 +300,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.device.type == "cuda" and (do.stride(-1) != 1 or any(
-                st % 8 for st in do.stride()[:3]) or do.data_ptr() % 16):
+        if do.device.type == "cuda" and (do.stride(-1) != 1 or not _chunked(do)):
             do = do.contiguous()
         delta = flash_delta(out, do)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)

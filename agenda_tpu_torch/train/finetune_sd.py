@@ -6,12 +6,16 @@ Counterpart of ``agenda_tpu/train/finetune_sd.py``:
   random timesteps -> CLIP context -> UNet prediction -> (min-SNR-weighted)
   MSE -> backward -> clip + AdamW (int8 fused kernel or f32) -> EMA.
 
-The UNet keeps f32 master parameters. On the card the forward and backward
-run under ``torch.autocast(bfloat16)``: convolutions and linears compute in
-bf16, so the flash and GroupNorm kernels receive bf16 activations, while the
-GroupNorm weights stay f32 parameters (the kernel reads them as f32). On the
-CPU everything is f32. The frozen VAE and text encoder are separate modules
-in the compute dtype (bf16 on the card), run without autograd.
+The UNet keeps f32 master parameters. On the card, in the bf16 compute
+dtype (the default), the forward and backward run under
+``torch.autocast(bfloat16)``: convolutions and linears compute in bf16, so
+the flash and GroupNorm kernels receive bf16 activations, while the
+GroupNorm weights stay f32 parameters (the kernel reads them as f32). In the
+f32 compute dtype (``--mixed_precision no``) there is no autocast: the whole
+step runs in f32 with TF32 off (``full_f32``), and the kernels take f32, as
+the JAX package computes in f32 under that flag. On the CPU everything is
+f32. The frozen VAE and text encoder are separate modules in the compute
+dtype, run without autograd.
 
 Randomness: the step's draws (the latent eps, the noise, the timesteps, the
 offset noise and the input perturbation, ``finetune_sd.py:81-87,155-157``)
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from agenda_tpu_torch._device import compute_dtype, full_f32_if
 from agenda_tpu_torch.core.ema import EMAState, ema_decay_at, ema_init, ema_update
 from agenda_tpu_torch.core.schedules import (
     DiffusionSchedule,
@@ -172,8 +177,10 @@ def diffusion_loss(unet: nn.Module, schedule: DiffusionSchedule, latents: torch.
     return (err.mean(dim=(1, 2, 3)) * w).mean()
 
 
-def _autocast(device: torch.device):
-    if device.type == "cuda":
+def _autocast(device: torch.device, dtype: Optional[torch.dtype] = None):
+    """bf16 autocast around the UNet on the card in the bf16 compute dtype
+    (``dtype`` None: ``compute_dtype(device)``); none in f32 or on the CPU."""
+    if device.type == "cuda" and (dtype or compute_dtype(device)) == torch.bfloat16:
         return torch.autocast(device_type="cuda", dtype=torch.bfloat16)
     return contextlib.nullcontext()
 
@@ -189,6 +196,7 @@ def make_train_step(
     ema_decay: float = 0.9999,
     resize_weights: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     mesh: Optional[Mesh] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """Build ``step(state, batch, draws=None, generator=None) -> (state, metrics)``.
 
@@ -201,14 +209,22 @@ def make_train_step(
     ``state.step`` counts micro-batches; with ``tx`` accumulating (``multi_steps``)
     the parameters, the optimizer count and the EMA move on every k-th.
     Over the ranks of ``mesh``, ``batch`` and ``draws`` are this rank's rows
-    and the metrics are the global batch's.
+    and the metrics are the global batch's. ``dtype`` is the compute dtype
+    (the frozen modules'): by default ``compute_dtype(device)``; f32 on the
+    card runs the step in full f32.
     """
     scaling = vae.config.scaling_factor
     device = next(unet.parameters()).device
+    dtype = compute_dtype(device) if dtype is None else dtype
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              draws: Optional[StepDraws] = None,
              generator: Optional[torch.Generator] = None) -> Tuple[TrainState, Dict]:
+        # in f32 on the card, TF32 off for the encoders, the UNet and its backward
+        with full_f32_if(dtype, device):
+            return _step(state, batch, draws, generator)
+
+    def _step(state, batch, draws, generator):
         with torch.no_grad():
             if "latent_moments" in batch:
                 mean, logvar = batch["latent_moments"].float().chunk(2, dim=-1)
@@ -221,7 +237,7 @@ def make_train_step(
                                    loss_cfg, device, mesh)
             latents = sample_latents(mean, logvar, draws.latent_eps.float()) * scaling
             context = text_encoder(batch["input_ids"])[0]
-        with _autocast(device):
+        with _autocast(device, dtype):
             loss = diffusion_loss(unet, schedule, latents, context, draws, loss_cfg)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)

@@ -20,7 +20,9 @@ AttnDreamBooth-style trainer, stages 1 and 2):
   optimizer's parameters are {"embedding", "unet.<name>"}.
 
 Mixed precision as in the SD trainer: f32 master parameters and the UNet
-under ``torch.autocast(bfloat16)`` on the card. The text encoder runs in its
+under ``torch.autocast(bfloat16)`` on the card in the bf16 compute dtype, or
+the whole step in full f32 (``full_f32``, no autocast) in the f32 one
+(``--mixed_precision no``). The text encoder runs in its
 own dtype with autograd on when tokens train, so the gradient reaches the
 learned rows through it while its weights stay frozen. The DAAM maps of
 ``collect_attn=True`` keep their autograd graph. The step's draws arrive as
@@ -46,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from agenda_tpu_torch._device import compute_dtype, full_f32_if
 from agenda_tpu_torch.core.schedules import (
     DiffusionSchedule,
     add_noise,
@@ -210,7 +213,8 @@ def init_token_train_state(unet: nn.Module, tx: Optimizer, train_token: bool, tr
 def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Module,
                           schedule: DiffusionSchedule, tx: Optimizer, cfg: TokenLossConfig,
                           resize_weights: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-                          mesh: Optional[Mesh] = None) -> Callable:
+                          mesh: Optional[Mesh] = None,
+                          dtype: Optional[torch.dtype] = None) -> Callable:
     """Build ``step(state, batch, draws=None, generator=None) -> (state, metrics)``.
 
     ``batch`` holds device tensors: ``input_ids`` (B, 77), ``new_tokens_start``
@@ -220,9 +224,11 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
     the new tokens' rows). Parameters, embedding and optimizer state are
     updated in place; ``metrics`` are device scalars (loss, mse, attn_loss,
     fg_loss, bg_loss), the global batch's over the ranks of ``mesh``.
+    ``dtype`` is the compute dtype, as ``make_train_step`` takes it.
     """
     scaling = vae.config.scaling_factor
     device = next(unet.parameters()).device
+    dtype = compute_dtype(device) if dtype is None else dtype
     draw_cfg = LossConfig(noise_offset=OFFSET_NOISE if cfg.offset_noise else 0.0)
     table = text_encoder.text_model.embeddings.token_embedding.weight
     world = 1 if mesh is None else mesh.world
@@ -230,6 +236,10 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
     def step(state: TokenTrainState, batch: Dict[str, torch.Tensor],
              draws: Optional[StepDraws] = None,
              generator: Optional[torch.Generator] = None) -> Tuple[TokenTrainState, Dict]:
+        with full_f32_if(dtype, device):
+            return _step(state, batch, draws, generator)
+
+    def _step(state, batch, draws, generator):
         with torch.no_grad():
             if "latent_moments" in batch:
                 mean, logvar = batch["latent_moments"].float().chunk(2, dim=-1)
@@ -262,7 +272,7 @@ def make_token_train_step(unet: nn.Module, vae: nn.Module, text_encoder: nn.Modu
         else:
             with torch.no_grad():
                 context = text_encoder(ids)[0]
-        with _autocast(device):
+        with _autocast(device, dtype):
             model_pred, maps = unet(noisy, timesteps, context,
                                     collect_attn=cfg.with_cross_attn_reg)
         err = (model_pred.float() - target) ** 2

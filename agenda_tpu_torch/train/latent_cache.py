@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from agenda_tpu_torch._device import full_f32_if
 from agenda_tpu_torch.data.device_resize import apply_resize
 
 
@@ -31,27 +32,32 @@ def precompute_latent_moments(vae, dataset, batch_size: int = 8,
 
     The trailing batch is padded to ``batch_size`` by repeating its last
     image, so every encode has one shape. uint8 tiles are resized on the
-    device with ``resize_weights``, as in the step.
+    device with ``resize_weights``, as in the step. The encode runs in the
+    VAE's dtype, the compute dtype: an f32 VAE on the card (``--mixed_precision
+    no``) encodes with TF32 off, without autotuning (each image is encoded
+    once).
     """
     device = device or next(vae.parameters()).device
     n = len(dataset)
     out: Optional[np.ndarray] = None
     t0 = time.perf_counter()
-    for start in range(0, n, batch_size):
-        idx = list(range(start, min(start + batch_size, n)))
-        rows = [dataset[i] for i in idx]
-        key = "pixel_u8" if "pixel_u8" in rows[0] else "pixel_values"
-        batch = np.stack([r[key] for r in rows])
-        if len(idx) < batch_size:
-            batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - len(idx), 0)])
-        pixels = torch.from_numpy(batch).to(device)
-        if key == "pixel_u8":
-            pixels = apply_resize(pixels, *resize_weights)
-        mean, logvar = vae.encode(pixels)
-        moments = torch.cat([mean, logvar], dim=-1).float().cpu().numpy()
-        if out is None:
-            out = np.empty((n, *moments.shape[1:]), np.float32)
-        out[idx] = moments[: len(idx)]
+    with full_f32_if(vae.dtype, device, benchmark=False):
+        for start in range(0, n, batch_size):
+            idx = list(range(start, min(start + batch_size, n)))
+            rows = [dataset[i] for i in idx]
+            key = "pixel_u8" if "pixel_u8" in rows[0] else "pixel_values"
+            batch = np.stack([r[key] for r in rows])
+            if len(idx) < batch_size:
+                pad = np.repeat(batch[-1:], batch_size - len(idx), 0)
+                batch = np.concatenate([batch, pad])
+            pixels = torch.from_numpy(batch).to(device)
+            if key == "pixel_u8":
+                pixels = apply_resize(pixels, *resize_weights)
+            mean, logvar = vae.encode(pixels)
+            moments = torch.cat([mean, logvar], dim=-1).float().cpu().numpy()
+            if out is None:
+                out = np.empty((n, *moments.shape[1:]), np.float32)
+            out[idx] = moments[: len(idx)]
     if log_fn:
         log_fn(f"cached latent moments for {n} images in {time.perf_counter() - t0:.1f}s "
                f"({out.nbytes / 1e6:.1f} MB host RAM)")

@@ -172,7 +172,7 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 statistics' move within the family's FAM_LIMITS, the TF32
                 control beyond each; predictions matched box for box;
  32. family CLIs -- cli/det_train --preset real_source --detector <family>
-                on 48 of the stacks (64 to validate) at the preset's batch
+                on 24 of the stacks (24 to validate) at the preset's batch
                 with --pretrained from a fabricated
                 mmdet/mmyolo checkpoint (80-class COCO heads): the import
                 report (every tensor but the heads imported, the heads
@@ -181,7 +181,7 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
  33. family timing -- each family's train step at its real_source and
                 synthetic_target batches (cold, warm, images/s, peak memory,
                 the card's busy share and kernel launches of a profiled step,
-                the NMS rank loop's launches), and labelling 256 of the stacks
+                the NMS rank loop's launches), and labelling 192 of the stacks
                 at batch 192 (images/s, NMS launches a batch);
  34. the chain with faster-rcnn -- phase 30 with `detector: faster-rcnn`;
  35. TGATE   -- (run after phase 6, on its pipeline) one UNet call that
@@ -221,12 +221,29 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 raise naming the missing library; the labelling decode a
                 tile, native against utils/png.py, on phase 17's stacks and a
                 512-px Pillow-written tile; the procedural domain (48 + 16
-                tiles); the bench's stack labeler trained 30 epochs on the
-                card (val AP >= 0.9), then from its cache (same threshold and
+                tiles); the bench's stack labeler trained 10 epochs (its
+                own 30, cut) on the card (val AP >= 0.9), then from its
+                cache (same threshold and
                 weights, no training); the box matchers, native against
                 numpy;
- 40. report  -- a `kernels` JSON line (the six kernels, the flash forward's and
-                backward's wide kernels as entries of their own; none is on the labelling,
+ 40. full precision -- (run after phase 37) --mixed_precision no: ptxas's
+                registers and spills of the f32 kernels; one f32 SD step at
+                batch 4, 512x512 through the trainer API, every flash and
+                group-norm launch an f32 kernel's (launches_f32), the
+                counts the config's, warm s/step and peak memory; the f32
+                forward (D = 40, 80, 160 and 512), dK/dV, dQ and GroupNorm at
+                that step's shapes and the VAE's, each against float64 on
+                the card (at most F32_LIMIT x the f32 plain version's
+                error) and timed beside its bound, the plain version and
+                SDPA or F.group_norm + F.silu in f32; the f32 step at 256
+                px, batch 1, card vs CPU with a TF32 control; then
+                cli/finetune_sd --mixed_precision no for 2 steps with one
+                validation (4 PNGs) and cli/finetune_sd_token
+                --mixed_precision no for 2 steps of stage 1, their launches
+                the config's and all f32;
+ 41. report  -- a `kernels` JSON line (the six kernels, the flash forward's and
+                backward's wide kernels and the five f32 kernels of phase 40
+                as entries of their own; none is on the labelling,
                 detector, refine or orchestrator path: the render is einsums
                 and elementwise PyTorch, as it is jnp in the reference,
                 ResNet-50 is cuDNN and ATen as it is flax without Pallas
@@ -469,14 +486,13 @@ def expected_launches(unet_cfg, vae_cfg, unet_calls: int) -> dict:
     }
 
 
-def record_shapes(pipe, batch: int):
-    """Shapes, and calls per batch, of every kernel call of one UNet call and one decode."""
-    import torch
-
+def record_calls(modules, run) -> dict:
+    """{"flash": [(B, S, H, D), ...], "gn": [(shape, groups, eps, act), ...]}:
+    the kernel calls, in order, that ``run()`` makes through the group norms,
+    self-attentions and VAE attentions among ``modules``."""
     from agenda_tpu_torch.models.layers import Attention, GroupNormAct, VAEAttention
 
     calls = {"flash": [], "gn": []}
-    hooks = []
 
     def on_gn(m, args):
         calls["gn"].append((tuple(args[0].shape), m.num_groups, m.eps, m.act))
@@ -490,29 +506,52 @@ def record_shapes(pipe, batch: int):
         b, c, h, w = args[0].shape
         calls["flash"].append((b, h * w, 1, c))
 
-    for mod in list(pipe.unet.modules()) + list(pipe.vae.decoder.modules()):
+    hooks = []
+    for mod in modules:
         if isinstance(mod, GroupNormAct):
             hooks.append(mod.register_forward_pre_hook(on_gn))
         elif isinstance(mod, Attention):
             hooks.append(mod.register_forward_pre_hook(on_self_attn))
         elif isinstance(mod, VAEAttention):
             hooks.append(mod.register_forward_pre_hook(on_vae_attn))
-    unet_calls = len(pipe.timestep_table(E2E_STEPS))
-    hw, dev = pipe.latent_hw, pipe.device
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def tally(calls: dict, times: int = 1, into: dict = None) -> dict:
+    """{kind: {key: count}}: ``record_calls``' lists, each call counted
+    ``times`` times, added to ``into``."""
+    into = {"flash": {}, "gn": {}} if into is None else into
+    for kind, keys in calls.items():
+        for key in keys:
+            into[kind][key] = into[kind].get(key, 0) + times
+    return into
+
+
+def sampler_shapes(unet, vae, hw: int, batch: int, unet_calls: int, dev) -> dict:
+    """Shapes, and calls per batch, of every kernel call of one sampled batch:
+    ``unet_calls`` guided UNet calls (at 2 x batch) and one decode."""
+    import torch
+
     with torch.no_grad():
-        ctx = torch.randn(2 * batch, 77, pipe.unet.config.cross_attention_dim, device=dev)
-        pipe.unet(torch.randn(2 * batch, hw, hw, 4, device=dev),
-                  torch.full((2 * batch,), 500.0, device=dev), ctx, collect_attn=True)
-        n_unet = {k: len(v) for k, v in calls.items()}
-        pipe.vae.decode(torch.randn(batch, hw, hw, 4, device=dev))
-    for h in hooks:
-        h.remove()
-    per_batch = {"flash": {}, "gn": {}}
-    for kind, lst in calls.items():
-        for i, key in enumerate(lst):
-            per_batch[kind][key] = per_batch[kind].get(key, 0) + (unet_calls if i < n_unet[kind]
-                                                                  else 1)
-    return per_batch, unet_calls
+        ctx = torch.randn(2 * batch, 77, unet.config.cross_attention_dim, device=dev)
+        lat = torch.randn(2 * batch, hw, hw, 4, device=dev)
+        t = torch.full((2 * batch,), 500.0, device=dev)
+        in_unet = record_calls(unet.modules(), lambda: unet(lat, t, ctx, collect_attn=True))
+        z = torch.randn(batch, hw, hw, 4, device=dev)
+        in_decode = record_calls(vae.decoder.modules(), lambda: vae.decode(z))
+    return tally(in_decode, 1, tally(in_unet, unet_calls))
+
+
+def record_shapes(pipe, batch: int):
+    """Shapes, and calls per batch, of every kernel call of one UNet call and one decode."""
+    unet_calls = len(pipe.timestep_table(E2E_STEPS))
+    return (sampler_shapes(pipe.unet, pipe.vae, pipe.latent_hw, batch, unet_calls, pipe.device),
+            unet_calls)
 
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel name), first match wins
@@ -679,7 +718,7 @@ def gn_row(shape, groups, eps, act, count, tag="groupnorm"):
     from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
 
     plan_fn = _build.load_library().function("agenda_groupnorm_plan",
-                                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                             [ctypes.c_int] * 5 + [ctypes.c_void_p])
     c = shape[1]
     g = torch.Generator(device="cuda").manual_seed(sum(shape) + c)
     x = (torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5).to(torch.bfloat16)
@@ -706,7 +745,7 @@ def gn_row(shape, groups, eps, act, count, tag="groupnorm"):
     lib, _ = time_ms(library)
     n = x.numel()
     plan = (ctypes.c_longlong * 4)()
-    plan_fn(shape[0], c, n // (shape[0] * c), groups, plan)
+    plan_fn(shape[0], c, n // (shape[0] * c), groups, x.element_size(), plan)
     nbytes = 2.0 * n * 2 + 2.0 * c * 4
     flops = n * (8.0 if act == "silu" else 4.0)
     row = dict(shape=(shape, eps, act), per_batch=count, err=err, ms=ms, plain_ms=plain,
@@ -767,10 +806,12 @@ def train_expected(unet_cfg, vae_cfg) -> dict:
             "gn_per_cache_batch": 2 * enc_resnets + 2}  # + mid attention, conv_norm_out
 
 
-def build_trainer(model_dir: str, dev, lr: float = 1e-6, mesh=None):
+def build_trainer(model_dir: str, dev, lr: float = 1e-6, mesh=None, dtype=None):
     """The full-width model through the trainer API, as cli/finetune_sd builds
-    it (over ``mesh``'s ranks with one); returns (unet, make, vocab size) with
-    make(use_ema) -> (state, step)."""
+    it (over ``mesh``'s ranks with one) in the compute ``dtype`` (by default
+    bf16 on the card; f32 is --mixed_precision no); returns (unet, make,
+    vocab size) with make(use_ema) -> (state, step); make.vae and make.text
+    are the frozen modules."""
     import torch
 
     from agenda_tpu_torch.core.schedules import make_schedule
@@ -787,7 +828,7 @@ def build_trainer(model_dir: str, dev, lr: float = 1e-6, mesh=None):
         unet = UNet2DConditionModel(bundle.unet_config)
     unet.load_state_dict({k: v.to(dev, torch.float32) for k, v in bundle.unet_state.items()},
                          strict=True, assign=True)
-    frozen = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    frozen = dtype or (torch.bfloat16 if dev.type == "cuda" else torch.float32)
     vae = _build(AutoencoderKL, bundle.vae_config, bundle.vae_state, dev, frozen)
     text = _build(CLIPTextModel, bundle.text_config, bundle.text_state, dev, frozen)
     tx = make_optimizer(lr_schedule("constant", lr, 0, 100), use_8bit_adam=True)
@@ -795,8 +836,10 @@ def build_trainer(model_dir: str, dev, lr: float = 1e-6, mesh=None):
     def make(use_ema: bool):
         state = init_train_state(unet.train(), tx, use_ema, mesh)
         return state, make_train_step(unet, vae, text, make_schedule(), tx,
-                                      LossConfig(snr_gamma=5.0), use_ema, mesh=mesh)
+                                      LossConfig(snr_gamma=5.0), use_ema, mesh=mesh,
+                                      dtype=frozen)
 
+    make.vae, make.text = vae, text
     return unet, make, bundle.text_config.vocab_size
 
 
@@ -952,12 +995,15 @@ def ptxas_report(log: str):
     import re
 
     names = ("flash_fwd_wgmma|flash_fwd_wide_wgmma|flash_bwd_dkv_wide_wgmma|flash_bwd_dq_wide_wgmma"
-             "|flash_bwd_dkv|flash_bwd_dq|groupnorm|fused_adamw8bit")
+             "|flash_bwd_dkv|flash_bwd_dq|flash_fwd_f32|flash_bwd_dkv_f32|flash_bwd_dq_f32"
+             "|groupnorm|fused_adamw8bit")
+    types = {"13__nv_bfloat16": "bf16", "f": "f32"}  # the group norm's element type
     found, current = {}, None
     for line in log.splitlines():
-        m = re.search(rf"({names})_kernel(?:I((?:L[ib]\d+E)+)E)?", line)
+        m = re.search(rf"({names})_kernel(?:I(13__nv_bfloat16|f)?((?:L[ib]\d+E)+)E)?", line)
         if m and ("Compiling entry function" in line or "Function properties" in line):
-            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+            args = ([types[m.group(2)]] if m.group(2) else []) + re.findall(
+                r"L[ib](\d+)E", m.group(3) or "")
             current = f"{m.group(1)}_kernel" + (f"<{', '.join(args)}>" if args else "")
         elif current and "spill stores" in line:
             found[current] = line.strip()
@@ -994,7 +1040,7 @@ def flash_bwd_rows(per_step, extra=EXTRA_FLASH_BWD, tag: str = "flash bwd"):
     kernels = _build.load_library()
     smem = kernels.function("agenda_flash_bwd_smem_bytes", [ctypes.c_int, ctypes.c_int])
     for name, text in sorted(ptxas_report(kernels.log).items()):
-        if name.startswith("flash_bwd_") and tag == "flash bwd":
+        if name.startswith("flash_bwd_") and "_f32" not in name and tag == "flash bwd":
             nd = int(name[name.index("<") + 1:-1]) if "<" in name else 512  # wide: D <= 512
             print(f"[ptxas] {name}: {text}; {smem('dkv' in name, nd)} bytes of dynamic shared "
                   "memory", flush=True)
@@ -2034,16 +2080,16 @@ def labelling_timing(labels: dict, root: str, dev) -> dict:
     return out
 
 
-def det_split(labels: dict, root: str, n_train: int = DET_TRAIN_TILES) -> Tuple[str, str]:
-    """The 512 stacks' COCO split into n_train to train on and the
-    DET_VAL_TILES after DET_TRAIN_TILES to validate on -> the two file names
-    under root."""
+def det_split(labels: dict, root: str, n_train: int = DET_TRAIN_TILES,
+              n_val: int = DET_VAL_TILES) -> Tuple[str, str]:
+    """The 512 stacks' COCO split into n_train to train on and the n_val
+    after DET_TRAIN_TILES to validate on -> the two file names under root."""
     with open(os.path.join(root, labels["all"])) as f:
         coco = json.load(f)
     names = []
     for name, images in (("det_train.json", coco["images"][:n_train]),
                          ("det_val.json", coco["images"][DET_TRAIN_TILES:
-                                                         DET_TRAIN_TILES + DET_VAL_TILES])):
+                                                         DET_TRAIN_TILES + n_val])):
         ids = {im["id"] for im in images}
         with open(os.path.join(root, name), "w") as f:
             json.dump({**coco, "images": images,
@@ -3234,13 +3280,20 @@ FAM_LIMITS = {
 # phase 32: cli/det_train --preset real_source (each family's batch) with
 # --pretrained on a fabricated mm checkpoint, FAM_EPOCHS epochs on the first
 # FAM_CLI_TILES stacks of phase 22's split (cut from its 384, then from 128,
-# to keep the script within its time limit), a resume for one more, det_test on phase
-# 22's validation stacks; Faster R-CNN once more with
-# --device-aug; phase 33: timing at the real_source and synthetic_target
+# then from 48 to pay for phase 40, to keep the script within its time limit:
+# every family's batch now takes them in one step an epoch), for FAM_RESUME's
+# families a resume for one more (cut from every family's to keep the script
+# within its time limit: the resume is the runner's, whatever the family, and
+# phase 22 resumes YOLOv8), det_test on the first FAM_CLI_TILES of phase 22's
+# validation stacks (cut from its 64, also to pay for phase 40: one predict
+# batch at every family's batch); Faster R-CNN once more with --device-aug;
+# phase 33: timing at the real_source and synthetic_target
 # batches (FAM_WARM synchronised steps after a cold one, the batch on the
 # card) and labelling at LABEL_BATCH over FAM_LABEL_TILES of the stacks (cut
-# from all 512 to keep the script within its time limit)
-FAM_EPOCHS, FAM_WARM, FAM_CLI_TILES, FAM_LABEL_TILES = 1, 1, 48, 256
+# from all 512, then from 256 to one batch to pay for phase 40, to keep the
+# script within its time limit)
+FAM_EPOCHS, FAM_WARM, FAM_CLI_TILES, FAM_LABEL_TILES = 1, 1, 24, 192
+FAM_RESUME = ("faster-rcnn",)
 
 
 def family_preset(root: str, ann: str, detector: str, stage: str = "real_source"):
@@ -3250,17 +3303,26 @@ def family_preset(root: str, ann: str, detector: str, stage: str = "real_source"
                   output_dir=os.path.join(root, f"fam_{detector}"))
 
 
+_FAMILY_WEIGHTS = {}  # a family's model and seed -> its weights: phase 31's, reused by 33
+
+
 def family_weights(cfg, seed: int = 0) -> dict:
-    """A family's seeded init, batch-norm statistics measured on noise."""
+    """A family's seeded init, batch-norm statistics measured on noise (a copy
+    of the one made for the same detector and seed)."""
+    import copy
+
     import torch
 
     from agenda_tpu_torch.detect.fabricate import calibrate_batch_norm
 
-    fam = cfg.build_family()
-    gen = torch.Generator().manual_seed(seed)
-    state = fam.init_variables(gen)
-    return calibrate_batch_norm(fam, state, torch.rand(16, LABEL_IMG, LABEL_IMG, 3,
-                                                       generator=gen))
+    key = (cfg.detector, repr(sorted(cfg.model.items())), cfg.img_scale, cfg.max_gt, seed)
+    if key not in _FAMILY_WEIGHTS:
+        fam = cfg.build_family()
+        gen = torch.Generator().manual_seed(seed)
+        state = fam.init_variables(gen)
+        _FAMILY_WEIGHTS[key] = calibrate_batch_norm(
+            fam, state, torch.rand(16, LABEL_IMG, LABEL_IMG, 3, generator=gen))
+    return copy.deepcopy(_FAMILY_WEIGHTS[key])
 
 
 def rel_l2(got: dict, want: dict, base: dict = None) -> float:
@@ -3392,14 +3454,14 @@ def family_parity(labels: dict, root: str, dev) -> dict:
 
 def family_cli_phase(labels: dict, root: str, dev) -> dict:
     """Phase 32: cli/det_train --preset real_source --detector <family> on the
-    card over the first FAM_CLI_TILES stacks of phase 22's split (64 to
-    validate), at the preset's batch (padded past the stacks: YOLOv5's 200),
+    card over the first FAM_CLI_TILES stacks of phase 22's split (as many
+    to validate), at the preset's batch (padded past the stacks: YOLOv5's 200),
     --pretrained from a fabricated mmdet/mmyolo checkpoint with
     80-class COCO heads: the import report (every tensor but the heads
     imported, the heads shape-skipped, nothing unmatched), FAM_EPOCHS epochs
-    with validation each, a resume from latest.safetensors for one more,
-    det_test on the validation set; Faster R-CNN once more with
-    --device-aug for one epoch."""
+    with validation each, for FAM_RESUME's families a resume from
+    latest.safetensors for one more, det_test on the validation set; Faster
+    R-CNN once more with --device-aug for one epoch."""
     import pickle
 
     from agenda_tpu_torch.cli import det_test, det_train
@@ -3407,7 +3469,7 @@ def family_cli_phase(labels: dict, root: str, dev) -> dict:
     from agenda_tpu_torch.detect.runner import SIDECAR, DetectorRunner
     from agenda_tpu_torch.io.safetensors_io import load_file
 
-    train_ann, val_ann = det_split(labels, root, FAM_CLI_TILES)
+    train_ann, val_ann = det_split(labels, root, FAM_CLI_TILES, FAM_CLI_TILES)
     checkpoints, out = {}, {}
     runs = [(det, ()) for det in FAMILIES] + [("faster-rcnn", ("--device-aug",))]
     for det, extra in runs:
@@ -3434,10 +3496,11 @@ def family_cli_phase(labels: dict, root: str, dev) -> dict:
                 "--val-ann", val_ann, "--val-prefix", "", "--work-dir", work, "--pretrained", pth,
                 "--device", dev.type, *extra]
         epochs = 1 if extra else FAM_EPOCHS
+        resume = not extra and det in FAM_RESUME
         with mock.patch.object(DetectorRunner, "train", spy):
             det_train.main(args + ["--max-epochs", str(epochs)])
             t_train = time.perf_counter() - t0
-            if not extra:
+            if resume:
                 det_train.main(args + ["--max-epochs", str(epochs + 1), "--resume",
                                        os.path.join(work, "latest.safetensors")])
         with open(os.path.join(work, "metrics.jsonl")) as f:
@@ -3446,7 +3509,7 @@ def family_cli_phase(labels: dict, root: str, dev) -> dict:
         vals = [r for r in rows if "bbox_mAP" in r]
         side = load_file(os.path.join(work, SIDECAR))
         bs = runners[0].cfg.batch_size
-        n_steps = -(-FAM_CLI_TILES // bs) * (epochs + (0 if extra else 1))
+        n_steps = -(-FAM_CLI_TILES // bs) * (epochs + resume)
         recs = det_test.main(["--config", os.path.join(work, "config.json"), "--checkpoint",
                               os.path.join(work, "latest.safetensors"), "--test-root", root,
                               "--test-ann", val_ann, "--test-prefix", "", "--out",
@@ -3468,11 +3531,11 @@ def family_cli_phase(labels: dict, root: str, dev) -> dict:
                     and not r.unmatched and not r.missing_target for r in reports),
                 f"{tag}: the import report differs from the checkpoint's schema")
         require(all(math.isfinite(r["loss"]) for r in steps), f"{tag}: a loss is not finite")
-        want_epochs = list(range(epochs + (0 if extra else 1)))
+        want_epochs = list(range(epochs + resume))
         require(int(side["gstep"]) == n_steps and int(side["epoch"]) == want_epochs[-1]
                 and [r["epoch"] for r in vals] == want_epochs, f"{tag}: steps or validations")
         require(runners[0].aug_path == ("device" if extra else "host"), f"{tag}: aug path")
-        require(len(recs) == n_pkl == DET_VAL_TILES, f"{tag}: det_test records")
+        require(len(recs) == n_pkl == FAM_CLI_TILES, f"{tag}: det_test records")
         out[tag] = {"steps": n_steps, "wall": wall, "train_s": t_train}
         shutil.rmtree(work)
     return out
@@ -3869,7 +3932,9 @@ HOST_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"
                              "images")
 HOST_DECODE_TOL, HOST_DECODE_TILES, HOST_DECODE_REPS = 0, 64, 3
 HOST_MATCH_IMAGES, HOST_MATCH_DETS, HOST_MATCH_GTS = 400, 30, 5
-LABELER_EPOCHS, LABELER_AP_MIN = 30, 0.9  # JAX on a CPU reached AP 1.000 at 30 epochs
+# the labeler's own 30 epochs cut to 10 to pay for phase 40: JAX on a CPU reached
+# AP 1.000 at 30 epochs, the port on a CPU at 10 and at 15
+LABELER_EPOCHS, LABELER_AP_MIN = 10, 0.9
 
 
 def update_codes(params: dict, before: dict, dev):
@@ -4185,7 +4250,7 @@ def host_phase(labels: dict, tmp: str) -> dict:
     """Phase 39: build both host libraries; the committed fixtures through the
     decode (or, without its headers, the raise that names the missing
     library); the labelling decode a tile, native against utils/png.py; the
-    procedural domain; the stack labeler at 30 epochs on the card, then from
+    procedural domain; the stack labeler at LABELER_EPOCHS on the card, then from
     its cache; the box matchers, native against numpy."""
     import numpy as np
     import torch
@@ -4319,6 +4384,514 @@ def host_phase(labels: dict, tmp: str) -> dict:
     return out
 
 
+# -- full precision: --mixed_precision no (phase 40) --------------------------------
+
+# The f32 kernels (csrc/flash_f32.cu; groupnorm.cu's f32 instantiation) are held
+# to their plain versions computed in float64 on the card: a kernel's max |error|
+# may be at most F32_LIMIT times that of the f32 plain version (TF32 off) on the
+# same inputs. Their bound counts the products as three TF32 tensor-core passes
+# (hi*hi + hi*lo + lo*hi) at 495e12/s, the cheapest f32-accurate product the card
+# has, beside the exponentials and the bytes.
+F32_LIMIT = 4.0
+H100_TF32_FLOPS = 495e12
+# The SD step in f32 at F32_PARITY_RES px, batch F32_PARITY_BATCH, on the card and
+# on the CPU from the same weights, batch and draws: the loss within
+# F32_LOSS_RTOL and the gradients (relative L2 distance over all of them) within
+# F32_GRAD_TOL; the same step with TF32 on, the control, beyond both.
+F32_PARITY_RES, F32_PARITY_BATCH, F32_SEED = 256, 1, 40
+# Read on an H100 80GB HBM3 at 700 W (sound / TF32) from the fabricated weights,
+# the same in five runs: loss 8.8e-8 / 9.1e-5, gradients 4.9e-6 / 1.5e-3, each
+# limit near the geometric mean of its two. The weights after phase 40's steps
+# differ from run to run (the step's autotuned cuDNN algorithms), and the TF32
+# loss read 1.7e-6 to 1.8e-5 from them, so the step loads the fabricated ones.
+F32_LOSS_RTOL, F32_GRAD_TOL = 3e-6, 1e-4
+F32_STEPS, F32_PROMPT = 2, "An aerial view image with cars in Utah"
+F32_SD_ARGS = ["--resolution", str(TRAIN_RES), "--train_batch_size", str(TRAIN_BATCH),
+               "--use_8bit_adam", "--use_ema", "--snr_gamma", "5", "--learning_rate", "1e-6",
+               "--seed", "0", "--device", "cuda", "--report_to", "jsonl",
+               "--validation_prompts", F32_PROMPT, "--validation_steps", str(F32_STEPS)]
+
+
+def f32_errors(got, plain, ref) -> Tuple[float, float]:
+    """(the kernel's, the f32 plain version's) largest max |error| against the
+    float64 reference over the outputs."""
+    e_k = max((x.double() - r.double()).abs().max().item() for x, r in zip(got, ref))
+    e_p = max((x.double() - r.double()).abs().max().item() for x, r in zip(plain, ref))
+    return e_k, e_p
+
+
+def f32_bound(flops: float, exps: float, nbytes: float):
+    """(bound ms, what binds, the three terms in ms): the products as three TF32
+    passes, the exponentials, the bytes."""
+    terms = {"products": 3 * flops / H100_TF32_FLOPS, "exponentials": exps / H100_EXP_PER_S,
+             "bytes": nbytes / H100_BYTES_PER_S}
+    term = max(terms, key=terms.get)
+    return 1e3 * terms[term], term, {k: 1e3 * v for k, v in terms.items()}
+
+
+F32_VAL_IMAGES = 4  # the CLIs' validation: 4 seeds a prompt, 20 PNDM steps
+
+
+def by_key(per_context: dict) -> dict:
+    """{key: {context: calls}} from {context: {key: calls}}, keys in first-seen order."""
+    out = {}
+    for ctx, keys in per_context.items():
+        for key, n in keys.items():
+            out.setdefault(key, {})[ctx] = n
+    return out
+
+
+def f32_row(tag, shape, per, runs, got, plain, ref, call, plain_call, library, flops, exps,
+            nbytes, rows, stream=None):
+    """Hold one f32 kernel call to float64, time it, and append its row: ``per``
+    {context: calls in one step, cache batch or validation batch}, ``runs``
+    {context: times the f32 SD CLI's run has it}; the row's per_batch is the
+    calls of that run."""
+    e_k, e_p = f32_errors(got, plain, ref)
+    require(e_k <= F32_LIMIT * e_p, f"{tag} {shape}: max err {e_k:.4g} against float64, over "
+            f"{F32_LIMIT} x the f32 plain version's {e_p:.4g}")
+    ms, eager = time_ms(call)
+    plain_ms, _ = time_ms(plain_call, max_iters=10)
+    lib, _ = time_ms(library, stream=stream)
+    bound, term, terms = f32_bound(flops, exps, nbytes)
+    rows.append(dict(shape=shape, per=per, per_batch=sum(n * runs[c] for c, n in per.items()),
+                     err=e_k, ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                     bound_by="bytes" if term == "bytes" else "operations"))
+    print(f"[f32] {tag} {shape} x{per}  err {e_k:.3g} against float64 ({e_k / e_p:.3g} x the "
+          f"f32 plain version's {e_p:.3g}, limit {F32_LIMIT})  kernel {ms:.4f} ms (eager "
+          f"{eager:.4f})  plain {plain_ms:.4f} ms  library {lib:.4f} ms  bound {bound:.4f} ms "
+          f"({term}; products 3 x {flops:.4g} over 495e12/s = {terms['products']:.4f} ms, "
+          f"{exps:.4g} exp = {terms['exponentials']:.4f} ms, {nbytes:.4g} bytes = "
+          f"{terms['bytes']:.4f} ms)", flush=True)
+
+
+def in_chunks(fn, *ins, chunk: int = 2):
+    """fn over slices of ``chunk`` rows of the inputs' first dim, outputs
+    joined: a float64 reference of a large batch within memory (the plain
+    versions keep the batch as the outer dim of every output)."""
+    import torch
+
+    parts = [fn(*(t[i:i + chunk] for t in ins)) for i in range(0, ins[0].shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def f32_flash_rows(per_context: dict, runs: dict) -> dict:
+    """The f32 forward at every self-attention shape of the f32 SD CLI's run
+    (``per_context``: {"step", "cache", "validation": {(B, S, H, D): calls}}),
+    the f32 dK/dV and dQ at the step's; each against float64 and timed beside
+    its bound, the plain version and SDPA on the same f32 tensors (forward;
+    its whole backward for the two gradient kernels)."""
+    import torch
+    import torch.nn.functional as F
+
+    from agenda_tpu_torch.kernels import flash as fl
+    from agenda_tpu_torch.kernels.flash import WIDE_ABOVE
+
+    rows = {"fwd": [], "fwd_wide": [], "dkv": [], "dq": []}
+    for shape, per in by_key(per_context).items():
+        b, s, h, d = shape
+        g = torch.Generator(device="cuda").manual_seed(b * 7919 + s + h + d)
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        out, lse = fl.flash_attention_fwd(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        io, stats, prod = 4.0 * b * s * h * d, 4.0 * b * h * s, 2.0 * b * h * s * s * d
+        f32_row("flash fwd", shape, per, runs, (out, lse),
+                fl.flash_attention_reference(q, k, v),
+                in_chunks(fl.flash_attention_reference, q.double(), k.double(), v.double()),
+                lambda: fl.flash_attention_fwd(q, k, v),
+                lambda: fl.flash_attention_reference(q, k, v),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                2 * prod, float(b * h * s * s), 4 * io + stats,
+                rows["fwd_wide" if d > WIDE_ABOVE else "fwd"])
+        if "step" in per:
+            require(d <= WIDE_ABOVE, f"a training step's attention at D = {d}")
+            delta = fl.flash_delta(out, do)
+            ins = (q, k, v, do, lse, delta)
+            wide_ins = tuple(t.double() for t in ins)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                o = F.scaled_dot_product_attention(qg, kg, vg)
+            torch.cuda.current_stream().wait_stream(side)
+            dot = do.transpose(1, 2)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(o, (qg, kg, vg), dot, retain_graph=True)
+
+            step_only = {"step": per["step"]}
+            f32_row("flash dkv", shape, step_only, runs, fl.flash_attention_bwd_dkv(*ins),
+                    fl.flash_attention_bwd_dkv_reference(*ins),
+                    fl.flash_attention_bwd_dkv_reference(*wide_ins),
+                    lambda: fl.flash_attention_bwd_dkv(*ins),
+                    lambda: fl.flash_attention_bwd_dkv_reference(*ins), sdpa_bwd,
+                    4 * prod, float(b * h * s * s), 6 * io + 2 * stats, rows["dkv"], side)
+            f32_row("flash dq", shape, step_only, runs, (fl.flash_attention_bwd_dq(*ins),),
+                    (fl.flash_attention_bwd_dq_reference(*ins),),
+                    (fl.flash_attention_bwd_dq_reference(*wide_ins),),
+                    lambda: fl.flash_attention_bwd_dq(*ins),
+                    lambda: fl.flash_attention_bwd_dq_reference(*ins), sdpa_bwd,
+                    3 * prod, float(b * h * s * s), 5 * io + 2 * stats, rows["dq"], side)
+            del delta, ins, wide_ins, qg, kg, vg, o, dot
+        del q, k, v, do, out, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f32_gn_rows(per_context: dict, runs: dict) -> list:
+    """The f32 group norm at every shape of the f32 SD CLI's run (``per_context``:
+    {"step", "cache", "validation": {(shape, groups, eps, act): calls}}), with a
+    per-channel offset, against float64, timed beside its bound, the plain
+    version and F.group_norm + F.silu on the same f32 tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
+
+    rows = []
+    for (shape, groups, eps, act), per in by_key(per_context).items():
+        c = shape[1]
+        g = torch.Generator(device="cuda").manual_seed(sum(shape) + c)
+        off = 4.0 * (torch.arange(c, device="cuda") % (c // groups)) / (c // groups)
+        x = torch.randn(shape, device="cuda", generator=g) * 2 + off[:, None, None]
+        w = torch.randn(c, device="cuda", generator=g)
+        bias = torch.randn(c, device="cuda", generator=g)
+        args = (groups, eps, act)
+
+        def library():
+            out = F.group_norm(x, groups, w, bias, eps)
+            return F.silu(out) if act == "silu" else out
+
+        n = x.numel()
+        f32_row("groupnorm", (shape, eps, act), per, runs, (group_norm_act(x, w, bias, *args),),
+                (group_norm_act_reference(x, w, bias, *args),),
+                (group_norm_act_reference(x.double(), w.double(), bias.double(), *args),),
+                lambda: group_norm_act(x, w, bias, *args),
+                lambda: group_norm_act_reference(x, w, bias, *args), library,
+                0.0, float(n if act == "silu" else 0), 8.0 * n + 8.0 * c, rows)
+        del x, w, bias
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f32_context_ms(rows: list, ctx: str, key: str = "ms") -> float:
+    """``key`` summed over the calls of one step, cache batch or validation batch."""
+    return sum(r[key] * r["per"].get(ctx, 0) for r in rows)
+
+
+def f32_counters():
+    from agenda_tpu_torch.kernels.flash import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+    from agenda_tpu_torch.kernels.groupnorm import group_norm_act
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq, "group_norm_act": group_norm_act}
+
+
+def reset_all_counts() -> None:
+    reset_counts()
+    for fn in f32_counters().values():
+        fn.launches_f32 = 0
+
+
+def all_f32(counts: dict) -> dict:
+    """{kernel: (launches, f32 launches)}; every launch an f32 kernel's when equal."""
+    return {k: (counts[k], fn.launches_f32) for k, fn in f32_counters().items()}
+
+
+def f32_step_phase(model_dir, unet_cfg, vae_cfg, unet_calls, dev) -> dict:
+    """Phase 40's step: the full-width SD step in f32 (fused int8 AdamW + EMA,
+    batch 4 at 512x512) through the trainer API: every flash and group-norm
+    launch an f32 kernel's, the counts the config's; warm s/step and the peak
+    memory over what was held before; then the shapes the kernels get, and
+    how often, in a step, in a batch of the latent cache's encode and in a
+    validation batch (the UNet at 2 x F32_VAL_IMAGES, ``unet_calls`` times,
+    and the decode)."""
+    import torch
+
+    expected = train_expected(unet_cfg, vae_cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # what earlier phases left
+    unet, make, vocab = build_trainer(model_dir, dev, dtype=torch.float32)
+    state, step = make(True)
+    batch = synthetic_batch(vae_cfg, vocab, dev, 0)
+    reset_all_counts()
+    calls = {}
+
+    def first_step():
+        calls["flash"], _ = record_train_step(unet, state, step, batch, dev)
+
+    calls["gn"] = record_calls(unet.modules(), first_step)["gn"]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    f32 = all_f32(counts)
+    in_step = {"flash": calls["flash"], "gn": tally({"gn": calls["gn"]})["gn"]}
+    want = {"flash_attention_fwd": expected["flash_per_step"], "flash_attention_fwd_wide": 0,
+            "flash_attention_bwd_dkv": expected["flash_per_step"],
+            "flash_attention_bwd_dq": expected["flash_per_step"],
+            "fused_adamw8bit": 0, "fused_adamw8bit_ema": expected["adamw_per_step"],
+            "fused_adamw8bit_leaves": 0, "fused_adamw8bit_leaves_ema": expected["quantized"],
+            "group_norm_act": expected["gn_per_step"]}
+    print(f"[f32 step] one f32 step at batch {TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}: flash "
+          f"(B,S,H,D) x per-step {in_step['flash']}; group norms {len(calls['gn'])} in "
+          f"{len(in_step['gn'])} shapes; launches {counts}; (launches, f32 launches) {f32}",
+          flush=True)
+    require(counts == want, f"f32 training-step launches {counts} differ from the config's {want}")
+    require(all(n == m for n, m in f32.values()), f"a launch of the f32 step was not an f32 "
+            f"kernel's: {f32}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(state, batch, generator=torch_generator(dev, i + 1))[1]["loss"]
+              for i in range(F32_STEPS)]
+    torch.cuda.synchronize()
+    warm_s = (time.perf_counter() - t0) / F32_STEPS
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses), f"non-finite f32 training loss {losses}")
+    print(f"[f32 step] warm {warm_s:.4f} s/step = {TRAIN_BATCH / warm_s:.3f} images/s (f32, "
+          f"TF32 off, fused int8 AdamW + EMA, {F32_STEPS} steps); peak memory {peak / 2**30:.2f} "
+          f"GiB for the step's models, optimizer state and activations (the "
+          f"{held / 2**30:.2f} GiB that earlier phases held left out); losses {losses}",
+          flush=True)
+    vae = make.vae
+    with torch.no_grad():
+        pixels = torch.rand(TRAIN_BATCH, TRAIN_RES, TRAIN_RES, 3, device=dev) * 2 - 1
+        in_cache = tally(record_calls(vae.encoder.modules(), lambda: vae.encode(pixels)))
+    del pixels
+    hw = TRAIN_RES // 2 ** (len(vae_cfg.block_out_channels) - 1)
+    in_validation = sampler_shapes(unet.eval(), vae, hw, F32_VAL_IMAGES, unet_calls, dev)
+    shapes = {kind: {"step": in_step[kind], "cache": in_cache[kind],
+                     "validation": in_validation[kind]} for kind in ("flash", "gn")}
+    print(f"[f32 step] kernel calls by shape in a latent-cache batch (encode at batch "
+          f"{TRAIN_BATCH}): flash {in_cache['flash']}, group norms "
+          f"{sum(in_cache['gn'].values())} in {len(in_cache['gn'])} shapes; in a validation "
+          f"batch ({F32_VAL_IMAGES} images, {unet_calls} UNet calls at batch "
+          f"{2 * F32_VAL_IMAGES}, the decode): flash {in_validation['flash']}, group norms "
+          f"{sum(in_validation['gn'].values())} in {len(in_validation['gn'])} shapes", flush=True)
+    models = (unet, make.vae, make.text, vocab)  # for the card-vs-CPU step
+    del make, state, step, batch, vae
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "warm_s": warm_s, "peak": peak, "held": held, "models": models}
+
+
+def f32_step_parity(models, model_dir: str, dev) -> dict:
+    """The f32 SD step at F32_PARITY_RES px, batch F32_PARITY_BATCH, on the CPU,
+    then on the card from the same weights, batch and draws (``models``: the
+    f32 step's UNet, VAE and text encoder and the vocabulary's size, moved to
+    the CPU and back, the UNet given ``model_dir``'s fabricated weights again),
+    f32 and then with TF32 on (the control): the loss and the gradients the
+    optimizer receives, card against CPU."""
+    import torch
+
+    from agenda_tpu_torch.core.schedules import make_schedule
+    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.train import finetune_sd as ttrain
+    from agenda_tpu_torch.train.optim import Optimizer, global_norm
+
+    cpu = torch.device("cpu")
+    unet, vae, text, vocab = models
+    unet.load_state_dict(load_pipeline(model_dir).unet_state, strict=True)
+    g = torch.Generator().manual_seed(F32_SEED)
+    h = F32_PARITY_RES // 2 ** (len(vae.config.block_out_channels) - 1)
+    shape = (F32_PARITY_BATCH, h, h, vae.config.latent_channels)
+    mean = torch.randn(shape, generator=g)
+    batch = {"latent_moments": torch.cat([mean, torch.full_like(mean, -6.0)], dim=-1),
+             "input_ids": torch.randint(0, vocab, (F32_PARITY_BATCH, 77), generator=g)}
+    draws = ttrain.StepDraws(latent_eps=torch.randn(shape, generator=g),
+                             noise=torch.randn(shape, generator=g),
+                             timesteps=torch.randint(0, 1000, (F32_PARITY_BATCH,), generator=g))
+    for m in (unet, vae, text):
+        m.to(cpu)
+    grads = {}
+
+    def record(gr, opt_state, params, norm=global_norm):
+        grads.clear()
+        grads.update({k: x.detach().clone() for k, x in gr.items()})
+        return params, opt_state, norm(gr)
+
+    tx = Optimizer(init=lambda params: None, apply=record)  # the gradients, no update
+
+    def run(device, tf32: bool):
+        state = ttrain.init_train_state(unet.train(), tx, False)
+        step = ttrain.make_train_step(unet, vae, text, make_schedule(), tx,
+                                      ttrain.LossConfig(snr_gamma=5.0), False,
+                                      dtype=torch.float32)
+        on = {k: x.to(device) for k, x in batch.items()}
+        d = ttrain.StepDraws(latent_eps=draws.latent_eps.to(device),
+                             noise=draws.noise.to(device), timesteps=draws.timesteps.to(device))
+        patch = (mock.patch.object(ttrain, "full_f32_if", lambda *_: tf32_on()) if tf32
+                 else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with patch:
+            _, metrics = step(state, on, draws=d)
+        return float(metrics["loss"]), dict(grads), time.perf_counter() - t0
+
+    loss_cpu, ref, cpu_s = run(cpu, False)
+    for m in (unet, vae, text):
+        m.to(dev)
+    ref = {k: x.to(dev, torch.float64) for k, x in ref.items()}
+    ref_norm = math.sqrt(sum(float(x.square().sum()) for x in ref.values()))
+    n_tensors, out = len(ref), {}
+    for side, tf32 in (("card", False), ("tf32", True)):
+        loss, got, secs = run(dev, tf32)
+        diffs = {k: (got[k].double() - x).norm() / x.norm().clamp_min(1e-30)
+                 for k, x in ref.items()}
+        dist = math.sqrt(sum(float((got[k].double() - x).square().sum())
+                             for k, x in ref.items()))
+        worst = max(diffs, key=lambda k: float(diffs[k]))
+        out[side] = {"loss": abs(loss - loss_cpu) / abs(loss_cpu), "grads": dist / ref_norm,
+                     "worst": (float(diffs[worst]), worst), "s": secs, "value": loss}
+    del unet, vae, text, ref, grads
+    torch.cuda.empty_cache()
+    print(f"[f32 parity] the f32 SD step at {F32_PARITY_RES} px, batch {F32_PARITY_BATCH}, card "
+          f"vs CPU ({n_tensors} gradient tensors, the CPU's step {cpu_s:.1f} s, the card's "
+          f"{out['card']['s']:.2f} s cold): loss {out['card']['value']:.7f} vs {loss_cpu:.7f} "
+          f"({out['card']['loss']:.3g}, limit {F32_LOSS_RTOL}), gradients "
+          f"{out['card']['grads']:.3g} of their L2 norm (limit {F32_GRAD_TOL}; worst tensor "
+          f"{out['card']['worst'][0]:.3g}, {out['card']['worst'][1]}); TF32 control: loss "
+          f"{out['tf32']['loss']:.3g}, gradients {out['tf32']['grads']:.3g} (worst tensor "
+          f"{out['tf32']['worst'][0]:.3g})", flush=True)
+    require(out["card"]["loss"] <= F32_LOSS_RTOL and out["card"]["grads"] <= F32_GRAD_TOL,
+            "the card's f32 step left the CPU's")
+    require(out["tf32"]["loss"] > F32_LOSS_RTOL and out["tf32"]["grads"] > F32_GRAD_TOL,
+            "the TF32 control stayed within the f32 limits: they cannot tell TF32 from f32")
+    return out
+
+
+def f32_cli_phase(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int) -> dict:
+    """Phase 40's CLIs: cli/finetune_sd --mixed_precision no at full width
+    (batch 4, 512x512, fused int8 AdamW + EMA) for F32_STEPS steps and one
+    validation (4 images, 20 PNDM steps, f32), then cli/finetune_sd_token
+    --mixed_precision no, F32_STEPS steps of stage 1; each run's launches the
+    config's, every flash and group-norm launch an f32 kernel's."""
+    import torch
+
+    from agenda_tpu_torch.cli import finetune_sd, finetune_sd_token
+    from agenda_tpu_torch.utils.png import read_png
+
+    data_dir = os.path.join(tmp, "tiles")
+    if not os.path.isdir(data_dir):
+        write_tiles(data_dir)
+    expected = train_expected(unet_cfg, vae_cfg)
+    cache_batches = math.ceil(TRAIN_TILES / TRAIN_BATCH)
+    validation = expected_launches(unet_cfg, vae_cfg, unet_calls)  # one 20-step batch
+
+    def want(validations: int, int8: bool) -> dict:
+        out = {k: 0 for k in train_counters()}
+        out.update({
+            "flash_attention_fwd": (expected["flash_per_step"] * F32_STEPS + cache_batches
+                                    + validation["flash_attention_fwd"] * validations),
+            "flash_attention_fwd_wide": cache_batches + validations,
+            "flash_attention_bwd_dkv": expected["flash_per_step"] * F32_STEPS,
+            "flash_attention_bwd_dq": expected["flash_per_step"] * F32_STEPS,
+            "group_norm_act": (expected["gn_per_step"] * F32_STEPS
+                               + expected["gn_per_cache_batch"] * cache_batches
+                               + validation["group_norm_act"] * validations)})
+        if int8:
+            out["fused_adamw8bit_ema"] = expected["adamw_per_step"] * F32_STEPS
+            out["fused_adamw8bit_leaves_ema"] = expected["quantized"] * F32_STEPS
+        return out
+
+    common = ["--pretrained_model_name_or_path", model_dir, "--dataset_folder", data_dir,
+              "--json_file_name", "train.json", "--max_train_steps", str(F32_STEPS),
+              "--checkpointing_steps", "100", "--mixed_precision", "no"]
+    runs = (("f32 sd-cli", finetune_sd, ["--output_dir", os.path.join(tmp, "f32_sd"),
+                                         *F32_SD_ARGS], 1, True),
+            ("f32 token-cli", finetune_sd_token, ["--output_dir", os.path.join(tmp, "f32_tok"),
+                                                  *TOKEN_ARGS, "--train_token"], 0, False))
+    out = {}
+    for tag, cli, argv, validations, int8 in runs:
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        stats = cli.main(common + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        f32 = all_f32(launches)
+        expect = want(validations, int8)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{tag}] --mixed_precision no: {stats['steps']} steps in {stats['seconds']:.3f} s "
+              f"(cold first step{', validation' if validations else ''} included), {wall:.1f} s "
+              f"with loading and the latent cache; peak memory {peak / 2**30:.2f} GiB; losses "
+              f"{stats['losses']}; launches {launches} (expected {expect}); (launches, f32 "
+              f"launches) {f32}", flush=True)
+        require(stats["steps"] == F32_STEPS and all(math.isfinite(x) for x in stats["losses"]),
+                f"{tag}: {stats['steps']} steps, losses {stats['losses']}")
+        require(launches == expect, f"{tag}: launches differ from the config's count")
+        require(all(n == m for n, m in f32.values()), f"{tag}: a launch was not an f32 "
+                f"kernel's: {f32}")
+        if validations:
+            images = os.path.join(tmp, "f32_sd", "logs", "images")
+            names = sorted(os.listdir(images))
+            require(len(names) == F32_VAL_IMAGES, f"{tag}: validation wrote {names}, not "
+                    f"{F32_VAL_IMAGES} PNGs")
+            for name in names:
+                img = read_png(os.path.join(images, name))
+                require(img.shape == (TRAIN_RES, TRAIN_RES, 3) and str(img.dtype) == "uint8",
+                        f"{tag}: {name} is {img.shape} {img.dtype}")
+            print(f"[{tag}] validation wrote {len(names)} PNGs of {TRAIN_RES}x{TRAIN_RES}x3 "
+                  f"uint8: {names}", flush=True)
+        out[tag] = {"launches": launches, "wall": wall, "peak": peak}
+    for sub in ("f32_sd", "f32_tok"):
+        shutil.rmtree(os.path.join(tmp, sub))
+    return out
+
+
+def f32_phase(model_dir, tmp, unet_cfg, vae_cfg, unet_calls, dev) -> dict:
+    """Phase 40: full precision on the card, --mixed_precision no."""
+    import torch
+
+    from agenda_tpu_torch.kernels import _build
+
+    for name, text in sorted(ptxas_report(_build.load_library().log).items()):
+        if "_f32" in name or name.startswith("groupnorm_kernel<f32"):
+            print(f"[ptxas] {name}: {text}", flush=True)
+    t = [time.perf_counter()]
+    step = f32_step_phase(model_dir, unet_cfg, vae_cfg, unet_calls, dev)
+    models = step.pop("models")
+    # the f32 SD CLI's run: F32_STEPS steps, its latent cache, one validation batch
+    runs = {"step": F32_STEPS, "cache": math.ceil(TRAIN_TILES / TRAIN_BATCH), "validation": 1}
+    t.append(time.perf_counter())
+    flash = f32_flash_rows(step["shapes"]["flash"], runs)
+    gn = f32_gn_rows(step["shapes"]["gn"], runs)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    parity = f32_step_parity(models, model_dir, dev)
+    del models
+    t.append(time.perf_counter())
+    cli = f32_cli_phase(model_dir, tmp, unet_cfg, vae_cfg, unet_calls)
+    t.append(time.perf_counter())
+    sd = cli["f32 sd-cli"]["launches"]
+    covered = {"flash_attention_fwd": sum(r["per_batch"] for r in flash["fwd"] + flash["fwd_wide"]),
+               "flash_attention_fwd_wide": sum(r["per_batch"] for r in flash["fwd_wide"]),
+               "flash_attention_bwd_dkv": sum(r["per_batch"] for r in flash["dkv"]),
+               "flash_attention_bwd_dq": sum(r["per_batch"] for r in flash["dq"]),
+               "group_norm_act": sum(r["per_batch"] for r in gn)}
+    print(f"[f32] the rows' calls over the SD CLI's run {covered}; its launches "
+          f"{ {k: sd[k] for k in covered} }", flush=True)
+    require(all(covered[k] == sd[k] for k in covered), "the f32 rows' shapes do not cover every "
+            "launch of the f32 SD CLI's run")
+    for name, rows in (("flash fwd", flash["fwd"]), ("flash fwd wide", flash["fwd_wide"]),
+                       ("flash dkv", flash["dkv"]), ("flash dq", flash["dq"]),
+                       ("groupnorm", gn)):
+        print(f"[f32] {name} (kernel / bound / plain / library ms): " + "; ".join(
+            f"{label} " + " / ".join(f"{f32_context_ms(rows, ctx, key):.4f}" for key in
+                                     ("ms", "bound_ms", "plain_ms", "library_ms"))
+            for ctx, label in (("step", "a step"), ("cache", "a cache batch"),
+                               ("validation", "a validation batch"))
+            if any(ctx in r["per"] for r in rows)), flush=True)
+    print("[f32] phase 40's parts: " + ", ".join(
+        f"{name} {b - a:.1f} s" for name, a, b in zip(("step", "kernel rows", "card vs CPU",
+                                                       "CLIs"), t, t[1:])), flush=True)
+    return {"step": step, "flash": flash, "gn": gn, "parity": parity, "cli": cli}
+
+
 def summarize(name, route, source, replaces, rows, launches):
     """One `kernels` entry: times summed over one batch's (or training step's)
     main-path launches (off-path rows count 0 times); the error is the
@@ -4391,7 +4964,7 @@ def main() -> int:
     print(f"[build] {lib.path.name}: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s)", flush=True)
     for name, text in sorted(ptxas_report(lib.log).items()):
-        if not name.startswith("flash_bwd_"):  # the backward's: phase 10
+        if not name.startswith("flash_bwd_") and "f32" not in name:  # phases 10, 40
             print(f"[ptxas] {name}: {text}", flush=True)
 
     phase_s["build (1)"] = time.perf_counter() - t0
@@ -4580,7 +5153,13 @@ def main() -> int:
         # 31-34. the other detector families: Faster R-CNN, YOLOv5m/s, ViTDet
         fam = family_phases(tmp, dev, phase_s)
 
+        # 40. full precision: --mixed_precision no through the f32 kernels
+        t_phase = time.perf_counter()
+        f32 = f32_phase(model_dir, tmp, unet_cfg, vae_cfg, unet_calls, dev)
+        phase_s["full precision (40)"] = time.perf_counter() - t_phase
+
     wide_d = [r["shape"][3] > WIDE_ABOVE for r in flash]
+    f32_sd = f32["cli"]["f32 sd-cli"]["launches"]  # phase 40's main path: the SD CLI's run
     kernels = [
         summarize("flash_attention_fwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd.cu",
                   "agenda_tpu/kernels/flash.py:55",
@@ -4603,6 +5182,20 @@ def main() -> int:
         summarize("flash_attention_bwd_dq_wide", "cuda", "agenda_tpu_torch/csrc/flash_bwd.cu",
                   "agenda_tpu/kernels/flash.py:192", wide["dq"],
                   vae["launches"]["flash_attention_bwd_dq"]),
+        summarize("flash_attention_fwd_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+                  "agenda_tpu/kernels/flash.py:55", f32["flash"]["fwd"],
+                  f32_sd["flash_attention_fwd"] - f32_sd["flash_attention_fwd_wide"]),
+        summarize("flash_attention_fwd_f32_wide", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+                  "agenda_tpu/kernels/flash.py:55", f32["flash"]["fwd_wide"],
+                  f32_sd["flash_attention_fwd_wide"]),
+        summarize("flash_attention_bwd_dkv_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+                  "agenda_tpu/kernels/flash.py:153", f32["flash"]["dkv"],
+                  f32_sd["flash_attention_bwd_dkv"]),
+        summarize("flash_attention_bwd_dq_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+                  "agenda_tpu/kernels/flash.py:192", f32["flash"]["dq"],
+                  f32_sd["flash_attention_bwd_dq"]),
+        summarize("group_norm_act_f32", "cuda", "agenda_tpu_torch/csrc/groupnorm.cu",
+                  "agenda_tpu/kernels/groupnorm.py:94", f32["gn"], f32_sd["group_norm_act"]),
         summarize("fused_adamw8bit", "cuda", "agenda_tpu_torch/csrc/fused_adamw.cu",
                   "agenda_tpu/kernels/fused_adamw.py:111", adamw,
                   k4_launches["fused_adamw8bit"]),
@@ -4702,6 +5295,24 @@ def main() -> int:
           f"pretraining step (batch {VAE_BATCH}, {VAE_RES} px: (8, 1024, 1, 512) twice); "
           "launches from phase 36's last step; library_ms is SDPA's whole backward at the "
           "same shape", flush=True)
+    par = f32["parity"]
+    print(f"[report] full precision (phase 40, --mixed_precision no): the f32 SD step at batch "
+          f"{TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES} warm {f32['step']['warm_s']:.4f} s/step, peak "
+          f"{f32['step']['peak'] / 2**30:.2f} GiB (its own); at {F32_PARITY_RES} px card vs CPU "
+          f"loss "
+          f"{par['card']['loss']:.3g}, gradients {par['card']['grads']:.3g} of their norm (TF32 "
+          f"control {par['tf32']['loss']:.3g}, {par['tf32']['grads']:.3g}); the SD CLI's "
+          f"{F32_STEPS} steps and validation {f32['cli']['f32 sd-cli']['wall']:.1f} s, the token "
+          f"CLI's {f32['cli']['f32 token-cli']['wall']:.1f} s. Units: the five f32 entries "
+          f"(flash_attention_fwd_f32, flash_attention_fwd_f32_wide, flash_attention_bwd_dkv_f32, "
+          f"flash_attention_bwd_dq_f32, group_norm_act_f32) sum ms over every launch of the f32 "
+          f"SD CLI's run, the launches they sit beside: {F32_STEPS} training steps (batch "
+          f"{TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}), {math.ceil(TRAIN_TILES / TRAIN_BATCH)} "
+          f"batches of the latent cache's encode and one validation batch ({F32_VAL_IMAGES} "
+          f"images: {unet_calls} UNet calls at batch {2 * F32_VAL_IMAGES} and the decode); "
+          "phase 40's '[f32] ... a step; a cache batch; a validation batch' lines split them; "
+          "library_ms is SDPA on the f32 tensors (its whole backward for dK/dV and dQ) and "
+          "F.group_norm + F.silu in f32", flush=True)
     mr0 = multi["ranks"][0]
     print(f"[report] multi-rank (phase 38, {MR_WORLD} ranks sharing the card over gloo): peak "
           f"memory a rank at --fsdp {MR_WORLD} "

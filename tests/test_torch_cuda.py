@@ -209,7 +209,7 @@ def test_flash_wrapper_raises_instead_of_falling_back():
     _need_cuda()
     q = torch.randn(1, 64, 2, 40, device="cuda")
     with pytest.raises(TypeError):
-        flash_attention_fwd(q, q, q)  # f32 on the card: the kernel takes bf16
+        flash_attention_fwd(*(q.half(),) * 3)  # f16: the kernels take bf16 or f32
     qb = q.bfloat16()
     with pytest.raises(ValueError):
         flash_attention_fwd(qb, qb, qb.transpose(1, 3).contiguous().transpose(1, 3))
@@ -248,7 +248,7 @@ def test_groupnorm_wrapper_raises_instead_of_falling_back():
     x = torch.randn(2, 64, 8, 8, device="cuda").bfloat16()
     w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
     with pytest.raises(TypeError):
-        group_norm_act(x.float(), w, b, 32, 1e-5)
+        group_norm_act(x.half(), w, b, 32, 1e-5)  # f16: the kernel takes bf16 or f32
     with pytest.raises(TypeError):
         group_norm_act(x, w.bfloat16(), b.bfloat16(), 32, 1e-5)
     with pytest.raises(ValueError):
@@ -643,7 +643,10 @@ def test_flash_backward_wrapper_raises_instead_of_falling_back():
     x = torch.randn(1, 64, 2, 40, device="cuda")
     lse = torch.zeros(2, 64, device="cuda")
     with pytest.raises(TypeError):
-        fl.flash_attention_bwd_dkv(x, x, x, x, lse, lse)  # f32 on the card
+        fl.flash_attention_bwd_dkv(*(x.half(),) * 4, lse, lse)  # f16 on the card
+    wide32 = torch.zeros(1, 64, 1, 512, device="cuda")
+    with pytest.raises(ValueError):  # the f32 backward takes D up to 160
+        fl.flash_attention_bwd_dkv(*(wide32,) * 4, lse[:1], lse[:1])
     wide = torch.zeros(1, 64, 1, 520, device="cuda").bfloat16()
     with pytest.raises(ValueError):  # D above the backward's 512
         fl.flash_attention_bwd_dq(wide, wide, wide, wide, lse[:1], lse[:1])
@@ -1178,3 +1181,221 @@ def test_kernel_variants_apply_to_the_source(variant):
     AdamW's variants (for the AdamW, the alternative for this tree's source)."""
     assert _variant_applies(variant)
 
+
+
+# -- the f32 kernels (--mixed_precision no) -------------------------------------------
+#
+# csrc/flash_f32.cu's forward, dK/dV and dQ and groupnorm.cu's f32
+# instantiation, each held to its plain version computed in float64 on the
+# card: the kernel's max |error| may be at most F32_LIMIT times that of the
+# f32 plain version (TF32 off) on the same inputs. The broken copies round
+# each kernel's operands (or the group norm's input) to TF32, one pass of the
+# tensor cores, and must fail that limit at every shape.
+
+F32_LIMIT = 4.0
+F32_FWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
+                  (2, 4096, 1, 512), (2, 1000, 8, 40), (1, 333, 2, 264), (1, 77, 3, 24)]
+F32_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
+                  (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24)]
+F32_GN_SHAPES = [(4, 320, 64, 64), (4, 1280, 8, 8), (2, 512, 64, 64), (1, 128, 512, 512),
+                 (2, 1280, 6, 6), (3, 96, 7, 5)]
+_TF32 = ("{\n    uint32_t r;\n    asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n"
+         "    return __uint_as_float(r);\n  }")
+F32_MUTATIONS = {
+    "fwd_operands_tf32": ("flash_f32.cu", "struct FwdOperand {\n  __device__ __forceinline__ "
+                          "float operator()(float x) const { return x; }",
+                          "struct FwdOperand {\n  __device__ __forceinline__ float "
+                          "operator()(float x) const " + _TF32),
+    "dkv_operands_tf32": ("flash_f32.cu", "struct DkvOperand {\n  __device__ __forceinline__ "
+                          "float operator()(float x) const { return x; }",
+                          "struct DkvOperand {\n  __device__ __forceinline__ float "
+                          "operator()(float x) const " + _TF32),
+    "dq_operands_tf32": ("flash_f32.cu", "struct DqOperand {\n  __device__ __forceinline__ "
+                         "float operator()(float x) const { return x; }",
+                         "struct DqOperand {\n  __device__ __forceinline__ float "
+                         "operator()(float x) const " + _TF32),
+    "gn_input_tf32": ("groupnorm.cu", "__device__ __forceinline__ static float load(float v) "
+                      "{ return v; }", "__device__ __forceinline__ static float load(float v) "
+                      + _TF32.replace("(x)", "(v)")),
+}
+# which outputs each broken copy must break: the whole forward, dK/dV, dQ, GN
+F32_MUTATION_KERNEL = {"fwd_operands_tf32": "fwd", "dkv_operands_tf32": "dkv",
+                       "dq_operands_tf32": "dq", "gn_input_tf32": "gn"}
+
+# Prints {kernel: {shape: worst kernel error / (F32_LIMIT x the f32 plain
+# version's)}} for the kernels and shapes it is given; imports only the port.
+_F32_RATIOS = """
+import json, sys, torch
+from agenda_tpu_torch.kernels import flash as fl
+from agenda_tpu_torch.kernels.groupnorm import group_norm_act, group_norm_act_reference
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+LIMIT = %r
+
+def ratio(got, plain, ref):
+    worst = 0.0
+    for x, p, r in zip(got, plain, ref):
+        r = r.double()
+        e_k = (x.double() - r).abs().max().item()
+        e_p = (p.double() - r).abs().max().item()
+        worst = e_k if e_k != e_k else max(worst, e_k / (LIMIT * e_p))
+    return worst
+
+def flash_inputs(shape):
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    return [torch.randn(shape, device="cuda", generator=g) for _ in range(4)]
+
+out = {}
+for kind, shapes in json.loads(sys.argv[1]).items():
+    out[kind] = {}
+    for shape in map(tuple, shapes):
+        if kind == "gn":
+            g = torch.Generator(device="cuda").manual_seed(sum(shape))
+            c = shape[1]
+            off = 4.0 * (torch.arange(c, device="cuda") %% (c // 32)) / (c // 32)
+            x = torch.randn(shape, device="cuda", generator=g) * 2 + off[:, None, None]
+            w, b = (torch.randn(c, device="cuda", generator=g) for _ in range(2))
+            args = (32, 1e-6, "silu")
+            got = [group_norm_act(x, w, b, *args)]
+            plain = [group_norm_act_reference(x, w, b, *args)]
+            ref = [group_norm_act_reference(x.double(), w.double(), b.double(), *args)]
+        else:
+            q, k, v, do = flash_inputs(shape)
+            if kind == "fwd":
+                got = fl.flash_attention_fwd(q, k, v)
+                plain = fl.flash_attention_reference(q, k, v)
+                ref = fl.flash_attention_reference(q.double(), k.double(), v.double())
+            else:
+                o, lse = fl.flash_attention_fwd(q, k, v)
+                delta = fl.flash_delta(o, do)
+                ins = (q, k, v, do, lse, delta)
+                if kind == "dkv":
+                    fn, plain_fn = fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dkv_reference
+                else:
+                    fn = lambda *a: (fl.flash_attention_bwd_dq(*a),)
+                    plain_fn = lambda *a: (fl.flash_attention_bwd_dq_reference(*a),)
+                got, plain = fn(*ins), plain_fn(*ins)
+                ref = plain_fn(*(t.double() for t in ins))
+        torch.cuda.synchronize()
+        out[kind][str(shape)] = ratio(got, plain, ref)
+print(json.dumps(out))
+"""
+
+
+def _f32_ratios(kinds, cwd=None):
+    """Worst error over the limit per kernel and shape, in a child process
+    (the package of ``cwd``, a broken copy, or this tree's)."""
+    env = {**os.environ, "PYTHONPATH": str(cwd or REPO)}
+    run = subprocess.run([sys.executable, "-c", _F32_RATIOS % F32_LIMIT, json.dumps(kinds)],
+                         cwd=cwd or REPO, capture_output=True, text=True, timeout=900, env=env)
+    assert run.returncode == 0, run.stderr
+    return json.loads(run.stdout.splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_f32_kernels_within_the_limit_of_float64():
+    """Each f32 kernel at every main-path shape (the train step's and the
+    VAE's), ragged S and a zero-filled D, against float64: at most
+    F32_LIMIT x the f32 plain version's max |error|, output and lse alike."""
+    _need_cuda()
+    worst = _f32_ratios({"fwd": F32_FWD_SHAPES, "dkv": F32_BWD_SHAPES, "dq": F32_BWD_SHAPES,
+                         "gn": F32_GN_SHAPES})
+    print(f"f32 kernels: worst error over {F32_LIMIT} x the f32 plain version's {worst}")
+    assert all(r <= 1.0 for per in worst.values() for r in per.values()), worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutation", sorted(F32_MUTATIONS))
+def test_f32_limit_fails_tf32_rounding_mutations(mutation, tmp_path):
+    """A copy of a kernel that rounds its operands to TF32 (one tensor-core
+    pass) fails the limit at every shape."""
+    _need_cuda()
+    _broken_copy(tmp_path, F32_MUTATIONS[mutation][0], [F32_MUTATIONS[mutation][1:]])
+    kind = F32_MUTATION_KERNEL[mutation]
+    shapes = {"fwd": F32_FWD_SHAPES, "dkv": F32_BWD_SHAPES, "dq": F32_BWD_SHAPES,
+              "gn": F32_GN_SHAPES}[kind]
+    worst = _f32_ratios({kind: shapes}, cwd=tmp_path)[kind]
+    print(f"{mutation}: worst error over the limit per shape {worst}")
+    assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
+
+
+@pytest.mark.parametrize("mutation", sorted(F32_MUTATIONS))
+def test_f32_mutations_apply_to_the_source(mutation):
+    """Runs anywhere: each TF32 copy above edits exactly one place."""
+    source, old, new = F32_MUTATIONS[mutation]
+    src = (Path(agenda_tpu_torch.__file__).parent / "csrc" / source).read_text()
+    assert src.count(old) == 1 and new not in src
+
+
+@pytest.mark.cuda
+def test_f32_kernels_launch_count_and_read_strided_views():
+    """f32 q, k, v as head-split views of one packed projection (sequence
+    stride 3*H*D) give what their contiguous copies give, bit for bit, both
+    ways; each wrapper counts the f32 launch in launches and launches_f32."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn(2, 256, 3, 4, 40, device="cuda", generator=g)
+    do = torch.randn(2, 256, 4, 40, device="cuda", generator=g)
+    views = qkv.unbind(dim=2)
+    copies = [t.contiguous() for t in views]
+    wrappers = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dq)
+    before = [(w.launches, w.launches_f32) for w in wrappers]
+    results = []
+    for q, k, v in (views, copies):
+        out, lse = flash_attention_fwd(q, k, v)
+        delta = fl.flash_delta(out, do)
+        results.append((out, lse, *fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                        fl.flash_attention_bwd_dq(q, k, v, do, lse, delta)))
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+    assert [(w.launches, w.launches_f32) for w in wrappers] == [(n + 2, f + 2) for n, f in before]
+    x = torch.randn(2, 64, 8, 8, device="cuda", generator=g)
+    w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    n, f = group_norm_act.launches, group_norm_act.launches_f32
+    group_norm_act(x, w, b, 32, 1e-5, "silu")
+    group_norm_act(x.bfloat16(), w, b, 32, 1e-5, "silu")
+    assert (group_norm_act.launches, group_norm_act.launches_f32) == (n + 2, f + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_f32_groupnorm_tail_path_at_every_offset(offset):
+    """The f32 instantiation's tail path (4 elements a chunk) at a base 4, 8
+    and 12 bytes past a 16-byte boundary and at H*W % 4 != 0: the same
+    values as the aligned launch, bit for bit where the statistics' sums
+    agree, and within the f32 limit of float64 everywhere."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(offset)
+    for shape in ((2, 1280, 6, 6), (2, 640, 10, 10), (3, 96, 7, 5)):
+        x = torch.randn(shape, device="cuda", generator=g) * 2 + 0.5
+        w, b = torch.randn(shape[1], device="cuda", generator=g), torch.zeros(shape[1],
+                                                                              device="cuda")
+        buf = torch.empty(x.numel() + 4, device="cuda")
+        xo = buf[offset:offset + x.numel()].view(shape)
+        xo.copy_(x)
+        assert xo.data_ptr() % 16 == 4 * offset
+        got = group_norm_act(xo, w, b, 32, 1e-5, "silu").double()
+        plain = group_norm_act_reference(xo, w, b, 32, 1e-5, "silu").double()
+        ref = group_norm_act_reference(xo.double(), w.double(), b.double(), 32, 1e-5, "silu")
+        assert (got - ref).abs().max() <= F32_LIMIT * (plain - ref).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 333, 2, 152)],
+                         ids=_shape_id)
+def test_f32_kernels_are_deterministic(shape):
+    """One owner and one summation order a result element: two launches of
+    each f32 kernel give bitwise-equal outputs."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+    x = torch.randn(shape[0], 512, 64, 64, device="cuda", generator=g)  # a clustered span
+    w, b = torch.randn(512, device="cuda", generator=g), torch.zeros(512, device="cuda")
+
+    def run():
+        out, lse = flash_attention_fwd(q, k, v)
+        delta = fl.flash_delta(out, do)
+        return (out, lse, *fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                fl.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                group_norm_act(x, w, b, 32, 1e-6, "silu"))
+
+    assert all(torch.equal(a, b) for a, b in zip(run(), run()))

@@ -1,0 +1,315 @@
+"""Full precision (``--mixed_precision no``) in the PyTorch port against agenda_tpu, on the CPU.
+
+The JAX CLIs compute in f32 under ``--mixed_precision no``
+(``agenda_tpu/cli/finetune_sd.py:165``, ``finetune_sd_token.py:170``) and run
+their Pallas flash and GroupNorm kernels on f32 operands. On the card the
+port does the same with the f32 kernels of ``csrc/flash_f32.cu`` and the
+f32 instantiation of ``csrc/groupnorm.cu`` (held to float64 in
+``test_torch_cuda.py``). Here, on the CPU: the compute dtype of each
+choice, the wrappers' dtype checks on metadata, the plain f32 versions
+against the Pallas kernels in interpret mode, and both fine-tune CLIs
+against the JAX CLIs with the same flags on the tiny fixture, with the JAX
+key stream's draws handed to the port.
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from agenda_tpu.cli import finetune_sd as jax_finetune_sd
+from agenda_tpu.cli import finetune_sd_token as jax_finetune_sd_token
+from agenda_tpu.io.diffusers_io import load_pipeline as jax_load_pipeline
+from agenda_tpu.io.tiny_fixture import make_tiny_pipeline_dir
+from agenda_tpu.kernels.flash import _flash_bwd_impl, _flash_fwd_impl
+from agenda_tpu.kernels.groupnorm import _gn_pallas
+from agenda_tpu_torch._device import compute_dtype
+from agenda_tpu_torch.io.diffusers_io import load_pipeline, params_from_jax
+from agenda_tpu_torch.io.learned_embeds import load_learned_embeddings
+from agenda_tpu_torch.kernels import flash as fl
+from agenda_tpu_torch.kernels import groupnorm as gn
+from agenda_tpu_torch.train import finetune_sd as ttrain
+from agenda_tpu_torch.train import finetune_sd_token as ttoken
+from agenda_tpu_torch.utils.png import write_png
+
+F32_TOL = 2e-5  # f32 on both sides; only the summation order differs
+GRAD_TOL = 1e-4  # f32 gradients through exp and two products of S terms
+LOSS_RTOL = 1e-4  # as test_torch_train.py's TOL, at every step here
+LR = 1e-3
+SEED = 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny tensors: extra intra-op threads only contend with the other
+    test workers'."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# -- the compute dtype and the kernels' dtype checks ------------------------------
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("choice", [None, "no", "bf16", "fp16"])
+def test_compute_dtype_of_each_mixed_precision_choice(choice, device):
+    """"no" is f32 everywhere (as the JAX CLIs' f32); the other choices keep
+    the rule: bf16 on the card, f32 on the CPU."""
+    want = torch.float32 if choice == "no" or device == "cpu" else torch.bfloat16
+    assert compute_dtype(torch.device(device), choice) == want
+    if choice is None:
+        assert compute_dtype(torch.device(device)) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_kernel_checks_take_bf16_and_f32_and_refuse_f16(dtype):
+    """The CUDA-side checks of the flash and GroupNorm wrappers, on metadata
+    (no card): f32 and bf16 pass, f16 raises TypeError; an f32 view whose
+    strides are not whole 16-byte chunks raises ValueError."""
+    q = torch.empty(2, 64, 2, 40, dtype=dtype, device="meta")
+    x = torch.empty(2, 64, 8, 8, dtype=dtype, device="meta")
+    w = torch.empty(64, device="meta")
+    if dtype == torch.float16:
+        with pytest.raises(TypeError):
+            fl._check_cuda("flash", (q, q, q), 512)
+        with pytest.raises(TypeError):
+            gn._check_cuda(x, w, w)
+        return
+    fl._check_cuda("flash", (q, q, q), 512)
+    fl._check_cuda("flash backward", (q, q, q, q), 160)
+    gn._check_cuda(x, w, w)
+    with pytest.raises(ValueError):  # D above the f32 backward's 160
+        wide = torch.empty(1, 64, 1, 512, dtype=dtype, device="meta")
+        fl._check_cuda("flash backward", (wide,) * 4, 160)
+    odd = torch.empty(2, 64, 2, 42, dtype=dtype, device="meta")[..., :40]
+    with pytest.raises(ValueError):  # a head stride of 42 elements: not 16-byte chunks
+        fl._check_cuda("flash", (odd, odd, odd), 512)
+
+
+# -- the plain f32 versions against the Pallas kernels (interpret mode) ------------
+
+
+@pytest.mark.parametrize("b,s,h,d", [(1, 256, 2, 40), (1, 128, 1, 512)])
+def test_f32_flash_forward_and_backward_match_pallas(b, s, h, d):
+    """The port's f32 path on the CPU (``flash_attention`` through autograd:
+    the forward, delta and both backward plain versions) against
+    ``_flash_fwd_impl`` and ``_flash_bwd_impl`` in interpret mode, f32 in
+    and out. Tolerances: F32_TOL for the output and lse, GRAD_TOL for the
+    gradients (relative to their largest element)."""
+    rng = np.random.RandomState(s + d)
+    q, k, v, do = (_rand(rng, b, s, h, d) for _ in range(4))
+    out_j, res = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    assert out_j.dtype == jnp.float32
+    grads_j = _flash_bwd_impl(res, jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out_t = fl.flash_attention(tq, tk, tv)
+    out_t.backward(torch.from_numpy(do))
+    _, lse_t = fl.flash_attention_fwd(*(t.detach() for t in (tq, tk, tv)))
+    assert out_t.dtype == torch.float32 and tq.grad.dtype == torch.float32
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), atol=F32_TOL,
+                               rtol=F32_TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(res[-1])[:, 0, :], atol=F32_TOL,
+                               rtol=F32_TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads_j):
+        want = np.asarray(want)
+        assert want.dtype == np.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("b,c,hw,g,eps", [(2, 320, 64, 32, 1e-5), (1, 128, 256, 32, 1e-6)])
+def test_f32_groupnorm_matches_pallas(b, c, hw, g, eps, act):
+    """The port's f32 GroupNorm(+SiLU) on the CPU against ``_gn_pallas`` in
+    interpret mode on f32 input with a per-channel offset (a UNet and a VAE
+    width); F32_TOL."""
+    rng = np.random.RandomState(c + hw)
+    offset = 4.0 * (np.arange(c) % (c // g)) / (c // g)
+    x = _rand(rng, b, hw, c) * 2.0 + offset.astype(np.float32)
+    scale, bias = _rand(rng, c), _rand(rng, c)
+    want = np.asarray(_gn_pallas(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), g, eps,
+                                 act, interpret=True))
+    assert want.dtype == np.float32
+    x_nchw = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))
+    y = gn.group_norm_act(x_nchw, torch.from_numpy(scale), torch.from_numpy(bias), g, eps, act)
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy().transpose(0, 2, 1), want, atol=F32_TOL, rtol=F32_TOL)
+
+
+# -- the CLIs at --mixed_precision no against the JAX CLIs ----------------------------
+
+
+@pytest.fixture(scope="module")
+def fixture_dirs(tmp_path_factory):
+    """The JAX package's tiny pipeline and 8 16x16 PNG tiles with prompts
+    that hold the token CLI's trigger words."""
+    root = tmp_path_factory.mktemp("f32_cli")
+    pipe, tiles = str(root / "pipe"), str(root / "tiles")
+    make_tiny_pipeline_dir(pipe, seed=SEED)
+    os.makedirs(tiles)
+    rng = np.random.RandomState(9)
+    prompts = ["An aerial view image with cars in Utah",
+               "An aerial view image with cars in New Zealand"]
+    with open(os.path.join(tiles, "train.json"), "w") as f:
+        json.dump({f"{i}.png": prompts[i % 2] for i in range(8)}, f)
+    for i in range(8):
+        write_png(os.path.join(tiles, f"{i}.png"),
+                  rng.randint(0, 256, (16, 16, 3)).astype(np.uint8))
+    return pipe, tiles
+
+
+# The JAX CLIs split the global batch over every JAX device (8 on the test
+# CPU): --train_batch_size 1 there is the port's 8 on its one device.
+JAX_BATCH, PORT_BATCH = "1", "8"
+
+
+def _common(pipe, tiles, out):
+    return ["--pretrained_model_name_or_path", pipe, "--dataset_folder", tiles,
+            "--json_file_name", "train.json", "--output_dir", out, "--resolution", "32",
+            "--max_train_steps", "2", "--snr_gamma", "5", "--seed", str(SEED),
+            "--learning_rate", str(LR), "--report_to", "jsonl", "--mixed_precision", "no",
+            "--checkpointing_steps", "100", "--validation_steps", "2"]
+
+
+def _logged(out):
+    with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _jax_draws(step, shape, num_train_timesteps, token):
+    """The JAX steps' draws at micro-batch ``step`` from key(SEED): the SD
+    step splits fold_in(key, step) into (vae, loss) and the loss key into
+    (noise, t, ...) (``train/finetune_sd.py``); the token step splits it into
+    (vae, noise, t, offset) (``train/finetune_sd_token.py:246``)."""
+    key = jax.random.fold_in(jax.random.key(SEED), step)
+    if token:
+        k_vae, k_noise, k_t, _ = jax.random.split(key, 4)
+    else:
+        k_vae, k_loss = jax.random.split(key)
+        k_noise, k_t, _, _ = jax.random.split(k_loss, 4)
+    as_torch = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    return ttrain.StepDraws(
+        latent_eps=as_torch(jax.random.normal(k_vae, shape, jnp.float32)),
+        noise=as_torch(jax.random.normal(k_noise, shape, jnp.float32)),
+        timesteps=as_torch(jax.random.randint(k_t, (shape[0],), 0,
+                                              num_train_timesteps)).long())
+
+
+def _jax_key_draws(monkeypatch, module, token):
+    """Replace ``module.make_draws`` with the JAX key stream's draws, one
+    micro-batch a call."""
+    calls = []
+
+    def draws(generator, shape, num_train_timesteps, cfg, device, mesh=None):
+        calls.append(tuple(shape))
+        return _jax_draws(len(calls) - 1, tuple(shape), num_train_timesteps, token)
+
+    monkeypatch.setattr(module, "make_draws", draws)
+    return calls
+
+
+def _weight_faults(got, want, base, steps):
+    """test_torch_train.py::_step_faults' limits at the last of ``steps``
+    Adam steps: at most 0.1% of the elements more than 0.25 lr (steps - 1)
+    + 1e-6 apart, none more than 2 lr past that; and the run moved them."""
+    diffs = np.concatenate([np.abs(got[k].numpy() - want[k].numpy()).ravel() for k in want])
+    moved = np.concatenate([np.abs(want[k].numpy() - base[k].numpy()).ravel() for k in want])
+    near = 0.25 * LR * (steps - 1) + 1e-6
+    faults = []
+    if float(np.mean(diffs > near)) > 1e-3:
+        faults.append(("share above", near, float(np.mean(diffs > near))))
+    if diffs.max() > 2 * LR + near:
+        faults.append(("max", float(diffs.max())))
+    if np.median(moved) < 0.5 * LR:
+        faults.append(("not trained", float(np.median(moved))))
+    return faults
+
+
+def _unet_of(path, jax_side):
+    if jax_side:
+        tree = jax.tree.map(np.asarray, jax_load_pipeline(path).unet_params)
+        return {k: v.float() for k, v in params_from_jax(tree)[0].items()}
+    return {k: v.float() for k, v in load_pipeline(path).unet_state.items()}
+
+
+def _assert_losses_agree(port, theirs, keys):
+    assert [m["step"] for m in port] == [m["step"] for m in theirs] == [1, 2]
+    for m_t, m_j in zip(port, theirs):
+        for key in keys:
+            assert abs(m_t[key] - m_j[key]) <= LOSS_RTOL * abs(m_j[key]), (key, m_t, m_j)
+
+
+def test_finetune_sd_cli_in_f32_matches_the_jax_cli(fixture_dirs, tmp_path, monkeypatch):
+    """Two steps and one validation call (4 images, 20 PNDM steps) of
+    ``finetune_sd --mixed_precision no`` in both packages, f32 AdamW: the
+    logged loss and gradient norm of each step, and the exported UNet."""
+    from agenda_tpu_torch.cli import finetune_sd
+
+    pipe, tiles = fixture_dirs
+    jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_finetune_sd.main(_common(pipe, tiles, jax_out) + [
+        "--train_batch_size", JAX_BATCH, "--validation_prompts", "cars"])
+    calls = _jax_key_draws(monkeypatch, ttrain, token=False)
+    stats = finetune_sd.main(_common(pipe, tiles, port_out) + [
+        "--train_batch_size", PORT_BATCH, "--validation_prompts", "cars", "--device", "cpu"])
+    assert stats["steps"] == 2 and len(calls) == 2
+    _assert_losses_agree(_logged(port_out), _logged(jax_out), ("loss", "grad_norm"))
+    for out in (port_out, jax_out):
+        assert len(os.listdir(os.path.join(out, "logs", "images"))) == 4
+    assert _weight_faults(_unet_of(port_out, False), _unet_of(jax_out, True),
+                          _unet_of(pipe, True), steps=2) == []
+
+
+TOKEN_FLAGS = ["--reg_weight", "0.5", "--object_token", "new_token", "--initialize_token",
+               "cars", "Utah", "New Zealand", "--train_token", "--train_unet",
+               "--with_cross_attn_reg", "--num_validation_images", "1",
+               "--validation_prompts", "An aerial view image with {} cars in {} Utah"]
+
+
+def test_finetune_sd_token_cli_in_f32_matches_the_jax_cli(fixture_dirs, tmp_path, monkeypatch):
+    """Two steps of stage 1 (tokens + UNet + cross-attention regularizer) and
+    one validation image of ``finetune_sd_token --mixed_precision no`` in
+    both packages, the initial embedding the JAX CLI's: the logged losses of
+    each step, the exported UNet and the learned rows."""
+    from agenda_tpu_torch.cli import finetune_sd_token
+
+    pipe, tiles = fixture_dirs
+    jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_finetune_sd_token.main(_common(pipe, tiles, jax_out) + TOKEN_FLAGS + [
+        "--train_batch_size", JAX_BATCH])
+    calls = _jax_key_draws(monkeypatch, ttoken, token=True)
+    init = ttoken.init_token_train_state
+
+    def init_as_jax(unet, tx, train_token, train_unet, train_cross_attn, n_tokens,
+                    hidden_size, generator=None, init_embedding=None):
+        emb = 0.02 * jax.random.normal(jax.random.key(SEED), (n_tokens, hidden_size))
+        return init(unet, tx, train_token, train_unet, train_cross_attn, n_tokens,
+                    hidden_size, init_embedding=np.asarray(emb, np.float32))
+
+    monkeypatch.setattr(ttoken, "init_token_train_state", init_as_jax)
+    stats = finetune_sd_token.main(_common(pipe, tiles, port_out) + TOKEN_FLAGS + [
+        "--train_batch_size", PORT_BATCH, "--device", "cpu"])
+    assert stats["steps"] == 2 and len(calls) == 2
+    _assert_losses_agree(_logged(port_out), _logged(jax_out),
+                         ("loss", "attn_loss", "fg_loss", "bg_loss"))
+    for out in (port_out, jax_out):
+        assert len(os.listdir(os.path.join(out, "logs", "images"))) == 1
+    export = "full_model_step_2"
+    assert _weight_faults(_unet_of(os.path.join(port_out, export), False),
+                          _unet_of(os.path.join(jax_out, export), True),
+                          _unet_of(pipe, True), steps=2) == []
+    rows = [load_learned_embeddings(os.path.join(out, "learned_embeds_steps_2.bin"))
+            for out in (port_out, jax_out)]
+    assert list(rows[0]) == list(rows[1]) == [f"new_token_v{i}" for i in range(3)]
+    for name in rows[1]:  # the rows move by about lr a step, as the UNet's elements do
+        np.testing.assert_allclose(rows[0][name], rows[1][name], rtol=0, atol=0.25 * LR)
