@@ -1,23 +1,21 @@
-// Flash attention in full f32 for Hopper (sm_90a): the forward, dK/dV and dQ
-// that --mixed_precision no runs on the card.
+// Flash attention's backward in full f32 for Hopper (sm_90a): the dK/dV and
+// dQ that --mixed_precision no runs on the card (the forward, on the tensor
+// cores, is flash_fwd_f32.cu).
 //
 // Replaces the TPU kernels of agenda_tpu/kernels/flash.py on f32 operands,
 // which they take as they take bf16 (their dispatch in
 // agenda_tpu/kernels/attention.py:119-126 has no dtype test):
-// - _flash_fwd_kernel (flash.py:55, launched at flash.py:117): q is cast to
-//   f32, P is multiplied in V's dtype (f32 here, flash.py:79), O is written
-//   in q's dtype (flash.py:91, 130), lse in f32;
-// - _flash_bwd_dkv_kernel (flash.py:153, launched at flash.py:239) and
-//   _flash_bwd_dq_kernel (flash.py:192, launched at flash.py:265): P from
-//   lse, dS = P (dP - delta), gradients in the input dtype (flash.py:306-309).
+// _flash_bwd_dkv_kernel (flash.py:153, launched at flash.py:239) and
+// _flash_bwd_dq_kernel (flash.py:192, launched at flash.py:265): P from
+// lse, dS = P (dP - delta), gradients in the input dtype (flash.py:306-309).
 // Every product, P, dS and the softmax statistics are f32 here; nothing is
 // rounded to bf16 or TF32.
 //
-// What bounds them on the H100: 4*B*H*S^2*D multiply-adds' worth of f32
-// operations forward (14*B*H*S^2*D backward), B*H*S^2 exponentials forward
-// (twice that backward), on 4*B*S*H*D*4 bytes. The cheapest f32-accurate
-// product the card has is three TF32 tensor-core passes (hi*hi + hi*lo +
-// lo*hi) at 495 TFLOP/s, i.e. 165 TFLOP/s of f32 products; these kernels
+// What bounds them on the H100: 14*B*H*S^2*D multiply-adds' worth of f32
+// operations, 2*B*H*S^2 exponentials, on 4*B*S*H*D*4 bytes. The cheapest
+// f32-accurate product the card has is three TF32 tensor-core passes (hi*hi
+// + hi*lo + lo*hi) at 495 TFLOP/s, i.e. 165 TFLOP/s of f32 products (or six
+// bf16 passes over three bf16 pieces, as the forward does); these kernels
 // use the CUDA cores' FFMA instead (67 TFLOP/s peak), which is what bounds
 // them. At S = 64 and 256 the bytes bound the work.
 //
@@ -32,20 +30,14 @@
 //   along D from row-major tiles whose row pitch is an odd number of 16-byte
 //   units, so a warp's 16 distinct rows fall in distinct bank groups: 8
 //   float4 loads (12 shared-memory wavefronts a warp) for 64 FFMA a thread.
-// - Products into the output (O += P V, dV += P^T dO, dK += dS^T Q,
-//   dQ += dS K): thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-//   of the 64 x (16 * NJ) accumulator (D zero-filled to 16 * NJ), with P or
-//   dS staged in shared memory and read as float4 along the reduction.
-// - Online softmax in natural units with expf, as the plain version's
-//   exp(logits - lse); each row's max and sum over the tile's 64 keys is a
-//   shuffle over the 16 lanes of a half-warp; O is divided by l at the end.
-// - D <= 160: every tile is whole in shared memory (143 KB at D = 160 in the
-//   forward, 198 KB in the dK/dV, 181 KB in the dQ). The wide forward
-//   (D = 512, the VAE's single head): the 64 x 512 Q tile stays (129 KB),
-//   K passes through in 64-column chunks and V in 16-key chunks, O is 128
-//   registers a thread (one block an SM). The backward takes D <= 160 only:
-//   the wide dK/dV and dQ run only in VAE pretraining, which has no
-//   --mixed_precision choice in either package and stays bf16.
+// - Products into the output (dV += P^T dO, dK += dS^T Q, dQ += dS K):
+//   thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j of the
+//   64 x (16 * NJ) accumulator (D zero-filled to 16 * NJ), with P or dS
+//   staged in shared memory and read as float4 along the reduction.
+// - D <= 160: every tile is whole in shared memory (198 KB at D = 160 in
+//   the dK/dV, 181 KB in the dQ). The wide dK/dV and dQ run only in VAE
+//   pretraining, which has no --mixed_precision choice in either package and
+//   stays bf16.
 // - Each output element has one owner and a fixed summation order: no
 //   atomics; two launches on the same inputs give bitwise-equal outputs.
 
@@ -58,10 +50,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 64;             // rows a block owns, and rows of a tile it loops over
 constexpr int kLdP = kTile + 4;       // pitch of the staged P / dS tiles: 17 float4, odd
-constexpr int kMaxHeadDim = 512;      // the forward
-constexpr int kMaxBwdHeadDim = 160;   // the backward
-constexpr int kWideChunk = 64;        // the wide forward: K's columns a pass
-constexpr int kWideKeys = 16;         // the wide forward: V's rows a pass
+constexpr int kMaxBwdHeadDim = 160;
 
 struct Operand {
   const float* p;
@@ -70,10 +59,8 @@ struct Operand {
 
 struct Params {
   Operand q, k, v, dout;
-  float* o;
-  float* lse_out;      // forward: (B*H, S)
-  const float* lse;    // backward: (B*H, S)
-  const float* delta;  // backward: (B*H, S)
+  const float* lse;    // (B*H, S)
+  const float* delta;  // (B*H, S)
   float *dq, *dk, *dv;
   int S, H, D;
   float scale;
@@ -81,9 +68,6 @@ struct Params {
 
 // The products' operands as they are read: exact f32. (The card tests'
 // broken copies round these to TF32 to show that the limit catches it.)
-struct FwdOperand {
-  __device__ __forceinline__ float operator()(float x) const { return x; }
-};
 struct DkvOperand {
   __device__ __forceinline__ float operator()(float x) const { return x; }
 };
@@ -107,19 +91,6 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b, float ac
 
 __device__ __forceinline__ float part(const float4& a, int c) {
   return c == 0 ? a.x : c == 1 ? a.y : c == 2 ? a.z : a.w;
-}
-
-// max and sum over the 16 lanes of a half-warp (one row of a score tile)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // rows [s0, s0 + rows) of one (batch, head) of t, columns [c0, c0 + WIDTH),
@@ -172,91 +143,6 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][NJ], const float* W, 
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(part(w[i], c), x, acc[i][j]);
       }
     }
-  }
-}
-
-// -- the forward ------------------------------------------------------------------
-
-template <int NJ, bool WIDE>
-struct FwdTile {
-  static constexpr int kW = 16 * NJ;                     // D zero-filled to kW columns
-  static constexpr int kLd = kW + 4;                     // Q and V row pitch
-  static constexpr int kKW = WIDE ? kWideChunk : kW;     // K columns a pass
-  static constexpr int kLdK = kKW + 4;
-  static constexpr int kVRows = WIDE ? kWideKeys : kTile;  // V rows a pass
-  static constexpr int kFloats = kTile * kLd + kTile * kLdK + kVRows * kLd + kTile * kLdP;
-  static constexpr int kSmem = kFloats * 4;
-};
-
-template <int NJ, bool WIDE>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_f32_kernel(const __grid_constant__ Params p) {
-  using T = FwdTile<NJ, WIDE>;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kTile * T::kLd;
-  float* Vs = Ks + kTile * T::kLdK;
-  float* Ps = Vs + T::kVRows * T::kLd;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, m0 = blockIdx.x * kTile;
-
-  load_tile<T::kW>(Qs, T::kLd, p.q, b, h, m0, kTile, p.S, 0, p.D);
-  float m[4], l[4], o[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) o[i][j] = 0.f;
-  }
-  for (int n0 = 0; n0 < p.S; n0 += kTile) {
-    float s[4][4] = {};
-    for (int c0 = 0; c0 < p.D; c0 += T::kKW) {
-      __syncthreads();  // every thread is done with the last K chunk and P V
-      load_tile<T::kKW>(Ks, T::kLdK, p.k, b, h, n0, kTile, p.S, c0, p.D);
-      __syncthreads();
-      scores<FwdOperand>(s, Qs + c0, T::kLd, Ks, T::kLdK, min(T::kKW, p.D - c0), ty, tx);
-    }
-    // online softmax over this tile's keys; keys past S get P = 0
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = n0 + tx + 16 * j < p.S ? s[i][j] * p.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], row_max(mx));  // finite: key n0 is in every tile
-      const float alpha = expf(m[i] - mn);        // 0 at the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
-        sum += s[i][j];
-        Ps[(ty + 16 * i) * kLdP + tx + 16 * j] = s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = mn;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) o[i][j] *= alpha;
-    }
-    for (int v0 = 0; v0 < kTile; v0 += T::kVRows) {
-      __syncthreads();  // P is written; the last V chunk is read
-      load_tile<T::kW>(Vs, T::kLd, p.v, b, h, n0 + v0, T::kVRows, p.S, 0, p.D);
-      __syncthreads();
-      accumulate<NJ, FwdOperand>(o, Ps + v0, Vs, T::kLd, T::kVRows, ty, tx);
-    }
-  }
-  const int rs = p.H * p.D;  // the output is contiguous (B, S, H, D)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= p.S) continue;
-    float* out = p.o + ((long long)b * p.S + row) * rs + (long long)h * p.D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (tx + 16 * j < p.D) out[tx + 16 * j] = o[i][j] / l[i];
-    if (tx == 0) p.lse_out[(long long)bh * p.S + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -423,12 +309,6 @@ cudaError_t launch(Kernel kernel, int smem, const Params& p, int B, cudaStream_t
   return cudaGetLastError();
 }
 
-template <int NJ, bool WIDE>
-cudaError_t launch_fwd(const Params& p, int B, cudaStream_t st) {
-  static bool attr_set = false;
-  return launch(flash_fwd_f32_kernel<NJ, WIDE>, FwdTile<NJ, WIDE>::kSmem, p, B, st, &attr_set);
-}
-
 template <int NJ>
 cudaError_t launch_dkv(const Params& p, int B, cudaStream_t st) {
   static bool attr_set = false;
@@ -441,23 +321,23 @@ cudaError_t launch_dq(const Params& p, int B, cudaStream_t st) {
   return launch(flash_bwd_dq_f32_kernel<NJ>, BwdTile<NJ>::kDqSmem, p, B, st, &attr_set);
 }
 
-// Checks shared by the entries (f32 operands at 16-byte-aligned bases with
-// strides that are multiples of 4 elements; D a multiple of 8 up to max_d);
+// Checks shared by the entries (four f32 operands at 16-byte-aligned bases with
+// strides that are multiples of 4 elements; D a multiple of 8 up to 160);
 // fills p's operands and scalars. Returns cudaSuccess or cudaErrorInvalidValue.
-cudaError_t make_params(Params* p, const void* const* ptrs, const long long* strides, int n,
-                        int B, int S, int H, int D, int max_d) {
-  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D % 8 != 0 || D > max_d || B * H > 65535)
+cudaError_t make_params(Params* p, const void* const* ptrs, const long long* strides, int B,
+                        int S, int H, int D) {
+  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D % 8 != 0 || D > kMaxBwdHeadDim ||
+      B * H > 65535)
     return cudaErrorInvalidValue;
   Operand* ops[4] = {&p->q, &p->k, &p->v, &p->dout};
-  for (int i = 0; i < 4; ++i) *ops[i] = Operand{nullptr, 0, 0, 0};
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < 4; ++i) {
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return cudaErrorInvalidValue;
     for (int j = 0; j < 3; ++j)
       if (strides[3 * i + j] % 4 != 0) return cudaErrorInvalidValue;
     *ops[i] = Operand{static_cast<const float*>(ptrs[i]), strides[3 * i], strides[3 * i + 1],
                       strides[3 * i + 2]};
   }
-  p->o = p->lse_out = p->dq = p->dk = p->dv = nullptr;
+  p->dq = p->dk = p->dv = nullptr;
   p->lse = p->delta = nullptr;
   p->S = S;
   p->H = H;
@@ -468,33 +348,8 @@ cudaError_t make_params(Params* p, const void* const* ptrs, const long long* str
 
 }  // namespace
 
-// The largest head dim of the forward (bwd == 0) or of the backward.
-extern "C" int agenda_flash_f32_max_head_dim(int bwd) {
-  return bwd ? kMaxBwdHeadDim : kMaxHeadDim;
-}
-
-// q, k, v: (B, S, H, D) f32 with the given element strides (D unit-stride),
-// 16-byte-aligned bases and strides that are multiples of 4; D a multiple of
-// 8 up to 512; o: contiguous (B, S, H, D) f32; lse: (B*H, S) f32, contiguous.
-// Returns a cudaError_t (0 on success).
-extern "C" int agenda_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                                    void* lse, int B, int S, int H, int D, long long q_sb,
-                                    long long q_ss, long long q_sh, long long k_sb,
-                                    long long k_ss, long long k_sh, long long v_sb,
-                                    long long v_ss, long long v_sh, void* stream) {
-  const void* ptrs[3] = {q, k, v};
-  const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  Params p;
-  cudaError_t err = make_params(&p, ptrs, strides, 3, B, S, H, D, kMaxHeadDim);
-  if (err != cudaSuccess) return (int)err;
-  p.o = static_cast<float*>(o);
-  p.lse_out = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 48) return (int)launch_fwd<3, false>(p, B, st);
-  if (D <= 80) return (int)launch_fwd<5, false>(p, B, st);
-  if (D <= kMaxBwdHeadDim) return (int)launch_fwd<10, false>(p, B, st);
-  return (int)launch_fwd<32, true>(p, B, st);
-}
+// The largest head dim of the backward.
+extern "C" int agenda_flash_f32_bwd_max_head_dim() { return kMaxBwdHeadDim; }
 
 // q, k, v, dout: (B, S, H, D) f32 with the given element strides (q, k, v,
 // dout; batch, seq, head each; D unit-stride), 16-byte-aligned bases and
@@ -507,7 +362,7 @@ extern "C" int agenda_flash_bwd_dkv_f32(const void* q, const void* k, const void
                                         const long long* strides, void* stream) {
   const void* ptrs[4] = {q, k, v, dout};
   Params p;
-  cudaError_t err = make_params(&p, ptrs, strides, 4, B, S, H, D, kMaxBwdHeadDim);
+  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D);
   if (err != cudaSuccess) return (int)err;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
@@ -526,7 +381,7 @@ extern "C" int agenda_flash_bwd_dq_f32(const void* q, const void* k, const void*
                                        const long long* strides, void* stream) {
   const void* ptrs[4] = {q, k, v, dout};
   Params p;
-  cudaError_t err = make_params(&p, ptrs, strides, 4, B, S, H, D, kMaxBwdHeadDim);
+  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D);
   if (err != cudaSuccess) return (int)err;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);

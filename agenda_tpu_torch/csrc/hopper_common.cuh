@@ -365,6 +365,22 @@ struct WgmmaRS<80, TRANS_B> {
 };
 
 template <int TRANS_B>
+struct WgmmaRS<128, TRANS_B> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+#ifdef __CUDA_ARCH__  // the host compiler caps asm operands at 30
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" WG_R10() ", " WG_R10(1) ", " WG_R10(2) ", " WG_R10(3) ", " WG_R10(4) ", " WG_R10(5)
+        ", %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : WG_F40(0), WG_F20(40), WG_F4(60)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TRANS_B));
+#endif
+  }
+};
+
+template <int TRANS_B>
 struct WgmmaRS<160, TRANS_B> {
   __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t b,
                                              int scale_d) {

@@ -21,6 +21,7 @@ from the headers, whatever the files' extensions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import queue
@@ -218,7 +219,8 @@ class DataLoader:
             except BaseException as e:  # handed to the consumer
                 q.put(("__error__", e))
 
-        threading.Thread(target=producer, daemon=True).start()
+        thread = threading.Thread(target=producer, daemon=True, name="DataLoader-producer")
+        thread.start()
         try:
             while True:
                 item = q.get()
@@ -228,4 +230,11 @@ class DataLoader:
                     raise item[1]
                 yield item
         finally:
+            # a consumer that stops early (a step budget met mid-epoch) frees
+            # the producer: drain what it queued, so that a put on a full
+            # queue returns and it sees the stop, and wait for it
             stop.set()
+            while thread.is_alive():
+                with contextlib.suppress(queue.Empty):
+                    q.get_nowait()
+                thread.join(timeout=0.01)

@@ -6,9 +6,11 @@ Replaces the Pallas TPU kernels of ``agenda_tpu/kernels/flash.py``:
 - ``flash_attention_fwd`` -> ``csrc/flash_fwd.cu`` (``_flash_fwd_kernel``);
 - ``flash_attention_bwd_dkv`` -> ``csrc/flash_bwd.cu`` (``_flash_bwd_dkv_kernel``);
 - ``flash_attention_bwd_dq`` -> ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``);
-- on f32 operands (``--mixed_precision no``) all three -> ``csrc/flash_f32.cu``,
-  as the TPU kernels take f32 as they take bf16 (the forward up to D = 512,
-  the backward up to D = 160).
+- on f32 operands (``--mixed_precision no``), as the TPU kernels take f32 as
+  they take bf16: the forward (up to D = 512) -> ``csrc/flash_fwd_f32.cu``,
+  the tensor cores on three bf16 pieces of each operand, which its pre-pass
+  ``flash_f32_split`` writes; dK/dV and dQ (up to D = 160) ->
+  ``csrc/flash_f32.cu``.
 
 Each wrapper launches its kernel on CUDA tensors and takes its plain version
 only for CPU tensors; on a CUDA tensor it launches the bf16 kernel for bf16,
@@ -16,7 +18,8 @@ the f32 kernel for f32, and raises for any other dtype. Each counts its
 kernel launches in ``<wrapper>.launches`` and the f32 kernel's among them in
 ``<wrapper>.launches_f32``; the forward also counts its launches at D > 160
 (the wide kernel, or the f32 forward's wide instantiation) in
-``flash_attention_fwd.launches_wide``. ``flash_attention``
+``flash_attention_fwd.launches_wide``; the f32 forward's pre-pass counts
+its own in ``flash_f32_split.launches``. ``flash_attention``
 mirrors the JAX ``custom_vjp`` (``flash.py:295-312``): the forward saves the
 output and the row logsumexp, the backward computes delta = rowsum(dO * O)
 in f32 outside the kernels (``flash.py:235``) and returns the gradients in
@@ -120,14 +123,16 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _f32_kernels():
-    """``csrc/flash_f32.cu``: (forward, dK/dV, dQ, the forward's and the
-    backward's largest head dim)."""
+    """``csrc/flash_fwd_f32.cu`` and ``csrc/flash_f32.cu``: (split, forward,
+    dK/dV, dQ, the forward's and the backward's largest head dim)."""
     lib = _build.load_library()
-    fwd = lib.function("agenda_flash_fwd_f32", [_P] * 5 + [_I] * 4 + [_L] * 9 + [_P])
+    split = lib.function("agenda_flash_f32_split", [_P] * 4 + [_I] * 4 + [_L] * 9 + [_P])
+    fwd = lib.function("agenda_flash_fwd_f32", [_P] * 3 + [_I] * 4 + [_P])
     dkv = lib.function("agenda_flash_bwd_dkv_f32", [_P] * 8 + [_I] * 4 + [_P, _P])
     dq = lib.function("agenda_flash_bwd_dq_f32", [_P] * 7 + [_I] * 4 + [_P, _P])
-    max_d = lib.function("agenda_flash_f32_max_head_dim", [_I])
-    return fwd, dkv, dq, max_d(0), max_d(1)
+    max_fwd = lib.function("agenda_flash_fwd_f32_max_head_dim", [])()
+    max_bwd = lib.function("agenda_flash_f32_bwd_max_head_dim", [])()
+    return split, fwd, dkv, dq, max_fwd, max_bwd
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,7 +188,7 @@ def flash_attention_fwd(
     """Non-causal unmasked attention over (B, S, H, D) for any S.
 
     Returns (out (B, S, H, D), lse (B*H, S) f32). CUDA tensors must be bf16
-    (D up to 512) or f32 (``csrc/flash_f32.cu``, D up to 512) with a
+    (D up to 512) or f32 (``csrc/flash_fwd_f32.cu``, D up to 512) with a
     unit-stride head dim that is a multiple of 8; the kernels copy 16-byte
     chunks, so the other strides must be whole chunks (multiples of 8 bf16
     or 4 f32 elements) and the data 16-byte aligned. Such strides are read
@@ -193,19 +198,18 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     f32 = q.dtype == torch.float32
-    if f32:
-        fn, _, _, max_d, _ = _f32_kernels()
-    else:
-        fn, max_d = _kernel()
-    _check_cuda("flash", (q, k, v), max_d)
+    _check_cuda("flash", (q, k, v), _f32_kernels()[4] if f32 else _kernel()[1])
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
-    if not f32:
-        strides += out.stride()[:3]
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, s, h, d, *strides, _build.stream_ptr(q.device))
+    if f32:
+        pieces = flash_f32_split(q, k, v)
+        rc = _f32_kernels()[1](pieces.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, h, d,
+                               _build.stream_ptr(q.device))
+    else:
+        strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+        rc = _kernel()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          lse.data_ptr(), b, s, h, d, *strides, _build.stream_ptr(q.device))
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_f32 += int(f32)
@@ -217,6 +221,46 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_f32 = 0
 flash_attention_fwd.launches_wide = 0
+
+
+def flash_f32_split_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32 forward's pre-pass: (9, B, S, H, D) bf16, plane
+    3 t + i the piece i of operand t (q, k, v), b0 = bf16(x), b1 = bf16(x -
+    b0), b2 = bf16(x - b0 - b1), so that b0 + b1 + b2 = x (the remainders are
+    exact in f32)."""
+    planes = []
+    for x in (q, k, v):
+        rest = x.float()
+        for _ in range(3):
+            piece = rest.to(torch.bfloat16)
+            planes.append(piece)
+            rest = rest - piece.float()
+    return torch.stack(planes)
+
+
+def flash_f32_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The f32 forward's pre-pass (``csrc/flash_fwd_f32.cu``): f32 (B, S, H, D)
+    q, k, v, taken as ``flash_attention_fwd`` takes them, -> their bf16
+    pieces as ``flash_f32_split_reference`` lays them out, contiguous."""
+    _check(q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the f32 split takes f32, got {q.dtype}")
+    if q.device.type == "cpu":
+        return flash_f32_split_reference(q, k, v)
+    split, _, _, _, max_d, _ = _f32_kernels()
+    _check_cuda("flash f32 split", (q, k, v), max_d)
+    b, s, h, d = q.shape
+    pieces = torch.empty((9, b, s, h, d), dtype=torch.bfloat16, device=q.device)
+    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    rc = split(q.data_ptr(), k.data_ptr(), v.data_ptr(), pieces.data_ptr(), b, s, h, d,
+               *strides, _build.stream_ptr(q.device))
+    _build.check(rc, "flash_f32_split")
+    flash_f32_split.launches += 1
+    return pieces
+
+
+flash_f32_split.launches = 0
 
 
 def _stats_on(lse: torch.Tensor, delta: torch.Tensor, q: torch.Tensor) -> None:
@@ -279,7 +323,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
 def _bwd_cuda(q: torch.Tensor):
     """(dK/dV entry, dQ entry, largest D) of the backward kernels for q's dtype."""
     if q.dtype == torch.float32:
-        _, dkv, dq, _, max_d = _f32_kernels()
+        _, _, dkv, dq, _, max_d = _f32_kernels()
         return dkv, dq, max_d
     return _bwd_kernels()
 

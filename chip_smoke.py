@@ -6,7 +6,10 @@
 Phases, each fatal on failure:
   1. build   -- compile agenda_tpu_torch/csrc/*.cu with nvcc for sm_90a, and
                 show ptxas's registers and spills of each instantiation of the
-                flash forward and the group norm;
+                flash forward, the group norm and the f32 kernels (those of
+                the bf16 flash backward in phase 10); every phase starts
+                with a [host] line: what the process holds after garbage
+                collection and the card's cache returned (host_state);
   2. shapes  -- write a full-width SD-1.4-shaped pipeline with seeded random
                 weights, load it, record the shape of every kernel call of
                 one UNet call (CFG batch) and one VAE decode, and time a cold
@@ -226,13 +229,14 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 cache (same threshold and
                 weights, no training); the box matchers, native against
                 numpy;
- 40. full precision -- (run after phase 37) --mixed_precision no: ptxas's
-                registers and spills of the f32 kernels; one f32 SD step at
-                batch 4, 512x512 through the trainer API, every flash and
+ 40. full precision -- (run after phase 37) --mixed_precision no: one f32 SD
+                step at batch 4, 512x512 through the trainer API, every flash and
                 group-norm launch an f32 kernel's (launches_f32), the
                 counts the config's, warm s/step and peak memory; the f32
-                forward (D = 40, 80, 160 and 512), dK/dV, dQ and GroupNorm at
-                that step's shapes and the VAE's, each against float64 on
+                forward (D = 40, 80, 160 and 512; tensor cores on three bf16
+                pieces of each operand, which its pre-pass writes, bit for
+                bit the plain version's), dK/dV, dQ and GroupNorm at the
+                shapes of the f32 SD CLI's run, each against float64 on
                 the card (at most F32_LIMIT x the f32 plain version's
                 error) and timed beside its bound, the plain version and
                 SDPA or F.group_norm + F.silu in f32; the f32 step at 256
@@ -242,7 +246,7 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 --mixed_precision no for 2 steps of stage 1, their launches
                 the config's and all f32;
  41. report  -- a `kernels` JSON line (the six kernels, the flash forward's and
-                backward's wide kernels and the five f32 kernels of phase 40
+                backward's wide kernels and the six f32 kernels of phase 40
                 as entries of their own; none is on the labelling,
                 detector, refine or orchestrator path: the render is einsums
                 and elementwise PyTorch, as it is jnp in the reference,
@@ -259,6 +263,7 @@ checkout of the repository. It imports nothing of JAX or agenda_tpu.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import itertools
 import json
 import math
@@ -358,7 +363,7 @@ RESIZE_TOL = 1.0
 # so an update stands well above the rounding of the weights); timing at the
 # synthetic_heatmap (192) and synthetic_target (1024) batches
 DET_TRAIN_TILES, DET_VAL_TILES, DET_EPOCHS, DET_SWITCH = 384, 64, 12, 2
-DET_STEP, DET_AUG_IMAGES = 1000, 64
+DET_STEP, DET_AUG_IMAGES, DET_AUG_WARM = 1000, 64, 8
 DET_TIMING = (("synthetic_heatmap", 192), ("synthetic_target", 1024))
 # card vs CPU, both f32, one train step from the same weights and batch: each
 # limit lies between the sound runs' largest reading and the TF32 control's
@@ -388,7 +393,8 @@ DET_TAL_MAX = 13  # anchors whose fg or assigned GT differ
 # synthetic_target (1024, two parts of 512 fabricated tiles: a 50 MB
 # tensor, 2 epochs of 1 step) batches, the loop timed over epoch 1 (cut
 # from 4096 tiles and 4 epochs at 192, then from 3 epochs and 2048 tiles,
-# to keep the script within its limit)
+# to keep the script within its limit); with 4 plan workers at 192 only
+# (their pool's start took 12.8 s of the 1024 run's)
 RENDER_MEAN_TOL, RENDER_FAR_SHARE, LSJ_DIFF_SHARE = 1e-3, 1e-4, 1e-3
 RENDER_SLOTS, RENDER_FORCED = 24, 4
 DEVICE_AUG_TILES = 1024
@@ -419,6 +425,68 @@ PROFILE_SUM_TOL = 0.01  # phase 6's report: its categories' sum over its busy ms
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def host_state() -> str:
+    """What this process holds on the host and the card: live threads (and
+    their names), child processes, kernel tasks, torch's intra-op threads,
+    resident memory, the gc's tracked objects and the card's reserved
+    bytes."""
+    import gc
+    import multiprocessing
+    import threading
+
+    import torch
+
+    names = sorted(t.name for t in threading.enumerate())
+    tasks = len(os.listdir("/proc/self/task")) if os.path.isdir("/proc/self/task") else -1
+    rss = -1.0
+    with contextlib.suppress(OSError):
+        for line in open("/proc/self/status"):
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) / 2**20  # kB -> GiB
+    return (f"threads {len(names)} {names}, children {len(multiprocessing.active_children())}, "
+            f"tasks {tasks}, torch threads {torch.get_num_threads()}, rss {rss:.2f} GiB, gc "
+            f"objects {len(gc.get_objects())}, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+
+def settle(phase: str) -> float:
+    """The start of a phase: stop what earlier phases left running (a child
+    process, an open profiler), collect garbage, return the card's cached
+    blocks and the cached pinned host blocks, give the C heap's free pages
+    back, print one [host] line (``host_state``) and return the time."""
+    import gc
+    import multiprocessing
+
+    import torch
+
+    for child in multiprocessing.active_children():
+        print(f"[host] {phase}: stopping a child left running: {child.name} ({child.pid})",
+              flush=True)
+        child.terminate()
+        child.join(10)
+    if torch.autograd.profiler._is_profiler_enabled:  # a profile left open
+        print(f"[host] {phase}: a profiler was left enabled", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):  # cached pinned blocks
+        if hasattr(torch._C, name):
+            with contextlib.suppress(RuntimeError):
+                getattr(torch._C, name)()
+            break
+    with contextlib.suppress(OSError, AttributeError):  # the C heap's free pages
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    print(f"[host] {phase}: {host_state()}", flush=True)
+    return time.perf_counter()
+
+
+def part(tag: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall printed as a [parts] line."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[parts] {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def smi_name_power() -> str:
@@ -995,7 +1063,8 @@ def ptxas_report(log: str):
     import re
 
     names = ("flash_fwd_wgmma|flash_fwd_wide_wgmma|flash_bwd_dkv_wide_wgmma|flash_bwd_dq_wide_wgmma"
-             "|flash_bwd_dkv|flash_bwd_dq|flash_fwd_f32|flash_bwd_dkv_f32|flash_bwd_dq_f32"
+             "|flash_bwd_dkv|flash_bwd_dq|flash_fwd_f32|flash_fwd_f32_wide|flash_f32_split"
+             "|flash_bwd_dkv_f32|flash_bwd_dq_f32"
              "|groupnorm|fused_adamw8bit")
     types = {"13__nv_bfloat16": "bf16", "f": "f32"}  # the group norm's element type
     found, current = {}, None
@@ -2409,6 +2478,27 @@ def det_cli_phase(labels: dict, root: str, dev, extra=(), tag: str = "det-cli") 
     return {"wall": wall, "steps": n_steps}
 
 
+def host_aug_ms(ds) -> dict:
+    """Host augmentation ms an image of a detector train set: the mix and
+    stage-2 recipes over DET_AUG_IMAGES images after DET_AUG_WARM untimed
+    ones, the tile cache warm (as after a first epoch)."""
+    from agenda_tpu_torch.detect.augment import stage2_aug
+
+    for j in range(len(ds)):
+        ds._load_scaled(j)
+    out = {}
+    for recipe in ("mix", "stage2"):
+        if recipe == "stage2":
+            ds.aug = stage2_aug(ds.aug)
+        for j in range(DET_AUG_WARM):  # first calls: imports, the native library's load
+            ds[j]
+        t0 = time.perf_counter()
+        for j in range(DET_AUG_IMAGES):
+            ds[j]
+        out[recipe] = (time.perf_counter() - t0) * 1e3 / DET_AUG_IMAGES
+    return out
+
+
 def det_timing(labels: dict, root: str, dev) -> dict:
     """Phase 23: YOLOv8n training at batch 192 (synthetic_heatmap) and 1024
     (synthetic_target): warm s/step over 3 synchronised steps through
@@ -2421,7 +2511,6 @@ def det_timing(labels: dict, root: str, dev) -> dict:
     import torch
 
     from agenda_tpu_torch.data.datasets import DataLoader
-    from agenda_tpu_torch.detect.augment import stage2_aug
     from agenda_tpu_torch.detect.optim import DetectorSGD
     from agenda_tpu_torch.detect.runner import (DetectorRunner, batch_to_device, full_f32,
                                                 load_variables)
@@ -2432,16 +2521,7 @@ def det_timing(labels: dict, root: str, dev) -> dict:
         cfg = det_preset(root, labels["all"], stage)
         require(cfg.runner.batch_size == bs, f"the {stage} preset's batch")
         ds = cfg.build_train_dataset()
-        for j in range(len(ds)):
-            ds._load_scaled(j)  # the tile cache, as after a first epoch
-        aug_ms = {}
-        for recipe in ("mix", "stage2"):
-            if recipe == "stage2":
-                ds.aug = stage2_aug(ds.aug)
-            t0 = time.perf_counter()
-            for j in range(DET_AUG_IMAGES):
-                ds[j]
-            aug_ms[recipe] = (time.perf_counter() - t0) * 1e3 / DET_AUG_IMAGES
+        aug_ms = host_aug_ms(ds)
         batch = det_first_batch(cfg, bs)
         fam = cfg.build_family()
         runner = DetectorRunner(fam, cfg.runner, device=dev)
@@ -2607,8 +2687,8 @@ def render_parity(labels: dict, root: str, dev) -> dict:
 def device_aug_timing(labels: dict, root: str, dev) -> dict:
     """Phase 25: YOLOv8n training through DetectorRunner.train with
     device_aug at batch 192 (synthetic_heatmap, the 512 stacks) and 1024
-    (synthetic_target, two fabricated parts of 1024 tiles), each serial and
-    with 4 plan workers: the loop's s/step from the first step of epoch 1 to
+    (synthetic_target, two fabricated parts of 1024 tiles), each serial, and
+    with 4 plan workers at 192: the loop's s/step from the first step of epoch 1 to
     the run's end (host clock; the last checkpoint's write included), the
     card's busy share of it (one profiled render + step), the render's and
     the step's ms (CUDA events), the host's plan ms an image, the plan upload
@@ -2695,7 +2775,7 @@ def device_aug_timing(labels: dict, root: str, dev) -> dict:
                   f"{pool_s:.1f} s with the pool's start; equal to the serial plans: {same}",
                   flush=True)
             require(same, "the workers' plans differ from the serial ones")
-        for workers in (0, 4):
+        for workers in ((0, 4) if bs == DEVICE_AUG_TIMING[0][1] else (0,)):
             cfg.runner.device_aug_workers = workers
             runner = DetectorRunner(cfg.build_family(), cfg.runner, device=dev)
             times = []
@@ -3287,13 +3367,20 @@ FAM_LIMITS = {
 # phase 22 resumes YOLOv8), det_test on the first FAM_CLI_TILES of phase 22's
 # validation stacks (cut from its 64, also to pay for phase 40: one predict
 # batch at every family's batch); Faster R-CNN once more with --device-aug;
-# phase 33: timing at the real_source and synthetic_target
-# batches (FAM_WARM synchronised steps after a cold one, the batch on the
-# card) and labelling at LABEL_BATCH over FAM_LABEL_TILES of the stacks (cut
-# from all 512, then from 256 to one batch to pay for phase 40, to keep the
-# script within its time limit)
-FAM_EPOCHS, FAM_WARM, FAM_CLI_TILES, FAM_LABEL_TILES = 1, 1, 24, 192
+# phase 33: timing at the real_source batch (FAM_WARM synchronised steps
+# after a cold one, the batch on the card) and labelling FAM_LABEL_TILES of
+# the stacks in one batch (cut from all 512, then from 256 to one batch of
+# 192 to pay for phase 40, to keep the script within its time limit). Each
+# new batch shape costs a cold pass of cuDNN's autotuning in f32 (the
+# runner's full_f32): 10.3, 8.5 and 4.6 s for the synthetic_target batches
+# (256, 512, 512), which phase 33 no longer times, 29 s for ViTDet's first
+# step at its 24 and 37 s for its labelling batch of 192 (192 000 RoIs
+# through its four head convolutions: scripts/sample_phases.py, PERF.md). So
+# ViTDet trains and labels at FAM_BATCH in phases 32 and 33 (the batch phase
+# 31 tunes, FAM_SMALL_BATCH), and each family labels 48 stacks.
+FAM_EPOCHS, FAM_WARM, FAM_CLI_TILES, FAM_LABEL_TILES = 1, 1, 24, 48
 FAM_RESUME = ("faster-rcnn",)
+FAM_SMALL_BATCH = ("vitdet",)
 
 
 def family_preset(root: str, ann: str, detector: str, stage: str = "real_source"):
@@ -3455,7 +3542,8 @@ def family_parity(labels: dict, root: str, dev) -> dict:
 def family_cli_phase(labels: dict, root: str, dev) -> dict:
     """Phase 32: cli/det_train --preset real_source --detector <family> on the
     card over the first FAM_CLI_TILES stacks of phase 22's split (as many
-    to validate), at the preset's batch (padded past the stacks: YOLOv5's 200),
+    to validate), at the preset's batch (padded past the stacks: YOLOv5's
+    200; FAM_BATCH for FAM_SMALL_BATCH),
     --pretrained from a fabricated mmdet/mmyolo checkpoint with
     80-class COCO heads: the import report (every tensor but the heads
     imported, the heads shape-skipped, nothing unmatched), FAM_EPOCHS epochs
@@ -3495,6 +3583,8 @@ def family_cli_phase(labels: dict, root: str, dev) -> dict:
                 "--train-ann", train_ann, "--train-prefix", "", "--val-root", root,
                 "--val-ann", val_ann, "--val-prefix", "", "--work-dir", work, "--pretrained", pth,
                 "--device", dev.type, *extra]
+        if det in FAM_SMALL_BATCH:
+            args += ["--batch-size", str(FAM_BATCH)]
         epochs = 1 if extra else FAM_EPOCHS
         resume = not extra and det in FAM_RESUME
         with mock.patch.object(DetectorRunner, "train", spy):
@@ -3561,13 +3651,13 @@ def nms_counter():
 
 
 def family_timing(labels: dict, root: str, dev) -> dict:
-    """Phase 33: for each family at its real_source and synthetic_target
-    batches: the train step (make_train_step, the batch on the card) cold
-    and warm, images/s, peak memory, the card's busy share of a profiled
-    step and its kernel launches, the NMS ranks and launches a step; then
-    labelling FAM_LABEL_TILES stacks at LABEL_BATCH (DetectorRunner.test, PNG
-    decode included, the second pass timed), its images/s and NMS launches
-    a batch."""
+    """Phase 33: for each family at its real_source batch (FAM_BATCH for
+    FAM_SMALL_BATCH): the train step (make_train_step, the batch on the
+    card) cold and warm, images/s, peak memory, the card's busy share of a
+    profiled step and its kernel launches, the NMS ranks and launches a
+    step; then labelling FAM_LABEL_TILES stacks in one batch (batches of
+    FAM_BATCH for FAM_SMALL_BATCH; DetectorRunner.test, PNG decode included,
+    the second pass timed), its images/s and NMS launches a batch."""
     import numpy as np
     import torch
 
@@ -3577,73 +3667,70 @@ def family_timing(labels: dict, root: str, dev) -> dict:
 
     out = {}
     for det in FAMILIES:
-        state = family_weights(family_preset(root, labels["all"], det))
-        base = det_first_batch(family_preset(root, labels["all"], det), 64)
-        for stage in ("real_source", "synthetic_target"):
-            cfg = family_preset(root, labels["all"], det, stage)
-            bs = cfg.runner.batch_size
-            if (det, bs) in out:
-                continue  # ViTDet's stages share a batch
-            reps = -(-bs // 64)
-            batch = {k: np.concatenate([v] * reps)[:bs] for k, v in base.items()}
-            fam = cfg.build_family()
-            runner = DetectorRunner(fam, cfg.runner, device=dev)
-            opt = make_optimizer(cfg.runner, steps_per_epoch=1000, total_bs=bs)
-            st = runner.init_train_state(opt, state)
-            step = runner.make_train_step(opt)
-            tb = batch_to_device(batch, dev)
-            patches, nms = nms_counter()
-            with full_f32(dev), patches:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                step(st, tb, 0)
-                torch.cuda.synchronize()
-                cold = time.perf_counter() - t0
-                walls = []
-                for g in range(1, FAM_WARM + 1):
-                    nms.update(calls=0, ranks=0)
-                    t0 = time.perf_counter()
-                    step(st, tb, g)
-                    torch.cuda.synchronize()
-                    walls.append(time.perf_counter() - t0)
-                peak = torch.cuda.max_memory_allocated()
-                warm = sum(walls) / len(walls)
-                nms_step = dict(nms)  # the last warm step's
-                per_name, wall = device_times(lambda: (step(st, tb, 9), torch.cuda.synchronize()))
-            busy_ms = sum(us for us, _ in per_name.values()) / 1e3
-            launches = sum(n for _, n in per_name.values())
-            row = {"warm_s": warm, "images_per_s": bs / warm, "cold_s": cold, "peak": peak,
-                   "busy": busy_ms / (1e3 * wall), "busy_ms": busy_ms, "launches": launches,
-                   "nms_calls": nms_step["calls"], "nms_launches": 2 * nms_step["ranks"]}
-            out[(det, bs)] = row
-            print(f"[fam-timing] {det} {stage} batch {bs}: step cold {cold:.3f} s, warm "
-                  + ", ".join(f"{w:.4f}" for w in walls) + f" -> {warm:.4f} s/step, "
-                  f"{bs / warm:.1f} images/s; peak {peak / 2**30:.2f} GiB; a profiled step: "
-                  f"device busy {busy_ms:.1f} ms of {wall * 1e3:.1f} ms wall "
-                  f"({100 * row['busy']:.1f}%), {launches} kernel launches; NMS "
-                  f"{nms_step['calls']} calls, {nms_step['ranks']} ranks = "
-                  f"{2 * nms_step['ranks']} loop launches a step", flush=True)
-            require(all(math.isfinite(w) for w in walls), f"{det}: step time")
-            del st, tb, step, opt
-            torch.cuda.empty_cache()
-        # labelling FAM_LABEL_TILES of the stacks at LABEL_BATCH
+        t_fam = time.perf_counter()
         cfg = family_preset(root, labels["all"], det)
+        state = family_weights(cfg)
+        bs = FAM_BATCH if det in FAM_SMALL_BATCH else cfg.runner.batch_size
+        base = det_first_batch(cfg, 64)
+        batch = {k: np.concatenate([v] * -(-bs // 64))[:bs] for k, v in base.items()}
+        runner = DetectorRunner(cfg.build_family(), cfg.runner, device=dev)
+        opt = make_optimizer(cfg.runner, steps_per_epoch=1000, total_bs=bs)
+        st = runner.init_train_state(opt, state)
+        step = runner.make_train_step(opt)
+        tb = batch_to_device(batch, dev)
+        patches, nms = nms_counter()
+        with full_f32(dev), patches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(st, tb, 0)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            walls = []
+            for g in range(1, FAM_WARM + 1):
+                nms.update(calls=0, ranks=0)
+                t0 = time.perf_counter()
+                step(st, tb, g)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            warm = sum(walls) / len(walls)
+            nms_step = dict(nms)  # the last warm step's
+            per_name, wall = device_times(lambda: (step(st, tb, 9), torch.cuda.synchronize()))
+        busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+        launches = sum(n for _, n in per_name.values())
+        row = {"warm_s": warm, "images_per_s": bs / warm, "cold_s": cold, "peak": peak,
+               "busy": busy_ms / (1e3 * wall), "busy_ms": busy_ms, "launches": launches,
+               "nms_calls": nms_step["calls"], "nms_launches": 2 * nms_step["ranks"]}
+        out[(det, bs)] = row
+        print(f"[fam-timing] {det} real_source batch {bs}: step cold {cold:.3f} s, warm "
+              + ", ".join(f"{w:.4f}" for w in walls) + f" -> {warm:.4f} s/step, "
+              f"{bs / warm:.1f} images/s; peak {peak / 2**30:.2f} GiB; a profiled step: "
+              f"device busy {busy_ms:.1f} ms of {wall * 1e3:.1f} ms wall "
+              f"({100 * row['busy']:.1f}%), {launches} kernel launches; NMS "
+              f"{nms_step['calls']} calls, {nms_step['ranks']} ranks = "
+              f"{2 * nms_step['ranks']} loop launches a step", flush=True)
+        require(all(math.isfinite(w) for w in walls), f"{det}: step time")
+        del st, tb, step, opt, runner
+        torch.cuda.empty_cache()
+        # labelling FAM_LABEL_TILES of the stacks in one batch (at FAM_BATCH for
+        # FAM_SMALL_BATCH, the batch phase 32's det_test tunes)
+        label_bs = FAM_BATCH if det in FAM_SMALL_BATCH else FAM_LABEL_TILES
         ds = cfg.build_eval_dataset(DatasetSpec(root, det_split(labels, root,
                                                                 FAM_LABEL_TILES)[0], ""))
         runner = DetectorRunner(cfg.build_family(), cfg.runner, device=dev)
         patches, nms = nms_counter()
         with patches:
-            runner.test(state, ds, batch_size=LABEL_BATCH)  # cold
+            runner.test(state, ds, batch_size=label_bs)  # cold
             nms.update(calls=0, ranks=0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            recs = runner.test(state, ds, batch_size=LABEL_BATCH)
+            recs = runner.test(state, ds, batch_size=label_bs)
             wall = time.perf_counter() - t0
-        n_batches = -(-len(ds) // LABEL_BATCH)
-        out[(det, "label")] = {"images_per_s": len(ds) / wall,
+        n_batches = -(-len(ds) // label_bs)
+        out[(det, "label")] = {"images_per_s": len(ds) / wall, "batch": label_bs,
                                "nms_launches": 2 * nms["ranks"] // n_batches}
-        print(f"[fam-timing] {det} labelling {len(ds)} stacks at batch {LABEL_BATCH}: "
+        print(f"[fam-timing] {det} labelling {len(ds)} stacks at batch {label_bs}: "
               f"{len(ds) / wall:.1f} images/s warm (host clock, PNG decode included), NMS "
               f"{nms['calls'] // n_batches} calls and {2 * nms['ranks'] // n_batches} loop "
               f"launches a batch; {sum(len(r['pred_instances']['scores']) for r in recs)} "
@@ -3651,6 +3738,7 @@ def family_timing(labels: dict, root: str, dev) -> dict:
         require(len(recs) == len(ds), f"{det}: labelling records")
         del runner
         torch.cuda.empty_cache()
+        print(f"[parts] family timing {det}: {time.perf_counter() - t_fam:.1f} s", flush=True)
     return out
 
 
@@ -3662,18 +3750,18 @@ def family_phases(tmp: str, dev, phase_s: dict) -> dict:
 
     label_root = os.path.join(tmp, "fam_labels")
     labels = labels_fabricate(label_root)
-    t_phase = time.perf_counter()
+    t_phase = settle("family parity (31)")
     parity = family_parity(labels, label_root, dev)
     phase_s["family parity (31)"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
+    t_phase = settle("family det_train/det_test (32)")
     cli = family_cli_phase(labels, label_root, dev)
     phase_s["family det_train/det_test (32)"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
+    t_phase = settle("family timing (33)")
     timing = family_timing(labels, label_root, dev)
     phase_s["family timing (33)"] = time.perf_counter() - t_phase
     shutil.rmtree(label_root)
     torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
+    t_phase = settle("chain with faster-rcnn (34)")
     chain = chain_phase(os.path.join(tmp, "chain_frcnn"), dev, "faster-rcnn")
     phase_s["chain with faster-rcnn (34)"] = time.perf_counter() - t_phase
     return {"parity": parity, "cli": cli, "timing": timing, "chain": chain}
@@ -3687,7 +3775,7 @@ def family_reports(fam: dict, card: str) -> None:
     for key, r in fam["timing"].items():
         det, what = key
         if what == "label":
-            print(f"[report] {det} labelling at batch {LABEL_BATCH}, {LABEL_IMG} px ({card}): "
+            print(f"[report] {det} labelling at batch {r['batch']}, {LABEL_IMG} px ({card}): "
                   f"{r['images_per_s']:.1f} images/s, NMS {r['nms_launches']} loop launches a "
                   f"batch", flush=True)
         else:
@@ -4386,12 +4474,14 @@ def host_phase(labels: dict, tmp: str) -> dict:
 
 # -- full precision: --mixed_precision no (phase 40) --------------------------------
 
-# The f32 kernels (csrc/flash_f32.cu; groupnorm.cu's f32 instantiation) are held
-# to their plain versions computed in float64 on the card: a kernel's max |error|
-# may be at most F32_LIMIT times that of the f32 plain version (TF32 off) on the
-# same inputs. Their bound counts the products as three TF32 tensor-core passes
-# (hi*hi + hi*lo + lo*hi) at 495e12/s, the cheapest f32-accurate product the card
-# has, beside the exponentials and the bytes.
+# The f32 kernels (csrc/flash_fwd_f32.cu, csrc/flash_f32.cu; groupnorm.cu's f32
+# instantiation) are held to their plain versions computed in float64 on the
+# card: a kernel's max |error| may be at most F32_LIMIT times that of the f32
+# plain version (TF32 off) on the same inputs. Their bound counts the products
+# as three TF32 tensor-core passes (hi*hi + hi*lo + lo*hi) at 495e12/s, the
+# cheapest f32-accurate product the card has (six bf16 passes over three bf16
+# pieces, as the forward runs them, cost the same at 989e12/s), beside the
+# exponentials and the bytes.
 F32_LIMIT = 4.0
 H100_TF32_FLOPS = 495e12
 # The SD step in f32 at F32_PARITY_RES px, batch F32_PARITY_BATCH, on the card and
@@ -4475,23 +4565,48 @@ def in_chunks(fn, *ins, chunk: int = 2):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+def f32_split_row(shape, per, runs, q, k, v, rows) -> None:
+    """The f32 forward's pre-pass at one shape: its bf16 pieces bit for bit
+    those of the plain version, timed beside its bytes bound (f32 q, k, v
+    read once, nine bf16 planes written) and the plain version; no PyTorch
+    call computes it (library_ms null)."""
+    from agenda_tpu_torch.kernels import flash as fl
+
+    got, want = fl.flash_f32_split(q, k, v), fl.flash_f32_split_reference(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    require(err == 0, f"flash f32 split {shape}: pieces differ from the plain version's by {err}")
+    ms, eager = time_ms(lambda: fl.flash_f32_split(q, k, v))
+    plain_ms, _ = time_ms(lambda: fl.flash_f32_split_reference(q, k, v), max_iters=10)
+    nbytes = 3 * q.numel() * (4.0 + 3 * 2.0)
+    bound = 1e3 * nbytes / H100_BYTES_PER_S
+    rows.append(dict(shape=shape, per=per, per_batch=sum(n * runs[c] for c, n in per.items()),
+                     err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                     bound_by="bytes"))
+    print(f"[f32] flash f32 split {shape} x{per}  pieces equal to the plain version's  kernel "
+          f"{ms:.4f} ms (eager {eager:.4f})  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
+          f"(bytes: {nbytes:.4g})", flush=True)
+
+
 def f32_flash_rows(per_context: dict, runs: dict) -> dict:
     """The f32 forward at every self-attention shape of the f32 SD CLI's run
     (``per_context``: {"step", "cache", "validation": {(B, S, H, D): calls}}),
     the f32 dK/dV and dQ at the step's; each against float64 and timed beside
     its bound, the plain version and SDPA on the same f32 tensors (forward;
-    its whole backward for the two gradient kernels)."""
+    its whole backward for the two gradient kernels); the forward's rows
+    time the whole call, its pre-pass included, which has rows of its own
+    (``f32_split_row``)."""
     import torch
     import torch.nn.functional as F
 
     from agenda_tpu_torch.kernels import flash as fl
     from agenda_tpu_torch.kernels.flash import WIDE_ABOVE
 
-    rows = {"fwd": [], "fwd_wide": [], "dkv": [], "dq": []}
+    rows = {"fwd": [], "fwd_wide": [], "split": [], "dkv": [], "dq": []}
     for shape, per in by_key(per_context).items():
         b, s, h, d = shape
         g = torch.Generator(device="cuda").manual_seed(b * 7919 + s + h + d)
         q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        f32_split_row(shape, per, runs, q, k, v, rows["split"])
         out, lse = fl.flash_attention_fwd(q, k, v)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         io, stats, prod = 4.0 * b * s * h * d, 4.0 * b * h * s, 2.0 * b * h * s * s * d
@@ -4574,8 +4689,11 @@ def f32_gn_rows(per_context: dict, runs: dict) -> list:
     return rows
 
 
-def f32_context_ms(rows: list, ctx: str, key: str = "ms") -> float:
-    """``key`` summed over the calls of one step, cache batch or validation batch."""
+def f32_context_ms(rows: list, ctx: str, key: str = "ms"):
+    """``key`` summed over the calls of one step, cache batch or validation
+    batch; None where a row has none (no library call)."""
+    if any(r[key] is None for r in rows):
+        return None
     return sum(r[key] * r["per"].get(ctx, 0) for r in rows)
 
 
@@ -4593,9 +4711,12 @@ def f32_counters():
 
 
 def reset_all_counts() -> None:
+    from agenda_tpu_torch.kernels.flash import flash_f32_split
+
     reset_counts()
     for fn in f32_counters().values():
         fn.launches_f32 = 0
+    flash_f32_split.launches = 0
 
 
 def all_f32(counts: dict) -> dict:
@@ -4772,6 +4893,7 @@ def f32_cli_phase(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int) 
     import torch
 
     from agenda_tpu_torch.cli import finetune_sd, finetune_sd_token
+    from agenda_tpu_torch.kernels.flash import flash_f32_split
     from agenda_tpu_torch.utils.png import read_png
 
     data_dir = os.path.join(tmp, "tiles")
@@ -4814,6 +4936,7 @@ def f32_cli_phase(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int) 
         wall = time.perf_counter() - t0
         launches = read_counts()
         f32 = all_f32(launches)
+        splits = flash_f32_split.launches
         expect = want(validations, int8)
         peak = torch.cuda.max_memory_allocated()
         print(f"[{tag}] --mixed_precision no: {stats['steps']} steps in {stats['seconds']:.3f} s "
@@ -4826,6 +4949,8 @@ def f32_cli_phase(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int) 
         require(launches == expect, f"{tag}: launches differ from the config's count")
         require(all(n == m for n, m in f32.values()), f"{tag}: a launch was not an f32 "
                 f"kernel's: {f32}")
+        require(splits == launches["flash_attention_fwd"], f"{tag}: {splits} launches of the "
+                "f32 forward's pre-pass, not one a forward")
         if validations:
             images = os.path.join(tmp, "f32_sd", "logs", "images")
             names = sorted(os.listdir(images))
@@ -4837,7 +4962,7 @@ def f32_cli_phase(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int) 
                         f"{tag}: {name} is {img.shape} {img.dtype}")
             print(f"[{tag}] validation wrote {len(names)} PNGs of {TRAIN_RES}x{TRAIN_RES}x3 "
                   f"uint8: {names}", flush=True)
-        out[tag] = {"launches": launches, "wall": wall, "peak": peak}
+        out[tag] = {"launches": launches, "splits": splits, "wall": wall, "peak": peak}
     for sub in ("f32_sd", "f32_tok"):
         shutil.rmtree(os.path.join(tmp, sub))
     return out
@@ -4847,11 +4972,6 @@ def f32_phase(model_dir, tmp, unet_cfg, vae_cfg, unet_calls, dev) -> dict:
     """Phase 40: full precision on the card, --mixed_precision no."""
     import torch
 
-    from agenda_tpu_torch.kernels import _build
-
-    for name, text in sorted(ptxas_report(_build.load_library().log).items()):
-        if "_f32" in name or name.startswith("groupnorm_kernel<f32"):
-            print(f"[ptxas] {name}: {text}", flush=True)
     t = [time.perf_counter()]
     step = f32_step_phase(model_dir, unet_cfg, vae_cfg, unet_calls, dev)
     models = step.pop("models")
@@ -4872,17 +4992,22 @@ def f32_phase(model_dir, tmp, unet_cfg, vae_cfg, unet_calls, dev) -> dict:
                "flash_attention_fwd_wide": sum(r["per_batch"] for r in flash["fwd_wide"]),
                "flash_attention_bwd_dkv": sum(r["per_batch"] for r in flash["dkv"]),
                "flash_attention_bwd_dq": sum(r["per_batch"] for r in flash["dq"]),
-               "group_norm_act": sum(r["per_batch"] for r in gn)}
+               "group_norm_act": sum(r["per_batch"] for r in gn),
+               "flash_f32_split": sum(r["per_batch"] for r in flash["split"])}
+    sd = {**sd, "flash_f32_split": cli["f32 sd-cli"]["splits"]}
     print(f"[f32] the rows' calls over the SD CLI's run {covered}; its launches "
           f"{ {k: sd[k] for k in covered} }", flush=True)
     require(all(covered[k] == sd[k] for k in covered), "the f32 rows' shapes do not cover every "
             "launch of the f32 SD CLI's run")
     for name, rows in (("flash fwd", flash["fwd"]), ("flash fwd wide", flash["fwd_wide"]),
+                       ("flash f32 split", flash["split"]),
                        ("flash dkv", flash["dkv"]), ("flash dq", flash["dq"]),
                        ("groupnorm", gn)):
         print(f"[f32] {name} (kernel / bound / plain / library ms): " + "; ".join(
-            f"{label} " + " / ".join(f"{f32_context_ms(rows, ctx, key):.4f}" for key in
-                                     ("ms", "bound_ms", "plain_ms", "library_ms"))
+            f"{label} " + " / ".join(
+                "none" if ms is None else f"{ms:.4f}" for ms in (
+                    f32_context_ms(rows, ctx, key)
+                    for key in ("ms", "bound_ms", "plain_ms", "library_ms")))
             for ctx, label in (("step", "a step"), ("cache", "a cache batch"),
                                ("validation", "a validation batch"))
             if any(ctx in r["per"] for r in rows)), flush=True)
@@ -4959,18 +5084,18 @@ def main() -> int:
 
     # 1. build
     phase_s = {}
-    t0 = time.perf_counter()
+    t0 = settle("build (1)")
     lib = _build.load_library()
     print(f"[build] {lib.path.name}: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s)", flush=True)
     for name, text in sorted(ptxas_report(lib.log).items()):
-        if not name.startswith("flash_bwd_") and "f32" not in name:  # phases 10, 40
+        if not name.startswith("flash_bwd_") or "_f32" in name:  # the bf16 backward: phase 10
             print(f"[ptxas] {name}: {text}", flush=True)
 
     phase_s["build (1)"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="agenda_chip_smoke_") as tmp:
         # 2. shapes of the main path
-        t_phase = time.perf_counter()
+        t_phase = settle("generation (phases 2-6)")
         model_dir = os.path.join(tmp, "sd14_fabricated")
         t0 = time.perf_counter()
         unet_cfg, vae_cfg, text_cfg = fabricate_pipeline(model_dir, seed=0)
@@ -5041,103 +5166,103 @@ def main() -> int:
         phase_s["generation (phases 2-6)"] = time.perf_counter() - t_phase
 
         # 35. TGATE: the replay gate, the API against the exact sampler, the CLI
-        t_phase = time.perf_counter()
+        t_phase = settle("TGATE (35)")
         tgate = tgate_phase(pipe, model_dir, embeds, tmp, expected, warm_s)
         del pipe, latents
         torch.cuda.empty_cache()
         phase_s["TGATE (35)"] = time.perf_counter() - t_phase
 
         # 8 + 9. the training path through the trainer API, then the no-EMA (K4) path
-        t_phase = time.perf_counter()
+        t_phase = settle("train shapes, timing, K4 path (8-9)")
         dev = torch.device("cuda")
         train_shapes, leaves, k4_launches, _ = train_api_phase(model_dir, unet_cfg, vae_cfg, dev)
         phase_s["train shapes, timing, K4 path (8-9)"] = time.perf_counter() - t_phase
 
         # 10. parity and timing of the training kernels
-        t_phase = time.perf_counter()
+        t_phase = settle("train parity and timing (10)")
         bwd = flash_bwd_rows(train_shapes)
         adamw, adamw_ema = adamw_rows(leaves)
         phase_s["train parity and timing (10)"] = time.perf_counter() - t_phase
 
         # 11. the trainer's CLI end to end
-        t_phase = time.perf_counter()
+        t_phase = settle("train e2e (11)")
         train_launches = train_e2e(model_dir, tmp, unet_cfg, vae_cfg)
         shutil.rmtree(os.path.join(tmp, "finetuned"))  # the disk for the later phases
         phase_s["train e2e (11)"] = time.perf_counter() - t_phase
 
         # 12. the group norm's tail path, then generation at 384x384
-        t_phase = time.perf_counter()
+        t_phase = settle("GN tail (12)")
         gn += gn_tail_rows()
         tail_resolution_e2e(model_dir, embeds, tmp, expected)
         phase_s["GN tail (12)"] = time.perf_counter() - t_phase
 
         # 13. the token step through the trainer API
-        t_phase = time.perf_counter()
+        t_phase = settle("token API (13)")
         token = token_api_phase(model_dir, unet_cfg, vae_cfg, dev)
         phase_s["token API (13)"] = time.perf_counter() - t_phase
 
         # 14-15. the token CLI, stage 1 then stage 2
-        t_phase = time.perf_counter()
+        t_phase = settle("token CLI (14-15)")
         token_cli_phases(model_dir, tmp, unet_cfg, vae_cfg, unet_calls)
         phase_s["token CLI (14-15)"] = time.perf_counter() - t_phase
 
         # 16. gradient accumulation through the SD CLI
-        t_phase = time.perf_counter()
+        t_phase = settle("accumulation (16)")
         accum_launches = accumulation_e2e(model_dir, tmp, unet_cfg, vae_cfg)
         phase_s["accumulation (16)"] = time.perf_counter() - t_phase
 
         # 36-37. VAE pretraining at SD-1.4's widths; the wide flash backward's rows
-        t_phase = time.perf_counter()
+        t_phase = settle("VAE pretraining (36)")
         vae = vae_pretrain_phase(model_dir, dev)
         phase_s["VAE pretraining (36)"] = time.perf_counter() - t_phase
-        t_phase = time.perf_counter()
+        t_phase = settle("wide flash backward (37)")
         wide_shapes = {shape: vae["launches"]["flash_attention_bwd_dkv"] if n is None else n
                        for shape, n in WIDE_FLASH_BWD.items()}
         wide = flash_bwd_rows(wide_shapes, extra=(), tag="wide flash bwd")
         phase_s["wide flash backward (37)"] = time.perf_counter() - t_phase
 
         # 17-20. the labelling stages: heatmap stacks, YOLOv8n/s on the card
-        t_phase = time.perf_counter()
+        t_phase = settle("labelling (17-20)")
         label_root = os.path.join(tmp, "labels")
-        labels = labels_fabricate(label_root)
-        detector_parity(labels, dev)
-        runner_parity(labels, label_root, dev)
-        chosen = labelling_stages(labels, label_root, dev)
-        label_timing = labelling_timing(labels, label_root, dev)
+        labels = part("labels_fabricate", labels_fabricate, label_root)
+        part("detector_parity", detector_parity, labels, dev)
+        part("runner_parity", runner_parity, labels, label_root, dev)
+        chosen = part("labelling_stages", labelling_stages, labels, label_root, dev)
+        label_timing = part("labelling_timing", labelling_timing, labels, label_root, dev)
         phase_s["labelling (17-20)"] = time.perf_counter() - t_phase
 
         # 39. the host libraries and the bench's stack labeler
-        t_phase = time.perf_counter()
+        t_phase = settle("host libraries and stack labeler (39)")
         hostlib = host_phase(labels, tmp)
         phase_s["host libraries and stack labeler (39)"] = time.perf_counter() - t_phase
 
         # 38. two ranks on the card: split generation, the SD step at --fsdp 2, det_test
-        t_phase = time.perf_counter()
+        t_phase = settle("multi-rank (38)")
         multi = multirank_phase(model_dir, embeds, save_dir, labels, label_root, expected,
                                 unet_cfg, vae_cfg, dev, tmp)
         phase_s["multi-rank (38)"] = time.perf_counter() - t_phase
 
         # 21-23. detector training: a train step card vs CPU, the CLI, timing
-        t_phase = time.perf_counter()
-        det_parity = det_train_parity(labels, label_root, dev)
-        det_cli = det_cli_phase(labels, label_root, dev)
-        det_time = det_timing(labels, label_root, dev)
+        t_phase = settle("detector training (21-23)")
+        det_parity = part("det_train_parity", det_train_parity, labels, label_root, dev)
+        det_cli = part("det_cli_phase", det_cli_phase, labels, label_root, dev)
+        det_time = part("det_timing", det_timing, labels, label_root, dev)
         phase_s["detector training (21-23)"] = time.perf_counter() - t_phase
 
         # 24-26. device augmentation: the render card vs CPU, the loop, the CLI
-        t_phase = time.perf_counter()
-        render = render_parity(labels, label_root, dev)
-        devaug = device_aug_timing(labels, label_root, dev)
-        det_cli_phase(labels, label_root, dev, ("--device-aug", "--device-aug-workers", "2"),
-                      "devaug-cli")
+        t_phase = settle("device augmentation (24-26)")
+        render = part("render_parity", render_parity, labels, label_root, dev)
+        devaug = part("device_aug_timing", device_aug_timing, labels, label_root, dev)
+        part("det_cli_phase devaug", det_cli_phase, labels, label_root, dev,
+             ("--device-aug", "--device-aug-workers", "2"), "devaug-cli")
         phase_s["device augmentation (24-26)"] = time.perf_counter() - t_phase
         shutil.rmtree(label_root)
 
         # 27-29. the refine classifier: a step card vs CPU, the CLI, timing
-        t_phase = time.perf_counter()
+        t_phase = settle("refine parity (27)")
         refine = refine_parity(dev)
         phase_s["refine parity (27)"] = time.perf_counter() - t_phase
-        t_phase = time.perf_counter()
+        t_phase = settle("refine CLI and timing (28-29)")
         refine_root = os.path.join(tmp, "refine")
         refine_cli = refine_cli_phase(refine_root, dev)
         refine_time = refine_timing(refine_cli, dev)
@@ -5146,7 +5271,7 @@ def main() -> int:
         phase_s["refine CLI and timing (28-29)"] = time.perf_counter() - t_phase
 
         # 30. the whole chain through the port's orchestrator
-        t_phase = time.perf_counter()
+        t_phase = settle("chain (30)")
         chain = chain_phase(os.path.join(tmp, "chain"), dev)
         phase_s["chain (30)"] = time.perf_counter() - t_phase
 
@@ -5154,10 +5279,11 @@ def main() -> int:
         fam = family_phases(tmp, dev, phase_s)
 
         # 40. full precision: --mixed_precision no through the f32 kernels
-        t_phase = time.perf_counter()
+        t_phase = settle("full precision (40)")
         f32 = f32_phase(model_dir, tmp, unet_cfg, vae_cfg, unet_calls, dev)
         phase_s["full precision (40)"] = time.perf_counter() - t_phase
 
+    settle("report (41)")
     wide_d = [r["shape"][3] > WIDE_ABOVE for r in flash]
     f32_sd = f32["cli"]["f32 sd-cli"]["launches"]  # phase 40's main path: the SD CLI's run
     kernels = [
@@ -5182,12 +5308,16 @@ def main() -> int:
         summarize("flash_attention_bwd_dq_wide", "cuda", "agenda_tpu_torch/csrc/flash_bwd.cu",
                   "agenda_tpu/kernels/flash.py:192", wide["dq"],
                   vae["launches"]["flash_attention_bwd_dq"]),
-        summarize("flash_attention_fwd_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+        summarize("flash_attention_fwd_f32", "cuda", "agenda_tpu_torch/csrc/flash_fwd_f32.cu",
                   "agenda_tpu/kernels/flash.py:55", f32["flash"]["fwd"],
                   f32_sd["flash_attention_fwd"] - f32_sd["flash_attention_fwd_wide"]),
-        summarize("flash_attention_fwd_f32_wide", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+        summarize("flash_attention_fwd_f32_wide", "cuda",
+                  "agenda_tpu_torch/csrc/flash_fwd_f32.cu",
                   "agenda_tpu/kernels/flash.py:55", f32["flash"]["fwd_wide"],
                   f32_sd["flash_attention_fwd_wide"]),
+        summarize("flash_f32_split", "cuda", "agenda_tpu_torch/csrc/flash_fwd_f32.cu",
+                  "agenda_tpu/kernels/flash.py:55", f32["flash"]["split"],
+                  f32["cli"]["f32 sd-cli"]["splits"]),
         summarize("flash_attention_bwd_dkv_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
                   "agenda_tpu/kernels/flash.py:153", f32["flash"]["dkv"],
                   f32_sd["flash_attention_bwd_dkv"]),
@@ -5303,16 +5433,19 @@ def main() -> int:
           f"{par['card']['loss']:.3g}, gradients {par['card']['grads']:.3g} of their norm (TF32 "
           f"control {par['tf32']['loss']:.3g}, {par['tf32']['grads']:.3g}); the SD CLI's "
           f"{F32_STEPS} steps and validation {f32['cli']['f32 sd-cli']['wall']:.1f} s, the token "
-          f"CLI's {f32['cli']['f32 token-cli']['wall']:.1f} s. Units: the five f32 entries "
-          f"(flash_attention_fwd_f32, flash_attention_fwd_f32_wide, flash_attention_bwd_dkv_f32, "
-          f"flash_attention_bwd_dq_f32, group_norm_act_f32) sum ms over every launch of the f32 "
+          f"CLI's {f32['cli']['f32 token-cli']['wall']:.1f} s. Units: the six f32 entries "
+          f"(flash_attention_fwd_f32, flash_attention_fwd_f32_wide, flash_f32_split, "
+          f"flash_attention_bwd_dkv_f32, flash_attention_bwd_dq_f32, group_norm_act_f32) sum ms "
+          f"over every launch of the f32 "
           f"SD CLI's run, the launches they sit beside: {F32_STEPS} training steps (batch "
           f"{TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}), {math.ceil(TRAIN_TILES / TRAIN_BATCH)} "
           f"batches of the latent cache's encode and one validation batch ({F32_VAL_IMAGES} "
           f"images: {unet_calls} UNet calls at batch {2 * F32_VAL_IMAGES} and the decode); "
           "phase 40's '[f32] ... a step; a cache batch; a validation batch' lines split them; "
           "library_ms is SDPA on the f32 tensors (its whole backward for dK/dV and dQ) and "
-          "F.group_norm + F.silu in f32", flush=True)
+          "F.group_norm + F.silu in f32; the two forward entries time the whole f32 forward "
+          "call, its pre-pass (flash_f32_split, one launch a forward, no PyTorch equivalent: "
+          "library_ms null) included", flush=True)
     mr0 = multi["ranks"][0]
     print(f"[report] multi-rank (phase 38, {MR_WORLD} ranks sharing the card over gloo): peak "
           f"memory a rank at --fsdp {MR_WORLD} "

@@ -63,6 +63,20 @@ the sums, as is (2, 4096, 1, 512), its mid-block attention at 512 px:
                          TMA multicast: half the L2 reads;
   bwd_one_warpgroup      one consumer warpgroup a block in both backward kernels;
   bwd_two_stages         a ring of two stages in both;
+  fwd_f32_base           the f32 forward (--mixed_precision no) alone, as it is, at
+                         the f32 SD CLI's shapes (F32_FWD_SHAPES), summed over that
+                         run's launches and held to float64 (its worst error over
+                         chip_smoke.py's F32_LIMIT x the f32 plain version's); with
+                         its pre-pass (the split into bf16 pieces) also timed alone;
+                         --tree on the parent times the FFMA forward it replaces;
+  fwd_f32_no_exp         its exponentials of P replaced by the identity;
+  fwd_f32_loads_only     and its tensor-core products too: the pre-pass, the
+                         tile supply (and the wide kernel's exchange of partial
+                         scores) and the softmax's other work;
+  fwd_f32_wide_cluster4  the wide f32 forward (D > 160) as clusters of four
+                         blocks of 128 columns each, not two of 256;
+  fwd_f32_32_key_tiles   32-key tiles at every head dim (D <= 40 too, in four
+                         stages);
   adamw_no_transcendentals  the AdamW's exponentials and logarithms (or their
                          table lookups and lg2) replaced by the identity;
   adamw_no_div           its divisions (and its reciprocals) turned into products;
@@ -80,7 +94,8 @@ all apply is made.
 
 One JSON line per variant ({"variant": ..., "error": ...} where its build or
 a launch failed): {"variant": ..., "fwd": {shape: ms}, "fwd_batch_ms",
-"fwd_worst", "gn": {shape: ms}, "gn_batch_ms", "gn_worst", "bwd": {shape:
+"fwd_worst", "fwd_f32": {shape: ms}, "fwd_f32_split": {shape: ms},
+"fwd_f32_run_ms", "fwd_f32_worst", "gn": {shape: ms}, "gn_batch_ms", "gn_worst", "bwd": {shape:
 [dK/dV ms, dQ ms]}, "bwd_step_ms", "bwd_worst", "adamw_step_ms",
 "adamw_ema_step_ms" (with their TB/s), "adamw_host_us" (the host's time to
 enqueue one step's update with the EMA, eager, as the optimizer calls it:
@@ -133,8 +148,17 @@ BWD_SHAPES = [((4, 4096, 8, 40), 5), ((4, 1024, 8, 80), 5), ((4, 256, 8, 160), 5
               ((8, 1024, 1, 512), 0),  # the VAE pretraining step's wide one, not summed
               ((2, 4096, 1, 512), 0)]  # and the VAE's at 512 px, not summed either
 
+# the f32 SD CLI's run (chip_smoke.py phase 40: 2 steps at batch 4, 2 latent-cache
+# encodes at batch 4, one validation batch: the UNet at batch 8, the decode):
+# (B, S, H, D) and the f32 forward's launches over it
+F32_FWD_SHAPES = [
+    ((4, 4096, 8, 40), 10), ((4, 1024, 8, 80), 10), ((4, 256, 8, 160), 10),
+    ((4, 64, 8, 160), 2), ((8, 4096, 8, 40), 105), ((8, 1024, 8, 80), 105),
+    ((8, 256, 8, 160), 105), ((8, 64, 8, 160), 21), ((4, 4096, 1, 512), 3)]
+
 _FWD, _GN, _BWD, _ADAMW = "flash_fwd.cu", "groupnorm.cu", "flash_bwd.cu", "fused_adamw.cu"
-KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd", _ADAMW: "adamw"}
+_F32 = "flash_fwd_f32.cu"
+KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd", _ADAMW: "adamw", _F32: "fwd_f32"}
 _OFF = "if (p.S < 0) "  # a condition that is false at run time keeps the operands live
 _WGS = "constexpr int fwd_warpgroups(int nd) { return nd == 40 ? 4 : nd == 80 ? 2 : 1; }"
 _BK = "static constexpr int kBK = ND == 80 ? 128 : 64;"
@@ -146,6 +170,11 @@ _S_ONLY = [  # only the tile loads and S = Q K^T: no exponentials, no P V
     (_FWD, "        WgmmaRS<ND, 1>::run(o, pa[kk], desc_mn_major<BK>(v_prev, kk), 1);",
      "        " + _OFF + "WgmmaRS<ND, 1>::run(o, pa[kk], desc_mn_major<BK>(v_prev, kk), 1);")]
 _BWD_NO_EXP = (_BWD, "exp2_ftz(s", "(s")
+_F32_NO_EXP = (_F32, "s[i] = expf(s[i] - m[(i >> 1) & 1]);", "s[i] = s[i] - m[(i >> 1) & 1];")
+_F32_LOADS_ONLY = [_F32_NO_EXP] + [
+    (_F32, product, _OFF + product) for product in (
+        "WgmmaSS<BK>::run(s, desc_k_major<OWN>(qa, kk)",
+        "WgmmaRS<NP, 1>::run(acc, pa[piece_a(pr)][kk]")]
 # the wide dQ as clusters of two blocks (neighbouring query tiles of one
 # head) that share each K and V box: each block loads every other box by TMA
 # multicast into both, and a box is freed once both blocks' readers are done
@@ -321,6 +350,14 @@ VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replace
          "static constexpr int kStages = 2;                // ring"),
         (_BWD, "static constexpr int kStages = ND > 80 ? 2 : 3;  // ring",
          "static constexpr int kStages = 2;  // ring")],
+    "fwd_f32_base": [],  # the f32 forward alone, as it is
+    "fwd_f32_no_exp": [_F32_NO_EXP],
+    "fwd_f32_loads_only": _F32_LOADS_ONLY,
+    "fwd_f32_wide_cluster4": [(_F32, "constexpr int kWideND = 256,", "constexpr int kWideND = 128,"),
+                              (_F32, "ND > 160 ? 1 : 2;", "2;")],
+    "fwd_f32_32_key_tiles": [
+        (_F32, "static constexpr int kBK = ND == 40 ? 64 : 32;\n  static constexpr int kStages = ND == 40 ? 3",
+         "static constexpr int kBK = 32;\n  static constexpr int kStages = ND == 40 ? 4")],
     "adamw_base": [],  # the AdamW alone, as it is
     "adamw_no_transcendentals": (_ADAMW_NO_TRANSCENDENTALS, _ADAMW_PARENT_NO_TRANSCENDENTALS),
     "adamw_no_div": (_ADAMW_NO_DIV, _ADAMW_PARENT_NO_DIV),
@@ -419,6 +456,26 @@ if "fwd" in kernels:
         out["fwd"][str(shape)] = round(ms, 4)
         total += count * ms
     out["fwd_batch_ms"], out["fwd_worst"] = round(total, 3), round(worst, 4)
+if "fwd_f32" in kernels:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import F32_LIMIT, f32_errors, in_chunks
+    out["fwd_f32"], out["fwd_f32_split"], worst, total = {}, {}, 0.0, 0.0
+    split = getattr(fl, "flash_f32_split", None)  # None in a tree of the FFMA forward
+    for shape, count in shapes["fwd_f32"]:
+        shape = tuple(shape)
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        q, k, v = (torch.randn(shape, device="cuda", generator=g) for _ in range(3))
+        e_k, e_p = f32_errors(fl.flash_attention_fwd(q, k, v), fl.flash_attention_reference(q, k, v),
+                              in_chunks(fl.flash_attention_reference, q.double(), k.double(),
+                                        v.double()))
+        worst = worse(worst, e_k / (F32_LIMIT * e_p))
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: fl.flash_attention_fwd(q, k, v))[0]
+        out["fwd_f32"][str(shape)] = round(ms, 4)
+        if split is not None:
+            out["fwd_f32_split"][str(shape)] = round(time_ms(lambda: split(q, k, v))[0], 4)
+        total += count * ms
+    out["fwd_f32_run_ms"], out["fwd_f32_worst"] = round(total, 3), round(worst, 4)
 if "gn" in kernels:
     out["gn"], worst, total = {}, 0.0, 0.0
     for shape, eps, act, count in shapes["gn"]:
@@ -570,7 +627,7 @@ def generation_shapes(images: int) -> dict:
 
     return {"fwd": [(scale(s), n) for s, n in FWD_SHAPES],
             "gn": [(scale(s), eps, act, n) for s, eps, act, n in GN_SHAPES],
-            "bwd": BWD_SHAPES, "adamw": adamw_leaf_shapes()}
+            "bwd": BWD_SHAPES, "adamw": adamw_leaf_shapes(), "fwd_f32": F32_FWD_SHAPES}
 
 
 def adamw_leaf_shapes() -> list:

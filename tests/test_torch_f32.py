@@ -3,11 +3,13 @@
 The JAX CLIs compute in f32 under ``--mixed_precision no``
 (``agenda_tpu/cli/finetune_sd.py:165``, ``finetune_sd_token.py:170``) and run
 their Pallas flash and GroupNorm kernels on f32 operands. On the card the
-port does the same with the f32 kernels of ``csrc/flash_f32.cu`` and the
-f32 instantiation of ``csrc/groupnorm.cu`` (held to float64 in
-``test_torch_cuda.py``). Here, on the CPU: the compute dtype of each
-choice, the wrappers' dtype checks on metadata, the plain f32 versions
-against the Pallas kernels in interpret mode, and both fine-tune CLIs
+port does the same with the f32 kernels of ``csrc/flash_fwd_f32.cu`` (the
+forward on the tensor cores, over three bf16 pieces of each operand),
+``csrc/flash_f32.cu`` and the f32 instantiation of ``csrc/groupnorm.cu``
+(held to float64 in ``test_torch_cuda.py``). Here, on the CPU: the compute
+dtype of each choice, the wrappers' dtype checks on metadata, the plain f32
+versions against the Pallas kernels in interpret mode, the forward's
+pieces and its accuracy budget emulated in f32, and both fine-tune CLIs
 against the JAX CLIs with the same flags on the tiny fixture, with the JAX
 key stream's draws handed to the port.
 """
@@ -125,6 +127,90 @@ def test_f32_flash_forward_and_backward_match_pallas(b, s, h, d):
         assert want.dtype == np.float32
         np.testing.assert_allclose(got.numpy(), want, rtol=GRAD_TOL,
                                    atol=GRAD_TOL * np.abs(want).max())
+
+
+# -- the f32 forward's accuracy budget: three bf16 pieces, six products ------------
+#
+# csrc/flash_fwd_f32.cu runs the f32 forward on the tensor cores: each
+# operand (Q, K, V, and P in registers) is split into three bf16 pieces and
+# each product is the six piece products with i + j <= 2, smallest first,
+# summed in f32. Here that design is emulated with torch in f32 and held to
+# the card tests' limit (tests/test_torch_cuda.py): at most F32_LIMIT times
+# the f32 plain version's max |error| against float64, output and lse alike.
+
+F32_LIMIT = 4.0  # as tests/test_torch_cuda.py's
+PIECE_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def _pieces(x, keep):
+    """x's three bf16 pieces as f32 (b0 = bf16(x), b1 = bf16(x - b0), b2 =
+    bf16(x - b0 - b1)), those past the first `keep` zero."""
+    out, rest = [], x
+    for i in range(3):
+        piece = rest.to(torch.bfloat16).float()
+        out.append(piece if i < keep else torch.zeros_like(piece))
+        rest = rest - piece
+    return out
+
+
+def _piece_product(a, b, keep):
+    """a @ b as the kernel forms it: the six piece products, smallest first,
+    added into one f32 sum."""
+    pa, pb = _pieces(a, keep), _pieces(b, keep)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for i, j in PIECE_PAIRS:
+        acc = acc + pa[i] @ pb[j]
+    return acc
+
+
+def _emulated_f32_forward(q, k, v, keep=3):
+    """(out, lse) of (B, S, H, D) f32 attention with every product over
+    `keep` pieces, the softmax in f32 (P split as the kernel splits it)."""
+    b, s, h, d = q.shape
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    scores = _piece_product(qh, kh.transpose(-1, -2), keep) * (1.0 / np.sqrt(d))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = _piece_product(p, vh, keep) / l
+    return out.permute(0, 2, 1, 3), (m + torch.log(l)).reshape(b * h, s)
+
+
+def test_f32_split_pieces_sum_to_the_operand():
+    """The pre-pass's plain version: nine bf16 planes (operand t, piece i at
+    3 t + i) whose three pieces of each operand sum to it within 2^-24 of
+    its magnitude, at magnitudes from 1e-6 to 1e6."""
+    rng = np.random.RandomState(3)
+    scale = 10.0 ** rng.uniform(-6, 6, size=(1, 33, 2, 24))
+    q, k, v = (torch.from_numpy((_rand(rng, 1, 33, 2, 24) * scale).astype(np.float32))
+               for _ in range(3))
+    pieces = fl.flash_f32_split(q, k, v)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (9, 1, 33, 2, 24)
+    for t, x in enumerate((q, k, v)):
+        total = sum(pieces[3 * t + i].double() for i in range(3))
+        assert bool(((total - x.double()).abs() <= 2.0 ** -24 * x.double().abs()).all())
+        assert torch.equal(pieces[3 * t], x.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("d", [24, 40, 80, 160, 264, 512])
+def test_f32_forward_design_fits_the_limit_and_fewer_pieces_do_not(d):
+    """The six-product forward emulated in f32 at a ragged S stays within
+    F32_LIMIT x the f32 plain version's max |error| against float64; keeping
+    only b0, or only b0 + b1, of every operand breaks that limit."""
+    rng = np.random.RandomState(d)
+    h = 1 if d > 160 else 2
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 77, h, d)) for _ in range(3))
+    ref = fl.flash_attention_reference(q.double(), k.double(), v.double())
+    plain = fl.flash_attention_reference(q, k, v)
+
+    def over_limit(got):
+        return max((x.double() - r).abs().max().item()
+                   / (F32_LIMIT * (p.double() - r).abs().max().item())
+                   for x, p, r in zip(got, plain, ref))
+
+    ratios = [over_limit(_emulated_f32_forward(q, k, v, keep=n)) for n in (3, 2, 1)]
+    print(f"D = {d}: worst error over the limit with 3, 2, 1 pieces {ratios}")
+    assert ratios[0] <= 1.0 and ratios[1] > 1.0 and ratios[2] > 1.0
 
 
 @pytest.mark.parametrize("act", [None, "silu"])
