@@ -9,21 +9,21 @@ Replaces the Pallas TPU kernels of ``agenda_tpu/kernels/flash.py``:
 - on f32 operands (``--mixed_precision no``), as the TPU kernels take f32 as
   they take bf16: the forward (up to D = 512) -> ``csrc/flash_fwd_f32.cu``,
   the tensor cores on three bf16 pieces of each operand, which its pre-pass
-  ``flash_f32_split`` writes; dK/dV and dQ (up to D = 160) ->
+  ``flash_f32_split`` writes; dK/dV and dQ (up to D = 512; above 160,
+  f32 VAE pretraining's mid-block attention, its wide kernels) ->
   ``csrc/flash_f32.cu``.
 
 Each wrapper launches its kernel on CUDA tensors and takes its plain version
 only for CPU tensors; on a CUDA tensor it launches the bf16 kernel for bf16,
 the f32 kernel for f32, and raises for any other dtype. Each counts its
 kernel launches in ``<wrapper>.launches`` and the f32 kernel's among them in
-``<wrapper>.launches_f32``; the forward also counts its launches at D > 160
-(the wide kernel, or the f32 forward's wide instantiation) in
-``flash_attention_fwd.launches_wide``; the f32 forward's pre-pass counts
-its own in ``flash_f32_split.launches``. ``flash_attention``
-mirrors the JAX ``custom_vjp`` (``flash.py:295-312``): the forward saves the
-output and the row logsumexp, the backward computes delta = rowsum(dO * O)
-in f32 outside the kernels (``flash.py:235``) and returns the gradients in
-the input dtype (``flash.py:306-309``).
+``<wrapper>.launches_f32``; each also counts its launches at D > 160 (the
+wide kernels, bf16 or f32) in ``<wrapper>.launches_wide``; the f32
+forward's pre-pass counts its own in ``flash_f32_split.launches``.
+``flash_attention`` mirrors the JAX ``custom_vjp`` (``flash.py:295-312``):
+the forward saves the output and the row logsumexp, the backward computes
+delta = rowsum(dO * O) in f32 outside the kernels (``flash.py:235``) and
+returns the gradients in the input dtype (``flash.py:306-309``).
 """
 
 from __future__ import annotations
@@ -133,6 +133,16 @@ def _f32_kernels():
     max_fwd = lib.function("agenda_flash_fwd_f32_max_head_dim", [])()
     max_bwd = lib.function("agenda_flash_f32_bwd_max_head_dim", [])()
     return split, fwd, dkv, dq, max_fwd, max_bwd
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_wide_bwd_kernels():
+    """``csrc/flash_f32.cu``'s wide dK/dV and dQ (D > 160): (dK/dV, dQ, the
+    largest head dim)."""
+    lib = _build.load_library()
+    dkv = lib.function("agenda_flash_bwd_dkv_f32_wide", [_P] * 8 + [_I] * 4 + [_P, _P])
+    dq = lib.function("agenda_flash_bwd_dq_f32_wide", [_P] * 7 + [_I] * 4 + [_P, _P])
+    return dkv, dq, lib.function("agenda_flash_f32_wide_bwd_max_head_dim", [])()
 
 
 @functools.lru_cache(maxsize=None)
@@ -281,8 +291,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     """dK, dV of non-causal unmasked attention over (B, S, H, D) for any S.
 
     lse and delta are (B*H, S) f32. CUDA tensors: as ``flash_attention_fwd``
-    takes them, with D up to 512 in bf16 and up to 160 in f32; dk and dv come
-    back contiguous in q's dtype.
+    takes them, with D up to 512 in either dtype; dk and dv come back
+    contiguous in q's dtype.
     """
     _check(q, k, v, do)
     _stats_on(lse, delta, q)
@@ -298,6 +308,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     _build.check(rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.launches_f32 += int(q.dtype == torch.float32)
+    flash_attention_bwd_dkv.launches_wide += int(q.shape[3] > WIDE_ABOVE)
     return dk, dv
 
 
@@ -317,19 +328,23 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
     _build.check(rc, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.launches_f32 += int(q.dtype == torch.float32)
+    flash_attention_bwd_dq.launches_wide += int(q.shape[3] > WIDE_ABOVE)
     return dq
 
 
 def _bwd_cuda(q: torch.Tensor):
-    """(dK/dV entry, dQ entry, largest D) of the backward kernels for q's dtype."""
-    if q.dtype == torch.float32:
-        _, _, dkv, dq, _, max_d = _f32_kernels()
-        return dkv, dq, max_d
-    return _bwd_kernels()
+    """(dK/dV entry, dQ entry, largest D) of the backward kernels for q's dtype
+    and head dim."""
+    if q.dtype != torch.float32:
+        return _bwd_kernels()
+    if q.shape[3] > WIDE_ABOVE:
+        return _f32_wide_bwd_kernels()
+    _, _, dkv, dq, _, max_d = _f32_kernels()
+    return dkv, dq, max_d
 
 
-flash_attention_bwd_dkv.launches = flash_attention_bwd_dkv.launches_f32 = 0
-flash_attention_bwd_dq.launches = flash_attention_bwd_dq.launches_f32 = 0
+for _fn in (flash_attention_bwd_dkv, flash_attention_bwd_dq):
+    _fn.launches = _fn.launches_f32 = _fn.launches_wide = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -11,11 +11,25 @@ the JAX draw in as ``eps``). ``scaling_factor`` is 1 / std of the sampled
 latents over up to 64 training images, the measured counterpart of
 SD-1.x's 0.18215.
 
-On the card the step runs under bf16 autocast, as the SD fine-tune does:
-the flash kernels take bf16 (the VAE's mid-block attention at SD-1.4's
-widths is single-head with D = 512: K1 forward, the wide K2/K3 backward),
-and every GroupNorm is K6. The loss terms are f32. On the CPU the step runs
-in f32.
+The step computes in ``dtype``, f32 by default, as the JAX package
+computes in the dtype of the ``AutoencoderKL`` it is given (f32 by
+default, ``agenda_tpu/models/vae.py:102-104``): on the card in f32 under
+``_device.full_f32`` (TF32 off), where the flash kernels take f32 (the
+VAE's mid-block attention at SD-1.4's widths is single-head with D = 512:
+the f32 forward and the wide f32 dK/dV and dQ of
+``csrc/flash_f32.cu``) and every GroupNorm is K6's f32
+instantiation; under bf16 autocast for ``dtype=torch.bfloat16``, as a JAX
+caller gets with ``AutoencoderKL(dtype=jnp.bfloat16)`` (the bf16 kernels).
+The loss terms are f32. On the CPU the step runs in f32 whatever
+``dtype`` says (neither context does anything there), as the fine-tunes'
+``_device.compute_dtype`` gives.
+
+The f32 step on the card takes cuDNN's heuristics, not its autotuning: at
+SD-1.4's widths, 256 px, batch 8, on an H100 80GB HBM3 at 700 W,
+autotuning cost 29.6-30.5 s once and a peak of 71.45 GiB against 13.43 GiB
+for a step 6% faster (0.5857 s against 0.6245-0.6251;
+``scripts/vae_autotune.py``), so it would pay only after about 800 steps,
+twice ``pretrain_vae``'s default.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from agenda_tpu_torch._device import full_f32_if
 from agenda_tpu_torch.models.vae import AutoencoderKL, sample_latents
 from agenda_tpu_torch.train.finetune_sd import _autocast
 from agenda_tpu_torch.train.optim import AdamState, Optimizer, make_adam
@@ -32,25 +47,34 @@ from agenda_tpu_torch.train.optim import AdamState, Optimizer, make_adam
 SCALE_IMAGES = 64  # training images whose sampled latents set scaling_factor
 
 
-def make_vae_pretrain_step(vae: AutoencoderKL, tx: Optimizer, kl_weight: float
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"VAE pretraining computes in f32 or bf16, not {dtype}")
+
+
+def make_vae_pretrain_step(vae: AutoencoderKL, tx: Optimizer, kl_weight: float,
+                           dtype: torch.dtype = torch.float32
                            ) -> Callable[..., Dict[str, torch.Tensor]]:
     """-> ``step(opt_state, pixels, eps) -> {"loss", "recon", "kl"}`` (0-dim
     f32 tensors, not synchronised): pixels (B, H, W, 3) in [-1, 1] and eps
-    (B, h, w, 4) on the VAE's device. Updates the VAE's parameters and
-    ``opt_state`` in place."""
+    (B, h, w, 4) on the VAE's device, computed in ``dtype`` on the card (f32
+    on the CPU). Updates the VAE's parameters and ``opt_state`` in place."""
+    _check_dtype(dtype)
     names = [n for n, _ in vae.named_parameters()]
     params = dict(vae.named_parameters())
 
     def step(opt_state: AdamState, pixels: torch.Tensor, eps: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
         vae.train()
-        with _autocast(pixels.device):
-            recon, mean, logvar = vae(pixels, eps)
-        recon_loss = torch.mean((recon.float() - pixels) ** 2)
-        kl = -0.5 * torch.mean(1.0 + logvar - mean ** 2 - torch.exp(logvar))
-        loss = recon_loss + kl_weight * kl
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
-        tx.apply(dict(zip(names, grads)), opt_state, params)
+        device = pixels.device
+        with full_f32_if(dtype, device, benchmark=False):
+            with _autocast(device, dtype):
+                recon, mean, logvar = vae(pixels, eps)
+            recon_loss = torch.mean((recon.float() - pixels) ** 2)
+            kl = -0.5 * torch.mean(1.0 + logvar - mean ** 2 - torch.exp(logvar))
+            loss = recon_loss + kl_weight * kl
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
+            tx.apply(dict(zip(names, grads)), opt_state, params)
         return {"loss": loss.detach(), "recon": recon_loss.detach(), "kl": kl.detach()}
 
     return step
@@ -64,16 +88,20 @@ def latent_shape(vae: AutoencoderKL, batch: int, h: int, w: int) -> Tuple[int, i
 
 @torch.no_grad()
 def measure_scaling_factor(vae: AutoencoderKL, pixels_all: np.ndarray, batch_size: int,
-                           noise: Callable[[int, Tuple[int, ...]], torch.Tensor]) -> float:
+                           noise: Callable[[int, Tuple[int, ...]], torch.Tensor],
+                           dtype: torch.dtype = torch.float32) -> float:
     """1 / std of latents sampled from the first ``SCALE_IMAGES`` images, in
     batches from each multiple of ``batch_size`` below it, as the JAX package
-    slices them; ``noise(start, shape)`` is the batch's standard-normal draw."""
+    slices them; ``noise(start, shape)`` is the batch's standard-normal draw.
+    The encode computes in ``dtype`` on the card, f32 on the CPU (one-off
+    shapes: cuDNN's heuristics, not its autotuning, in f32)."""
+    _check_dtype(dtype)
     device = next(vae.parameters()).device
     vae.eval()
     samples = []
     for start in range(0, min(len(pixels_all), SCALE_IMAGES), batch_size):
         x = torch.from_numpy(pixels_all[start:start + batch_size]).to(device)
-        with _autocast(device):
+        with full_f32_if(dtype, device, benchmark=False), _autocast(device, dtype):
             mean, logvar = vae.encode(x)
         samples.append(sample_latents(mean, logvar, noise(start, tuple(mean.shape))))
     std = float(torch.cat(samples).std(correction=0))
@@ -90,15 +118,17 @@ def pretrain_vae(
     kl_weight: float = 1e-4,
     seed: int = 0,
     log_fn: Optional[Callable[[str], None]] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[AutoencoderKL, float, float]:
-    """Train ``vae`` in place on its device; returns (vae, the measured
+    """Train ``vae`` in place on its device, computing in ``dtype`` on the
+    card and f32 on the CPU; returns (vae, the measured
     scaling_factor, the last step's reconstruction MSE)."""
     device = next(vae.parameters()).device
     pixels_all = images_u8.astype(np.float32) / 127.5 - 1.0
     n, h, w = pixels_all.shape[:3]
     tx = make_adam(lr)
     opt_state = tx.init(dict(vae.named_parameters()))
-    step = make_vae_pretrain_step(vae, tx, kl_weight)
+    step = make_vae_pretrain_step(vae, tx, kl_weight, dtype)
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     shape = latent_shape(vae, batch_size, h, w)
@@ -115,6 +145,6 @@ def pretrain_vae(
     def noise(start: int, shape: Tuple[int, ...]) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=device)
 
-    scaling = measure_scaling_factor(vae, pixels_all, batch_size, noise)
+    scaling = measure_scaling_factor(vae, pixels_all, batch_size, noise, dtype)
     recon_mse = float(metrics["recon"]) if metrics else float("nan")
     return vae, scaling, recon_mse

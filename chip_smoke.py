@@ -203,6 +203,16 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 D > 160 against their plain versions at the VAE step's (8, 1024, 1,
                 512), at (2, 4096, 1, 512) and a ragged (1, 333, 2, 264),
                 timed beside their bound and SDPA's backward;
+ 41. f32 VAE pretraining -- (run after phase 37) the same VAE in f32, as
+                make_vae_pretrain_step computes by default (TF32 off): steps
+                (losses, warm s/step, peak, every flash and GroupNorm launch
+                an f32 kernel's: wide K1 f32 and its pre-pass, 2 wide K2 f32
+                and K3 f32 of csrc/flash_f32.cu, K6 f32 a GroupNorm
+                module), pretrain_vae(dtype=f32) and its scaling_factor; the
+                f32 step card vs CPU at VAE_F32_PARITY_RES px with a control
+                that drops the attention's gradient; the wide f32 dK/dV and
+                dQ against float64 at WIDE_FLASH_BWD's shapes, timed beside
+                their bound, the plain version and SDPA's f32 backward;
  38. multi-rank -- (run after phase 20) two ranks spawned on the one card
                 over gloo, as torchrun would start them: the generation CLI
                 at batch 1 a rank (512x512, 20 PLMS steps, 3 word heatmaps)
@@ -263,7 +273,6 @@ checkout of the repository. It imports nothing of JAX or agenda_tpu.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import itertools
 import json
 import math
@@ -413,10 +422,21 @@ TGATE_STEP = 10
 TGATE_REPLAY_TOL_RMS = 1e-2
 # VAE pretraining (phase 36): SD-1.4's VAE (128/256/512/512, fabricated) at
 # 256 px, batch 8, so the mid-block attention is S = 1024, D = 512 (the
-# wide K2/K3), under bf16 autocast; VAE_STEPS steps of Adam at VAE_LR, the
-# first two cold; then pretrain_vae end to end for 2 steps and its
-# scaling_factor
+# wide K2/K3), under bf16 autocast (asked for: the default is f32, phase 41);
+# VAE_STEPS steps of Adam at VAE_LR, the first two cold; then pretrain_vae end
+# to end for 2 steps and its scaling_factor. Phase 41 runs VAE_F32_STEPS of
+# them in f32.
 VAE_RES, VAE_BATCH, VAE_STEPS, VAE_LR, VAE_IMAGES = 256, 8, 8, 1e-4, 32
+VAE_F32_STEPS = 4
+# phase 41's f32 step card vs CPU from the fabricated weights at
+# VAE_F32_PARITY_RES px, batch 2 (the mid-block attention S = 64, D = 512:
+# the wide f32 kernels): the loss within VAE_F32_LOSS_RTOL, each gradient
+# (Adam's first moment / 0.1) within VAE_F32_GRAD_TOL relative L2 over the
+# tensors whose CPU gradient is above VAE_NULL_GRAD of the largest; the
+# same step with the attention's dK, dV and dQ zeroed, the control, beyond
+# the gradient limit. Set before the first run, from the f32 SD step's
+# card-vs-CPU readings (loss 8.8e-8, gradients 4.9e-6).
+VAE_F32_PARITY_RES, VAE_F32_LOSS_RTOL, VAE_F32_GRAD_TOL, VAE_NULL_GRAD = 64, 1e-5, 1e-3, 1e-4
 # the wide flash backward (D > 160) against its plain version (phase 37):
 # the VAE step's shape, a longer S, and a ragged S at a D the tiles pad
 WIDE_FLASH_BWD = {(8, 1024, 1, 512): None, (2, 4096, 1, 512): 0, (1, 333, 2, 264): 0}
@@ -454,13 +474,17 @@ def host_state() -> str:
 def settle(phase: str) -> float:
     """The start of a phase: stop what earlier phases left running (a child
     process, an open profiler), collect garbage, return the card's cached
-    blocks and the cached pinned host blocks, give the C heap's free pages
-    back, print one [host] line (``host_state``) and return the time."""
+    blocks and the cached pinned host blocks, print one [host] line
+    (``host_state``, and the seconds this took) and return the time. It does
+    not trim the C heap, a step whose work grows with the heap: with it,
+    settling took 0.84-2.33 s a phase at 27-31 GiB resident against
+    0.11-0.39 s at 4.5-6.8 GiB, about 30 s a run (PERF.md)."""
     import gc
     import multiprocessing
 
     import torch
 
+    t0 = time.perf_counter()
     for child in multiprocessing.active_children():
         print(f"[host] {phase}: stopping a child left running: {child.name} ({child.pid})",
               flush=True)
@@ -475,9 +499,8 @@ def settle(phase: str) -> float:
             with contextlib.suppress(RuntimeError):
                 getattr(torch._C, name)()
             break
-    with contextlib.suppress(OSError, AttributeError):  # the C heap's free pages
-        ctypes.CDLL("libc.so.6").malloc_trim(0)
-    print(f"[host] {phase}: {host_state()}", flush=True)
+    print(f"[host] {phase}: {host_state()}; settled in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     return time.perf_counter()
 
 
@@ -1064,7 +1087,7 @@ def ptxas_report(log: str):
 
     names = ("flash_fwd_wgmma|flash_fwd_wide_wgmma|flash_bwd_dkv_wide_wgmma|flash_bwd_dq_wide_wgmma"
              "|flash_bwd_dkv|flash_bwd_dq|flash_fwd_f32|flash_fwd_f32_wide|flash_f32_split"
-             "|flash_bwd_dkv_f32|flash_bwd_dq_f32"
+             "|flash_bwd_dkv_f32_wide|flash_bwd_dq_f32_wide|flash_bwd_dkv_f32|flash_bwd_dq_f32"
              "|groupnorm|fused_adamw8bit")
     types = {"13__nv_bfloat16": "bf16", "f": "f32"}  # the group norm's element type
     found, current = {}, None
@@ -3423,12 +3446,15 @@ def rel_l2(got: dict, want: dict, base: dict = None) -> float:
     return math.sqrt(num / max(den, 1e-300))
 
 
-def family_step_on(dev, cfg, state: dict, batch: dict, targets=None, mode: str = "f32") -> dict:
+def family_step_on(dev, cfg, state: dict, batch: dict, targets=None, mode: str = "f32",
+                   benchmark: bool = False) -> dict:
     """One train step of ``cfg``'s family through the runner's optimizer on
     ``dev`` from ``state`` (CPU tensors), update FAM_STEP, the samplers' and
     drop path's uniforms from a CPU generator on both sides; the two-stage
     families take ``targets`` (the CPU's RCNN targets) where given. Also
-    predicts on ``state``. ``mode`` "tf32" is the control. All on the CPU."""
+    predicts on ``state``. ``mode`` "tf32" is the control. In f32 cuDNN
+    autotunes the batch's convolutions with ``benchmark``, else takes its
+    heuristics. All on the CPU."""
     import torch
 
     from agenda_tpu_torch.detect import faster_rcnn
@@ -3450,7 +3476,7 @@ def family_step_on(dev, cfg, state: dict, batch: dict, targets=None, mode: str =
         seen["targets"] = tuple(t.cpu() for t in out)
         return out
 
-    arith = tf32_on() if mode == "tf32" else full_f32(dev)
+    arith = tf32_on() if mode == "tf32" else full_f32(dev, benchmark=benchmark)
     with arith, mock.patch.object(faster_rcnn, "rcnn_targets", rcnn_targets):
         boxes, scores, valid = fam.predict_fn(runner.variables_on_device(state), tb["image"])
         loss, parts, stats = fam.loss_fn({**st.params, **st.stats, **st.counters}, tb,
@@ -3513,7 +3539,10 @@ def family_parity(labels: dict, root: str, dev) -> dict:
         batch = det_first_batch(cfg, FAM_BATCH)
         state = family_weights(cfg)
         ref = family_step_on(cpu, cfg, state, batch)
-        card = family_step_on(dev, cfg, state, batch, ref["targets"])
+        # cuDNN's plans for the batch are autotuned only where phases 32-33
+        # train and label at it (FAM_SMALL_BATCH), which reuse them
+        card = family_step_on(dev, cfg, state, batch, ref["targets"],
+                              benchmark=det in FAM_SMALL_BATCH)
         control = family_step_on(dev, cfg, state, batch, ref["targets"], mode="tf32")
         sound, tf32 = family_readings(card, ref), family_readings(control, ref)
         kept = sum(len(s) for _, s in ref["pred"])
@@ -3913,78 +3942,170 @@ def vae_images(n: int, res: int, seed: int):
     return np.kron(low, np.ones((1, res // 8, res // 8, 1))).astype(np.uint8)
 
 
-def vae_pretrain_phase(model_dir: str, dev) -> dict:
-    """Phase 36: SD-1.4's VAE from the fabricated pipeline at VAE_RES px and
-    VAE_BATCH, under bf16 autocast: VAE_STEPS steps of make_vae_pretrain_step
-    (each synchronised; the first two cold), the losses (finite, the
-    reconstruction falling), the warm s/step, peak memory and the launches
-    of the wide K1, K2, K3 and of K6 a step against the VAE's count (two mid-block
-    attentions, one per GroupNorm module; the GroupNorm backward is the
-    plain recompute); then pretrain_vae end to end and its scaling_factor."""
+def vae_state(model_dir: str):
+    """(config, state dict on the host) of the pipeline's VAE."""
+    from agenda_tpu_torch.io import diffusers_io as io
+    from agenda_tpu_torch.io.configs import vae_config_from_json
+
+    d = os.path.join(model_dir, "vae")
+    state = io._read_tensor_file(os.path.join(d, "diffusion_pytorch_model"))
+    return (vae_config_from_json(io._load_json(os.path.join(d, "config.json"))),
+            io.rename_legacy_vae_keys(state))
+
+
+def vae_pretrain_phase(cfg, state: dict, dev, dtype, steps: int, tag: str) -> dict:
+    """Phases 36 (bf16) and 41 (f32): SD-1.4's VAE from ``state`` at VAE_RES px
+    and VAE_BATCH, computing in ``dtype``: ``steps`` steps of
+    make_vae_pretrain_step (each synchronised; the first two cold), the
+    losses (finite, the reconstruction falling), the warm s/step, peak memory
+    and the launches of the wide K1, K2, K3 and of K6 a step against the VAE's
+    count (two mid-block attentions, one per GroupNorm module; the GroupNorm
+    backward is the plain recompute), in f32 each an f32 kernel's (K1's
+    pre-pass once a forward); then pretrain_vae end to end and its
+    scaling_factor. The peak is the phase's own: above what was held before."""
     import numpy as np
     import torch
 
-    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.kernels import flash as fl
     from agenda_tpu_torch.models.layers import GroupNormAct, VAEAttention
     from agenda_tpu_torch.models.vae import AutoencoderKL
     from agenda_tpu_torch.train import vae_pretrain as vp
     from agenda_tpu_torch.train.optim import make_adam
 
-    bundle = load_pipeline(model_dir)
-    vae = AutoencoderKL(bundle.vae_config)
-    vae.load_state_dict(bundle.vae_state, strict=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # what earlier phases left
+    vae = AutoencoderKL(cfg)
+    vae.load_state_dict(state, strict=True)
     vae.to(dev)
     images = vae_images(VAE_IMAGES, VAE_RES, 36)
     pixels = images.astype(np.float32) / 127.5 - 1.0
     tx = make_adam(VAE_LR)
     opt_state = tx.init(dict(vae.named_parameters()))
-    step = vp.make_vae_pretrain_step(vae, tx, kl_weight=1e-4)
+    step = vp.make_vae_pretrain_step(vae, tx, kl_weight=1e-4, dtype=dtype)
     rng = np.random.RandomState(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     shape = vp.latent_shape(vae, VAE_BATCH, VAE_RES, VAE_RES)
     want = {"flash_attention_fwd": 2, "flash_attention_fwd_wide": 2,
             "flash_attention_bwd_dkv": 2, "flash_attention_bwd_dq": 2,
             "group_norm_act": sum(isinstance(m, GroupNormAct) for m in vae.modules())}
+    wrappers = {"flash_attention_fwd": fl.flash_attention_fwd,
+                "flash_attention_bwd_dkv": fl.flash_attention_bwd_dkv,
+                "flash_attention_bwd_dq": fl.flash_attention_bwd_dq}
+    f32 = dtype == torch.float32
+    if f32:  # every launch an f32 kernel's, the backward's wide ones too
+        want.update({f"{k} f32": want[k] for k in (*wrappers, "group_norm_act")})
+        want.update({"flash_attention_bwd_dkv_wide": 2, "flash_attention_bwd_dq_wide": 2,
+                     "flash_f32_split": 2})
     require(sum(isinstance(m, VAEAttention) for m in vae.modules()) == 2,
             "the VAE should have two mid-block attentions")
-    losses, walls, counts = [], [], []
+
+    def counts() -> dict:
+        c = {k: v for k, v in read_counts().items() if k in want}
+        if f32:
+            c.update({f"{k} f32": v for k, (_, v) in all_f32(read_counts()).items()})
+            c.update({f"{k}_wide": wrappers[k].launches_wide
+                      for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")})
+            c["flash_f32_split"] = fl.flash_f32_split.launches
+        return c
+
+    losses, walls, launches = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(VAE_STEPS):
+    for i in range(steps):
         batch = torch.from_numpy(pixels[rng.randint(0, len(pixels), VAE_BATCH)]).to(dev)
         eps = torch.randn(shape, generator=gen, device=dev)
-        reset_counts()
+        reset_all_counts()
         t0 = time.perf_counter()
         m = step(opt_state, batch, eps)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts.append({k: v for k, v in read_counts().items() if k in want})
+        launches.append(counts())
         losses.append({k: float(v) for k, v in m.items()})
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     warm = sum(walls[2:]) / len(walls[2:])
-    print(f"[vae] SD-1.4 VAE {tuple(bundle.vae_config.block_out_channels)} at {VAE_RES} px, batch "
-          f"{VAE_BATCH}, bf16 autocast, Adam lr {VAE_LR}: steps " + ", ".join(
+    print(f"[{tag}] SD-1.4 VAE {tuple(cfg.block_out_channels)} at {VAE_RES} px, batch "
+          f"{VAE_BATCH}, {dtype}, Adam lr {VAE_LR}: steps " + ", ".join(
               f"{w:.4f}" for w in walls) + f" s -> warm {warm:.4f} s/step "
-          f"({VAE_BATCH / warm:.1f} images/s); peak {peak / 2**30:.2f} GiB", flush=True)
-    print("[vae] recon " + ", ".join(f"{x['recon']:.5f}" for x in losses) + "; kl " + ", ".join(
+          f"({VAE_BATCH / warm:.1f} images/s); peak {peak / 2**30:.2f} GiB (its own)", flush=True)
+    print(f"[{tag}] recon " + ", ".join(f"{x['recon']:.5f}" for x in losses) + "; kl " + ", ".join(
         f"{x['kl']:.3f}" for x in losses), flush=True)
-    print(f"[vae] launches a step {counts[-1]} (expected {want})", flush=True)
+    print(f"[{tag}] launches a step {launches[-1]} (expected {want})", flush=True)
     require(all(math.isfinite(v) for x in losses for v in x.values()), "VAE losses not finite")
     require(losses[-1]["recon"] < losses[0]["recon"], "the VAE's reconstruction did not fall")
-    require(all(c == want for c in counts), f"VAE step launches {counts} differ from {want}")
+    require(all(c == want for c in launches), f"VAE step launches {launches} differ from {want}")
 
     t0 = time.perf_counter()
     _, scale, recon = vp.pretrain_vae(vae, images, steps=2, batch_size=VAE_BATCH, lr=VAE_LR,
-                                      seed=1)
+                                      seed=1, dtype=dtype)
     torch.cuda.synchronize()
-    print(f"[vae] pretrain_vae, 2 steps over {VAE_IMAGES} images: scaling_factor {scale:.5f}, "
-          f"recon {recon:.5f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[{tag}] pretrain_vae(dtype={dtype}), 2 steps over {VAE_IMAGES} images: "
+          f"scaling_factor {scale:.5f}, recon {recon:.5f} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     require(math.isfinite(scale) and scale > 0 and math.isfinite(recon),
             "pretrain_vae's scaling_factor or recon is not finite")
     del vae, opt_state, step
     torch.cuda.empty_cache()
     return {"warm_s": warm, "peak": peak, "losses": losses, "scale": scale,
-            "launches": counts[-1]}
+            "launches": launches[-1]}
+
+
+def vae_f32_step(dev, cfg, state: dict, pixels, eps) -> Tuple[float, dict]:
+    """One f32 make_vae_pretrain_step on ``dev`` from ``state`` -> (loss, the
+    gradients by name on the host, read from Adam's first moment)."""
+    import torch
+
+    from agenda_tpu_torch.models.vae import AutoencoderKL
+    from agenda_tpu_torch.train.optim import make_adam
+    from agenda_tpu_torch.train.vae_pretrain import make_vae_pretrain_step
+
+    vae = AutoencoderKL(cfg)
+    vae.load_state_dict(state, strict=True)
+    vae.to(dev)
+    tx = make_adam(VAE_LR)
+    opt_state = tx.init(dict(vae.named_parameters()))
+    m = make_vae_pretrain_step(vae, tx, 1e-2, torch.float32)(opt_state, pixels.to(dev),
+                                                              eps.to(dev))
+    return float(m["loss"]), {k: (v / 0.1).cpu() for k, v in opt_state.mu.items()}
+
+
+def vae_f32_parity(cfg, state: dict, dev) -> dict:
+    """Phase 41's f32 step, card against CPU, and its control (the wide f32
+    dK/dV and dQ zeroed): (loss, gradients) relative readings."""
+    import torch
+
+    from agenda_tpu_torch.kernels import flash as fl
+
+    g = torch.Generator().manual_seed(41)
+    res = VAE_F32_PARITY_RES
+    pixels = torch.rand(2, res, res, 3, generator=g) * 2 - 1
+    f = 2 ** (len(cfg.block_out_channels) - 1)
+    eps = torch.randn(2, res // f, res // f, cfg.latent_channels, generator=g)
+    ref = vae_f32_step(torch.device("cpu"), cfg, state, pixels, eps)
+    top = max(float(v.norm()) for v in ref[1].values())
+
+    def readings(side):
+        grads = max(float((side[1][k] - v).norm() / v.norm()) for k, v in ref[1].items()
+                    if float(v.norm()) > VAE_NULL_GRAD * top)
+        return abs(side[0] - ref[0]) / abs(ref[0]), grads
+
+    before = (fl.flash_attention_bwd_dkv.launches_wide, fl.flash_attention_bwd_dq.launches_wide)
+    sound = readings(vae_f32_step(dev, cfg, state, pixels, eps))
+    wide = (fl.flash_attention_bwd_dkv.launches_wide - before[0],
+            fl.flash_attention_bwd_dq.launches_wide - before[1])
+    with mock.patch.object(fl, "flash_attention_bwd_dkv",
+                           lambda q, *a: (torch.zeros_like(q), torch.zeros_like(q))), \
+            mock.patch.object(fl, "flash_attention_bwd_dq", lambda q, *a: torch.zeros_like(q)):
+        control = readings(vae_f32_step(dev, cfg, state, pixels, eps))
+    print(f"[vae f32] step card vs CPU at {res} px, batch 2 (mid-block attention S = "
+          f"{(res // f) ** 2}, D = {cfg.block_out_channels[-1]}; wide f32 launches {wide}): loss "
+          f"{sound[0]:.3g} (limit {VAE_F32_LOSS_RTOL}), gradients {sound[1]:.3g} relative L2 "
+          f"(limit {VAE_F32_GRAD_TOL}); control without the attention's gradient: loss "
+          f"{control[0]:.3g}, gradients {control[1]:.3g}", flush=True)
+    require(wide == (2, 2), f"the f32 VAE step's wide backward launches {wide}, not (2, 2)")
+    require(sound[0] <= VAE_F32_LOSS_RTOL and sound[1] <= VAE_F32_GRAD_TOL,
+            f"the f32 VAE step on the card differs from the CPU's: {sound}")
+    require(control[1] > VAE_F32_GRAD_TOL, f"the control passes the gradient limit: {control}")
+    return {"sound": sound, "control": control}
 
 
 # phase 38: two ranks on the one card, over gloo (NCCL refuses two ranks on one
@@ -4058,7 +4179,7 @@ def multirank_reference(model_dir: str, vae_cfg, dev, tmp: str) -> dict:
     import numpy as np
     import torch
 
-    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.io.diffusers_io import load_unet
     from agenda_tpu_torch.train.finetune_sd import LossConfig, StepDraws, make_draws
 
     base = torch.cuda.memory_allocated()  # what earlier phases left allocated
@@ -4072,15 +4193,17 @@ def multirank_reference(model_dir: str, vae_cfg, dev, tmp: str) -> dict:
               "timesteps": draws.timesteps}
     paths = {"batch": os.path.join(tmp, "mr_batch.pt"), "codes": os.path.join(tmp, "mr_codes.npy")}
     torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
-                "draws": {k: v.cpu() for k, v in fields.items()}}, paths["batch"])
-    before = load_pipeline(model_dir).unet_state
+                "draws": {k: v.cpu() for k, v in fields.items()}}, paths["batch"] + ".part")
+    os.replace(paths["batch"] + ".part", paths["batch"])  # the ranks wait for it
+    before = load_unet(model_dir)[1]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _, m = step(state, batch, draws=draws)
     torch.cuda.synchronize()
     out = {"peak_global": torch.cuda.max_memory_allocated() - base, "loss": float(m["loss"]),
            "grad_norm": float(m["grad_norm"]), "held": held_bytes(state), "paths": paths}
-    np.save(paths["codes"], update_codes(state.params, before, dev).numpy())
+    np.save(paths["codes"] + ".part.npy", update_codes(state.params, before, dev).numpy())
+    os.replace(paths["codes"] + ".part.npy", paths["codes"])
     half = TRAIN_BATCH // MR_WORLD
     torch.cuda.reset_peak_memory_stats()
     step(state, {k: v[:half] for k, v in batch.items()},
@@ -4101,15 +4224,16 @@ def mr_rank_work(job: dict) -> dict:
     import torch
 
     from agenda_tpu_torch.cli import data_generation, det_test
-    from agenda_tpu_torch.io.diffusers_io import load_pipeline
+    from agenda_tpu_torch.io.diffusers_io import load_unet
     from agenda_tpu_torch.parallel.mesh import make_mesh
     from agenda_tpu_torch.train.checkpoint import full_ema
     from agenda_tpu_torch.train.finetune_sd import StepDraws
 
+    parts = {"start": time.time() - job["spawned"]}  # the spawn and the imports
     mesh = make_mesh(fsdp=MR_WORLD, device="cuda", backend="gloo", timeout_s=MR_DEADLINE_S)
     dev = mesh.device
     out = {"rank": mesh.rank, "world": mesh.world, "backend": mesh.backend, "device": str(dev),
-           "mesh": mesh.shape}
+           "mesh": mesh.shape, "parts": parts}
     # (a) generation, batch 1 a rank
     reset_counts()
     t0 = time.perf_counter()
@@ -4119,9 +4243,17 @@ def mr_rank_work(job: dict) -> dict:
     out["gen"] = {"batches": stats["batches"], "seconds": time.perf_counter() - t0,
                   "launches": {k: c[k] for k in ("flash_attention_fwd", "flash_attention_fwd_wide",
                                                  "group_norm_act")}}
+    parts["gen"] = out["gen"]["seconds"]
     gc.collect()
     torch.cuda.empty_cache()
-    # (b) the SD step at --fsdp 2: this rank's rows of the global batch and draws
+    # (b) the SD step at --fsdp 2: this rank's rows of the global batch and draws,
+    # which the parent's one-process step (run meanwhile) saves
+    t0 = time.perf_counter()
+    while not (os.path.exists(job["batch"]) and os.path.exists(job["codes"])):
+        require(time.perf_counter() - t0 < MR_DEADLINE_S, "phase 38: no reference step")
+        time.sleep(0.2)
+    parts["wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     saved = torch.load(job["batch"])
     rows = mesh.rows(TRAIN_BATCH)
     base = torch.cuda.memory_allocated()
@@ -4129,7 +4261,8 @@ def mr_rank_work(job: dict) -> dict:
     state, step = make(True)
     batch = {k: v[rows].to(dev) for k, v in saved["batch"].items()}
     draws = StepDraws(**{k: v[rows].to(dev) for k, v in saved["draws"].items()})
-    before = load_pipeline(job["model_dir"]).unet_state
+    before = load_unet(job["model_dir"])[1] if mesh.is_main else None
+    parts["trainer"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -4152,8 +4285,11 @@ def mr_rank_work(job: dict) -> dict:
     del unet, make, state, step, ema, before
     gc.collect()
     torch.cuda.empty_cache()
+    parts["step"] = time.perf_counter() - t0 - parts["trainer"]
     # (c) det_test, each batch split over the ranks
+    t0 = time.perf_counter()
     out["det_records"] = len(det_test.main(job["det_argv"]))
+    parts["det_test"] = time.perf_counter() - t0
     return out
 
 
@@ -4202,14 +4338,14 @@ def multirank_phase(model_dir: str, embeds: str, gen_dir: str, labels: dict, lab
     from agenda_tpu_torch.annotate.records import load_predictions
 
     texp = train_expected(unet_cfg, vae_cfg)
-    ref = multirank_reference(model_dir, vae_cfg, dev, tmp)
     gen_w2 = os.path.join(tmp, "out_w2")
     gen_args = list(E2E_ARGS)  # phase 5's first batch: its 2 seeds, 1 a rank
     gen_args[gen_args.index("--batch-size") + 1] = str(E2E_BATCH // MR_WORLD)
     gen_args[gen_args.index("--num-images") + 1] = str(E2E_BATCH)
     config, ckpt = labels["ckpts"]["yolov8"]
     pred_w2 = os.path.join(label_root, "pred_real_w2.pkl")
-    job = {"model_dir": model_dir, "batch": ref["paths"]["batch"], "codes": ref["paths"]["codes"],
+    job = {"model_dir": model_dir, "batch": os.path.join(tmp, "mr_batch.pt"),
+           "codes": os.path.join(tmp, "mr_codes.npy"), "spawned": time.time(),
            "gen_argv": ["--pretrained-model-path", model_dir, "--learnable-tokens-embedding-path",
                         embeds, "--save-dir", gen_w2, "--device", "cuda", "--dist-backend", "gloo",
                         *gen_args],
@@ -4226,12 +4362,19 @@ def multirank_phase(model_dir: str, embeds: str, gen_dir: str, labels: dict, lab
     procs = [ctx.Process(target=mr_rank, args=(r, port, job, paths[r])) for r in range(MR_WORLD)]
     for p in procs:
         p.start()
-    for p in procs:
-        p.join(max(1.0, MR_DEADLINE_S - (time.perf_counter() - t0)))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
+    try:  # the one-process step while the ranks import and generate
+        t_ref = time.perf_counter()
+        ref = multirank_reference(model_dir, vae_cfg, dev, tmp)
+        t_ref = time.perf_counter() - t_ref
+        require(ref["paths"] == {"batch": job["batch"], "codes": job["codes"]},
+                "phase 38: the reference's files")
+        for p in procs:
+            p.join(max(1.0, MR_DEADLINE_S - (time.perf_counter() - t0)))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
     wall = time.perf_counter() - t0
     ranks = []
     for r, path in enumerate(paths):
@@ -4242,6 +4385,9 @@ def multirank_phase(model_dir: str, embeds: str, gen_dir: str, labels: dict, lab
     require(not hung and all(p.exitcode == 0 for p in procs) and all(ranks),
             f"phase 38: ranks hung {len(hung)}, exit codes {[p.exitcode for p in procs]}")
     r0 = ranks[0]
+    print(f"[parts] multi-rank: one-process reference {t_ref:.1f} s beside the ranks; a rank's "
+          "parts " + "; ".join(", ".join(f"{k} {v:.1f}" for k, v in r["parts"].items())
+                               for r in ranks) + " s", flush=True)
     # (a) generation
     n_batches = ranks[0]["gen"]["batches"]
     want_gen = {"flash_attention_fwd": expected["flash_attention_fwd"] * n_batches,
@@ -4620,35 +4766,70 @@ def f32_flash_rows(per_context: dict, runs: dict) -> dict:
                 rows["fwd_wide" if d > WIDE_ABOVE else "fwd"])
         if "step" in per:
             require(d <= WIDE_ABOVE, f"a training step's attention at D = {d}")
-            delta = fl.flash_delta(out, do)
-            ins = (q, k, v, do, lse, delta)
-            wide_ins = tuple(t.double() for t in ins)
-            qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                o = F.scaled_dot_product_attention(qg, kg, vg)
-            torch.cuda.current_stream().wait_stream(side)
-            dot = do.transpose(1, 2)
-
-            def sdpa_bwd():
-                return torch.autograd.grad(o, (qg, kg, vg), dot, retain_graph=True)
-
-            step_only = {"step": per["step"]}
-            f32_row("flash dkv", shape, step_only, runs, fl.flash_attention_bwd_dkv(*ins),
-                    fl.flash_attention_bwd_dkv_reference(*ins),
-                    fl.flash_attention_bwd_dkv_reference(*wide_ins),
-                    lambda: fl.flash_attention_bwd_dkv(*ins),
-                    lambda: fl.flash_attention_bwd_dkv_reference(*ins), sdpa_bwd,
-                    4 * prod, float(b * h * s * s), 6 * io + 2 * stats, rows["dkv"], side)
-            f32_row("flash dq", shape, step_only, runs, (fl.flash_attention_bwd_dq(*ins),),
-                    (fl.flash_attention_bwd_dq_reference(*ins),),
-                    (fl.flash_attention_bwd_dq_reference(*wide_ins),),
-                    lambda: fl.flash_attention_bwd_dq(*ins),
-                    lambda: fl.flash_attention_bwd_dq_reference(*ins), sdpa_bwd,
-                    3 * prod, float(b * h * s * s), 5 * io + 2 * stats, rows["dq"], side)
-            del delta, ins, wide_ins, qg, kg, vg, o, dot
+            f32_bwd_pair(shape, {"step": per["step"]}, runs, q, k, v, do, out, lse, rows)
         del q, k, v, do, out, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f32_bwd_pair(shape, per, runs, q, k, v, do, out, lse, rows, tag: str = "flash") -> None:
+    """The f32 dK/dV and dQ on (q, k, v, do) against float64, timed beside their
+    bound, the plain version and SDPA's f32 backward (dQ, dK, dV in one call)
+    on the same tensors; a row each into rows["dkv"] and rows["dq"]."""
+    import torch
+    import torch.nn.functional as F
+
+    from agenda_tpu_torch.kernels import flash as fl
+
+    b, s, h, d = shape
+    io, stats, prod = 4.0 * b * s * h * d, 4.0 * b * h * s, 2.0 * b * h * s * s * d
+    delta = fl.flash_delta(out, do)
+    ins = (q, k, v, do, lse, delta)
+    wide_ins = tuple(t.double() for t in ins)
+    qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o = F.scaled_dot_product_attention(qg, kg, vg)
+    torch.cuda.current_stream().wait_stream(side)
+    dot = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o, (qg, kg, vg), dot, retain_graph=True)
+
+    f32_row(f"{tag} dkv", shape, per, runs, fl.flash_attention_bwd_dkv(*ins),
+            fl.flash_attention_bwd_dkv_reference(*ins),
+            fl.flash_attention_bwd_dkv_reference(*wide_ins),
+            lambda: fl.flash_attention_bwd_dkv(*ins),
+            lambda: fl.flash_attention_bwd_dkv_reference(*ins), sdpa_bwd,
+            4 * prod, float(b * h * s * s), 6 * io + 2 * stats, rows["dkv"], side)
+    f32_row(f"{tag} dq", shape, per, runs, (fl.flash_attention_bwd_dq(*ins),),
+            (fl.flash_attention_bwd_dq_reference(*ins),),
+            (fl.flash_attention_bwd_dq_reference(*wide_ins),),
+            lambda: fl.flash_attention_bwd_dq(*ins),
+            lambda: fl.flash_attention_bwd_dq_reference(*ins), sdpa_bwd,
+            3 * prod, float(b * h * s * s), 5 * io + 2 * stats, rows["dq"], side)
+
+
+def f32_wide_bwd_rows(per_step: dict) -> dict:
+    """The wide f32 dK/dV and dQ (``csrc/flash_f32.cu``, D > 160) at each
+    (B, S, H, D) of ``per_step`` ({shape: launches a VAE step}; 0 off the
+    path), against float64 and timed as ``f32_bwd_pair`` does (their ptxas
+    lines are phase 1's)."""
+    import torch
+
+    from agenda_tpu_torch.kernels import flash as fl
+
+    rows = {"dkv": [], "dq": []}
+    for shape, count in per_step.items():
+        b, s, h, d = shape
+        require(d > fl.WIDE_ABOVE, f"{shape} is not a wide shape")
+        g = torch.Generator(device="cuda").manual_seed(b * 7919 + s + h + d)
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        out, lse = fl.flash_attention_fwd(q, k, v)
+        f32_bwd_pair(shape, {"step": count}, {"step": 1}, q, k, v, do, out, lse, rows,
+                     "flash wide")
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return rows
 
@@ -4717,6 +4898,8 @@ def reset_all_counts() -> None:
     for fn in f32_counters().values():
         fn.launches_f32 = 0
     flash_f32_split.launches = 0
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        f32_counters()[name].launches_wide = 0
 
 
 def all_f32(counts: dict) -> dict:
@@ -5083,6 +5266,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} ({card})", flush=True)
 
     # 1. build
+    t_start = time.perf_counter()
     phase_s = {}
     t0 = settle("build (1)")
     lib = _build.load_library()
@@ -5213,13 +5397,24 @@ def main() -> int:
 
         # 36-37. VAE pretraining at SD-1.4's widths; the wide flash backward's rows
         t_phase = settle("VAE pretraining (36)")
-        vae = vae_pretrain_phase(model_dir, dev)
+        vae_cfg_state = vae_state(model_dir)
+        vae = vae_pretrain_phase(*vae_cfg_state, dev, torch.bfloat16, VAE_STEPS, "vae")
         phase_s["VAE pretraining (36)"] = time.perf_counter() - t_phase
         t_phase = settle("wide flash backward (37)")
         wide_shapes = {shape: vae["launches"]["flash_attention_bwd_dkv"] if n is None else n
                        for shape, n in WIDE_FLASH_BWD.items()}
         wide = flash_bwd_rows(wide_shapes, extra=(), tag="wide flash bwd")
         phase_s["wide flash backward (37)"] = time.perf_counter() - t_phase
+
+        # 41. f32 VAE pretraining: the steps, card vs CPU, the wide f32 backward's rows
+        t_phase = settle("f32 VAE pretraining (41)")
+        vae32 = vae_pretrain_phase(*vae_cfg_state, dev, torch.float32, VAE_F32_STEPS, "vae f32")
+        vae32["parity"] = vae_f32_parity(*vae_cfg_state, dev)
+        wide32 = f32_wide_bwd_rows({
+            shape: vae32["launches"]["flash_attention_bwd_dkv_wide"] if n is None else n
+            for shape, n in WIDE_FLASH_BWD.items()})
+        del vae_cfg_state
+        phase_s["f32 VAE pretraining (41)"] = time.perf_counter() - t_phase
 
         # 17-20. the labelling stages: heatmap stacks, YOLOv8n/s on the card
         t_phase = settle("labelling (17-20)")
@@ -5324,6 +5519,12 @@ def main() -> int:
         summarize("flash_attention_bwd_dq_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
                   "agenda_tpu/kernels/flash.py:192", f32["flash"]["dq"],
                   f32_sd["flash_attention_bwd_dq"]),
+        summarize("flash_attention_bwd_dkv_f32_wide", "cuda",
+                  "agenda_tpu_torch/csrc/flash_f32.cu", "agenda_tpu/kernels/flash.py:153",
+                  wide32["dkv"], vae32["launches"]["flash_attention_bwd_dkv_wide"]),
+        summarize("flash_attention_bwd_dq_f32_wide", "cuda",
+                  "agenda_tpu_torch/csrc/flash_f32.cu", "agenda_tpu/kernels/flash.py:192",
+                  wide32["dq"], vae32["launches"]["flash_attention_bwd_dq_wide"]),
         summarize("group_norm_act_f32", "cuda", "agenda_tpu_torch/csrc/groupnorm.cu",
                   "agenda_tpu/kernels/groupnorm.py:94", f32["gn"], f32_sd["group_norm_act"]),
         summarize("fused_adamw8bit", "cuda", "agenda_tpu_torch/csrc/fused_adamw.cu",
@@ -5335,6 +5536,8 @@ def main() -> int:
     ]
     for name, sec in phase_s.items():
         print(f"[phases] {name}: {sec:.1f} s", flush=True)
+    print(f"[phases] all: {time.perf_counter() - t_start:.1f} s since the build began, "
+          f"{sum(phase_s.values()):.1f} s in the phases above", flush=True)
     print(f"[report] fused AdamW launches and leaf updates: K4 path {k4_launches['fused_adamw8bit']} "
           f"launches, {k4_launches['fused_adamw8bit_leaves']} leaves in 2 steps; trainer CLI "
           f"{train_launches['fused_adamw8bit_ema']} launches, "
@@ -5409,10 +5612,20 @@ def main() -> int:
           f"{tgate['warm']['exact']:.4f} s in the same turns, a profiled TGATE batch busy "
           f"{tgate['busy_ms'] / 1e3:.3f} s; replay gate {tgate['replay']['replay']:.3g} of rms "
           f"(limit {TGATE_REPLAY_TOL_RMS}); launches a batch {tgate['launches']}", flush=True)
-    print(f"[report] VAE pretraining (SD-1.4 VAE, {VAE_RES} px, batch {VAE_BATCH}, bf16 "
-          f"autocast): warm {vae['warm_s']:.4f} s/step, peak {vae['peak'] / 2**30:.2f} GiB, "
-          f"recon {vae['losses'][0]['recon']:.5f} -> {vae['losses'][-1]['recon']:.5f}, "
-          f"scaling_factor {vae['scale']:.5f}; launches a step {vae['launches']}", flush=True)
+    for name, run in (("bf16 autocast", vae), ("f32, TF32 off", vae32)):
+        print(f"[report] VAE pretraining (SD-1.4 VAE, {VAE_RES} px, batch {VAE_BATCH}, {name}): "
+              f"warm {run['warm_s']:.4f} s/step, peak {run['peak'] / 2**30:.2f} GiB (its "
+              f"own), recon {run['losses'][0]['recon']:.5f} -> {run['losses'][-1]['recon']:.5f}, "
+              f"scaling_factor {run['scale']:.5f}; launches a step {run['launches']}", flush=True)
+    par = vae32["parity"]
+    print(f"[report] f32 VAE step card vs CPU ({VAE_F32_PARITY_RES} px): loss "
+          f"{par['sound'][0]:.3g}, gradients {par['sound'][1]:.3g} (limit {VAE_F32_GRAD_TOL}; "
+          f"control {par['control'][1]:.3g}). Units: flash_attention_bwd_dkv_f32_wide and "
+          "flash_attention_bwd_dq_f32_wide (csrc/flash_f32.cu, FFMA) sum ms over one "
+          f"f32 VAE pretraining step (batch {VAE_BATCH}, {VAE_RES} px: (8, 1024, 1, 512) twice), "
+          "launches from phase 41's last step; their bound counts the products as three TF32 "
+          "passes (as the other f32 rows); library_ms is SDPA's whole f32 backward at the "
+          "same shape", flush=True)
     print(f"[report] profile report of phase 6's trace: busy {report['busy_ms']:.2f} ms, "
           f"{100 * report['share']:.1f}% of the traced window; top categories " + ", ".join(
               f"{k} {ms:.2f} ms" for k, ms in report["top"]), flush=True)

@@ -39,6 +39,7 @@ from agenda_tpu_torch.models.unet import UNet2DConditionModel
 from agenda_tpu_torch.models.vae import AutoencoderKL
 from agenda_tpu_torch.train import finetune_sd as ttrain
 from agenda_tpu_torch.train import optim as toptim
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K = 2  # micro-batches an update
 LR = 1e-3

@@ -660,9 +660,15 @@ def test_flash_backward_wrapper_raises_instead_of_falling_back():
     lse = torch.zeros(2, 64, device="cuda")
     with pytest.raises(TypeError):
         fl.flash_attention_bwd_dkv(*(x.half(),) * 4, lse, lse)  # f16 on the card
-    wide32 = torch.zeros(1, 64, 1, 512, device="cuda")
-    with pytest.raises(ValueError):  # the f32 backward takes D up to 160
-        fl.flash_attention_bwd_dkv(*(wide32,) * 4, lse[:1], lse[:1])
+    wide32 = torch.zeros(1, 64, 1, 512, device="cuda")  # the wide f32 kernels take it
+    dk, dv = fl.flash_attention_bwd_dkv(*(wide32,) * 4, lse[:1], lse[:1])
+    assert dk.shape == dv.shape == wide32.shape and dk.dtype == torch.float32
+    for d in (520, 204):  # above the f32 backward's 512; in (160, 512], not a multiple of 8
+        bad32 = torch.zeros(1, 64, 1, d, device="cuda")
+        with pytest.raises(ValueError):
+            fl.flash_attention_bwd_dkv(*(bad32,) * 4, lse[:1], lse[:1])
+        with pytest.raises(ValueError):
+            fl.flash_attention_bwd_dq(*(bad32,) * 4, lse[:1], lse[:1])
     wide = torch.zeros(1, 64, 1, 520, device="cuda").bfloat16()
     with pytest.raises(ValueError):  # D above the backward's 512
         fl.flash_attention_bwd_dq(wide, wide, wide, wide, lse[:1], lse[:1])
@@ -1071,20 +1077,26 @@ def test_resnet50_train_step_on_the_card_as_on_the_cpu():
     assert worst64 <= 1e-6, worst64
 
 
-# VAE pretraining's step on the card (bf16 autocast) against the CPU (f32),
-# at a VAE whose mid-block attention takes the wide flash backward (two
-# levels of 64 and 256 channels: D = 256, S = 32 x 32 at 64 px): the loss
-# within VAE_LOSS_RTOL, each gradient (read from Adam's first moment) within
-# VAE_GRAD_TOL_L2 relative L2, over the tensors whose CPU gradient is not
-# float noise (norm above VAE_NULL_GRAD of the largest). The limit lies
-# between the bf16 reading and a control that drops the attention's gradient
-# (the wide kernels' dK, dV and dQ zeroed); read on an H100 80GB HBM3 at
-# 700 W: loss 2.8e-4, gradients 3.1e-2 / the control's 1.07
-VAE_LOSS_RTOL, VAE_GRAD_TOL_L2, VAE_NULL_GRAD = 2e-3, 0.15, 1e-4
+# VAE pretraining's step on the card against the CPU (f32), in each compute
+# dtype, at a VAE whose mid-block attention takes the wide flash backward
+# (two levels of 64 and 256 channels: D = 256, S = 32 x 32 at 64 px): the
+# loss within its dtype's VAE_LIMITS[0], each gradient (read from Adam's
+# first moment) within VAE_LIMITS[1] relative L2, over the tensors whose CPU
+# gradient is not float noise (norm above VAE_NULL_GRAD of the largest).
+# Each gradient limit lies between the sound reading and a control that
+# drops the attention's gradient (the wide kernels' dK, dV and dQ zeroed).
+# bf16 autocast, read on an H100 80GB HBM3 at 700 W: loss 2.8e-4, gradients
+# 3.1e-2 / the control's 1.07. f32 (TF32 off, the wide f32 kernels), set
+# before its first run on the card from the f32 SD step's card-vs-CPU
+# readings (loss 8.8e-8, gradients 4.9e-6 over all of them): cuDNN's and the
+# CPU's summation orders, a few 1e-6 a layer.
+VAE_LIMITS = {torch.bfloat16: (2e-3, 0.15), torch.float32: (1e-5, 1e-3)}
+VAE_NULL_GRAD = 1e-4
 
 
-def _vae_step(dev, state_dict, pixels, eps):
-    """One vae_pretrain step -> (loss, gradients by name on the CPU in f32)."""
+def _vae_step(dev, state_dict, pixels, eps, dtype=torch.float32):
+    """One vae_pretrain step computing in ``dtype`` -> (loss, gradients by
+    name on the CPU in f32)."""
     from agenda_tpu_torch.io.configs import VAEConfig
     from agenda_tpu_torch.models.vae import AutoencoderKL
     from agenda_tpu_torch.train.optim import make_adam
@@ -1095,7 +1107,7 @@ def _vae_step(dev, state_dict, pixels, eps):
     vae.to(dev)
     tx = make_adam(1e-4)
     opt_state = tx.init(dict(vae.named_parameters()))
-    m = make_vae_pretrain_step(vae, tx, 1e-2)(opt_state, pixels.to(dev), eps.to(dev))
+    m = make_vae_pretrain_step(vae, tx, 1e-2, dtype)(opt_state, pixels.to(dev), eps.to(dev))
     cpu = torch.device("cpu")
     return float(m["loss"]), {k: (v / 0.1).to(cpu) for k, v in opt_state.mu.items()}
 
@@ -1108,7 +1120,8 @@ def _vae_readings(card, ref):
 
 
 @pytest.mark.cuda
-def test_vae_pretrain_step_on_the_card_as_on_the_cpu(monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_vae_pretrain_step_on_the_card_as_on_the_cpu(dtype, monkeypatch):
     from agenda_tpu_torch.io.configs import VAEConfig
     from agenda_tpu_torch.models.vae import AutoencoderKL
 
@@ -1119,20 +1132,24 @@ def test_vae_pretrain_step_on_the_card_as_on_the_cpu(monkeypatch):
     pixels = torch.rand(2, 64, 64, 3, generator=g) * 2 - 1
     eps = torch.randn(2, 32, 32, 4, generator=g)
     cpu, dev = torch.device("cpu"), torch.device("cuda")
+    loss_tol, grad_tol = VAE_LIMITS[dtype]
     ref = _vae_step(cpu, sd, pixels, eps)
-    before = (fl.flash_attention_bwd_dkv.launches, fl.flash_attention_bwd_dq.launches)
-    sound = _vae_readings(_vae_step(dev, sd, pixels, eps), ref)
-    assert (fl.flash_attention_bwd_dkv.launches - before[0],
-            fl.flash_attention_bwd_dq.launches - before[1]) == (2, 2)
+    counts = [(w.launches, w.launches_wide, w.launches_f32)
+              for w in (fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dq)]
+    sound = _vae_readings(_vae_step(dev, sd, pixels, eps, dtype), ref)
+    f32 = 2 * int(dtype == torch.float32)
+    assert [(w.launches, w.launches_wide, w.launches_f32)
+            for w in (fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dq)] == [
+                (n + 2, wide + 2, f + f32) for n, wide, f in counts]
     monkeypatch.setattr(fl, "flash_attention_bwd_dkv",
                         lambda q, *a: (torch.zeros_like(q), torch.zeros_like(q)))
     monkeypatch.setattr(fl, "flash_attention_bwd_dq", lambda q, *a: torch.zeros_like(q))
-    control = _vae_readings(_vae_step(dev, sd, pixels, eps), ref)
-    print(f"VAE step, card (bf16) against the CPU (f32): loss {sound[0]:.3g}, gradients "
+    control = _vae_readings(_vae_step(dev, sd, pixels, eps, dtype), ref)
+    print(f"VAE step, card ({dtype}) against the CPU (f32): loss {sound[0]:.3g}, gradients "
           f"{sound[1]:.3g} relative L2; control without the attention's gradient: loss "
           f"{control[0]:.3g}, gradients {control[1]:.3g}")
-    assert sound[0] <= VAE_LOSS_RTOL and sound[1] <= VAE_GRAD_TOL_L2, sound
-    assert control[1] > VAE_GRAD_TOL_L2, control
+    assert sound[0] <= loss_tol and sound[1] <= grad_tol, sound
+    assert control[1] > grad_tol, control
 
 
 @pytest.mark.cuda
@@ -1202,8 +1219,9 @@ def test_kernel_variants_apply_to_the_source(variant):
 # -- the f32 kernels (--mixed_precision no) -------------------------------------------
 #
 # csrc/flash_fwd_f32.cu's forward (three bf16 pieces an operand, six
-# tensor-core products), csrc/flash_f32.cu's dK/dV and dQ and groupnorm.cu's
-# f32 instantiation, each held to its plain version computed in float64 on
+# tensor-core products), csrc/flash_f32.cu's dK/dV and dQ (those up to
+# D = 160 and the wide ones above) and groupnorm.cu's f32 instantiation,
+# each held to its plain version computed in float64 on
 # the card: the kernel's max |error| may be at most F32_LIMIT times that of
 # the f32 plain version (TF32 off) on the same inputs. The broken copies
 # round each kernel's operands (or the group norm's input) to TF32, one pass
@@ -1213,8 +1231,12 @@ def test_kernel_variants_apply_to_the_source(variant):
 F32_LIMIT = 4.0
 F32_FWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
                   (2, 4096, 1, 512), (2, 1000, 8, 40), (1, 333, 2, 264), (1, 77, 3, 24)]
-F32_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
-                  (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24)]
+F32_NARROW_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
+                         (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24)]
+# f32 VAE pretraining's (8, 1024, 1, 512), a longer S, a ragged S at a D the
+# tiles zero-fill (264 to 384) and the narrowest wide D
+F32_WIDE_BWD_SHAPES = [(8, 1024, 1, 512), (2, 4096, 1, 512), (1, 333, 2, 264), (1, 77, 3, 168)]
+F32_BWD_SHAPES = F32_NARROW_BWD_SHAPES + F32_WIDE_BWD_SHAPES
 F32_GN_SHAPES = [(4, 320, 64, 64), (4, 1280, 8, 8), (2, 512, 64, 64), (1, 128, 512, 512),
                  (2, 1280, 6, 6), (3, 96, 7, 5)]
 _TF32 = ("{\n    uint32_t r;\n    asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n"
@@ -1232,6 +1254,14 @@ F32_MUTATIONS = {
                          "float operator()(float x) const { return x; }",
                          "struct DqOperand {\n  __device__ __forceinline__ float "
                          "operator()(float x) const " + _TF32),
+    "wide_dkv_operands_tf32": ("flash_f32.cu", "struct WideDkvOperand {\n  "
+                               "__device__ __forceinline__ float operator()(float x) const "
+                               "{ return x; }", "struct WideDkvOperand {\n  __device__ "
+                               "__forceinline__ float operator()(float x) const " + _TF32),
+    "wide_dq_operands_tf32": ("flash_f32.cu", "struct WideDqOperand {\n  "
+                              "__device__ __forceinline__ float operator()(float x) const "
+                              "{ return x; }", "struct WideDqOperand {\n  __device__ "
+                              "__forceinline__ float operator()(float x) const " + _TF32),
     "fwd_pieces_b0_b1": ("flash_fwd_f32.cu", "  b[2] = __float2bfloat16_rn(r);",
                          "  b[2] = __float2bfloat16_rn(0.f);"),
     "gn_input_tf32": ("groupnorm.cu", "__device__ __forceinline__ static float load(float v) "
@@ -1243,10 +1273,16 @@ F32_MUTATIONS = {
 # the f32 plain version's own error there (5.0e-7 in the output, 8.2e-7 in
 # lse) is larger than what dropping b2 adds on these inputs; at every other
 # shape it reads 1.03-3.16. It is held to those.
-F32_MUTATION_SHAPES = {"fwd_pieces_b0_b1": [s for s in F32_FWD_SHAPES if s != (2, 4096, 1, 512)]}
+# Each backward copy is held at the shapes its source runs.
+F32_MUTATION_SHAPES = {"fwd_pieces_b0_b1": [s for s in F32_FWD_SHAPES if s != (2, 4096, 1, 512)],
+                       "dkv_operands_tf32": F32_NARROW_BWD_SHAPES,
+                       "dq_operands_tf32": F32_NARROW_BWD_SHAPES,
+                       "wide_dkv_operands_tf32": F32_WIDE_BWD_SHAPES,
+                       "wide_dq_operands_tf32": F32_WIDE_BWD_SHAPES}
 # which outputs each broken copy must break: the whole forward, dK/dV, dQ, GN
 F32_MUTATION_KERNEL = {"fwd_operands_tf32": "fwd", "fwd_pieces_b0_b1": "fwd",
                        "dkv_operands_tf32": "dkv", "dq_operands_tf32": "dq",
+                       "wide_dkv_operands_tf32": "dkv", "wide_dq_operands_tf32": "dq",
                        "gn_input_tf32": "gn"}
 
 # Prints {kernel: {shape: worst kernel error / (F32_LIMIT x the f32 plain
@@ -1411,8 +1447,30 @@ def test_f32_groupnorm_tail_path_at_every_offset(offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 333, 2, 152)],
-                         ids=_shape_id)
+def test_f32_wide_backward_counts_and_reads_strided_views():
+    """At D > 160 the f32 dK/dV and dQ read head-split views of one packed
+    projection as their contiguous copies, bit for bit, and count each
+    launch in launches, launches_f32 and launches_wide."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(2, 200, 3, 2, 264, device="cuda", generator=g)
+    do = torch.randn(2, 200, 2, 264, device="cuda", generator=g)
+    views = qkv.unbind(dim=2)
+    wrappers = (fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dq)
+    before = [(w.launches, w.launches_f32, w.launches_wide) for w in wrappers]
+    out, lse = flash_attention_fwd(*views)
+    delta = fl.flash_delta(out, do)
+    results = [(*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+               for q, k, v in (views, [t.contiguous() for t in views])]
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+    assert [(w.launches, w.launches_f32, w.launches_wide) for w in wrappers] == [
+        (n + 2, f + 2, wide + 2) for n, f, wide in before]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 333, 2, 152),
+                                   (8, 1024, 1, 512), (1, 333, 2, 264)], ids=_shape_id)
 def test_f32_kernels_are_deterministic(shape):
     """One owner and one summation order a result element: two launches of
     each f32 kernel give bitwise-equal outputs."""

@@ -60,6 +60,7 @@ from agenda_tpu_torch.detect.families import build_family
 from agenda_tpu_torch.detect.optim import DetectorAdamW, layer_decay_scale
 from agenda_tpu_torch.detect.runner import RunnerConfig
 from agenda_tpu_torch.detect.vitdet import drop_path
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IMG, MAX_GT, B = 64, 8, 2
 FRCNN = dict(img_size=IMG, max_gt=MAX_GT, nms_pre=256, num_proposals=64, rpn_sample=64,

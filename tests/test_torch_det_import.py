@@ -51,6 +51,7 @@ from agenda_tpu_torch.io.safetensors_io import save_file
 from agenda_tpu_torch.io.torch_import import (_resize_pos_embed, import_detector_weights,
                                               load_torch_checkpoint)
 from test_torch_import import _conv_torch, _convmodule, _invert_csp, _invert_resnet, _seq
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = {"img_size": 64, "max_gt": 8}
 VIT = dict(SMALL, embed_dim=64, vit_depth=2, vit_heads=2, window_size=2,

@@ -78,6 +78,7 @@ from agenda_tpu_torch.detect.runner import (SIDECAR, DetectorRunner, RunnerConfi
 from agenda_tpu_torch.detect.flax_layout import flax_to_state_dict, state_dict_to_flax
 from agenda_tpu_torch.detect.yolov8 import YOLOv8Config, yolov8_loss
 from test_torch_native import native_library  # noqa: F401 (the fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IMG, MAX_GT, B = 64, 8, 4
 LOSS_RTOL = 1e-5

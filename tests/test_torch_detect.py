@@ -45,6 +45,7 @@ from agenda_tpu_torch.detect.runner import (DetectorRunner, RunnerConfig, load_v
                                             save_variables)
 from agenda_tpu_torch.utils.png import write_png
 from test_torch_native import native_library  # noqa: F401 (the fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # At unit-scale activations (the calibrated checkpoint) XLA's and oneDNN's
 # f32 convolutions differ by up to HEAD_TOL in the logits. A DFL box edge

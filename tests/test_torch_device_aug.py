@@ -65,6 +65,7 @@ from agenda_tpu_torch.detect.dataset import CocoDetDataset, ConcatDataset
 from agenda_tpu_torch.detect.fabricate import fabricate_detector, write_square_set
 from agenda_tpu_torch.detect.runner import DetectorRunner
 from test_torch_native import native_library  # noqa: F401 (the fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the JAX side of every pixel comparison takes the native resize
 pytestmark = pytest.mark.usefixtures("native_library")

@@ -37,6 +37,7 @@ from agenda_tpu_torch.kernels import groupnorm as gn
 from agenda_tpu_torch.train import finetune_sd as ttrain
 from agenda_tpu_torch.train import finetune_sd_token as ttoken
 from agenda_tpu_torch.utils.png import write_png
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 2e-5  # f32 on both sides; only the summation order differs
 GRAD_TOL = 1e-4  # f32 gradients through exp and two products of S terms
@@ -90,9 +91,12 @@ def test_kernel_checks_take_bf16_and_f32_and_refuse_f16(dtype):
     fl._check_cuda("flash", (q, q, q), 512)
     fl._check_cuda("flash backward", (q, q, q, q), 160)
     gn._check_cuda(x, w, w)
-    with pytest.raises(ValueError):  # D above the f32 backward's 160
-        wide = torch.empty(1, 64, 1, 512, dtype=dtype, device="meta")
-        fl._check_cuda("flash backward", (wide,) * 4, 160)
+    fl._check_cuda("flash backward", (torch.empty(1, 64, 1, 512, dtype=dtype, device="meta"),) * 4,
+                   512)
+    for d in (520, 204):  # D above the wide backward's 512; D not a multiple of 8
+        with pytest.raises(ValueError):
+            wide = torch.empty(1, 64, 1, d, dtype=dtype, device="meta")
+            fl._check_cuda("flash backward", (wide,) * 4, 512)
     odd = torch.empty(2, 64, 2, 42, dtype=dtype, device="meta")[..., :40]
     with pytest.raises(ValueError):  # a head stride of 42 elements: not 16-byte chunks
         fl._check_cuda("flash", (odd, odd, odd), 512)

@@ -21,6 +21,7 @@ from agenda_tpu.io.torch_import import (
     import_detector_weights,
     load_torch_checkpoint,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _variables(name):

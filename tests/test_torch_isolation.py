@@ -111,6 +111,7 @@ print("FORBIDDEN", bad)
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"  # one intra-op thread: tests/torch_threads.py says why
     return env
 
 

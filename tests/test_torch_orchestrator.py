@@ -30,6 +30,7 @@ import torch
 
 from agenda_tpu.cli import pipeline as jpl
 from agenda_tpu_torch.cli import pipeline as pl
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EXTRA_ARGS = {
     "finetune_sd": ["--train_batch_size", "1", "--checkpointing_steps", "100",

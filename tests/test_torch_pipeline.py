@@ -32,6 +32,7 @@ from agenda_tpu_torch.io.safetensors_io import load_file, save_file
 from agenda_tpu_torch.utils.png import encode_png, read_png, write_png
 
 from fixtures import make_tiny_pipeline_dir
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPT = "an aerial view image with cars in utah"
 WORDS = ["cars", "utah"]

@@ -40,6 +40,7 @@ from agenda_tpu_torch.annotate import refine
 from agenda_tpu_torch.annotate.boxes import complete_edge_boxes
 from agenda_tpu_torch.models.resnet import ResNet50, resnet_from_flax, resnet_to_flax
 from agenda_tpu_torch.utils.png import write_png
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 logits of XLA's and oneDNN's convolutions through 17-53 layers of
 # batch norm at unit-scale activations: 1e-4 of their rms in eval mode. In

@@ -43,6 +43,7 @@ from agenda_tpu_torch.io.safetensors_io import load_file
 from agenda_tpu_torch.models.resnet import (ResNet50, init_resnet_, normalize_imagenet,
                                             resnet_from_flax)
 from test_torch_refine import write_refine_set
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CROP, LR, EPOCHS = 32, 1e-6, 2
 CKPT_TOL_RMS = 2e-3  # every checkpoint value, of its tensor's rms

@@ -37,6 +37,7 @@ from agenda_tpu_torch.io.configs import UNetConfig
 from agenda_tpu_torch.models.unet import UNet2DConditionModel
 
 from fixtures import make_tiny_pipeline_dir
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPT = "an aerial view image with cars in utah"
 WORDS = ["cars", "utah"]

@@ -55,6 +55,7 @@ from agenda_tpu_torch.train import finetune_sd as ttrain
 from agenda_tpu_torch.train import finetune_sd_token as ttok
 from agenda_tpu_torch.train import optim as toptim
 from agenda_tpu_torch.utils.png import write_png
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # After step 1 the two packages' parameters differ where Adam's first step
 # g / (|g| + eps) meets a gradient within f32 noise of zero (0.03% of the

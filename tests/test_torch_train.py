@@ -52,6 +52,7 @@ from agenda_tpu_torch.models.vae import AutoencoderKL, sample_latents
 from agenda_tpu_torch.train import finetune_sd as ttrain
 from agenda_tpu_torch.train import optim as toptim
 from agenda_tpu_torch.utils.png import write_png
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4  # f32 on both sides through the tiny models; only the summation order differs
 LR = 1e-3
