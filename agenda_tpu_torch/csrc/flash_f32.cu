@@ -1,6 +1,7 @@
 // Flash attention's backward in full f32 for Hopper (sm_90a): the dK/dV and
-// dQ that --mixed_precision no and f32 VAE pretraining run on the card, up
-// to D = 512 (the forward, on the tensor cores, is flash_fwd_f32.cu).
+// dQ that --mixed_precision no runs on the card, up to D = 160 (the forward,
+// on the tensor cores, is flash_fwd_f32.cu; the backward above D = 160 is
+// flash_bwd_f32_wide.cu's).
 //
 // Replaces the TPU kernels of agenda_tpu/kernels/flash.py on f32 operands,
 // which they take as they take bf16 (their dispatch in
@@ -36,24 +37,6 @@
 //   staged in shared memory and read as float4 along the reduction.
 // - Every tile is whole in shared memory (198 KB at D = 160 in the dK/dV,
 //   181 KB in the dQ).
-// Above D = 160 (f32 VAE pretraining's single-head D = 512: S = 1024 at
-// 256 px) a 64 x 512 f32 tile is 128 KB, and the dK/dV's two accumulators
-// would be two of them. The wide kernels own 32 rows a block (keys for
-// dK/dV, queries for dQ), keep their two operands whole in shared memory
-// (2 x 32 x 512 f32, 129 KB) and loop over 16-row tiles of the other side
-// (2 x 16 x 512, 65 KB), D zero-filled to 128 * NJ (256, 384 or 512):
-// - Scores S and dP of a 32 x 16 tile: the two warpgroups take one half of D
-//   each; thread t of a warpgroup owns rows t / 8 + 16 i and columns t % 8 +
-//   8 j (i, j < 2) and reads both operands as float4 along D (a warp's 4 + 8
-//   distinct rows, one wavefront a load). The second warpgroup's partial
-//   sums go through shared memory to the first, which adds them in a fixed
-//   order and stages P and dS (32 x 16).
-// - Products into the output: thread (warp w, lane l) owns columns 4 l +
-//   128 j (j < NJ, float4) of a few rows: in the dK/dV the first warpgroup
-//   accumulates dV = P^T dO and the second dK = dS^T Q, 8 keys a warp, 32 NJ
-//   f32 a thread; in the dQ all eight warps accumulate dQ = dS K, 4 queries
-//   a warp. A warp reads P or dS as a broadcast float4 and the other operand
-//   as a contiguous 512-byte row.
 // Each output element has one owner and a fixed summation order: no
 // atomics; two launches on the same inputs give bitwise-equal outputs.
 
@@ -67,13 +50,6 @@ constexpr int kThreads = 256;
 constexpr int kTile = 64;             // rows a block owns, and rows of a tile it loops over
 constexpr int kLdP = kTile + 4;       // pitch of the staged P / dS tiles: 17 float4, odd
 constexpr int kMaxBwdHeadDim = 160;
-// the wide kernels (D > 160)
-constexpr int kOwn = 32;              // rows a block owns
-constexpr int kStep = 16;             // rows of a tile of the other side
-constexpr int kLdT = kStep + 4;       // pitch of the staged P / dS tiles
-constexpr int kParts = 8;             // partial sums a thread hands over (S and dP, 2 x 2)
-constexpr int kMaxWideHeadDim = 512;
-
 struct Operand {
   const float* p;
   long long sb, ss, sh;  // element strides of batch, sequence, head (D is unit-stride)
@@ -96,13 +72,6 @@ struct DkvOperand {
 struct DqOperand {
   __device__ __forceinline__ float operator()(float x) const { return x; }
 };
-struct WideDkvOperand {
-  __device__ __forceinline__ float operator()(float x) const { return x; }
-};
-struct WideDqOperand {
-  __device__ __forceinline__ float operator()(float x) const { return x; }
-};
-
 template <typename F>
 __device__ __forceinline__ float4 operand4(const float* p) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -321,236 +290,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// -- the wide backward (D > 160) ----------------------------------------------------
-
-__device__ __forceinline__ void fma4(float4& acc, float w, const float4& x) {
-  acc.x = fmaf(w, x.x, acc.x);
-  acc.y = fmaf(w, x.y, acc.y);
-  acc.z = fmaf(w, x.z, acc.z);
-  acc.w = fmaf(w, x.w, acc.w);
-}
-
-template <int NJ>
-struct Wide {
-  static constexpr int kW = 128 * NJ;  // D zero-filled to this width
-  static constexpr int kLd = kW + 4;   // row pitch: an odd number of 16-byte units
-  static constexpr int kSmem = (2 * kOwn * kLd + 2 * kStep * kLd + 2 * kOwn * kLdT +
-                                kParts * 128) * 4;
-};
-
-// The warpgroup's half of D of s[i][j] = A1[row i] . B1[col j] and dp[i][j] =
-// A2[row i] . B2[col j], rows t / 8 + 16 i of the owned side, columns t % 8 +
-// 8 j of the tile; then the second warpgroup's sums are added to the first's
-// (returns true in the first, whose s and dp then hold the whole sums).
-template <int NJ, typename F>
-__device__ __forceinline__ bool half_scores(float (&s)[2][2], float (&dp)[2][2], const float* A1,
-                                       const float* B1, const float* A2, const float* B2,
-                                       float* red) {
-  using T = Wide<NJ>;
-  const int g = threadIdx.x / 128, t = threadIdx.x % 128, r = t / 8, c = t % 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-  const int d0 = g * (T::kW / 2);
-  for (int d = d0; d < d0 + T::kW / 2; d += 4) {
-    float4 a[2], b[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) a[i] = operand4<F>(A1 + (r + 16 * i) * T::kLd + d);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) b[j] = operand4<F>(B1 + (c + 8 * j) * T::kLd + d);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j] = dot4(a[i], b[j], s[i][j]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) a[i] = operand4<F>(A2 + (r + 16 * i) * T::kLd + d);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) b[j] = operand4<F>(B2 + (c + 8 * j) * T::kLd + d);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) dp[i][j] = dot4(a[i], b[j], dp[i][j]);
-  }
-  if (g == 1) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red[(2 * i + j) * 128 + t] = s[i][j];
-        red[(4 + 2 * i + j) * 128 + t] = dp[i][j];
-      }
-  }
-  __syncthreads();
-  if (g == 1) return false;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      s[i][j] += red[(2 * i + j) * 128 + t];
-      dp[i][j] += red[(4 + 2 * i + j) * 128 + t];
-    }
-  return true;
-}
-
-// acc[i][j] += sum over r < kStep of W[(row0 + i) * kLdT + r] * X[r * ld + 4 lane + 128 j]
-template <int RI, int NJ, typename F>
-__device__ __forceinline__ void accumulate_rows(float4 (&acc)[RI][NJ], const float* W, const float* X,
-                                           int row0, int lane) {
-  using T = Wide<NJ>;
-#pragma unroll
-  for (int r = 0; r < kStep; r += 4) {
-    float4 w[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) w[i] = operand4<F>(W + (row0 + i) * kLdT + r);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 x = operand4<F>(X + (r + c) * T::kLd + 4 * lane + 128 * j);
-#pragma unroll
-        for (int i = 0; i < RI; ++i) fma4(acc[i][j], part(w[i], c), x);
-      }
-    }
-  }
-}
-
-// rows row0 + i of one (batch, head) of a contiguous (B, S, H, D) output,
-// columns 4 lane + 128 j, times mul; rows past S and columns past D are skipped
-template <int RI, int NJ>
-__device__ __forceinline__ void store_rows(float* out, const float4 (&acc)[RI][NJ], const Params& p,
-                                      int b, int h, int row0, int lane, float mul) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = row0 + i;
-    if (row >= p.S) continue;
-    float* dst = out + (((long long)b * p.S + row) * p.H + h) * p.D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = 4 * lane + 128 * j;
-      if (c < p.D) {
-        const float4 a = acc[i][j];
-        *reinterpret_cast<float4*>(dst + c) = make_float4(a.x * mul, a.y * mul, a.z * mul,
-                                                          a.w * mul);
-      }
-    }
-  }
-}
-
-// One block owns 32 keys of a (batch, head): K and V stay in shared memory
-// while the 16-query tiles pass; the first warpgroup accumulates dV, the
-// second dK, 8 keys a warp.
-template <int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_f32_wide_kernel(const __grid_constant__ Params p) {
-  using T = Wide<NJ>;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kOwn * T::kLd;
-  float* Qs = Vs + kOwn * T::kLd;
-  float* Os = Qs + kStep * T::kLd;  // dO
-  float* Pt = Os + kStep * T::kLd;  // P^T (keys x queries)
-  float* dSt = Pt + kOwn * kLdT;    // dS^T
-  float* red = dSt + kOwn * kLdT;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, n0 = blockIdx.x * kOwn;
-  const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  const int t = threadIdx.x % 128, r = t / 8, c = t % 8;
-  const float* lse = p.lse + (long long)bh * p.S;
-  const float* delta = p.delta + (long long)bh * p.S;
-
-  load_tile<T::kW>(Ks, T::kLd, p.k, b, h, n0, kOwn, p.S, 0, p.D);
-  load_tile<T::kW>(Vs, T::kLd, p.v, b, h, n0, kOwn, p.S, 0, p.D);
-  float4 acc[8][NJ];  // dV (first warpgroup) or dK (second) at keys 8 warp + i
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int m0 = 0; m0 < p.S; m0 += kStep) {
-    __syncthreads();  // every thread is done with the last query tile, P and dS
-    load_tile<T::kW>(Qs, T::kLd, p.q, b, h, m0, kStep, p.S, 0, p.D);
-    load_tile<T::kW>(Os, T::kLd, p.dout, b, h, m0, kStep, p.S, 0, p.D);
-    __syncthreads();
-    float s[2][2], dp[2][2];
-    if (half_scores<NJ, WideDkvOperand>(s, dp, Ks, Qs, Vs, Os, red)) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int query = m0 + c + 8 * j;
-        const bool in = query < p.S;
-        const float l = in ? lse[query] : 0.f, dl = in ? delta[query] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const bool valid = in && n0 + r + 16 * i < p.S;
-          const float pr = valid ? expf(s[i][j] * p.scale - l) : 0.f;
-          Pt[(r + 16 * i) * kLdT + c + 8 * j] = pr;
-          dSt[(r + 16 * i) * kLdT + c + 8 * j] = pr * (dp[i][j] - dl);
-        }
-      }
-    }
-    __syncthreads();
-    if (g == 0)
-      accumulate_rows<8, NJ, WideDkvOperand>(acc, Pt, Os, 8 * warp, lane);
-    else
-      accumulate_rows<8, NJ, WideDkvOperand>(acc, dSt, Qs, 8 * warp, lane);
-  }
-  if (g == 0)
-    store_rows<8, NJ>(p.dv, acc, p, b, h, n0 + 8 * warp, lane, 1.f);
-  else
-    store_rows<8, NJ>(p.dk, acc, p, b, h, n0 + 8 * warp, lane, p.scale);
-}
-
-// One block owns 32 queries: Q and dO stay in shared memory while the 16-key
-// tiles pass; all eight warps accumulate dQ, 4 queries a warp.
-template <int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_f32_wide_kernel(const __grid_constant__ Params p) {
-  using T = Wide<NJ>;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Os = Qs + kOwn * T::kLd;  // dO
-  float* Ks = Os + kOwn * T::kLd;
-  float* Vs = Ks + kStep * T::kLd;
-  float* dSs = Vs + kStep * T::kLd;  // dS (queries x keys)
-  float* red = dSs + 2 * kOwn * kLdT;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, m0 = blockIdx.x * kOwn;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = threadIdx.x % 128, r = t / 8, c = t % 8;
-
-  load_tile<T::kW>(Qs, T::kLd, p.q, b, h, m0, kOwn, p.S, 0, p.D);
-  load_tile<T::kW>(Os, T::kLd, p.dout, b, h, m0, kOwn, p.S, 0, p.D);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + r + 16 * i;
-    row_lse[i] = row < p.S ? p.lse[(long long)bh * p.S + row] : 0.f;
-    row_delta[i] = row < p.S ? p.delta[(long long)bh * p.S + row] : 0.f;
-  }
-  float4 acc[4][NJ];  // dQ at queries 4 warp + i
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int n0 = 0; n0 < p.S; n0 += kStep) {
-    __syncthreads();  // every thread is done with the last key tile and dS
-    load_tile<T::kW>(Ks, T::kLd, p.k, b, h, n0, kStep, p.S, 0, p.D);
-    load_tile<T::kW>(Vs, T::kLd, p.v, b, h, n0, kStep, p.S, 0, p.D);
-    __syncthreads();
-    float s[2][2], dp[2][2];
-    if (half_scores<NJ, WideDqOperand>(s, dp, Qs, Ks, Os, Vs, red)) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const bool valid = m0 + r + 16 * i < p.S && n0 + c + 8 * j < p.S;
-          const float pr = valid ? expf(s[i][j] * p.scale - row_lse[i]) : 0.f;
-          dSs[(r + 16 * i) * kLdT + c + 8 * j] = pr * (dp[i][j] - row_delta[i]);
-        }
-    }
-    __syncthreads();
-    accumulate_rows<4, NJ, WideDqOperand>(acc, dSs, Ks, 4 * warp, lane);
-  }
-  store_rows<4, NJ>(p.dq, acc, p, b, h, m0 + 4 * warp, lane, p.scale);
-}
-
 // -- host side --------------------------------------------------------------------
 
 template <typename Kernel>
@@ -580,26 +319,12 @@ cudaError_t launch_dq(const Params& p, int B, cudaStream_t st) {
   return launch(flash_bwd_dq_f32_kernel<NJ>, BwdTile<NJ>::kDqSmem, kTile, p, B, st, &attr_set);
 }
 
-template <int NJ>
-cudaError_t launch_wide_dkv(const Params& p, int B, cudaStream_t st) {
-  static bool attr_set = false;
-  return launch(flash_bwd_dkv_f32_wide_kernel<NJ>, Wide<NJ>::kSmem, kOwn, p, B, st,
-                &attr_set);
-}
-
-template <int NJ>
-cudaError_t launch_wide_dq(const Params& p, int B, cudaStream_t st) {
-  static bool attr_set = false;
-  return launch(flash_bwd_dq_f32_wide_kernel<NJ>, Wide<NJ>::kSmem, kOwn, p, B, st,
-                &attr_set);
-}
-
 // Checks shared by the entries (four f32 operands at 16-byte-aligned bases with
-// strides that are multiples of 4 elements; D a multiple of 8 in (min_d, max_d]);
+// strides that are multiples of 4 elements; D a multiple of 8 up to max_d);
 // fills p's operands and scalars. Returns cudaSuccess or cudaErrorInvalidValue.
 cudaError_t make_params(Params* p, const void* const* ptrs, const long long* strides, int B,
-                        int S, int H, int D, int min_d, int max_d) {
-  if (B <= 0 || S <= 0 || H <= 0 || D <= min_d || D % 8 != 0 || D > max_d || B * H > 65535)
+                        int S, int H, int D, int max_d) {
+  if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D % 8 != 0 || D > max_d || B * H > 65535)
     return cudaErrorInvalidValue;
   Operand* ops[4] = {&p->q, &p->k, &p->v, &p->dout};
   for (int i = 0; i < 4; ++i) {
@@ -620,9 +345,8 @@ cudaError_t make_params(Params* p, const void* const* ptrs, const long long* str
 
 }  // namespace
 
-// The largest head dim of the backward up to D = 160, and of the wide one above it.
+// The largest head dim of the backward (flash_bwd_f32_wide.cu's takes a larger one).
 extern "C" int agenda_flash_f32_bwd_max_head_dim() { return kMaxBwdHeadDim; }
-extern "C" int agenda_flash_f32_wide_bwd_max_head_dim() { return kMaxWideHeadDim; }
 
 // q, k, v, dout: (B, S, H, D) f32 with the given element strides (q, k, v,
 // dout; batch, seq, head each; D unit-stride), 16-byte-aligned bases and
@@ -635,7 +359,7 @@ extern "C" int agenda_flash_bwd_dkv_f32(const void* q, const void* k, const void
                                         const long long* strides, void* stream) {
   const void* ptrs[4] = {q, k, v, dout};
   Params p;
-  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D, 0, kMaxBwdHeadDim);
+  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D, kMaxBwdHeadDim);
   if (err != cudaSuccess) return (int)err;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
@@ -654,7 +378,7 @@ extern "C" int agenda_flash_bwd_dq_f32(const void* q, const void* k, const void*
                                        const long long* strides, void* stream) {
   const void* ptrs[4] = {q, k, v, dout};
   Params p;
-  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D, 0, kMaxBwdHeadDim);
+  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D, kMaxBwdHeadDim);
   if (err != cudaSuccess) return (int)err;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
@@ -663,45 +387,4 @@ extern "C" int agenda_flash_bwd_dq_f32(const void* q, const void* k, const void*
   if (D <= 48) return (int)launch_dq<3>(p, B, st);
   if (D <= 80) return (int)launch_dq<5>(p, B, st);
   return (int)launch_dq<10>(p, B, st);
-}
-
-// The wide dK/dV: as agenda_flash_bwd_dkv_f32 takes, with D a multiple of 8
-// in (160, 512]. Returns a cudaError_t.
-extern "C" int agenda_flash_bwd_dkv_f32_wide(const void* q, const void* k, const void* v,
-                                             const void* dout, const void* lse,
-                                             const void* delta, void* dk, void* dv, int B, int S,
-                                             int H, int D, const long long* strides,
-                                             void* stream) {
-  const void* ptrs[4] = {q, k, v, dout};
-  Params p;
-  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D, kMaxBwdHeadDim,
-                                    kMaxWideHeadDim);
-  if (err != cudaSuccess) return (int)err;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 256) return (int)launch_wide_dkv<2>(p, B, st);
-  if (D <= 384) return (int)launch_wide_dkv<3>(p, B, st);
-  return (int)launch_wide_dkv<4>(p, B, st);
-}
-
-// The wide dQ, same inputs; dq: contiguous (B, S, H, D) f32. Returns a cudaError_t.
-extern "C" int agenda_flash_bwd_dq_f32_wide(const void* q, const void* k, const void* v,
-                                            const void* dout, const void* lse, const void* delta,
-                                            void* dq, int B, int S, int H, int D,
-                                            const long long* strides, void* stream) {
-  const void* ptrs[4] = {q, k, v, dout};
-  Params p;
-  cudaError_t err = make_params(&p, ptrs, strides, B, S, H, D, kMaxBwdHeadDim,
-                                    kMaxWideHeadDim);
-  if (err != cudaSuccess) return (int)err;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<float*>(dq);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 256) return (int)launch_wide_dq<2>(p, B, st);
-  if (D <= 384) return (int)launch_wide_dq<3>(p, B, st);
-  return (int)launch_wide_dq<4>(p, B, st);
 }

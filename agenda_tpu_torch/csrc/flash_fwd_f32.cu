@@ -10,22 +10,24 @@
 //
 // What bounds it on the H100: 4*B*H*S^2*D f32 operations, B*H*S^2
 // exponentials, 4*B*S*H*D*4 bytes. The tensor cores take no f32 operand, so
-// each f32 operand is split into three bf16 pieces, x = b0 + b1 + b2 with
-// b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1): 24 significant
-// bits, as in f32, and the sum is exact. A product is the six piece
-// products with i + j <= 2 (the three dropped ones lie below 2^-25 of it),
-// added smallest first into one f32 accumulator. Six bf16 passes at 989
-// TFLOP/s cost what three TF32 passes cost at 495 (the bound chip_smoke.py
-// counts, f32_bound). Three bf16 pieces rather than TF32 hi/lo: 6 bytes an
-// element in shared memory, not 8; bf16 wgmma reads B MN-major, so O += P V
-// takes V as it lies; and a TF32 pair keeps about 22 bits.
+// each f32 operand is split into three bf16 pieces, x = b0 + b1 + b2
+// (f32_pieces.cuh: 24 significant bits, as in f32, and the sum is exact). A
+// product is the six piece products with i + j <= 2 (the three dropped ones
+// lie below 2^-25 of it), added smallest first into one f32 accumulator.
+// Six bf16 passes at 989 TFLOP/s cost what three TF32 passes cost at 495
+// (the bound chip_smoke.py counts, f32_bound). Three bf16 pieces rather
+// than TF32 hi/lo: 6 bytes an element in shared memory, not 8; bf16 wgmma
+// reads B MN-major, so O += P V takes V as it lies; and a TF32 pair keeps
+// about 22 bits.
 //
 // Two launches:
 // - flash_f32_split_kernel (the pre-pass): q, k and v as the caller's
 //   strided views, read once in 16-byte loads, into nine contiguous bf16
 //   planes, operand t and piece i at plane 3 t + i, each (B, S, H, D). TMA
 //   reads them as it reads the bf16 kernel's operands; views and their
-//   contiguous copies give the same planes, bit for bit. It moves 30 bytes
+//   contiguous copies give the same planes, bit for bit. (The wide f32
+//   backward, flash_bwd_f32_wide.cu, runs the same kernel over q, k, v and
+//   dO, into twelve planes.) It moves 30 bytes
 //   an element of q, k and v, about 4% of the forward's time at
 //   (4, 4096, 8, 40); splitting inside the forward instead would read 4
 //   bytes an element from L2 in place of 6 but take shared memory the
@@ -74,10 +76,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "f32_pieces.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
+using f32pieces::piece_a;
+using f32pieces::piece_b;
+using f32pieces::split3_pair;
 using hopper::align1024;
 using hopper::desc_k_major;
 using hopper::desc_mn_major;
@@ -102,38 +108,15 @@ constexpr int kMaxNarrowHeadDim = 160;
 
 // The operands as they are split: exact f32. (The card tests' broken copies
 // round these to TF32, one tensor-core pass, to show that the limit catches it.)
-struct FwdOperand {
+struct SplitOperand {
   __device__ __forceinline__ float operator()(float x) const { return x; }
 };
 
-// x = b[0] + b[1] + b[2], each a bf16, the remainders exact in f32
-__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&b)[3]) {
-  x = FwdOperand()(x);
-  b[0] = __float2bfloat16_rn(x);
-  float r = x - __bfloat162float(b[0]);
-  b[1] = __float2bfloat16_rn(r);
-  r -= __bfloat162float(b[1]);
-  b[2] = __float2bfloat16_rn(r);
-}
-
-// the pieces of x and y as three bf16 pairs, x in the low half: the RS
-// form's A registers
-__device__ __forceinline__ void split3_pair(float x, float y, uint32_t (&a)[3]) {
-  __nv_bfloat16 bx[3], by[3];
-  split3(x, bx);
-  split3(y, by);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    __nv_bfloat162 v = __halves2bfloat162(bx[i], by[i]);
-    a[i] = *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
 struct SplitParams {
-  const float* in[3];                 // q, k, v: (B, S, H, D), D unit-stride
-  long long sb[3], ss[3], sh[3];      // their element strides
-  __nv_bfloat16* out;                 // nine contiguous (B, S, H, D) planes
-  int S, H, D, quads;                 // quads: B*S*H*D / 4, an operand's float4s
+  const float* in[4];             // q, k, v (and the wide backward's dO): (B, S, H, D)
+  long long sb[4], ss[4], sh[4];  // their element strides (D unit-stride)
+  __nv_bfloat16* out;             // three contiguous (B, S, H, D) planes an operand
+  int S, H, D, quads;             // quads: B*S*H*D / 4, an operand's float4s
 };
 
 // blockIdx.y = the operand; each thread one float4 of it, into three planes
@@ -147,9 +130,10 @@ __global__ void __launch_bounds__(256)
   const int h = row % p.H, bs = row / p.H, s = bs % p.S, b = bs / p.S;
   const float4 x = __ldg(reinterpret_cast<const float4*>(
       p.in[t] + b * p.sb[t] + s * p.ss[t] + h * p.sh[t] + c));
+  const SplitOperand op{};
   uint32_t lo[3], hi[3];
-  split3_pair(x.x, x.y, lo);
-  split3_pair(x.z, x.w, hi);
+  split3_pair(op(x.x), op(x.y), lo);
+  split3_pair(op(x.z), op(x.w), hi);
   const long long plane = 4ll * p.quads;
 #pragma unroll
   for (int k = 0; k < 3; ++k)
@@ -189,11 +173,6 @@ struct F32Fwd {
   static constexpr size_t kSmem = 3 * kQPiece + 6 * kStages * kKPiece + kXAll +
                                   (4 * kStages + 3) * sizeof(uint64_t) + 1024;
 };
-
-// The six piece pairs (i, j) with i + j <= 2, smallest first: (2, 0), (1, 1),
-// (0, 2), (1, 0), (0, 1), (0, 0); pair pr's piece of A (Q or P) and of B (K or V)
-__host__ __device__ constexpr int piece_a(int pr) { return pr == 0 ? 2 : pr == 1 || pr == 3; }
-__host__ __device__ constexpr int piece_b(int pr) { return pr == 2 ? 2 : pr == 1 || pr == 4; }
 
 // the three pieces of operand t (0 q, 1 k, 2 v), rows [row0, row0 + ROWS)
 // of head h, batch b, columns [col0, col0 + 64 ATOMS), into three tiles
@@ -506,20 +485,21 @@ bool dims_ok(int B, int S, int H, int D) {
 
 extern "C" int agenda_flash_fwd_f32_max_head_dim() { return kMaxHeadDim; }
 
-// q, k, v: (B, S, H, D) f32 with the given element strides (D unit-stride),
-// 16-byte-aligned bases and strides that are multiples of 4; D a multiple of
-// 8 up to 512 -> pieces: nine contiguous (B, S, H, D) bf16 planes, operand t
-// (q, k, v) and piece i at plane 3 t + i. Returns a cudaError_t.
-extern "C" int agenda_flash_f32_split(const void* q, const void* k, const void* v, void* pieces,
-                                      int B, int S, int H, int D, long long q_sb, long long q_ss,
-                                      long long q_sh, long long k_sb, long long k_ss,
-                                      long long k_sh, long long v_sb, long long v_ss,
-                                      long long v_sh, void* stream) {
-  if (!dims_ok(B, S, H, D)) return (int)cudaErrorInvalidValue;
+// q, k, v and dout (null for the forward; the wide backward's): (B, S, H,
+// D) f32 with the given element strides (q, k, v, dout; batch, seq, head
+// each; D unit-stride), 16-byte-aligned bases and strides that are
+// multiples of 4; D a multiple of 8 up to 512 -> pieces: three contiguous
+// (B, S, H, D) bf16 planes an operand, operand t (q, k, v, dout) and piece
+// i at plane 3 t + i. Returns a cudaError_t.
+extern "C" int agenda_flash_f32_split(const void* q, const void* k, const void* v,
+                                      const void* dout, void* pieces, int B, int S, int H, int D,
+                                      const long long* strides, void* stream) {
+  if (!dims_ok(B, S, H, D) || reinterpret_cast<uintptr_t>(pieces) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   SplitParams p;
-  const void* ptrs[3] = {q, k, v};
-  const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  for (int t = 0; t < 3; ++t) {
+  const void* ptrs[4] = {q, k, v, dout};
+  const int n = dout == nullptr ? 3 : 4;
+  for (int t = 0; t < n; ++t) {
     if (reinterpret_cast<uintptr_t>(ptrs[t]) % 16 != 0) return (int)cudaErrorInvalidValue;
     for (int j = 0; j < 3; ++j)
       if (strides[3 * t + j] % 4 != 0) return (int)cudaErrorInvalidValue;
@@ -533,7 +513,7 @@ extern "C" int agenda_flash_f32_split(const void* q, const void* k, const void* 
   p.H = H;
   p.D = D;
   p.quads = (int)((long long)B * S * H * D / 4);
-  const dim3 grid((p.quads + 255) / 256, 3);
+  const dim3 grid((p.quads + 255) / 256, n);
   flash_f32_split_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -281,7 +281,7 @@ __device__ __forceinline__ void acc_to_a(const float* d, int kk, uint32_t* a) {
 // D(64 x N, f32) = A(64 x 16) B(16 x N) + (scale_d ? D : 0), bf16 operands.
 // SS: A and B from shared memory, K-major unless TRANS_A / TRANS_B is 1 (then
 // read MN-major: A's 64 rows, or B's N columns, contiguous in a tile row;
-// only N = 32 takes them).
+// N = 32 and 128 take them).
 template <int N, int TRANS_A = 0, int TRANS_B = 0>
 struct WgmmaSS;
 
@@ -313,17 +313,17 @@ struct WgmmaSS<64> {
   }
 };
 
-template <>
-struct WgmmaSS<128> {
+template <int TRANS_A, int TRANS_B>
+struct WgmmaSS<128, TRANS_A, TRANS_B> {
   __device__ __forceinline__ static void run(float* d, uint64_t a, uint64_t b, int scale_d) {
 #ifdef __CUDA_ARCH__  // the host compiler caps asm operands at 30
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{" WG_R10() ", " WG_R10(1) ", " WG_R10(2) ", " WG_R10(3) ", " WG_R10(4) ", " WG_R10(5)
-        ", %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        ", %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : WG_F40(0), WG_F20(40), WG_F4(60)
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 #endif
   }
 };

@@ -9,17 +9,24 @@ Replaces the Pallas TPU kernels of ``agenda_tpu/kernels/flash.py``:
 - on f32 operands (``--mixed_precision no``), as the TPU kernels take f32 as
   they take bf16: the forward (up to D = 512) -> ``csrc/flash_fwd_f32.cu``,
   the tensor cores on three bf16 pieces of each operand, which its pre-pass
-  ``flash_f32_split`` writes; dK/dV and dQ (up to D = 512; above 160,
-  f32 VAE pretraining's mid-block attention, its wide kernels) ->
-  ``csrc/flash_f32.cu``.
+  ``flash_f32_split`` writes; dK/dV and dQ up to D = 160 ->
+  ``csrc/flash_f32.cu``; above 160 (f32 VAE pretraining's mid-block
+  attention, up to D = 512) -> ``csrc/flash_bwd_f32_wide.cu``, the tensor
+  cores on three bf16 pieces of each operand: each entry runs the pre-pass
+  ``flash_f32_split`` on q, k, v and dO and, over the chunks of
+  ``f32_wide_bwd_plan``, a scores pass ``f32_wide_bwd_scores`` (P and dS
+  into scratch) and the gradient products ``f32_wide_bwd_products``.
 
 Each wrapper launches its kernel on CUDA tensors and takes its plain version
 only for CPU tensors; on a CUDA tensor it launches the bf16 kernel for bf16,
 the f32 kernel for f32, and raises for any other dtype. Each counts its
 kernel launches in ``<wrapper>.launches`` and the f32 kernel's among them in
 ``<wrapper>.launches_f32``; each also counts its launches at D > 160 (the
-wide kernels, bf16 or f32) in ``<wrapper>.launches_wide``; the f32
-forward's pre-pass counts its own in ``flash_f32_split.launches``.
+wide kernels, bf16 or f32) in ``<wrapper>.launches_wide``; the pre-pass
+counts its own in ``flash_f32_split.launches`` (one launch an f32 forward
+and one a wide f32 dK/dV or dQ call), and the wide f32 backward's other
+passes theirs in ``f32_wide_bwd_scores.launches`` and
+``f32_wide_bwd_products.launches``.
 ``flash_attention`` mirrors the JAX ``custom_vjp`` (``flash.py:295-312``):
 the forward saves the output and the row logsumexp, the backward computes
 delta = rowsum(dO * O) in f32 outside the kernels (``flash.py:235``) and
@@ -31,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -126,7 +133,7 @@ def _f32_kernels():
     """``csrc/flash_fwd_f32.cu`` and ``csrc/flash_f32.cu``: (split, forward,
     dK/dV, dQ, the forward's and the backward's largest head dim)."""
     lib = _build.load_library()
-    split = lib.function("agenda_flash_f32_split", [_P] * 4 + [_I] * 4 + [_L] * 9 + [_P])
+    split = lib.function("agenda_flash_f32_split", [_P] * 5 + [_I] * 4 + [_P, _P])
     fwd = lib.function("agenda_flash_fwd_f32", [_P] * 3 + [_I] * 4 + [_P])
     dkv = lib.function("agenda_flash_bwd_dkv_f32", [_P] * 8 + [_I] * 4 + [_P, _P])
     dq = lib.function("agenda_flash_bwd_dq_f32", [_P] * 7 + [_I] * 4 + [_P, _P])
@@ -137,12 +144,12 @@ def _f32_kernels():
 
 @functools.lru_cache(maxsize=None)
 def _f32_wide_bwd_kernels():
-    """``csrc/flash_f32.cu``'s wide dK/dV and dQ (D > 160): (dK/dV, dQ, the
-    largest head dim)."""
+    """``csrc/flash_bwd_f32_wide.cu`` (D > 160): (the scores pass, the
+    gradient products, the largest head dim)."""
     lib = _build.load_library()
-    dkv = lib.function("agenda_flash_bwd_dkv_f32_wide", [_P] * 8 + [_I] * 4 + [_P, _P])
-    dq = lib.function("agenda_flash_bwd_dq_f32_wide", [_P] * 7 + [_I] * 4 + [_P, _P])
-    return dkv, dq, lib.function("agenda_flash_f32_wide_bwd_max_head_dim", [])()
+    scores = lib.function("agenda_flash_f32_wide_scores", [_P] * 4 + [_I] * 9 + [_P])
+    products = lib.function("agenda_flash_f32_wide_products", [_P] * 4 + [_I] * 10 + [_P])
+    return scores, products, lib.function("agenda_flash_f32_wide_bwd_max_head_dim", [])()
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,14 +240,14 @@ flash_attention_fwd.launches_f32 = 0
 flash_attention_fwd.launches_wide = 0
 
 
-def flash_f32_split_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor) -> torch.Tensor:
-    """Plain version of the f32 forward's pre-pass: (9, B, S, H, D) bf16, plane
-    3 t + i the piece i of operand t (q, k, v), b0 = bf16(x), b1 = bf16(x -
-    b0), b2 = bf16(x - b0 - b1), so that b0 + b1 + b2 = x (the remainders are
+def flash_f32_split_reference(*operands: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32 pre-pass: (3 n, B, S, H, D) bf16 for n
+    operands (q, k, v for the forward; q, k, v, dO for the wide backward),
+    plane 3 t + i the piece i of operand t, b0 = bf16(x), b1 = bf16(x - b0),
+    b2 = bf16(x - b0 - b1), so that b0 + b1 + b2 = x (the remainders are
     exact in f32)."""
     planes = []
-    for x in (q, k, v):
+    for x in operands:
         rest = x.float()
         for _ in range(3):
             piece = rest.to(torch.bfloat16)
@@ -249,28 +256,121 @@ def flash_f32_split_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.stack(planes)
 
 
-def flash_f32_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The f32 forward's pre-pass (``csrc/flash_fwd_f32.cu``): f32 (B, S, H, D)
-    q, k, v, taken as ``flash_attention_fwd`` takes them, -> their bf16
-    pieces as ``flash_f32_split_reference`` lays them out, contiguous."""
-    _check(q, k, v)
+def flash_f32_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor = None) -> torch.Tensor:
+    """The f32 pre-pass (``csrc/flash_fwd_f32.cu``): f32 (B, S, H, D) q, k, v,
+    taken as ``flash_attention_fwd`` takes them, and for the wide f32
+    backward dO too -> their bf16 pieces as ``flash_f32_split_reference``
+    lays them out (nine planes, or twelve with dO), contiguous."""
+    ops = (q, k, v) if do is None else (q, k, v, do)
+    _check(*ops)
     if q.dtype != torch.float32:
         raise TypeError(f"the f32 split takes f32, got {q.dtype}")
     if q.device.type == "cpu":
-        return flash_f32_split_reference(q, k, v)
+        return flash_f32_split_reference(*ops)
     split, _, _, _, max_d, _ = _f32_kernels()
-    _check_cuda("flash f32 split", (q, k, v), max_d)
+    _check_cuda("flash f32 split", ops, max_d)
     b, s, h, d = q.shape
-    pieces = torch.empty((9, b, s, h, d), dtype=torch.bfloat16, device=q.device)
-    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
-    rc = split(q.data_ptr(), k.data_ptr(), v.data_ptr(), pieces.data_ptr(), b, s, h, d,
-               *strides, _build.stream_ptr(q.device))
+    pieces = torch.empty((3 * len(ops), b, s, h, d), dtype=torch.bfloat16, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*[st for t in ops for st in t.stride()[:3]])
+    rc = split(q.data_ptr(), k.data_ptr(), v.data_ptr(), None if do is None else do.data_ptr(),
+               pieces.data_ptr(), b, s, h, d, strides, _build.stream_ptr(q.device))
     _build.check(rc, "flash_f32_split")
     flash_f32_split.launches += 1
     return pieces
 
 
 flash_f32_split.launches = 0
+
+# The most bytes of P and dS pieces one wide f32 backward call holds at once
+# (``f32_wide_bwd_plan`` chunks the work under it): 12 bytes an element of
+# the S x S matrix in the dK/dV entry, 6 in the dQ, so 96 MiB at (8, 1024,
+# 1, 512) and 384 MiB at (2, 4096, 1, 512) are one chunk, while a 1024-px
+# mid-block (S = 16384, 3 GiB a head) is cut into query chunks.
+F32_WIDE_BWD_SCRATCH = 1 << 30
+
+
+def _up128(n: int) -> int:
+    """n rounded up to a multiple of 128, as the scratch's columns are."""
+    return -(-n // 128) * 128
+
+
+def f32_wide_bwd_scratch_bytes(s: int, nbh: int, nq: int, dkv: bool) -> int:
+    """Bytes of scratch a chunk of ``nbh`` (batch, head) pairs and ``nq``
+    queries takes: P^T's and dS^T's pieces, S x nq (rounded up to 128), for
+    the dK/dV entry; dS's, nq x S (rounded up to 128), for the dQ."""
+    return (6 * s * _up128(nq) if dkv else 3 * nq * _up128(s)) * nbh * 2
+
+
+def f32_wide_bwd_plan(b: int, s: int, h: int, dkv: bool) -> List[Tuple[int, int, int, int]]:
+    """The chunks (bh0, nbh, q0, nq) of a wide f32 backward call, in launch
+    order, whose scratch each stays within ``F32_WIDE_BWD_SCRATCH`` bytes:
+    as many whole (batch, head) pairs a chunk as fit; where one does not,
+    one pair a chunk and its queries in runs of a multiple of 128 (at least
+    128, whatever the cap), in order, so that the dK/dV sums continue tile
+    by tile from chunk to chunk."""
+    cap = F32_WIDE_BWD_SCRATCH
+    bh = b * h
+    whole = f32_wide_bwd_scratch_bytes(s, 1, s, dkv)
+    if whole <= cap:
+        n = max(1, min(bh, cap // whole, 32767))
+        return [(i, min(n, bh - i), 0, s) for i in range(0, bh, n)]
+    per_query = 12 * s if dkv else 6 * _up128(s)
+    nq = max(128, cap // per_query // 128 * 128)
+    return [(i, 1, q0, min(nq, s - q0)) for i in range(bh) for q0 in range(0, s, nq)]
+
+
+def f32_wide_bwd_scratch(shape, dkv: bool, device) -> Tuple[List[Tuple[int, int, int, int]],
+                                                            torch.Tensor]:
+    """(the chunks of ``f32_wide_bwd_plan``, one bf16 scratch buffer that
+    each of them fits) for a wide f32 dK/dV (dkv) or dQ call at (B, S, H,
+    D) ``shape``."""
+    b, s, h, _ = shape
+    plan = f32_wide_bwd_plan(b, s, h, dkv)
+    nbytes = max(f32_wide_bwd_scratch_bytes(s, nbh, nq, dkv) for _, nbh, _, nq in plan)
+    return plan, torch.empty(nbytes // 2, dtype=torch.bfloat16, device=device)
+
+
+def f32_wide_bwd_scores(pieces, lse, delta, scratch, shape, chunk, dkv: bool) -> None:
+    """The scores pass of one chunk (bh0, nbh, q0, nq) of a (B, S, H, D) call:
+    P^T and dS^T (dkv) or dS as bf16 pieces into ``scratch`` (at least
+    ``f32_wide_bwd_scratch_bytes`` of the chunk, bf16); ``pieces`` from
+    ``flash_f32_split(q, k, v, do)``, lse and delta contiguous (B*H, S) f32."""
+    fn = _f32_wide_bwd_kernels()[0]
+    rc = fn(pieces.data_ptr(), lse.data_ptr(), delta.data_ptr(), scratch.data_ptr(),
+            *shape, *chunk, int(dkv), _build.stream_ptr(pieces.device))
+    _build.check(rc, "f32_wide_bwd_scores")
+    f32_wide_bwd_scores.launches += 1
+
+
+def f32_wide_bwd_products(pieces, scratch, outs, shape, chunk, dkv: bool) -> None:
+    """The gradient products of one chunk from its scores pass's scratch:
+    ``outs`` (dV, dK) for dkv, else (dQ,), contiguous (B, S, H, D) f32; a
+    dK/dV chunk of queries after the first adds to them."""
+    fn = _f32_wide_bwd_kernels()[1]
+    out0, out1 = (outs[0], outs[1]) if dkv else (outs[0], outs[0])
+    rc = fn(pieces.data_ptr(), scratch.data_ptr(), out0.data_ptr(), out1.data_ptr(),
+            *shape, *chunk, int(dkv), int(dkv and chunk[2] > 0),
+            _build.stream_ptr(pieces.device))
+    _build.check(rc, "f32_wide_bwd_products")
+    f32_wide_bwd_products.launches += 1
+
+
+f32_wide_bwd_scores.launches = f32_wide_bwd_products.launches = 0
+
+
+def _f32_wide_bwd(q, k, v, do, lse, delta, dkv: bool):
+    """The wide f32 dK/dV (dkv: returns (dk, dv)) or dQ (returns (dq,)) on
+    CUDA: the pre-pass, then the scores pass and the products chunk by chunk
+    through one scratch buffer."""
+    pieces = flash_f32_split(q, k, v, do)
+    outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            for _ in range(2 if dkv else 1)]
+    plan, scratch = f32_wide_bwd_scratch(q.shape, dkv, q.device)
+    for chunk in plan:
+        f32_wide_bwd_scores(pieces, lse, delta, scratch, q.shape, chunk, dkv)
+        f32_wide_bwd_products(pieces, scratch, outs, q.shape, chunk, dkv)
+    return (outs[1], outs[0]) if dkv else (outs[0],)
 
 
 def _stats_on(lse: torch.Tensor, delta: torch.Tensor, q: torch.Tensor) -> None:
@@ -300,12 +400,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta)
     fn, _, max_d = _bwd_cuda(q)
     _check_cuda("flash backward", (q, k, v, do), max_d)
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse, delta = lse.contiguous(), delta.contiguous()
-    ptrs, dims, strides = _bwd_args(q, k, v, do, lse, delta)
-    rc = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides, _build.stream_ptr(q.device))
-    _build.check(rc, "flash_attention_bwd_dkv")
+    if fn is None:
+        dk, dv = _f32_wide_bwd(q, k, v, do, lse, delta, dkv=True)
+    else:
+        dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        ptrs, dims, strides = _bwd_args(q, k, v, do, lse, delta)
+        rc = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides,
+                _build.stream_ptr(q.device))
+        _build.check(rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.launches_f32 += int(q.dtype == torch.float32)
     flash_attention_bwd_dkv.launches_wide += int(q.shape[3] > WIDE_ABOVE)
@@ -321,11 +425,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta)
     _, fn, max_d = _bwd_cuda(q)
     _check_cuda("flash backward", (q, k, v, do), max_d)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse, delta = lse.contiguous(), delta.contiguous()
-    ptrs, dims, strides = _bwd_args(q, k, v, do, lse, delta)
-    rc = fn(*ptrs, dq.data_ptr(), *dims, strides, _build.stream_ptr(q.device))
-    _build.check(rc, "flash_attention_bwd_dq")
+    if fn is None:
+        dq, = _f32_wide_bwd(q, k, v, do, lse, delta, dkv=False)
+    else:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        ptrs, dims, strides = _bwd_args(q, k, v, do, lse, delta)
+        rc = fn(*ptrs, dq.data_ptr(), *dims, strides, _build.stream_ptr(q.device))
+        _build.check(rc, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.launches_f32 += int(q.dtype == torch.float32)
     flash_attention_bwd_dq.launches_wide += int(q.shape[3] > WIDE_ABOVE)
@@ -334,11 +441,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
 
 def _bwd_cuda(q: torch.Tensor):
     """(dK/dV entry, dQ entry, largest D) of the backward kernels for q's dtype
-    and head dim."""
+    and head dim; the entries are None for the wide f32 backward
+    (``_f32_wide_bwd``)."""
     if q.dtype != torch.float32:
         return _bwd_kernels()
     if q.shape[3] > WIDE_ABOVE:
-        return _f32_wide_bwd_kernels()
+        return None, None, _f32_wide_bwd_kernels()[2]
     _, _, dkv, dq, _, max_d = _f32_kernels()
     return dkv, dq, max_d
 

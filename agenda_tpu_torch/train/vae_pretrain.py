@@ -17,7 +17,7 @@ default, ``agenda_tpu/models/vae.py:102-104``): on the card in f32 under
 ``_device.full_f32`` (TF32 off), where the flash kernels take f32 (the
 VAE's mid-block attention at SD-1.4's widths is single-head with D = 512:
 the f32 forward and the wide f32 dK/dV and dQ of
-``csrc/flash_f32.cu``) and every GroupNorm is K6's f32
+``csrc/flash_bwd_f32_wide.cu``) and every GroupNorm is K6's f32
 instantiation; under bf16 autocast for ``dtype=torch.bfloat16``, as a JAX
 caller gets with ``AutoencoderKL(dtype=jnp.bfloat16)`` (the bf16 kernels).
 The loss terms are f32. On the CPU the step runs in f32 whatever

@@ -207,12 +207,15 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 make_vae_pretrain_step computes by default (TF32 off): steps
                 (losses, warm s/step, peak, every flash and GroupNorm launch
                 an f32 kernel's: wide K1 f32 and its pre-pass, 2 wide K2 f32
-                and K3 f32 of csrc/flash_f32.cu, K6 f32 a GroupNorm
+                and K3 f32 of csrc/flash_bwd_f32_wide.cu, each a pre-pass, a
+                scores pass and the gradient products, K6 f32 a GroupNorm
                 module), pretrain_vae(dtype=f32) and its scaling_factor; the
                 f32 step card vs CPU at VAE_F32_PARITY_RES px with a control
                 that drops the attention's gradient; the wide f32 dK/dV and
                 dQ against float64 at WIDE_FLASH_BWD's shapes, timed beside
-                their bound, the plain version and SDPA's f32 backward;
+                their bound, the plain version and SDPA's f32 backward, and
+                split into their three passes, with the scratch and the
+                peak memory a call adds;
  38. multi-rank -- (run after phase 20) two ranks spawned on the one card
                 over gloo, as torchrun would start them: the generation CLI
                 at batch 1 a rank (512x512, 20 PLMS steps, 3 word heatmaps)
@@ -1087,7 +1090,8 @@ def ptxas_report(log: str):
 
     names = ("flash_fwd_wgmma|flash_fwd_wide_wgmma|flash_bwd_dkv_wide_wgmma|flash_bwd_dq_wide_wgmma"
              "|flash_bwd_dkv|flash_bwd_dq|flash_fwd_f32|flash_fwd_f32_wide|flash_f32_split"
-             "|flash_bwd_dkv_f32_wide|flash_bwd_dq_f32_wide|flash_bwd_dkv_f32|flash_bwd_dq_f32"
+             "|flash_f32_wide_scores|flash_f32_wide_products"
+             "|flash_bwd_dkv_f32|flash_bwd_dq_f32"
              "|groupnorm|fused_adamw8bit")
     types = {"13__nv_bfloat16": "bf16", "f": "f32"}  # the group norm's element type
     found, current = {}, None
@@ -3995,7 +3999,8 @@ def vae_pretrain_phase(cfg, state: dict, dev, dtype, steps: int, tag: str) -> di
     if f32:  # every launch an f32 kernel's, the backward's wide ones too
         want.update({f"{k} f32": want[k] for k in (*wrappers, "group_norm_act")})
         want.update({"flash_attention_bwd_dkv_wide": 2, "flash_attention_bwd_dq_wide": 2,
-                     "flash_f32_split": 2})
+                     # the pre-pass: one launch a forward and one a backward call
+                     "flash_f32_split": 2 + 4, **{k: 4 for k in WIDE_F32_PASSES}})
     require(sum(isinstance(m, VAEAttention) for m in vae.modules()) == 2,
             "the VAE should have two mid-block attentions")
 
@@ -4006,6 +4011,7 @@ def vae_pretrain_phase(cfg, state: dict, dev, dtype, steps: int, tag: str) -> di
             c.update({f"{k}_wide": wrappers[k].launches_wide
                       for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")})
             c["flash_f32_split"] = fl.flash_f32_split.launches
+            c.update({k: getattr(fl, k).launches for k in WIDE_F32_PASSES})
         return c
 
     losses, walls, launches = [], [], []
@@ -4620,8 +4626,9 @@ def host_phase(labels: dict, tmp: str) -> dict:
 
 # -- full precision: --mixed_precision no (phase 40) --------------------------------
 
-# The f32 kernels (csrc/flash_fwd_f32.cu, csrc/flash_f32.cu; groupnorm.cu's f32
-# instantiation) are held to their plain versions computed in float64 on the
+# The f32 kernels (csrc/flash_fwd_f32.cu, csrc/flash_f32.cu,
+# csrc/flash_bwd_f32_wide.cu; groupnorm.cu's f32 instantiation) are held to
+# their plain versions computed in float64 on the
 # card: a kernel's max |error| may be at most F32_LIMIT times that of the f32
 # plain version (TF32 off) on the same inputs. Their bound counts the products
 # as three TF32 tensor-core passes (hi*hi + hi*lo + lo*hi) at 495e12/s, the
@@ -4812,15 +4819,16 @@ def f32_bwd_pair(shape, per, runs, q, k, v, do, out, lse, rows, tag: str = "flas
 
 
 def f32_wide_bwd_rows(per_step: dict) -> dict:
-    """The wide f32 dK/dV and dQ (``csrc/flash_f32.cu``, D > 160) at each
-    (B, S, H, D) of ``per_step`` ({shape: launches a VAE step}; 0 off the
-    path), against float64 and timed as ``f32_bwd_pair`` does (their ptxas
-    lines are phase 1's)."""
+    """The wide f32 dK/dV and dQ (``csrc/flash_bwd_f32_wide.cu``, D > 160) at
+    each (B, S, H, D) of ``per_step`` ({shape: launches a VAE step}; 0 off
+    the path), against float64 and timed as ``f32_bwd_pair`` does, then
+    split into their passes (``f32_wide_bwd_parts``; their ptxas lines are
+    phase 1's)."""
     import torch
 
     from agenda_tpu_torch.kernels import flash as fl
 
-    rows = {"dkv": [], "dq": []}
+    rows = {"dkv": [], "dq": [], "split": []}
     for shape, count in per_step.items():
         b, s, h, d = shape
         require(d > fl.WIDE_ABOVE, f"{shape} is not a wide shape")
@@ -4829,9 +4837,61 @@ def f32_wide_bwd_rows(per_step: dict) -> dict:
         out, lse = fl.flash_attention_fwd(q, k, v)
         f32_bwd_pair(shape, {"step": count}, {"step": 1}, q, k, v, do, out, lse, rows,
                      "flash wide")
+        f32_wide_bwd_parts(shape, 2 * count, q, k, v, do, fl.flash_delta(out, do), lse, rows)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return rows
+
+
+def f32_wide_bwd_parts(shape, per_step, q, k, v, do, delta, lse, rows) -> None:
+    """The wide f32 backward's passes alone at one shape: the pre-pass
+    (flash_f32_split on q, k, v and dO: its twelve bf16 planes bit for bit
+    those of the plain version; a row of its own in rows["split"],
+    ``per_step`` calls a VAE step: one a dK/dV or dQ call, bound by its
+    bytes, no PyTorch call computes it), each entry's scores pass and
+    gradient products over the call's chunks, and the scratch and peak
+    memory a call adds to what it is given."""
+    import torch
+
+    from agenda_tpu_torch.kernels import flash as fl
+
+    got, want = fl.flash_f32_split(q, k, v, do), fl.flash_f32_split_reference(q, k, v, do)
+    err = (got.float() - want.float()).abs().max().item()
+    require(err == 0, f"flash f32 split of q, k, v, dO {shape}: pieces differ from the plain "
+            f"version's by {err}")
+    del want
+    split_ms, eager = time_ms(lambda: fl.flash_f32_split(q, k, v, do))
+    plain_ms, _ = time_ms(lambda: fl.flash_f32_split_reference(q, k, v, do), max_iters=10)
+    nbytes = 4 * q.numel() * (4.0 + 3 * 2.0)
+    bound = 1e3 * nbytes / H100_BYTES_PER_S
+    rows["split"].append(dict(shape=shape, per={"step": per_step}, per_batch=per_step, err=err,
+                              ms=split_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                              bound_by="bytes"))
+    print(f"[f32] flash f32 split of q, k, v, dO {shape} x{per_step} a step  pieces equal to the plain "
+          f"version's  kernel {split_ms:.4f} ms (eager {eager:.4f})  plain {plain_ms:.4f} ms  "
+          f"bound {bound:.4f} ms (bytes: {nbytes:.4g})", flush=True)
+    for dkv, entry in ((True, "dkv"), (False, "dq")):
+        plan, scratch = fl.f32_wide_bwd_scratch(shape, dkv, "cuda")
+        scratch_bytes = 2 * scratch.numel()
+        outs = [torch.empty(shape, device="cuda") for _ in range(2 if dkv else 1)]
+        scores_ms = time_ms(lambda: [fl.f32_wide_bwd_scores(got, lse, delta, scratch, shape, c,
+                                                            dkv) for c in plan])[0]
+        products_ms = time_ms(lambda: [fl.f32_wide_bwd_products(got, scratch, outs, shape, c,
+                                                                dkv) for c in plan])[0]
+        del scratch, outs
+        call = fl.flash_attention_bwd_dkv if dkv else fl.flash_attention_bwd_dq
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = call(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        del result
+        print(f"[f32] flash wide {entry} passes {shape}: pre-pass {split_ms:.4f} ms, scores pass "
+              f"{scores_ms:.4f} ms, gradient products {products_ms:.4f} ms over {len(plan)} "
+              f"chunk(s); scratch {scratch_bytes / 2**20:.1f} MiB (cap "
+              f"{fl.F32_WIDE_BWD_SCRATCH / 2**20:.0f} MiB), the call's peak above its inputs "
+              f"{peak / 2**20:.1f} MiB", flush=True)
 
 
 def f32_gn_rows(per_context: dict, runs: dict) -> list:
@@ -4891,13 +4951,20 @@ def f32_counters():
             "flash_attention_bwd_dq": flash_attention_bwd_dq, "group_norm_act": group_norm_act}
 
 
+# the wide f32 backward's passes (csrc/flash_bwd_f32_wide.cu): each dK/dV or
+# dQ call runs the pre-pass (flash_f32_split, counted with the forward's)
+# once and, chunk by chunk (one chunk at the VAE's shapes), these
+WIDE_F32_PASSES = ("f32_wide_bwd_scores", "f32_wide_bwd_products")
+
+
 def reset_all_counts() -> None:
-    from agenda_tpu_torch.kernels.flash import flash_f32_split
+    from agenda_tpu_torch.kernels import flash as fl
 
     reset_counts()
     for fn in f32_counters().values():
         fn.launches_f32 = 0
-    flash_f32_split.launches = 0
+    for name in ("flash_f32_split", *WIDE_F32_PASSES):
+        getattr(fl, name).launches = 0
     for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         f32_counters()[name].launches_wide = 0
 
@@ -5520,11 +5587,17 @@ def main() -> int:
                   "agenda_tpu/kernels/flash.py:192", f32["flash"]["dq"],
                   f32_sd["flash_attention_bwd_dq"]),
         summarize("flash_attention_bwd_dkv_f32_wide", "cuda",
-                  "agenda_tpu_torch/csrc/flash_f32.cu", "agenda_tpu/kernels/flash.py:153",
-                  wide32["dkv"], vae32["launches"]["flash_attention_bwd_dkv_wide"]),
+                  "agenda_tpu_torch/csrc/flash_bwd_f32_wide.cu",
+                  "agenda_tpu/kernels/flash.py:153", wide32["dkv"],
+                  vae32["launches"]["flash_attention_bwd_dkv_wide"]),
         summarize("flash_attention_bwd_dq_f32_wide", "cuda",
-                  "agenda_tpu_torch/csrc/flash_f32.cu", "agenda_tpu/kernels/flash.py:192",
-                  wide32["dq"], vae32["launches"]["flash_attention_bwd_dq_wide"]),
+                  "agenda_tpu_torch/csrc/flash_bwd_f32_wide.cu",
+                  "agenda_tpu/kernels/flash.py:192", wide32["dq"],
+                  vae32["launches"]["flash_attention_bwd_dq_wide"]),
+        summarize("flash_f32_split_wide_bwd", "cuda", "agenda_tpu_torch/csrc/flash_fwd_f32.cu",
+                  "agenda_tpu/kernels/flash.py:153", wide32["split"],
+                  vae32["launches"]["flash_f32_split"]
+                  - vae32["launches"]["flash_attention_fwd f32"]),
         summarize("group_norm_act_f32", "cuda", "agenda_tpu_torch/csrc/groupnorm.cu",
                   "agenda_tpu/kernels/groupnorm.py:94", f32["gn"], f32_sd["group_norm_act"]),
         summarize("fused_adamw8bit", "cuda", "agenda_tpu_torch/csrc/fused_adamw.cu",
@@ -5621,11 +5694,13 @@ def main() -> int:
     print(f"[report] f32 VAE step card vs CPU ({VAE_F32_PARITY_RES} px): loss "
           f"{par['sound'][0]:.3g}, gradients {par['sound'][1]:.3g} (limit {VAE_F32_GRAD_TOL}; "
           f"control {par['control'][1]:.3g}). Units: flash_attention_bwd_dkv_f32_wide and "
-          "flash_attention_bwd_dq_f32_wide (csrc/flash_f32.cu, FFMA) sum ms over one "
+          "flash_attention_bwd_dq_f32_wide (csrc/flash_bwd_f32_wide.cu, tensor cores: each "
+          "call its pre-pass, scores pass and products) sum ms over one "
           f"f32 VAE pretraining step (batch {VAE_BATCH}, {VAE_RES} px: (8, 1024, 1, 512) twice), "
           "launches from phase 41's last step; their bound counts the products as three TF32 "
           "passes (as the other f32 rows); library_ms is SDPA's whole f32 backward at the "
-          "same shape", flush=True)
+          "same shape; flash_f32_split_wide_bwd is their pre-pass alone (flash_f32_split on q, "
+          "k, v and dO: one launch a call, four a step), bound by its bytes", flush=True)
     print(f"[report] profile report of phase 6's trace: busy {report['busy_ms']:.2f} ms, "
           f"{100 * report['share']:.1f}% of the traced window; top categories " + ", ".join(
               f"{k} {ms:.2f} ms" for k, ms in report["top"]), flush=True)

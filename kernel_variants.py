@@ -77,6 +77,18 @@ the sums, as is (2, 4096, 1, 512), its mid-block attention at 512 px:
                          blocks of 128 columns each, not two of 256;
   fwd_f32_32_key_tiles   32-key tiles at every head dim (D <= 40 too, in four
                          stages);
+  bwd_f32_wide_base      the wide f32 dK/dV and dQ (D > 160, f32 VAE pretraining)
+                         alone, as they are, at the VAE's (8, 1024, 1, 512) (2
+                         launches each a step) and (2, 4096, 1, 512) (its 512-px
+                         mid-block), held to float64 as fwd_f32_base is, with
+                         their three passes (pre-pass, scores pass, gradient
+                         products) also timed alone; --tree on a checkout before
+                         they moved to the tensor cores times the FFMA kernels;
+  bwd_f32_wide_products_only  without the scores pass (the products read
+                         whatever the scratch holds): the pre-pass and products;
+  bwd_f32_wide_scores_128x128, bwd_f32_wide_scores_64x64  the scores pass in
+                         128 x 128 tiles (four consumer warpgroups, two stages)
+                         or 64 x 64 (one, four stages), not 128 x 64 (two, three);
   adamw_no_transcendentals  the AdamW's exponentials and logarithms (or their
                          table lookups and lg2) replaced by the identity;
   adamw_no_div           its divisions (and its reciprocals) turned into products;
@@ -95,7 +107,9 @@ all apply is made.
 One JSON line per variant ({"variant": ..., "error": ...} where its build or
 a launch failed): {"variant": ..., "fwd": {shape: ms}, "fwd_batch_ms",
 "fwd_worst", "fwd_f32": {shape: ms}, "fwd_f32_split": {shape: ms},
-"fwd_f32_run_ms", "fwd_f32_worst", "gn": {shape: ms}, "gn_batch_ms", "gn_worst", "bwd": {shape:
+"fwd_f32_run_ms", "fwd_f32_worst", "bwd_f32_wide": {shape: [dK/dV ms, dQ ms]},
+"bwd_f32_wide_parts": {shape: {pass: ms}}, "bwd_f32_wide_step_ms",
+"bwd_f32_wide_worst", "gn": {shape: ms}, "gn_batch_ms", "gn_worst", "bwd": {shape:
 [dK/dV ms, dQ ms]}, "bwd_step_ms", "bwd_worst", "adamw_step_ms",
 "adamw_ema_step_ms" (with their TB/s), "adamw_host_us" (the host's time to
 enqueue one step's update with the EMA, eager, as the optimizer calls it:
@@ -155,10 +169,14 @@ F32_FWD_SHAPES = [
     ((4, 4096, 8, 40), 10), ((4, 1024, 8, 80), 10), ((4, 256, 8, 160), 10),
     ((4, 64, 8, 160), 2), ((8, 4096, 8, 40), 105), ((8, 1024, 8, 80), 105),
     ((8, 256, 8, 160), 105), ((8, 64, 8, 160), 21), ((4, 4096, 1, 512), 3)]
+# f32 VAE pretraining (chip_smoke.py phase 41): (B, S, H, D) and the wide f32
+# dK/dV (and dQ) launches a step at 256 px; its mid-block at 512 px, not summed
+F32_WIDE_BWD_SHAPES = [((8, 1024, 1, 512), 2), ((2, 4096, 1, 512), 0)]
 
 _FWD, _GN, _BWD, _ADAMW = "flash_fwd.cu", "groupnorm.cu", "flash_bwd.cu", "fused_adamw.cu"
-_F32 = "flash_fwd_f32.cu"
-KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd", _ADAMW: "adamw", _F32: "fwd_f32"}
+_F32, _F32BW = "flash_fwd_f32.cu", "flash_bwd_f32_wide.cu"
+KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd", _ADAMW: "adamw", _F32: "fwd_f32",
+           _F32BW: "bwd_f32_wide"}
 _OFF = "if (p.S < 0) "  # a condition that is false at run time keeps the operands live
 _WGS = "constexpr int fwd_warpgroups(int nd) { return nd == 40 ? 4 : nd == 80 ? 2 : 1; }"
 _BK = "static constexpr int kBK = ND == 80 ? 128 : 64;"
@@ -358,6 +376,16 @@ VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replace
     "fwd_f32_32_key_tiles": [
         (_F32, "static constexpr int kBK = ND == 40 ? 64 : 32;\n  static constexpr int kStages = ND == 40 ? 3",
          "static constexpr int kBK = 32;\n  static constexpr int kStages = ND == 40 ? 4")],
+    "bwd_f32_wide_base": [],  # the wide f32 backward alone, as it is
+    "bwd_f32_wide_products_only": [
+        (_F32BW, "  return (int)(dkv ? launch_scores<true>(p, st) : launch_scores<false>(p, st));",
+         "  return 0;")],
+    "bwd_f32_wide_scores_128x128": [
+        (_F32BW, "constexpr int kScoreRowWGs = 2, kScoreColWGs = 1;",
+         "constexpr int kScoreRowWGs = 2, kScoreColWGs = 2;")],
+    "bwd_f32_wide_scores_64x64": [
+        (_F32BW, "constexpr int kScoreRowWGs = 2, kScoreColWGs = 1;",
+         "constexpr int kScoreRowWGs = 1, kScoreColWGs = 1;")],
     "adamw_base": [],  # the AdamW alone, as it is
     "adamw_no_transcendentals": (_ADAMW_NO_TRANSCENDENTALS, _ADAMW_PARENT_NO_TRANSCENDENTALS),
     "adamw_no_div": (_ADAMW_NO_DIV, _ADAMW_PARENT_NO_DIV),
@@ -476,6 +504,45 @@ if "fwd_f32" in kernels:
             out["fwd_f32_split"][str(shape)] = round(time_ms(lambda: split(q, k, v))[0], 4)
         total += count * ms
     out["fwd_f32_run_ms"], out["fwd_f32_worst"] = round(total, 3), round(worst, 4)
+if "bwd_f32_wide" in kernels:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import F32_LIMIT, f32_errors
+    out["bwd_f32_wide"], out["bwd_f32_wide_parts"], worst, total = {}, {}, 0.0, 0.0
+    chunks = getattr(fl, "f32_wide_bwd_scratch", None)  # None in a tree of the FFMA kernels
+    for shape, count in shapes["bwd_f32_wide"]:
+        shape = tuple(shape)
+        g = torch.Generator(device="cuda").manual_seed(sum(shape))
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        o, lse = fl.flash_attention_fwd(q, k, v)
+        ins = (q, k, v, do, lse, fl.flash_delta(o, do))
+        wide = tuple(t.double() for t in ins)
+        for fn, ref in ((fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dkv_reference),
+                        (lambda *a: (fl.flash_attention_bwd_dq(*a),),
+                         lambda *a: (fl.flash_attention_bwd_dq_reference(*a),))):
+            e_k, e_p = f32_errors(fn(*ins), ref(*ins), ref(*wide))
+            worst = worse(worst, e_k / (F32_LIMIT * e_p))
+        del wide
+        torch.cuda.empty_cache()
+        a = time_ms(lambda: fl.flash_attention_bwd_dkv(*ins))[0]
+        c = time_ms(lambda: fl.flash_attention_bwd_dq(*ins))[0]
+        out["bwd_f32_wide"][str(shape)] = [round(a, 4), round(c, 4)]
+        total += count * (a + c)
+        if chunks is not None:
+            pieces = fl.flash_f32_split(q, k, v, do)
+            parts = {"split": time_ms(lambda: fl.flash_f32_split(q, k, v, do))[0]}
+            for dkv, entry in ((True, "dkv"), (False, "dq")):
+                plan, scratch = chunks(shape, dkv, "cuda")
+                outs = [torch.empty(shape, device="cuda") for _ in range(2 if dkv else 1)]
+                parts[f"scores_{entry}"] = time_ms(lambda: [fl.f32_wide_bwd_scores(
+                    pieces, lse, ins[5], scratch, shape, ch, dkv) for ch in plan])[0]
+                parts[f"products_{entry}"] = time_ms(lambda: [fl.f32_wide_bwd_products(
+                    pieces, scratch, outs, shape, ch, dkv) for ch in plan])[0]
+                del scratch, outs
+            out["bwd_f32_wide_parts"][str(shape)] = {k: round(x, 4) for k, x in parts.items()}
+            del pieces
+        del q, k, v, do, o, lse, ins
+        torch.cuda.empty_cache()
+    out["bwd_f32_wide_step_ms"], out["bwd_f32_wide_worst"] = round(total, 4), round(worst, 4)
 if "gn" in kernels:
     out["gn"], worst, total = {}, 0.0, 0.0
     for shape, eps, act, count in shapes["gn"]:
@@ -627,7 +694,8 @@ def generation_shapes(images: int) -> dict:
 
     return {"fwd": [(scale(s), n) for s, n in FWD_SHAPES],
             "gn": [(scale(s), eps, act, n) for s, eps, act, n in GN_SHAPES],
-            "bwd": BWD_SHAPES, "adamw": adamw_leaf_shapes(), "fwd_f32": F32_FWD_SHAPES}
+            "bwd": BWD_SHAPES, "adamw": adamw_leaf_shapes(), "fwd_f32": F32_FWD_SHAPES,
+            "bwd_f32_wide": F32_WIDE_BWD_SHAPES}
 
 
 def adamw_leaf_shapes() -> list:

@@ -1208,10 +1208,12 @@ def test_flash_bwd_variants_apply_to_the_source(variant):
 
 @pytest.mark.parametrize("variant", sorted(
     name for name in kernel_variants.VARIANTS
-    if name.startswith(("fwd_", "gn_", "adamw_")) and not name.endswith("_base")))
+    if name.startswith(("fwd_", "gn_", "adamw_", "bwd_f32_wide_"))
+    and not name.endswith("_base")))
 def test_kernel_variants_apply_to_the_source(variant):
-    """Runs anywhere: the same for the forward's, the group norm's and the
-    AdamW's variants (for the AdamW, the alternative for this tree's source)."""
+    """Runs anywhere: the same for the forward's, the group norm's, the
+    AdamW's (the alternative for this tree's source) and the wide f32
+    backward's variants."""
     assert _variant_applies(variant)
 
 
@@ -1219,13 +1221,15 @@ def test_kernel_variants_apply_to_the_source(variant):
 # -- the f32 kernels (--mixed_precision no) -------------------------------------------
 #
 # csrc/flash_fwd_f32.cu's forward (three bf16 pieces an operand, six
-# tensor-core products), csrc/flash_f32.cu's dK/dV and dQ (those up to
-# D = 160 and the wide ones above) and groupnorm.cu's f32 instantiation,
-# each held to its plain version computed in float64 on
+# tensor-core products), csrc/flash_f32.cu's dK/dV and dQ (up to D = 160),
+# csrc/flash_bwd_f32_wide.cu's (above it: a pre-pass into pieces, a scores
+# pass, the gradient products, all on the tensor cores) and groupnorm.cu's
+# f32 instantiation, each held to its plain version computed in float64 on
 # the card: the kernel's max |error| may be at most F32_LIMIT times that of
 # the f32 plain version (TF32 off) on the same inputs. The broken copies
 # round each kernel's operands (or the group norm's input) to TF32, one pass
-# of the tensor cores, or keep only the forward's pieces b0 + b1, and must
+# of the tensor cores, keep only the pieces b0 + b1, or let the wide
+# backward's products accumulate every tile in the tensor cores, and must
 # fail that limit at every shape.
 
 F32_LIMIT = 4.0
@@ -1241,11 +1245,17 @@ F32_GN_SHAPES = [(4, 320, 64, 64), (4, 1280, 8, 8), (2, 512, 64, 64), (1, 128, 5
                  (2, 1280, 6, 6), (3, 96, 7, 5)]
 _TF32 = ("{\n    uint32_t r;\n    asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : \"f\"(x));\n"
          "    return __uint_as_float(r);\n  }")
+# The f32 pre-pass (flash_fwd_f32.cu's split) splits the operands of the
+# forward and of both wide backward entries, and f32_pieces.cuh's split3 is
+# every f32 kernel's: each of these edits is held to each kernel it reaches.
+_SPLIT_OPERANDS_TF32 = ("flash_fwd_f32.cu", "struct SplitOperand {\n  __device__ "
+                        "__forceinline__ float operator()(float x) const { return x; }",
+                        "struct SplitOperand {\n  __device__ __forceinline__ float "
+                        "operator()(float x) const " + _TF32)
+_PIECES_B0_B1 = ("f32_pieces.cuh", "  b[2] = __float2bfloat16_rn(r);",
+                 "  b[2] = __float2bfloat16_rn(0.f);")
 F32_MUTATIONS = {
-    "fwd_operands_tf32": ("flash_fwd_f32.cu", "struct FwdOperand {\n  __device__ __forceinline__ "
-                          "float operator()(float x) const { return x; }",
-                          "struct FwdOperand {\n  __device__ __forceinline__ float "
-                          "operator()(float x) const " + _TF32),
+    "fwd_operands_tf32": _SPLIT_OPERANDS_TF32,
     "dkv_operands_tf32": ("flash_f32.cu", "struct DkvOperand {\n  __device__ __forceinline__ "
                           "float operator()(float x) const { return x; }",
                           "struct DkvOperand {\n  __device__ __forceinline__ float "
@@ -1254,16 +1264,13 @@ F32_MUTATIONS = {
                          "float operator()(float x) const { return x; }",
                          "struct DqOperand {\n  __device__ __forceinline__ float "
                          "operator()(float x) const " + _TF32),
-    "wide_dkv_operands_tf32": ("flash_f32.cu", "struct WideDkvOperand {\n  "
-                               "__device__ __forceinline__ float operator()(float x) const "
-                               "{ return x; }", "struct WideDkvOperand {\n  __device__ "
-                               "__forceinline__ float operator()(float x) const " + _TF32),
-    "wide_dq_operands_tf32": ("flash_f32.cu", "struct WideDqOperand {\n  "
-                              "__device__ __forceinline__ float operator()(float x) const "
-                              "{ return x; }", "struct WideDqOperand {\n  __device__ "
-                              "__forceinline__ float operator()(float x) const " + _TF32),
-    "fwd_pieces_b0_b1": ("flash_fwd_f32.cu", "  b[2] = __float2bfloat16_rn(r);",
-                         "  b[2] = __float2bfloat16_rn(0.f);"),
+    "wide_dkv_operands_tf32": _SPLIT_OPERANDS_TF32,
+    "wide_dq_operands_tf32": _SPLIT_OPERANDS_TF32,
+    "fwd_pieces_b0_b1": _PIECES_B0_B1,
+    "wide_bwd_pieces_b0_b1": _PIECES_B0_B1,
+    "wide_bwd_tiles_in_the_tensor_cores": ("flash_bwd_f32_wide.cu",
+                                           "constexpr bool kTileFromZero = true;",
+                                           "constexpr bool kTileFromZero = false;"),
     "gn_input_tf32": ("groupnorm.cu", "__device__ __forceinline__ static float load(float v) "
                       "{ return v; }", "__device__ __forceinline__ static float load(float v) "
                       + _TF32.replace("(x)", "(v)")),
@@ -1273,16 +1280,28 @@ F32_MUTATIONS = {
 # the f32 plain version's own error there (5.0e-7 in the output, 8.2e-7 in
 # lse) is larger than what dropping b2 adds on these inputs; at every other
 # shape it reads 1.03-3.16. It is held to those.
-# Each backward copy is held at the shapes its source runs.
+# Each backward copy is held at the shapes its source runs. Of the wide
+# backward's (csrc/flash_bwd_f32_wide.cu), on the H100: keeping the pieces
+# b0 + b1 only read 2.54-4.36 of the limit at (1, 333, 2, 264) and (1, 77,
+# 3, 168) but 0.60-0.82 at (8, 1024, 1, 512) and (2, 4096, 1, 512), where
+# the f32 plain version's own error is larger; accumulating every tile of
+# the products in the tensor cores read 1.95-2.22 at (2, 4096, 1, 512) but
+# 0.09-0.99 at S <= 1024 (the drift grows with S, as the forward's did). Each
+# is held to the shapes where it fails.
 F32_MUTATION_SHAPES = {"fwd_pieces_b0_b1": [s for s in F32_FWD_SHAPES if s != (2, 4096, 1, 512)],
                        "dkv_operands_tf32": F32_NARROW_BWD_SHAPES,
                        "dq_operands_tf32": F32_NARROW_BWD_SHAPES,
                        "wide_dkv_operands_tf32": F32_WIDE_BWD_SHAPES,
-                       "wide_dq_operands_tf32": F32_WIDE_BWD_SHAPES}
+                       "wide_dq_operands_tf32": F32_WIDE_BWD_SHAPES,
+                       "wide_bwd_pieces_b0_b1": [(1, 333, 2, 264), (1, 77, 3, 168)],
+                       "wide_bwd_tiles_in_the_tensor_cores": [(2, 4096, 1, 512)]}
 # which outputs each broken copy must break: the whole forward, dK/dV, dQ, GN
+# (the wide backward's pieces and products are both entries')
 F32_MUTATION_KERNEL = {"fwd_operands_tf32": "fwd", "fwd_pieces_b0_b1": "fwd",
                        "dkv_operands_tf32": "dkv", "dq_operands_tf32": "dq",
                        "wide_dkv_operands_tf32": "dkv", "wide_dq_operands_tf32": "dq",
+                       "wide_bwd_pieces_b0_b1": ("dkv", "dq"),
+                       "wide_bwd_tiles_in_the_tensor_cores": ("dkv", "dq"),
                        "gn_input_tf32": "gn"}
 
 # Prints {kernel: {shape: worst kernel error / (F32_LIMIT x the f32 plain
@@ -1375,12 +1394,14 @@ def test_f32_limit_fails_tf32_rounding_mutations(mutation, tmp_path):
     three bf16 pieces at every shape of F32_MUTATION_SHAPES."""
     _need_cuda()
     _broken_copy(tmp_path, F32_MUTATIONS[mutation][0], [F32_MUTATIONS[mutation][1:]])
-    kind = F32_MUTATION_KERNEL[mutation]
-    shapes = F32_MUTATION_SHAPES.get(mutation, {"fwd": F32_FWD_SHAPES, "dkv": F32_BWD_SHAPES,
-                                                "dq": F32_BWD_SHAPES, "gn": F32_GN_SHAPES}[kind])
-    worst = _f32_ratios({kind: shapes}, cwd=tmp_path)[kind]
+    kinds = F32_MUTATION_KERNEL[mutation]
+    kinds = (kinds,) if isinstance(kinds, str) else kinds
+    default = {"fwd": F32_FWD_SHAPES, "dkv": F32_BWD_SHAPES, "dq": F32_BWD_SHAPES,
+               "gn": F32_GN_SHAPES}
+    worst = _f32_ratios({kind: F32_MUTATION_SHAPES.get(mutation, default[kind])
+                         for kind in kinds}, cwd=tmp_path)
     print(f"{mutation}: worst error over the limit per shape {worst}")
-    assert all(not r <= 1.0 for r in worst.values()), worst  # NaN fails too
+    assert all(not r <= 1.0 for per in worst.values() for r in per.values()), worst  # NaN too
 
 
 @pytest.mark.parametrize("mutation", sorted(F32_MUTATIONS))
@@ -1450,22 +1471,52 @@ def test_f32_groupnorm_tail_path_at_every_offset(offset):
 def test_f32_wide_backward_counts_and_reads_strided_views():
     """At D > 160 the f32 dK/dV and dQ read head-split views of one packed
     projection as their contiguous copies, bit for bit, and count each
-    launch in launches, launches_f32 and launches_wide."""
+    launch in launches, launches_f32 and launches_wide; each call runs the
+    pre-pass (flash_f32_split) once and, in one chunk, the scores pass and
+    the products once."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(5)
     qkv = torch.randn(2, 200, 3, 2, 264, device="cuda", generator=g)
     do = torch.randn(2, 200, 2, 264, device="cuda", generator=g)
     views = qkv.unbind(dim=2)
     wrappers = (fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dq)
-    before = [(w.launches, w.launches_f32, w.launches_wide) for w in wrappers]
+    passes = (fl.flash_f32_split, fl.f32_wide_bwd_scores, fl.f32_wide_bwd_products)
     out, lse = flash_attention_fwd(*views)
     delta = fl.flash_delta(out, do)
+    before = [(w.launches, w.launches_f32, w.launches_wide) for w in wrappers]
+    before_passes = [w.launches for w in passes]
     results = [(*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
                 fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
                for q, k, v in (views, [t.contiguous() for t in views])]
     assert all(torch.equal(a, b) for a, b in zip(*results))
     assert [(w.launches, w.launches_f32, w.launches_wide) for w in wrappers] == [
         (n + 2, f + 2, wide + 2) for n, f, wide in before]
+    assert [w.launches for w in passes] == [n + 4 for n in before_passes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 333, 2, 264), (1, 1024, 1, 512)], ids=_shape_id)
+def test_f32_wide_backward_is_bitwise_equal_at_two_scratch_caps(shape, monkeypatch):
+    """A scratch cap that cuts a call into a chunk a (batch, head) and 128
+    queries gives the bits of the whole call: dK and dV continue tile by
+    tile from chunk to chunk, dQ's rows are independent."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v)
+    delta = fl.flash_delta(out, do)
+
+    def run():
+        return (*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+                fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+
+    whole = run()
+    monkeypatch.setattr(fl, "F32_WIDE_BWD_SCRATCH", 1)
+    scores = fl.f32_wide_bwd_scores.launches
+    cut = run()
+    b, s, h, _ = shape
+    assert fl.f32_wide_bwd_scores.launches - scores == 2 * b * h * -(-s // 128)
+    assert all(torch.equal(x, y) for x, y in zip(whole, cut))
 
 
 @pytest.mark.cuda

@@ -5,15 +5,18 @@ The JAX CLIs compute in f32 under ``--mixed_precision no``
 their Pallas flash and GroupNorm kernels on f32 operands. On the card the
 port does the same with the f32 kernels of ``csrc/flash_fwd_f32.cu`` (the
 forward on the tensor cores, over three bf16 pieces of each operand),
-``csrc/flash_f32.cu`` and the f32 instantiation of ``csrc/groupnorm.cu``
-(held to float64 in ``test_torch_cuda.py``). Here, on the CPU: the compute
-dtype of each choice, the wrappers' dtype checks on metadata, the plain f32
-versions against the Pallas kernels in interpret mode, the forward's
-pieces and its accuracy budget emulated in f32, and both fine-tune CLIs
+``csrc/flash_f32.cu``, ``csrc/flash_bwd_f32_wide.cu`` (the backward above
+D = 160, on the tensor cores too) and the f32 instantiation of
+``csrc/groupnorm.cu`` (held to float64 in ``test_torch_cuda.py``). Here, on
+the CPU: the compute dtype of each choice, the wrappers' dtype checks on
+metadata, the plain f32 versions against the Pallas kernels in interpret
+mode, the pieces and the accuracy budgets of the forward and the wide
+backward emulated, the wide backward's chunk plan, and both fine-tune CLIs
 against the JAX CLIs with the same flags on the tiny fixture, with the JAX
 key stream's draws handed to the port.
 """
 
+import functools
 import json
 import os
 
@@ -105,7 +108,7 @@ def test_kernel_checks_take_bf16_and_f32_and_refuse_f16(dtype):
 # -- the plain f32 versions against the Pallas kernels (interpret mode) ------------
 
 
-@pytest.mark.parametrize("b,s,h,d", [(1, 256, 2, 40), (1, 128, 1, 512)])
+@pytest.mark.parametrize("b,s,h,d", [(1, 256, 2, 40), (1, 128, 1, 512), (1, 333, 2, 264)])
 def test_f32_flash_forward_and_backward_match_pallas(b, s, h, d):
     """The port's f32 path on the CPU (``flash_attention`` through autograd:
     the forward, delta and both backward plain versions) against
@@ -215,6 +218,179 @@ def test_f32_forward_design_fits_the_limit_and_fewer_pieces_do_not(d):
     ratios = [over_limit(_emulated_f32_forward(q, k, v, keep=n)) for n in (3, 2, 1)]
     print(f"D = {d}: worst error over the limit with 3, 2, 1 pieces {ratios}")
     assert ratios[0] <= 1.0 and ratios[1] > 1.0 and ratios[2] > 1.0
+
+
+# -- the wide f32 backward's design: pieces, P and dS as pieces, tile by tile -------
+#
+# csrc/flash_bwd_f32_wide.cu runs the f32 dK/dV and dQ above D = 160 on the
+# tensor cores in three passes (a pre-pass splits q, k, v and dO into three
+# bf16 pieces; a scores pass forms S and dP over D in 64-column boxes, P and
+# dS = P (dP - delta) scale, and writes them as pieces; the gradient products
+# run over the reduction in 64-row tiles), chunk by chunk as
+# ``fl.f32_wide_bwd_plan`` cuts the work. ``_wide_bwd_chunked`` is that path
+# in torch with the tile product as a parameter: in f32 (``torch.matmul``)
+# it is the path's plain version; with ``_tc_product`` it models the
+# pieces' products with a simple accumulator, which sums each 16-deep step
+# exactly and rounds it toward zero. The tensor cores' own accumulator
+# also truncates each addend as it aligns it to the largest exponent, which
+# this model does not, so it is more accurate than the card: it shows what
+# the pieces and the scratch's pieces cost, not the drift of one
+# accumulator over all of S, which only the card shows (the broken copy
+# ``wide_bwd_tiles_in_the_tensor_cores`` of ``test_torch_cuda.py``, at
+# S = 4096).
+
+TILE = 64  # the kernels' boxes of D and tiles of the reduction
+
+
+def _round_toward_zero(x):
+    """float64 x rounded to f32 toward zero, as float64."""
+    y = x.float()
+    y = torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+    return y.double()
+
+
+def _tc_product(a, b, keep=3):
+    """a @ b (f32) as the kernels form one tile's, in the model above: the six
+    piece products (i + j <= 2; pieces past the first ``keep`` zero),
+    smallest first, each 16 deep at a time into one accumulator that rounds
+    toward zero."""
+    pa, pb = _pieces(a, keep), _pieces(b, keep)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+    for i, j in PIECE_PAIRS:
+        for k0 in range(0, a.shape[-1], 16):
+            acc = _round_toward_zero(acc + pa[i][..., k0:k0 + 16].double()
+                                     @ pb[j][..., k0:k0 + 16, :].double())
+    return acc.float()
+
+
+def _tiled(product, a, b, out=None):
+    """out + a @ b over the reduction in tiles of TILE: each tile's product
+    from zero, added to the f32 sum in order."""
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:]) if out is None else out
+    for k0 in range(0, a.shape[-1], TILE):
+        out = out + product(a[..., k0:k0 + TILE], b[..., k0:k0 + TILE, :])
+    return out
+
+
+def _wide_bwd_chunked(q, k, v, do, lse, delta, dkv, product=torch.matmul, keep=3):
+    """The wide f32 backward's path over (B, S, H, D) f32 inputs, in the
+    chunks of ``fl.f32_wide_bwd_plan`` under ``fl.F32_WIDE_BWD_SCRATCH``:
+    (dk, dv) for dkv, else (dq,); ``keep`` pieces of P and dS go into the
+    products, as the scratch holds them."""
+    b, s, h, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3).reshape(b * h, s, d) for t in (q, k, v, do))
+    outs = [torch.zeros(b * h, s, d) for _ in range(2 if dkv else 1)]
+    for bh0, nbh, q0, nq in fl.f32_wide_bwd_plan(b, s, h, dkv):
+        g, r = slice(bh0, bh0 + nbh), slice(q0, q0 + nq)
+        st = _tiled(product, qh[g, r], kh[g].transpose(1, 2))  # (nbh, nq, S), over D
+        dpt = _tiled(product, doh[g, r], vh[g].transpose(1, 2))
+        p = torch.exp(st * scale - lse.reshape(b * h, s)[g, r, None])
+        ds = p * (dpt - delta.reshape(b * h, s)[g, r, None]) * scale
+        p, ds = (sum(_pieces(x, keep)) for x in (p, ds))  # as the scratch holds them
+        if dkv:  # dV = P^T dO, dK = dS^T Q, continued from the earlier query chunks
+            outs[1][g] = _tiled(product, p.transpose(1, 2), doh[g, r], outs[1][g])
+            outs[0][g] = _tiled(product, ds.transpose(1, 2), qh[g, r], outs[0][g])
+        else:
+            outs[0][g, r] = _tiled(product, ds, kh[g])
+    return tuple(x.reshape(b, h, s, d).permute(0, 2, 1, 3) for x in outs)
+
+
+def _bwd_inputs(rng, shape):
+    q, k, v, do = (torch.from_numpy(_rand(rng, *shape)) for _ in range(4))
+    out, lse = fl.flash_attention_reference(q, k, v)
+    return q, k, v, do, lse, fl.flash_delta(out, do)
+
+
+@pytest.mark.parametrize("shape", [(1, 77, 3, 168), (1, 333, 2, 264), (1, 77, 1, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_f32_wide_backward_design_fits_the_limit_and_fewer_pieces_do_not(shape, monkeypatch):
+    """The wide backward's path in the model above (three pieces of every
+    operand, P and dS written as three pieces, each tile's products from
+    zero, the dK/dV entry's queries in chunks of 128) stays within F32_LIMIT
+    x the f32 plain version's max |error| against float64 in dK, dV and dQ;
+    two pieces, or one, break that limit. (The model cannot show one
+    accumulator over each product's whole reduction failing: it read
+    0.06-0.24 of the limit at these S, and the card test's broken copy
+    fails only at S = 4096.)"""
+    rng = np.random.RandomState(shape[1] + shape[3])
+    ins = _bwd_inputs(rng, shape)
+    ref = (*fl.flash_attention_bwd_dkv_reference(*(t.double() for t in ins)),
+           fl.flash_attention_bwd_dq_reference(*(t.double() for t in ins)))
+    plain = (*fl.flash_attention_bwd_dkv_reference(*ins), fl.flash_attention_bwd_dq_reference(*ins))
+    # the dK/dV entry's queries in chunks of 128
+    monkeypatch.setattr(fl, "F32_WIDE_BWD_SCRATCH", 12 * shape[1] * 128)
+
+    def over_limit(keep):
+        kw = dict(product=functools.partial(_tc_product, keep=keep), keep=keep)
+        got = (*_wide_bwd_chunked(*ins, True, **kw), *_wide_bwd_chunked(*ins, False, **kw))
+        return max((x.double() - r).abs().max().item()
+                   / (F32_LIMIT * (p.double() - r).abs().max().item())
+                   for x, p, r in zip(got, plain, ref))
+
+    ratios = [over_limit(n) for n in (3, 2, 1)]
+    print(f"{shape}: worst error over the limit with 3, 2, 1 pieces {ratios}")
+    assert ratios[0] <= 1.0 and ratios[1] > 1.0 and ratios[2] > 1.0, ratios
+
+
+@pytest.mark.parametrize("dkv", [True, False], ids=["dkv", "dq"])
+def test_f32_wide_backward_plain_chunks_are_bitwise_equal_at_two_caps(dkv, monkeypatch):
+    """The plain version of the wide f32 backward's chunked path gives the
+    same bits whether the scratch cap takes a call whole or cuts it into a
+    chunk a (batch, head) and 128 queries (the dK/dV sums continuing from
+    chunk to chunk tile by tile), and agrees with the plain version."""
+    ins = _bwd_inputs(np.random.RandomState(11), (2, 200, 2, 264))
+    b, s, h, _ = ins[0].shape
+    whole = _wide_bwd_chunked(*ins, dkv)
+    monkeypatch.setattr(fl, "F32_WIDE_BWD_SCRATCH", 1)
+    assert len(fl.f32_wide_bwd_plan(b, s, h, dkv)) == b * h * 2
+    cut = _wide_bwd_chunked(*ins, dkv)
+    assert all(torch.equal(x, y) for x, y in zip(whole, cut))
+    want = (fl.flash_attention_bwd_dkv_reference(*ins) if dkv
+            else (fl.flash_attention_bwd_dq_reference(*ins),))
+    for x, w in zip(whole, want):
+        np.testing.assert_allclose(x.numpy(), w.numpy(), rtol=F32_TOL,
+                                   atol=F32_TOL * w.abs().max().item())
+
+
+@pytest.mark.parametrize("b,s,h,cap", [(8, 1024, 1, None), (2, 4096, 1, None),
+                                       (1, 16384, 1, None), (3, 333, 2, 1), (2, 200, 3, 10**6)])
+def test_f32_wide_backward_plan_covers_each_row_once_within_the_cap(b, s, h, cap, monkeypatch):
+    """Each (batch, head) and query falls in one chunk, in launch order; a
+    chunk of queries starts at a multiple of 128; a chunk's scratch stays
+    within the cap unless it is the smallest chunk (one pair, 128 queries);
+    the VAE's shapes at 256 and 512 px run in one chunk."""
+    if cap is not None:
+        monkeypatch.setattr(fl, "F32_WIDE_BWD_SCRATCH", cap)
+    limit = fl.F32_WIDE_BWD_SCRATCH
+    for dkv in (True, False):
+        plan = fl.f32_wide_bwd_plan(b, s, h, dkv)
+        rows = [(bh, q) for bh0, nbh, q0, nq in plan
+                for bh in range(bh0, bh0 + nbh) for q in range(q0, q0 + nq)]
+        assert rows == [(bh, q) for bh in range(b * h) for q in range(s)]
+        for bh0, nbh, q0, nq in plan:
+            assert q0 % 128 == 0
+            smallest = fl.f32_wide_bwd_scratch_bytes(s, 1, min(128, s), dkv)
+            assert fl.f32_wide_bwd_scratch_bytes(s, nbh, nq, dkv) <= max(limit, smallest)
+        if s <= 4096 and cap is None:
+            assert plan == [(0, b * h, 0, s)]
+
+
+def test_f32_bwd_split_pieces_sum_to_the_operand():
+    """The pre-pass with dO, as the wide backward runs it, on the CPU: twelve
+    bf16 planes (q, k, v, dO; piece i of operand t at 3 t + i) whose pieces
+    of each operand sum to it within 2^-24 of its magnitude, the split of
+    q, k, v alone the first nine."""
+    rng = np.random.RandomState(4)
+    scale = 10.0 ** rng.uniform(-6, 6, size=(1, 33, 2, 168))
+    ops = [torch.from_numpy((_rand(rng, 1, 33, 2, 168) * scale).astype(np.float32))
+           for _ in range(4)]
+    pieces = fl.flash_f32_split(*ops)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (12, 1, 33, 2, 168)
+    assert torch.equal(pieces[:9], fl.flash_f32_split(*ops[:3]))
+    for t, x in enumerate(ops):
+        total = sum(pieces[3 * t + i].double() for i in range(3))
+        assert bool(((total - x.double()).abs() <= 2.0 ** -24 * x.double().abs()).all())
 
 
 @pytest.mark.parametrize("act", [None, "silu"])
