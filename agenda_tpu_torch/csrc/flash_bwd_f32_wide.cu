@@ -1,7 +1,7 @@
 // Flash attention's backward in full f32 for 160 < D <= 512, on the Hopper
 // (sm_90a) tensor cores: the dK/dV and dQ that f32 VAE pretraining runs at
 // its single-head mid-block attention (D = 512; S = 1024 at 256 px, 4096 at
-// 512 px). flash_f32.cu takes D <= 160.
+// 512 px). flash_bwd_f32.cu takes D <= 160 in one pass.
 //
 // Replaces the TPU kernels of agenda_tpu/kernels/flash.py on f32 operands,
 // which they take as they take bf16 (their dispatch in
@@ -91,7 +91,7 @@ using hopper::wgmma_fence;
 using hopper::wgmma_wait;
 using hopper::WgmmaSS;
 
-constexpr int kMinHeadDim = 160;  // exclusive: flash_f32.cu takes D <= 160
+constexpr int kMinHeadDim = 160;  // exclusive: flash_bwd_f32.cu takes D <= 160
 constexpr int kMaxHeadDim = 512;
 constexpr int kQ = 0, kK = 1, kV = 2, kDO = 3;  // the operands' order in the planes
 constexpr uint32_t kBox = 64 * 128;              // a TMA box: 64 rows of 64 bf16, 8 KB

@@ -7,13 +7,12 @@ Replaces the Pallas TPU kernels of ``agenda_tpu/kernels/flash.py``:
 - ``flash_attention_bwd_dkv`` -> ``csrc/flash_bwd.cu`` (``_flash_bwd_dkv_kernel``);
 - ``flash_attention_bwd_dq`` -> ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``);
 - on f32 operands (``--mixed_precision no``), as the TPU kernels take f32 as
-  they take bf16: the forward (up to D = 512) -> ``csrc/flash_fwd_f32.cu``,
-  the tensor cores on three bf16 pieces of each operand, which its pre-pass
-  ``flash_f32_split`` writes; dK/dV and dQ up to D = 160 ->
-  ``csrc/flash_f32.cu``; above 160 (f32 VAE pretraining's mid-block
-  attention, up to D = 512) -> ``csrc/flash_bwd_f32_wide.cu``, the tensor
-  cores on three bf16 pieces of each operand: each entry runs the pre-pass
-  ``flash_f32_split`` on q, k, v and dO and, over the chunks of
+  they take bf16, every kernel runs the tensor cores on three bf16 pieces of
+  each operand, which the pre-pass ``flash_f32_split`` writes: the forward
+  (up to D = 512) -> ``csrc/flash_fwd_f32.cu``; dK/dV and dQ, from the
+  pieces of q, k, v and dO, up to D = 160 -> ``csrc/flash_bwd_f32.cu`` (one
+  pass, no scratch); above 160 (f32 VAE pretraining's mid-block D = 512)
+  -> ``csrc/flash_bwd_f32_wide.cu``: over the chunks of
   ``f32_wide_bwd_plan``, a scores pass ``f32_wide_bwd_scores`` (P and dS
   into scratch) and the gradient products ``f32_wide_bwd_products``.
 
@@ -22,9 +21,11 @@ only for CPU tensors; on a CUDA tensor it launches the bf16 kernel for bf16,
 the f32 kernel for f32, and raises for any other dtype. Each counts its
 kernel launches in ``<wrapper>.launches`` and the f32 kernel's among them in
 ``<wrapper>.launches_f32``; each also counts its launches at D > 160 (the
-wide kernels, bf16 or f32) in ``<wrapper>.launches_wide``; the pre-pass
-counts its own in ``flash_f32_split.launches`` (one launch an f32 forward
-and one a wide f32 dK/dV or dQ call), and the wide f32 backward's other
+wide kernels of the bf16 path; the f32 ones above that D) in
+``<wrapper>.launches_wide``; the pre-pass counts its own in
+``flash_f32_split.launches`` (one launch an f32 forward, one an f32
+backward through ``flash_attention``, whose two entries share its pieces,
+and one an f32 dK/dV or dQ called alone), and the wide f32 backward's other
 passes theirs in ``f32_wide_bwd_scores.launches`` and
 ``f32_wide_bwd_products.launches``.
 ``flash_attention`` mirrors the JAX ``custom_vjp`` (``flash.py:295-312``):
@@ -130,22 +131,22 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _f32_kernels():
-    """``csrc/flash_fwd_f32.cu`` and ``csrc/flash_f32.cu``: (split, forward,
-    dK/dV, dQ, the forward's and the backward's largest head dim)."""
+    """``csrc/flash_fwd_f32.cu`` and ``csrc/flash_bwd_f32.cu``: (split,
+    forward, backward (dK/dV or dQ), the forward's and the backward's largest
+    head dim)."""
     lib = _build.load_library()
     split = lib.function("agenda_flash_f32_split", [_P] * 5 + [_I] * 4 + [_P, _P])
     fwd = lib.function("agenda_flash_fwd_f32", [_P] * 3 + [_I] * 4 + [_P])
-    dkv = lib.function("agenda_flash_bwd_dkv_f32", [_P] * 8 + [_I] * 4 + [_P, _P])
-    dq = lib.function("agenda_flash_bwd_dq_f32", [_P] * 7 + [_I] * 4 + [_P, _P])
+    bwd = lib.function("agenda_flash_bwd_f32", [_P] * 5 + [_I] * 5 + [_P])
     max_fwd = lib.function("agenda_flash_fwd_f32_max_head_dim", [])()
-    max_bwd = lib.function("agenda_flash_f32_bwd_max_head_dim", [])()
-    return split, fwd, dkv, dq, max_fwd, max_bwd
+    max_bwd = lib.function("agenda_flash_bwd_f32_max_head_dim", [])()
+    return split, fwd, bwd, max_fwd, max_bwd
 
 
 @functools.lru_cache(maxsize=None)
 def _f32_wide_bwd_kernels():
-    """``csrc/flash_bwd_f32_wide.cu`` (D > 160): (the scores pass, the
-    gradient products, the largest head dim)."""
+    """``csrc/flash_bwd_f32_wide.cu`` (D above ``csrc/flash_bwd_f32.cu``'s):
+    (the scores pass, the gradient products, the largest head dim)."""
     lib = _build.load_library()
     scores = lib.function("agenda_flash_f32_wide_scores", [_P] * 4 + [_I] * 9 + [_P])
     products = lib.function("agenda_flash_f32_wide_products", [_P] * 4 + [_I] * 10 + [_P])
@@ -215,7 +216,7 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     f32 = q.dtype == torch.float32
-    _check_cuda("flash", (q, k, v), _f32_kernels()[4] if f32 else _kernel()[1])
+    _check_cuda("flash", (q, k, v), _f32_kernels()[3] if f32 else _kernel()[1])
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
@@ -259,16 +260,16 @@ def flash_f32_split_reference(*operands: torch.Tensor) -> torch.Tensor:
 def flash_f32_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor = None) -> torch.Tensor:
     """The f32 pre-pass (``csrc/flash_fwd_f32.cu``): f32 (B, S, H, D) q, k, v,
-    taken as ``flash_attention_fwd`` takes them, and for the wide f32
-    backward dO too -> their bf16 pieces as ``flash_f32_split_reference``
-    lays them out (nine planes, or twelve with dO), contiguous."""
+    taken as ``flash_attention_fwd`` takes them, and for the f32 backward dO
+    too -> their bf16 pieces as ``flash_f32_split_reference`` lays them out
+    (nine planes, or twelve with dO), contiguous."""
     ops = (q, k, v) if do is None else (q, k, v, do)
     _check(*ops)
     if q.dtype != torch.float32:
         raise TypeError(f"the f32 split takes f32, got {q.dtype}")
     if q.device.type == "cpu":
         return flash_f32_split_reference(*ops)
-    split, _, _, _, max_d, _ = _f32_kernels()
+    split, _, _, max_d, _ = _f32_kernels()
     _check_cuda("flash f32 split", ops, max_d)
     b, s, h, d = q.shape
     pieces = torch.empty((3 * len(ops), b, s, h, d), dtype=torch.bfloat16, device=q.device)
@@ -359,18 +360,41 @@ def f32_wide_bwd_products(pieces, scratch, outs, shape, chunk, dkv: bool) -> Non
 f32_wide_bwd_scores.launches = f32_wide_bwd_products.launches = 0
 
 
-def _f32_wide_bwd(q, k, v, do, lse, delta, dkv: bool):
+def _f32_wide_bwd(pieces, lse, delta, shape, dkv: bool):
     """The wide f32 dK/dV (dkv: returns (dk, dv)) or dQ (returns (dq,)) on
-    CUDA: the pre-pass, then the scores pass and the products chunk by chunk
-    through one scratch buffer."""
-    pieces = flash_f32_split(q, k, v, do)
+    CUDA from ``flash_f32_split(q, k, v, do)``'s pieces: the scores pass and
+    the products chunk by chunk through one scratch buffer."""
+    outs = [torch.empty(shape, dtype=torch.float32, device=pieces.device)
+            for _ in range(2 if dkv else 1)]
+    plan, scratch = f32_wide_bwd_scratch(shape, dkv, pieces.device)
+    for chunk in plan:
+        f32_wide_bwd_scores(pieces, lse, delta, scratch, shape, chunk, dkv)
+        f32_wide_bwd_products(pieces, scratch, outs, shape, chunk, dkv)
+    return (outs[1], outs[0]) if dkv else (outs[0],)
+
+
+def _f32_bwd(q, k, v, do, lse, delta, pieces, dkv: bool):
+    """The f32 dK/dV (dkv: (dk, dv)) or dQ ((dq,)) on CUDA, from ``pieces``
+    (``flash_f32_split(q, k, v, do)``'s twelve planes, or None: the pre-pass
+    runs here): ``csrc/flash_bwd_f32.cu`` up to its largest D, the wide
+    passes above it."""
+    _, _, bwd, _, max_narrow = _f32_kernels()
+    _check_cuda("flash backward", (q, k, v, do), _f32_wide_bwd_kernels()[2])
+    if pieces is None:
+        pieces = flash_f32_split(q, k, v, do)
+    elif (pieces.shape != (12, *q.shape) or pieces.dtype != torch.bfloat16
+          or pieces.device != q.device or not pieces.is_contiguous()):
+        raise ValueError(f"pieces must be flash_f32_split(q, k, v, do)'s contiguous bf16 "
+                         f"{(12, *q.shape)} on {q.device}, got {tuple(pieces.shape)} "
+                         f"{pieces.dtype} on {pieces.device}")
+    if q.shape[3] > max_narrow:
+        return _f32_wide_bwd(pieces, lse, delta, q.shape, dkv)
     outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
             for _ in range(2 if dkv else 1)]
-    plan, scratch = f32_wide_bwd_scratch(q.shape, dkv, q.device)
-    for chunk in plan:
-        f32_wide_bwd_scores(pieces, lse, delta, scratch, q.shape, chunk, dkv)
-        f32_wide_bwd_products(pieces, scratch, outs, q.shape, chunk, dkv)
-    return (outs[1], outs[0]) if dkv else (outs[0],)
+    rc = bwd(pieces.data_ptr(), lse.data_ptr(), delta.data_ptr(), outs[0].data_ptr(),
+             outs[-1].data_ptr(), *q.shape, int(dkv), _build.stream_ptr(q.device))
+    _build.check(rc, "flash_attention_bwd_dkv" if dkv else "flash_attention_bwd_dq")
+    return tuple(outs)
 
 
 def _stats_on(lse: torch.Tensor, delta: torch.Tensor, q: torch.Tensor) -> None:
@@ -387,23 +411,27 @@ def _bwd_args(q, k, v, do, lse, delta):
     return [t.data_ptr() for t in (q, k, v, do, lse, delta)], list(q.shape), strides
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, pieces=None):
     """dK, dV of non-causal unmasked attention over (B, S, H, D) for any S.
 
     lse and delta are (B*H, S) f32. CUDA tensors: as ``flash_attention_fwd``
     takes them, with D up to 512 in either dtype; dk and dv come back
-    contiguous in q's dtype.
+    contiguous in q's dtype. In f32 the kernels read the bf16 pieces of q, k,
+    v and dO: ``pieces``, ``flash_f32_split(q, k, v, do)``'s, lets one
+    pre-pass serve this entry and ``flash_attention_bwd_dq``; without it the
+    pre-pass runs here. The plain version (CPU tensors) needs no pieces.
     """
     _check(q, k, v, do)
     _stats_on(lse, delta, q)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta)
-    fn, _, max_d = _bwd_cuda(q)
-    _check_cuda("flash backward", (q, k, v, do), max_d)
     lse, delta = lse.contiguous(), delta.contiguous()
-    if fn is None:
-        dk, dv = _f32_wide_bwd(q, k, v, do, lse, delta, dkv=True)
+    if q.dtype == torch.float32:
+        dk, dv = _f32_bwd(q, k, v, do, lse, delta, pieces, dkv=True)
     else:
+        fn, _, max_d = _bwd_kernels()
+        _check_cuda("flash backward", (q, k, v, do), max_d)
+        _no_pieces(pieces)
         dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         ptrs, dims, strides = _bwd_args(q, k, v, do, lse, delta)
@@ -416,19 +444,20 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta):
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, pieces=None):
     """dQ, same inputs as ``flash_attention_bwd_dkv``; dq contiguous in q's
     dtype on CUDA."""
     _check(q, k, v, do)
     _stats_on(lse, delta, q)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta)
-    _, fn, max_d = _bwd_cuda(q)
-    _check_cuda("flash backward", (q, k, v, do), max_d)
     lse, delta = lse.contiguous(), delta.contiguous()
-    if fn is None:
-        dq, = _f32_wide_bwd(q, k, v, do, lse, delta, dkv=False)
+    if q.dtype == torch.float32:
+        dq, = _f32_bwd(q, k, v, do, lse, delta, pieces, dkv=False)
     else:
+        _, fn, max_d = _bwd_kernels()
+        _check_cuda("flash backward", (q, k, v, do), max_d)
+        _no_pieces(pieces)
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         ptrs, dims, strides = _bwd_args(q, k, v, do, lse, delta)
         rc = fn(*ptrs, dq.data_ptr(), *dims, strides, _build.stream_ptr(q.device))
@@ -439,16 +468,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta):
     return dq
 
 
-def _bwd_cuda(q: torch.Tensor):
-    """(dK/dV entry, dQ entry, largest D) of the backward kernels for q's dtype
-    and head dim; the entries are None for the wide f32 backward
-    (``_f32_wide_bwd``)."""
-    if q.dtype != torch.float32:
-        return _bwd_kernels()
-    if q.shape[3] > WIDE_ABOVE:
-        return None, None, _f32_wide_bwd_kernels()[2]
-    _, _, dkv, dq, _, max_d = _f32_kernels()
-    return dkv, dq, max_d
+def _no_pieces(pieces) -> None:
+    if pieces is not None:
+        raise ValueError("pieces are the f32 backward's; the bf16 kernels read q, k, v, dO")
 
 
 for _fn in (flash_attention_bwd_dkv, flash_attention_bwd_dq):
@@ -470,8 +492,11 @@ class FlashAttention(torch.autograd.Function):
         if do.device.type == "cuda" and (do.stride(-1) != 1 or not _chunked(do)):
             do = do.contiguous()
         delta = flash_delta(out, do)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        pieces = None
+        if do.device.type == "cuda" and q.dtype == torch.float32:  # one pre-pass for both
+            pieces = flash_f32_split(q, k, v, do)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, pieces)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, pieces)
         return dq, dk, dv
 
 

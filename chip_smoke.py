@@ -207,8 +207,8 @@ then the training path (SD fine-tune, batch 4 at 512x512, full SD-1.4 width):
                 make_vae_pretrain_step computes by default (TF32 off): steps
                 (losses, warm s/step, peak, every flash and GroupNorm launch
                 an f32 kernel's: wide K1 f32 and its pre-pass, 2 wide K2 f32
-                and K3 f32 of csrc/flash_bwd_f32_wide.cu, each a pre-pass, a
-                scores pass and the gradient products, K6 f32 a GroupNorm
+                and K3 f32 of csrc/flash_bwd_f32_wide.cu, from one pre-pass a
+                backward, each a scores pass and the gradient products, K6 f32 a GroupNorm
                 module), pretrain_vae(dtype=f32) and its scaling_factor; the
                 f32 step card vs CPU at VAE_F32_PARITY_RES px with a control
                 that drops the attention's gradient; the wide f32 dK/dV and
@@ -1091,7 +1091,7 @@ def ptxas_report(log: str):
     names = ("flash_fwd_wgmma|flash_fwd_wide_wgmma|flash_bwd_dkv_wide_wgmma|flash_bwd_dq_wide_wgmma"
              "|flash_bwd_dkv|flash_bwd_dq|flash_fwd_f32|flash_fwd_f32_wide|flash_f32_split"
              "|flash_f32_wide_scores|flash_f32_wide_products"
-             "|flash_bwd_dkv_f32|flash_bwd_dq_f32"
+             "|flash_bwd_dkv_f32_wgmma|flash_bwd_dq_f32_wgmma"
              "|groupnorm|fused_adamw8bit")
     types = {"13__nv_bfloat16": "bf16", "f": "f32"}  # the group norm's element type
     found, current = {}, None
@@ -3964,8 +3964,8 @@ def vae_pretrain_phase(cfg, state: dict, dev, dtype, steps: int, tag: str) -> di
     losses (finite, the reconstruction falling), the warm s/step, peak memory
     and the launches of the wide K1, K2, K3 and of K6 a step against the VAE's
     count (two mid-block attentions, one per GroupNorm module; the GroupNorm
-    backward is the plain recompute), in f32 each an f32 kernel's (K1's
-    pre-pass once a forward); then pretrain_vae end to end and its
+    backward is the plain recompute), in f32 each an f32 kernel's (the
+    pre-pass once a forward and once a backward); then pretrain_vae end to end and its
     scaling_factor. The peak is the phase's own: above what was held before."""
     import numpy as np
     import torch
@@ -3999,8 +3999,9 @@ def vae_pretrain_phase(cfg, state: dict, dev, dtype, steps: int, tag: str) -> di
     if f32:  # every launch an f32 kernel's, the backward's wide ones too
         want.update({f"{k} f32": want[k] for k in (*wrappers, "group_norm_act")})
         want.update({"flash_attention_bwd_dkv_wide": 2, "flash_attention_bwd_dq_wide": 2,
-                     # the pre-pass: one launch a forward and one a backward call
-                     "flash_f32_split": 2 + 4, **{k: 4 for k in WIDE_F32_PASSES}})
+                     # the pre-pass: one launch a forward and one a backward (its dK/dV
+                     # and dQ share the pieces)
+                     "flash_f32_split": 2 + 2, **{k: 4 for k in WIDE_F32_PASSES}})
     require(sum(isinstance(m, VAEAttention) for m in vae.modules()) == 2,
             "the VAE should have two mid-block attentions")
 
@@ -4626,7 +4627,7 @@ def host_phase(labels: dict, tmp: str) -> dict:
 
 # -- full precision: --mixed_precision no (phase 40) --------------------------------
 
-# The f32 kernels (csrc/flash_fwd_f32.cu, csrc/flash_f32.cu,
+# The f32 kernels (csrc/flash_fwd_f32.cu, csrc/flash_bwd_f32.cu,
 # csrc/flash_bwd_f32_wide.cu; groupnorm.cu's f32 instantiation) are held to
 # their plain versions computed in float64 on the
 # card: a kernel's max |error| may be at most F32_LIMIT times that of the f32
@@ -4718,26 +4719,30 @@ def in_chunks(fn, *ins, chunk: int = 2):
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
-def f32_split_row(shape, per, runs, q, k, v, rows) -> None:
-    """The f32 forward's pre-pass at one shape: its bf16 pieces bit for bit
-    those of the plain version, timed beside its bytes bound (f32 q, k, v
-    read once, nine bf16 planes written) and the plain version; no PyTorch
-    call computes it (library_ms null)."""
+def f32_split_row(shape, per, runs, rows, *ops):
+    """The f32 pre-pass at one shape over ``ops`` (q, k, v for a forward; q,
+    k, v, dO for a backward): its bf16 pieces bit for bit those of the plain
+    version, timed beside its bytes bound (the f32 operands read once, three
+    bf16 planes an operand written) and the plain version; no PyTorch call
+    computes it (library_ms null). Returns the pieces."""
     from agenda_tpu_torch.kernels import flash as fl
 
-    got, want = fl.flash_f32_split(q, k, v), fl.flash_f32_split_reference(q, k, v)
+    tag = "flash f32 split" + ("" if len(ops) == 3 else " of q, k, v, dO")
+    got, want = fl.flash_f32_split(*ops), fl.flash_f32_split_reference(*ops)
     err = (got.float() - want.float()).abs().max().item()
-    require(err == 0, f"flash f32 split {shape}: pieces differ from the plain version's by {err}")
-    ms, eager = time_ms(lambda: fl.flash_f32_split(q, k, v))
-    plain_ms, _ = time_ms(lambda: fl.flash_f32_split_reference(q, k, v), max_iters=10)
-    nbytes = 3 * q.numel() * (4.0 + 3 * 2.0)
+    require(err == 0, f"{tag} {shape}: pieces differ from the plain version's by {err}")
+    del want
+    ms, eager = time_ms(lambda: fl.flash_f32_split(*ops))
+    plain_ms, _ = time_ms(lambda: fl.flash_f32_split_reference(*ops), max_iters=10)
+    nbytes = len(ops) * ops[0].numel() * (4.0 + 3 * 2.0)
     bound = 1e3 * nbytes / H100_BYTES_PER_S
     rows.append(dict(shape=shape, per=per, per_batch=sum(n * runs[c] for c, n in per.items()),
                      err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-                     bound_by="bytes"))
-    print(f"[f32] flash f32 split {shape} x{per}  pieces equal to the plain version's  kernel "
+                     bound_by="bytes", operands=len(ops)))
+    print(f"[f32] {tag} {shape} x{per}  pieces equal to the plain version's  kernel "
           f"{ms:.4f} ms (eager {eager:.4f})  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
           f"(bytes: {nbytes:.4g})", flush=True)
+    return got
 
 
 def f32_flash_rows(per_context: dict, runs: dict) -> dict:
@@ -4759,7 +4764,7 @@ def f32_flash_rows(per_context: dict, runs: dict) -> dict:
         b, s, h, d = shape
         g = torch.Generator(device="cuda").manual_seed(b * 7919 + s + h + d)
         q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
-        f32_split_row(shape, per, runs, q, k, v, rows["split"])
+        f32_split_row(shape, per, runs, rows["split"], q, k, v)
         out, lse = fl.flash_attention_fwd(q, k, v)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         io, stats, prod = 4.0 * b * s * h * d, 4.0 * b * h * s, 2.0 * b * h * s * s * d
@@ -4779,10 +4784,13 @@ def f32_flash_rows(per_context: dict, runs: dict) -> dict:
     return rows
 
 
-def f32_bwd_pair(shape, per, runs, q, k, v, do, out, lse, rows, tag: str = "flash") -> None:
-    """The f32 dK/dV and dQ on (q, k, v, do) against float64, timed beside their
-    bound, the plain version and SDPA's f32 backward (dQ, dK, dV in one call)
-    on the same tensors; a row each into rows["dkv"] and rows["dq"]."""
+def f32_bwd_pair(shape, per, runs, q, k, v, do, out, lse, rows, tag: str = "flash"):
+    """The f32 dK/dV and dQ on (q, k, v, do) against float64, each timed given
+    the pieces of one pre-pass (as ``flash_attention``'s backward runs them)
+    beside its bound, the plain version and SDPA's f32 backward (dQ, dK, dV
+    in one call) on the same tensors; a row each into rows["dkv"] and
+    rows["dq"], and the pre-pass's into rows["split"] (one a backward).
+    Returns (the pieces, delta)."""
     import torch
     import torch.nn.functional as F
 
@@ -4792,6 +4800,7 @@ def f32_bwd_pair(shape, per, runs, q, k, v, do, out, lse, rows, tag: str = "flas
     io, stats, prod = 4.0 * b * s * h * d, 4.0 * b * h * s, 2.0 * b * h * s * s * d
     delta = fl.flash_delta(out, do)
     ins = (q, k, v, do, lse, delta)
+    pieces = f32_split_row(shape, per, runs, rows["split"], q, k, v, do)
     wide_ins = tuple(t.double() for t in ins)
     qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     side = torch.cuda.Stream()
@@ -4804,18 +4813,23 @@ def f32_bwd_pair(shape, per, runs, q, k, v, do, out, lse, rows, tag: str = "flas
     def sdpa_bwd():
         return torch.autograd.grad(o, (qg, kg, vg), dot, retain_graph=True)
 
-    f32_row(f"{tag} dkv", shape, per, runs, fl.flash_attention_bwd_dkv(*ins),
+    f32_row(f"{tag} dkv", shape, per, runs, fl.flash_attention_bwd_dkv(*ins, pieces),
             fl.flash_attention_bwd_dkv_reference(*ins),
             fl.flash_attention_bwd_dkv_reference(*wide_ins),
-            lambda: fl.flash_attention_bwd_dkv(*ins),
+            lambda: fl.flash_attention_bwd_dkv(*ins, pieces),
             lambda: fl.flash_attention_bwd_dkv_reference(*ins), sdpa_bwd,
             4 * prod, float(b * h * s * s), 6 * io + 2 * stats, rows["dkv"], side)
-    f32_row(f"{tag} dq", shape, per, runs, (fl.flash_attention_bwd_dq(*ins),),
+    f32_row(f"{tag} dq", shape, per, runs, (fl.flash_attention_bwd_dq(*ins, pieces),),
             (fl.flash_attention_bwd_dq_reference(*ins),),
             (fl.flash_attention_bwd_dq_reference(*wide_ins),),
-            lambda: fl.flash_attention_bwd_dq(*ins),
+            lambda: fl.flash_attention_bwd_dq(*ins, pieces),
             lambda: fl.flash_attention_bwd_dq_reference(*ins), sdpa_bwd,
             3 * prod, float(b * h * s * s), 5 * io + 2 * stats, rows["dq"], side)
+    pair = rows["dkv"][-1]["ms"] + rows["dq"][-1]["ms"] + rows["split"][-1]["ms"]
+    lib = rows["dq"][-1]["library_ms"]
+    print(f"[f32] {tag} pair {shape}: dK/dV + dQ + their pre-pass {pair:.4f} ms against SDPA's "
+          f"f32 backward {lib:.4f} ms ({pair / lib:.3f}x)", flush=True)
+    return pieces, delta
 
 
 def f32_wide_bwd_rows(per_step: dict) -> dict:
@@ -4835,59 +4849,41 @@ def f32_wide_bwd_rows(per_step: dict) -> dict:
         g = torch.Generator(device="cuda").manual_seed(b * 7919 + s + h + d)
         q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
         out, lse = fl.flash_attention_fwd(q, k, v)
-        f32_bwd_pair(shape, {"step": count}, {"step": 1}, q, k, v, do, out, lse, rows,
-                     "flash wide")
-        f32_wide_bwd_parts(shape, 2 * count, q, k, v, do, fl.flash_delta(out, do), lse, rows)
-        del q, k, v, do, out, lse
+        pieces, delta = f32_bwd_pair(shape, {"step": count}, {"step": 1}, q, k, v, do, out, lse,
+                                     rows, "flash wide")
+        f32_wide_bwd_parts(shape, q, k, v, do, delta, lse, pieces)
+        del q, k, v, do, out, lse, pieces, delta
         torch.cuda.empty_cache()
     return rows
 
 
-def f32_wide_bwd_parts(shape, per_step, q, k, v, do, delta, lse, rows) -> None:
-    """The wide f32 backward's passes alone at one shape: the pre-pass
-    (flash_f32_split on q, k, v and dO: its twelve bf16 planes bit for bit
-    those of the plain version; a row of its own in rows["split"],
-    ``per_step`` calls a VAE step: one a dK/dV or dQ call, bound by its
-    bytes, no PyTorch call computes it), each entry's scores pass and
-    gradient products over the call's chunks, and the scratch and peak
+def f32_wide_bwd_parts(shape, q, k, v, do, delta, lse, pieces) -> None:
+    """The wide f32 backward's passes alone at one shape, from ``pieces``
+    (its pre-pass's, which ``f32_bwd_pair`` times): each entry's scores pass
+    and gradient products over the call's chunks, and the scratch and peak
     memory a call adds to what it is given."""
     import torch
 
     from agenda_tpu_torch.kernels import flash as fl
 
-    got, want = fl.flash_f32_split(q, k, v, do), fl.flash_f32_split_reference(q, k, v, do)
-    err = (got.float() - want.float()).abs().max().item()
-    require(err == 0, f"flash f32 split of q, k, v, dO {shape}: pieces differ from the plain "
-            f"version's by {err}")
-    del want
-    split_ms, eager = time_ms(lambda: fl.flash_f32_split(q, k, v, do))
-    plain_ms, _ = time_ms(lambda: fl.flash_f32_split_reference(q, k, v, do), max_iters=10)
-    nbytes = 4 * q.numel() * (4.0 + 3 * 2.0)
-    bound = 1e3 * nbytes / H100_BYTES_PER_S
-    rows["split"].append(dict(shape=shape, per={"step": per_step}, per_batch=per_step, err=err,
-                              ms=split_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-                              bound_by="bytes"))
-    print(f"[f32] flash f32 split of q, k, v, dO {shape} x{per_step} a step  pieces equal to the plain "
-          f"version's  kernel {split_ms:.4f} ms (eager {eager:.4f})  plain {plain_ms:.4f} ms  "
-          f"bound {bound:.4f} ms (bytes: {nbytes:.4g})", flush=True)
     for dkv, entry in ((True, "dkv"), (False, "dq")):
         plan, scratch = fl.f32_wide_bwd_scratch(shape, dkv, "cuda")
         scratch_bytes = 2 * scratch.numel()
         outs = [torch.empty(shape, device="cuda") for _ in range(2 if dkv else 1)]
-        scores_ms = time_ms(lambda: [fl.f32_wide_bwd_scores(got, lse, delta, scratch, shape, c,
-                                                            dkv) for c in plan])[0]
-        products_ms = time_ms(lambda: [fl.f32_wide_bwd_products(got, scratch, outs, shape, c,
-                                                                dkv) for c in plan])[0]
+        scores_ms = time_ms(lambda: [fl.f32_wide_bwd_scores(pieces, lse, delta, scratch, shape,
+                                                            c, dkv) for c in plan])[0]
+        products_ms = time_ms(lambda: [fl.f32_wide_bwd_products(pieces, scratch, outs, shape,
+                                                                c, dkv) for c in plan])[0]
         del scratch, outs
         call = fl.flash_attention_bwd_dkv if dkv else fl.flash_attention_bwd_dq
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        result = call(q, k, v, do, lse, delta)
+        result = call(q, k, v, do, lse, delta, pieces)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - held
         del result
-        print(f"[f32] flash wide {entry} passes {shape}: pre-pass {split_ms:.4f} ms, scores pass "
+        print(f"[f32] flash wide {entry} passes {shape}: scores pass "
               f"{scores_ms:.4f} ms, gradient products {products_ms:.4f} ms over {len(plan)} "
               f"chunk(s); scratch {scratch_bytes / 2**20:.1f} MiB (cap "
               f"{fl.F32_WIDE_BWD_SCRATCH / 2**20:.0f} MiB), the call's peak above its inputs "
@@ -4951,9 +4947,10 @@ def f32_counters():
             "flash_attention_bwd_dq": flash_attention_bwd_dq, "group_norm_act": group_norm_act}
 
 
-# the wide f32 backward's passes (csrc/flash_bwd_f32_wide.cu): each dK/dV or
-# dQ call runs the pre-pass (flash_f32_split, counted with the forward's)
-# once and, chunk by chunk (one chunk at the VAE's shapes), these
+# the wide f32 backward's passes (csrc/flash_bwd_f32_wide.cu): from the
+# pieces of one pre-pass a backward (flash_f32_split, counted with the
+# forward's), each dK/dV or dQ call runs, chunk by chunk (one chunk at the
+# VAE's shapes), these
 WIDE_F32_PASSES = ("f32_wide_bwd_scores", "f32_wide_bwd_products")
 
 
@@ -5187,6 +5184,10 @@ def f32_cli_phase(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int) 
         launches = read_counts()
         f32 = all_f32(launches)
         splits = flash_f32_split.launches
+        # D > 160: the wide passes (csrc/flash_bwd_f32_wide.cu); the SD UNet's
+        # D <= 160 runs csrc/flash_bwd_f32.cu alone
+        wide_bwd = [f32_counters()[name].launches_wide
+                    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")]
         expect = want(validations, int8)
         peak = torch.cuda.max_memory_allocated()
         print(f"[{tag}] --mixed_precision no: {stats['steps']} steps in {stats['seconds']:.3f} s "
@@ -5199,8 +5200,11 @@ def f32_cli_phase(model_dir: str, tmp: str, unet_cfg, vae_cfg, unet_calls: int) 
         require(launches == expect, f"{tag}: launches differ from the config's count")
         require(all(n == m for n, m in f32.values()), f"{tag}: a launch was not an f32 "
                 f"kernel's: {f32}")
-        require(splits == launches["flash_attention_fwd"], f"{tag}: {splits} launches of the "
-                "f32 forward's pre-pass, not one a forward")
+        require(wide_bwd == [0, 0], f"{tag}: {wide_bwd} f32 dK/dV and dQ launches of the wide "
+                "passes (D > 160)")
+        require(splits == launches["flash_attention_fwd"] + launches["flash_attention_bwd_dkv"],
+                f"{tag}: {splits} launches of the f32 pre-pass, not one a forward and one a "
+                "backward")
         if validations:
             images = os.path.join(tmp, "f32_sd", "logs", "images")
             names = sorted(os.listdir(images))
@@ -5261,6 +5265,14 @@ def f32_phase(model_dir, tmp, unet_cfg, vae_cfg, unet_calls, dev) -> dict:
             for ctx, label in (("step", "a step"), ("cache", "a cache batch"),
                                ("validation", "a validation batch"))
             if any(ctx in r["per"] for r in rows)), flush=True)
+    pair = {key: sum(r[key] * r["per_batch"] for r in flash["dkv"] + flash["dq"])
+            for key in ("ms", "bound_ms")}
+    bwd_split = sum(r["ms"] * r["per_batch"] for r in flash["split"] if r["operands"] == 4)
+    sdpa = sum(r["library_ms"] * r["per_batch"] for r in flash["dq"])
+    print(f"[f32] the f32 dK/dV + dQ over the SD CLI's run: {pair['ms']:.4f} ms (bound "
+          f"{pair['bound_ms']:.4f}), with their pre-pass {pair['ms'] + bwd_split:.4f} ms, against "
+          f"SDPA's f32 backward {sdpa:.4f} ms ({(pair['ms'] + bwd_split) / sdpa:.3f}x)",
+          flush=True)
     print("[f32] phase 40's parts: " + ", ".join(
         f"{name} {b - a:.1f} s" for name, a, b in zip(("step", "kernel rows", "card vs CPU",
                                                        "CLIs"), t, t[1:])), flush=True)
@@ -5580,10 +5592,10 @@ def main() -> int:
         summarize("flash_f32_split", "cuda", "agenda_tpu_torch/csrc/flash_fwd_f32.cu",
                   "agenda_tpu/kernels/flash.py:55", f32["flash"]["split"],
                   f32["cli"]["f32 sd-cli"]["splits"]),
-        summarize("flash_attention_bwd_dkv_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+        summarize("flash_attention_bwd_dkv_f32", "cuda", "agenda_tpu_torch/csrc/flash_bwd_f32.cu",
                   "agenda_tpu/kernels/flash.py:153", f32["flash"]["dkv"],
                   f32_sd["flash_attention_bwd_dkv"]),
-        summarize("flash_attention_bwd_dq_f32", "cuda", "agenda_tpu_torch/csrc/flash_f32.cu",
+        summarize("flash_attention_bwd_dq_f32", "cuda", "agenda_tpu_torch/csrc/flash_bwd_f32.cu",
                   "agenda_tpu/kernels/flash.py:192", f32["flash"]["dq"],
                   f32_sd["flash_attention_bwd_dq"]),
         summarize("flash_attention_bwd_dkv_f32_wide", "cuda",
@@ -5695,12 +5707,13 @@ def main() -> int:
           f"{par['sound'][0]:.3g}, gradients {par['sound'][1]:.3g} (limit {VAE_F32_GRAD_TOL}; "
           f"control {par['control'][1]:.3g}). Units: flash_attention_bwd_dkv_f32_wide and "
           "flash_attention_bwd_dq_f32_wide (csrc/flash_bwd_f32_wide.cu, tensor cores: each "
-          "call its pre-pass, scores pass and products) sum ms over one "
+          "call its scores pass and products, given the pieces) sum ms over one "
           f"f32 VAE pretraining step (batch {VAE_BATCH}, {VAE_RES} px: (8, 1024, 1, 512) twice), "
           "launches from phase 41's last step; their bound counts the products as three TF32 "
           "passes (as the other f32 rows); library_ms is SDPA's whole f32 backward at the "
-          "same shape; flash_f32_split_wide_bwd is their pre-pass alone (flash_f32_split on q, "
-          "k, v and dO: one launch a call, four a step), bound by its bytes", flush=True)
+          "same shape; flash_f32_split_wide_bwd is their pre-pass (flash_f32_split on q, "
+          "k, v and dO: one launch a backward, shared by its two calls, two a step), bound by "
+          "its bytes", flush=True)
     print(f"[report] profile report of phase 6's trace: busy {report['busy_ms']:.2f} ms, "
           f"{100 * report['share']:.1f}% of the traced window; top categories " + ", ".join(
               f"{k} {ms:.2f} ms" for k, ms in report["top"]), flush=True)
@@ -5723,8 +5736,8 @@ def main() -> int:
           f"{F32_STEPS} steps and validation {f32['cli']['f32 sd-cli']['wall']:.1f} s, the token "
           f"CLI's {f32['cli']['f32 token-cli']['wall']:.1f} s. Units: the six f32 entries "
           f"(flash_attention_fwd_f32, flash_attention_fwd_f32_wide, flash_f32_split, "
-          f"flash_attention_bwd_dkv_f32, flash_attention_bwd_dq_f32, group_norm_act_f32) sum ms "
-          f"over every launch of the f32 "
+          f"flash_attention_bwd_dkv_f32, flash_attention_bwd_dq_f32 (csrc/flash_bwd_f32.cu, "
+          f"one pass at D <= 160), group_norm_act_f32) sum ms over every launch of the f32 "
           f"SD CLI's run, the launches they sit beside: {F32_STEPS} training steps (batch "
           f"{TRAIN_BATCH}, {TRAIN_RES}x{TRAIN_RES}), {math.ceil(TRAIN_TILES / TRAIN_BATCH)} "
           f"batches of the latent cache's encode and one validation batch ({F32_VAL_IMAGES} "
@@ -5732,8 +5745,10 @@ def main() -> int:
           "phase 40's '[f32] ... a step; a cache batch; a validation batch' lines split them; "
           "library_ms is SDPA on the f32 tensors (its whole backward for dK/dV and dQ) and "
           "F.group_norm + F.silu in f32; the two forward entries time the whole f32 forward "
-          "call, its pre-pass (flash_f32_split, one launch a forward, no PyTorch equivalent: "
-          "library_ms null) included", flush=True)
+          "call, its pre-pass (flash_f32_split of q, k, v, one launch a forward, no PyTorch "
+          "equivalent: library_ms null) included; the backward entries time a kernel given "
+          "the pieces of the backward's one pre-pass (flash_f32_split of q, k, v, dO, its rows "
+          "in flash_f32_split's)", flush=True)
     mr0 = multi["ranks"][0]
     print(f"[report] multi-rank (phase 38, {MR_WORLD} ranks sharing the card over gloo): peak "
           f"memory a rank at --fsdp {MR_WORLD} "

@@ -77,13 +77,26 @@ the sums, as is (2, 4096, 1, 512), its mid-block attention at 512 px:
                          blocks of 128 columns each, not two of 256;
   fwd_f32_32_key_tiles   32-key tiles at every head dim (D <= 40 too, in four
                          stages);
+  bwd_f32_base           the f32 dK/dV and dQ (--mixed_precision no) alone, as they
+                         are, at the f32 SD step's shapes (F32_BWD_SHAPES, all in
+                         csrc/flash_bwd_f32.cu),
+                         summed over a step's launches and held to float64 as
+                         fwd_f32_base is: each timed given the pieces of one
+                         pre-pass, which is timed alone (one a backward); --tree on
+                         a checkout before they moved to the tensor cores times the
+                         FFMA kernels, whole calls;
+  bwd_f32_no_exp         their exponentials of P replaced by the identity;
+  bwd_f32_loads_and_scores_only  without their gradient products (dV, dK, dQ):
+                         the pieces' supply, S, dP, P, dS and their split alone;
+  bwd_f32_wide_at_160    D = 160 through the wide passes of csrc/flash_bwd_f32_wide.cu
+                         (and the scratch of P and dS pieces), not the one-pass kernel;
   bwd_f32_wide_base      the wide f32 dK/dV and dQ (D > 160, f32 VAE pretraining)
                          alone, as they are, at the VAE's (8, 1024, 1, 512) (2
                          launches each a step) and (2, 4096, 1, 512) (its 512-px
-                         mid-block), held to float64 as fwd_f32_base is, with
-                         their three passes (pre-pass, scores pass, gradient
-                         products) also timed alone; --tree on a checkout before
-                         they moved to the tensor cores times the FFMA kernels;
+                         mid-block), held to float64 and timed as bwd_f32_base,
+                         with their passes (scores pass, gradient products) also
+                         timed alone; --tree on a checkout before they moved to
+                         the tensor cores times the FFMA kernels;
   bwd_f32_wide_products_only  without the scores pass (the products read
                          whatever the scratch holds): the pre-pass and products;
   bwd_f32_wide_scores_128x128, bwd_f32_wide_scores_64x64  the scores pass in
@@ -107,8 +120,9 @@ all apply is made.
 One JSON line per variant ({"variant": ..., "error": ...} where its build or
 a launch failed): {"variant": ..., "fwd": {shape: ms}, "fwd_batch_ms",
 "fwd_worst", "fwd_f32": {shape: ms}, "fwd_f32_split": {shape: ms},
-"fwd_f32_run_ms", "fwd_f32_worst", "bwd_f32_wide": {shape: [dK/dV ms, dQ ms]},
-"bwd_f32_wide_parts": {shape: {pass: ms}}, "bwd_f32_wide_step_ms",
+"fwd_f32_run_ms", "fwd_f32_worst", "bwd_f32" and "bwd_f32_wide": {shape: [dK/dV
+ms, dQ ms, pre-pass ms (0 where the entries run their own)]}, "bwd_f32_step_ms",
+"bwd_f32_worst", "bwd_f32_wide_parts": {shape: {pass: ms}}, "bwd_f32_wide_step_ms",
 "bwd_f32_wide_worst", "gn": {shape: ms}, "gn_batch_ms", "gn_worst", "bwd": {shape:
 [dK/dV ms, dQ ms]}, "bwd_step_ms", "bwd_worst", "adamw_step_ms",
 "adamw_ema_step_ms" (with their TB/s), "adamw_host_us" (the host's time to
@@ -169,14 +183,18 @@ F32_FWD_SHAPES = [
     ((4, 4096, 8, 40), 10), ((4, 1024, 8, 80), 10), ((4, 256, 8, 160), 10),
     ((4, 64, 8, 160), 2), ((8, 4096, 8, 40), 105), ((8, 1024, 8, 80), 105),
     ((8, 256, 8, 160), 105), ((8, 64, 8, 160), 21), ((4, 4096, 1, 512), 3)]
+# the f32 SD step (chip_smoke.py phase 40, batch 4 at 512x512): (B, S, H, D) and
+# the f32 dK/dV (and dQ) launches a step
+F32_BWD_SHAPES = [((4, 4096, 8, 40), 5), ((4, 1024, 8, 80), 5), ((4, 256, 8, 160), 5),
+                  ((4, 64, 8, 160), 1)]
 # f32 VAE pretraining (chip_smoke.py phase 41): (B, S, H, D) and the wide f32
 # dK/dV (and dQ) launches a step at 256 px; its mid-block at 512 px, not summed
 F32_WIDE_BWD_SHAPES = [((8, 1024, 1, 512), 2), ((2, 4096, 1, 512), 0)]
 
 _FWD, _GN, _BWD, _ADAMW = "flash_fwd.cu", "groupnorm.cu", "flash_bwd.cu", "fused_adamw.cu"
-_F32, _F32BW = "flash_fwd_f32.cu", "flash_bwd_f32_wide.cu"
+_F32, _F32B, _F32BW = "flash_fwd_f32.cu", "flash_bwd_f32.cu", "flash_bwd_f32_wide.cu"
 KERNELS = {_FWD: "fwd", _GN: "gn", _BWD: "bwd", _ADAMW: "adamw", _F32: "fwd_f32",
-           _F32BW: "bwd_f32_wide"}
+           _F32B: "bwd_f32", _F32BW: "bwd_f32_wide"}
 _OFF = "if (p.S < 0) "  # a condition that is false at run time keeps the operands live
 _WGS = "constexpr int fwd_warpgroups(int nd) { return nd == 40 ? 4 : nd == 80 ? 2 : 1; }"
 _BK = "static constexpr int kBK = ND == 80 ? 128 : 64;"
@@ -376,6 +394,15 @@ VARIANTS = {  # name: [(source in csrc/, old, new), ...]; every `old` is replace
     "fwd_f32_32_key_tiles": [
         (_F32, "static constexpr int kBK = ND == 40 ? 64 : 32;\n  static constexpr int kStages = ND == 40 ? 3",
          "static constexpr int kBK = 32;\n  static constexpr int kStages = ND == 40 ? 4")],
+    "bwd_f32_base": [],  # the f32 backward at the SD step's shapes alone, as it is
+    "bwd_f32_no_exp": [(_F32B, "expf(", "(")],
+    "bwd_f32_loads_and_scores_only": [
+        (_F32B, call, _OFF + call) for call in (
+            "rs_product<ND, BS>(acc, pa, ys, T::kStrPiece, j == 0);",
+            "rs_product<ND, BS>(acc0, pa, xs, T::kStrPiece, j == 0);")],
+    "bwd_f32_wide_at_160": [
+        (_F32B, "constexpr int kMaxHeadDim = 160;", "constexpr int kMaxHeadDim = 80;"),
+        (_F32BW, "constexpr int kMinHeadDim = 160;", "constexpr int kMinHeadDim = 80;")],
     "bwd_f32_wide_base": [],  # the wide f32 backward alone, as it is
     "bwd_f32_wide_products_only": [
         (_F32BW, "  return (int)(dkv ? launch_scores<true>(p, st) : launch_scores<false>(p, st));",
@@ -504,12 +531,20 @@ if "fwd_f32" in kernels:
             out["fwd_f32_split"][str(shape)] = round(time_ms(lambda: split(q, k, v))[0], 4)
         total += count * ms
     out["fwd_f32_run_ms"], out["fwd_f32_worst"] = round(total, 3), round(worst, 4)
-if "bwd_f32_wide" in kernels:
+for kind in ("bwd_f32", "bwd_f32_wide"):
+    if kind not in kernels:
+        continue
+    import inspect
     torch.backends.cuda.matmul.allow_tf32 = False
     from chip_smoke import F32_LIMIT, f32_errors
-    out["bwd_f32_wide"], out["bwd_f32_wide_parts"], worst, total = {}, {}, 0.0, 0.0
-    chunks = getattr(fl, "f32_wide_bwd_scratch", None)  # None in a tree of the FFMA kernels
-    for shape, count in shapes["bwd_f32_wide"]:
+    out[kind], worst, total = {}, 0.0, 0.0
+    # the pieces of one pre-pass for both entries, where they take them (not in
+    # a tree of the FFMA kernels, nor in one whose every entry splits for itself)
+    shared = "pieces" in inspect.signature(fl.flash_attention_bwd_dkv).parameters
+    chunks = getattr(fl, "f32_wide_bwd_scratch", None) if kind == "bwd_f32_wide" else None
+    if chunks is not None:
+        out["bwd_f32_wide_parts"] = {}
+    for shape, count in shapes[kind]:
         shape = tuple(shape)
         g = torch.Generator(device="cuda").manual_seed(sum(shape))
         q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
@@ -523,13 +558,15 @@ if "bwd_f32_wide" in kernels:
             worst = worse(worst, e_k / (F32_LIMIT * e_p))
         del wide
         torch.cuda.empty_cache()
-        a = time_ms(lambda: fl.flash_attention_bwd_dkv(*ins))[0]
-        c = time_ms(lambda: fl.flash_attention_bwd_dq(*ins))[0]
-        out["bwd_f32_wide"][str(shape)] = [round(a, 4), round(c, 4)]
-        total += count * (a + c)
+        pieces = fl.flash_f32_split(q, k, v, do) if shared or chunks is not None else None
+        given = (pieces,) if shared else ()
+        a = time_ms(lambda: fl.flash_attention_bwd_dkv(*ins, *given))[0]
+        c = time_ms(lambda: fl.flash_attention_bwd_dq(*ins, *given))[0]
+        split = time_ms(lambda: fl.flash_f32_split(q, k, v, do))[0] if shared else 0.0
+        out[kind][str(shape)] = [round(a, 4), round(c, 4), round(split, 4)]
+        total += count * (a + c + split)
         if chunks is not None:
-            pieces = fl.flash_f32_split(q, k, v, do)
-            parts = {"split": time_ms(lambda: fl.flash_f32_split(q, k, v, do))[0]}
+            parts = {} if shared else {"split": time_ms(lambda: fl.flash_f32_split(q, k, v, do))[0]}
             for dkv, entry in ((True, "dkv"), (False, "dq")):
                 plan, scratch = chunks(shape, dkv, "cuda")
                 outs = [torch.empty(shape, device="cuda") for _ in range(2 if dkv else 1)]
@@ -539,10 +576,9 @@ if "bwd_f32_wide" in kernels:
                     pieces, scratch, outs, shape, ch, dkv) for ch in plan])[0]
                 del scratch, outs
             out["bwd_f32_wide_parts"][str(shape)] = {k: round(x, 4) for k, x in parts.items()}
-            del pieces
-        del q, k, v, do, o, lse, ins
+        del q, k, v, do, o, lse, ins, pieces
         torch.cuda.empty_cache()
-    out["bwd_f32_wide_step_ms"], out["bwd_f32_wide_worst"] = round(total, 4), round(worst, 4)
+    out[f"{kind}_step_ms"], out[f"{kind}_worst"] = round(total, 4), round(worst, 4)
 if "gn" in kernels:
     out["gn"], worst, total = {}, 0.0, 0.0
     for shape, eps, act, count in shapes["gn"]:
@@ -695,7 +731,7 @@ def generation_shapes(images: int) -> dict:
     return {"fwd": [(scale(s), n) for s, n in FWD_SHAPES],
             "gn": [(scale(s), eps, act, n) for s, eps, act, n in GN_SHAPES],
             "bwd": BWD_SHAPES, "adamw": adamw_leaf_shapes(), "fwd_f32": F32_FWD_SHAPES,
-            "bwd_f32_wide": F32_WIDE_BWD_SHAPES}
+            "bwd_f32": F32_BWD_SHAPES, "bwd_f32_wide": F32_WIDE_BWD_SHAPES}
 
 
 def adamw_leaf_shapes() -> list:

@@ -675,6 +675,11 @@ def test_flash_backward_wrapper_raises_instead_of_falling_back():
     xb = x.bfloat16()
     with pytest.raises(ValueError):  # lse of the wrong shape
         fl.flash_attention_bwd_dq(xb, xb, xb, xb, lse[:1], lse[:1])
+    pieces = fl.flash_f32_split(x, x, x, x)
+    with pytest.raises(ValueError):  # the pieces of other operands
+        fl.flash_attention_bwd_dkv(x, x, x, x, lse, lse, pieces[:, :, :32])
+    with pytest.raises(ValueError):  # pieces beside bf16 operands
+        fl.flash_attention_bwd_dq(xb, xb, xb, xb, lse, lse, pieces)
 
 
 def _adamw_inputs(n, seed):
@@ -1208,12 +1213,12 @@ def test_flash_bwd_variants_apply_to_the_source(variant):
 
 @pytest.mark.parametrize("variant", sorted(
     name for name in kernel_variants.VARIANTS
-    if name.startswith(("fwd_", "gn_", "adamw_", "bwd_f32_wide_"))
+    if name.startswith(("fwd_", "gn_", "adamw_", "bwd_f32_"))
     and not name.endswith("_base")))
 def test_kernel_variants_apply_to_the_source(variant):
     """Runs anywhere: the same for the forward's, the group norm's, the
-    AdamW's (the alternative for this tree's source) and the wide f32
-    backward's variants."""
+    AdamW's (the alternative for this tree's source) and the f32 backward's
+    variants (both files')."""
     assert _variant_applies(variant)
 
 
@@ -1221,22 +1226,24 @@ def test_kernel_variants_apply_to_the_source(variant):
 # -- the f32 kernels (--mixed_precision no) -------------------------------------------
 #
 # csrc/flash_fwd_f32.cu's forward (three bf16 pieces an operand, six
-# tensor-core products), csrc/flash_f32.cu's dK/dV and dQ (up to D = 160),
-# csrc/flash_bwd_f32_wide.cu's (above it: a pre-pass into pieces, a scores
-# pass, the gradient products, all on the tensor cores) and groupnorm.cu's
-# f32 instantiation, each held to its plain version computed in float64 on
-# the card: the kernel's max |error| may be at most F32_LIMIT times that of
-# the f32 plain version (TF32 off) on the same inputs. The broken copies
-# round each kernel's operands (or the group norm's input) to TF32, one pass
-# of the tensor cores, keep only the pieces b0 + b1, or let the wide
-# backward's products accumulate every tile in the tensor cores, and must
-# fail that limit at every shape.
+# tensor-core products), csrc/flash_bwd_f32.cu's dK/dV and dQ (up to D = 160:
+# one pass on the pieces of the pre-pass), csrc/flash_bwd_f32_wide.cu's
+# (above it: a scores pass, the gradient products, all on the tensor cores)
+# and groupnorm.cu's f32 instantiation, each held to its plain version
+# computed in float64 on the card: the kernel's max |error| may be at most
+# F32_LIMIT times that of the f32 plain version (TF32 off) on the same
+# inputs. The broken copies round each kernel's operands (or the group
+# norm's input) to TF32, one pass of the tensor cores, keep only the pieces
+# b0 + b1, or let a backward's products accumulate every tile in the tensor
+# cores, and must fail that limit at every shape where they are held.
 
 F32_LIMIT = 4.0
 F32_FWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
                   (2, 4096, 1, 512), (2, 1000, 8, 40), (1, 333, 2, 264), (1, 77, 3, 24)]
+# the f32 SD step's (csrc/flash_bwd_f32.cu's, one pass), a ragged S at each
+# of its block shapes (ND = 40, 80, 160: D = 24 and 40, 80, 152)
 F32_NARROW_BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
-                         (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24)]
+                         (2, 1000, 8, 40), (1, 333, 2, 152), (1, 77, 3, 24), (1, 333, 2, 80)]
 # f32 VAE pretraining's (8, 1024, 1, 512), a longer S, a ragged S at a D the
 # tiles zero-fill (264 to 384) and the narrowest wide D
 F32_WIDE_BWD_SHAPES = [(8, 1024, 1, 512), (2, 4096, 1, 512), (1, 333, 2, 264), (1, 77, 3, 168)]
@@ -1256,14 +1263,13 @@ _PIECES_B0_B1 = ("f32_pieces.cuh", "  b[2] = __float2bfloat16_rn(r);",
                  "  b[2] = __float2bfloat16_rn(0.f);")
 F32_MUTATIONS = {
     "fwd_operands_tf32": _SPLIT_OPERANDS_TF32,
-    "dkv_operands_tf32": ("flash_f32.cu", "struct DkvOperand {\n  __device__ __forceinline__ "
-                          "float operator()(float x) const { return x; }",
-                          "struct DkvOperand {\n  __device__ __forceinline__ float "
-                          "operator()(float x) const " + _TF32),
-    "dq_operands_tf32": ("flash_f32.cu", "struct DqOperand {\n  __device__ __forceinline__ "
-                         "float operator()(float x) const { return x; }",
-                         "struct DqOperand {\n  __device__ __forceinline__ float "
-                         "operator()(float x) const " + _TF32),
+    # every f32 backward reads the pieces of the same pre-pass
+    "dkv_operands_tf32": _SPLIT_OPERANDS_TF32,
+    "dq_operands_tf32": _SPLIT_OPERANDS_TF32,
+    "bwd_pieces_b0_b1": ("flash_bwd_f32.cu", "constexpr int kPieces = 3;",
+                         "constexpr int kPieces = 2;"),
+    "bwd_tiles_in_the_tensor_cores": ("flash_bwd_f32.cu", "constexpr bool kTileFromZero = true;",
+                                      "constexpr bool kTileFromZero = false;"),
     "wide_dkv_operands_tf32": _SPLIT_OPERANDS_TF32,
     "wide_dq_operands_tf32": _SPLIT_OPERANDS_TF32,
     "fwd_pieces_b0_b1": _PIECES_B0_B1,
@@ -1287,21 +1293,30 @@ F32_MUTATIONS = {
 # the f32 plain version's own error is larger; accumulating every tile of
 # the products in the tensor cores read 1.95-2.22 at (2, 4096, 1, 512) but
 # 0.09-0.99 at S <= 1024 (the drift grows with S, as the forward's did). Each
-# is held to the shapes where it fails.
+# is held to the shapes where it fails. Of the one-pass backward's
+# (csrc/flash_bwd_f32.cu), on the H100: keeping b0 + b1 read 1.28-5.17 at
+# every shape it runs; accumulating every streamed tile's products in the
+# tensor cores read 2.44 (dK/dV) and 3.00 (dQ) at (4, 4096, 8, 40) and 1.92
+# and 1.11 at (2, 1000, 8, 40), but 0.57-1.52 at (4, 1024, 8, 80), (1, 77,
+# 3, 24) and (1, 333, 2, 80), where one of the two stays within.
 F32_MUTATION_SHAPES = {"fwd_pieces_b0_b1": [s for s in F32_FWD_SHAPES if s != (2, 4096, 1, 512)],
                        "dkv_operands_tf32": F32_NARROW_BWD_SHAPES,
                        "dq_operands_tf32": F32_NARROW_BWD_SHAPES,
                        "wide_dkv_operands_tf32": F32_WIDE_BWD_SHAPES,
                        "wide_dq_operands_tf32": F32_WIDE_BWD_SHAPES,
                        "wide_bwd_pieces_b0_b1": [(1, 333, 2, 264), (1, 77, 3, 168)],
-                       "wide_bwd_tiles_in_the_tensor_cores": [(2, 4096, 1, 512)]}
+                       "wide_bwd_tiles_in_the_tensor_cores": [(2, 4096, 1, 512)],
+                       "bwd_pieces_b0_b1": F32_NARROW_BWD_SHAPES,
+                       "bwd_tiles_in_the_tensor_cores": [(4, 4096, 8, 40), (2, 1000, 8, 40)]}
 # which outputs each broken copy must break: the whole forward, dK/dV, dQ, GN
-# (the wide backward's pieces and products are both entries')
+# (a backward file's pieces and products are both entries')
 F32_MUTATION_KERNEL = {"fwd_operands_tf32": "fwd", "fwd_pieces_b0_b1": "fwd",
                        "dkv_operands_tf32": "dkv", "dq_operands_tf32": "dq",
                        "wide_dkv_operands_tf32": "dkv", "wide_dq_operands_tf32": "dq",
                        "wide_bwd_pieces_b0_b1": ("dkv", "dq"),
                        "wide_bwd_tiles_in_the_tensor_cores": ("dkv", "dq"),
+                       "bwd_pieces_b0_b1": ("dkv", "dq"),
+                       "bwd_tiles_in_the_tensor_cores": ("dkv", "dq"),
                        "gn_input_tf32": "gn"}
 
 # Prints {kernel: {shape: worst kernel error / (F32_LIMIT x the f32 plain
@@ -1413,15 +1428,18 @@ def test_f32_mutations_apply_to_the_source(mutation):
 
 
 @pytest.mark.cuda
-def test_f32_kernels_launch_count_and_read_strided_views():
+@pytest.mark.parametrize("shape", F32_NARROW_BWD_SHAPES, ids=_shape_id)
+def test_f32_kernels_launch_count_and_read_strided_views(shape):
     """f32 q, k, v as head-split views of one packed projection (sequence
     stride 3*H*D) give what their contiguous copies give, bit for bit, both
     ways; each wrapper counts the f32 launch in launches and launches_f32,
-    and the forward's pre-pass one launch a forward in its own count."""
+    and the pre-pass one launch a forward and one a backward entry called
+    alone in its own count."""
     _need_cuda()
+    b, s, h, d = shape
     g = torch.Generator(device="cuda").manual_seed(4)
-    qkv = torch.randn(2, 256, 3, 4, 40, device="cuda", generator=g)
-    do = torch.randn(2, 256, 4, 40, device="cuda", generator=g)
+    qkv = torch.randn(b, s, 3, h, d, device="cuda", generator=g)
+    do = torch.randn(b, s, h, d, device="cuda", generator=g)
     views = qkv.unbind(dim=2)
     copies = [t.contiguous() for t in views]
     wrappers = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv, fl.flash_attention_bwd_dq)
@@ -1435,7 +1453,7 @@ def test_f32_kernels_launch_count_and_read_strided_views():
                         fl.flash_attention_bwd_dq(q, k, v, do, lse, delta)))
     assert all(torch.equal(a, b) for a, b in zip(*results))
     assert [(w.launches, w.launches_f32) for w in wrappers] == [(n + 2, f + 2) for n, f in before]
-    assert fl.flash_f32_split.launches == splits + 2
+    assert fl.flash_f32_split.launches == splits + 6
     x = torch.randn(2, 64, 8, 8, device="cuda", generator=g)
     w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
     n, f = group_norm_act.launches, group_norm_act.launches_f32
@@ -1520,8 +1538,36 @@ def test_f32_wide_backward_is_bitwise_equal_at_two_scratch_caps(shape, monkeypat
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 1024, 8, 80), (2, 1000, 8, 40), (1, 333, 2, 152),
-                                   (8, 1024, 1, 512), (1, 333, 2, 264)], ids=_shape_id)
+@pytest.mark.parametrize("shape", [(4, 256, 8, 160), (2, 333, 2, 40), (1, 1000, 3, 80),
+                                   (1, 333, 2, 264)], ids=_shape_id)
+def test_f32_backward_gives_the_same_bits_from_shared_and_own_pieces(shape):
+    """The dK/dV and dQ entries given the pieces of one pre-pass
+    (flash_f32_split of q, k, v and dO) give the bits they give when each
+    splits for itself, and so does autograd through flash_attention, whose
+    backward runs that one pre-pass for both: one pre-pass launch a forward
+    and one a backward."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+    out, lse = flash_attention_fwd(q, k, v)
+    delta = fl.flash_delta(out, do)
+    own = (*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+           fl.flash_attention_bwd_dq(q, k, v, do, lse, delta))
+    pieces = fl.flash_f32_split(q, k, v, do)
+    shared = (*fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta, pieces),
+              fl.flash_attention_bwd_dq(q, k, v, do, lse, delta, pieces))
+    assert all(torch.equal(a, b) for a, b in zip(own, shared))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    splits = fl.flash_f32_split.launches
+    fl.flash_attention(*leaves).backward(do)
+    assert fl.flash_f32_split.launches == splits + 2
+    dk, dv, dq = own
+    assert all(torch.equal(t.grad, want) for t, want in zip(leaves, (dq, dk, dv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_NARROW_BWD_SHAPES + [(8, 1024, 1, 512), (1, 333, 2, 264)],
+                         ids=_shape_id)
 def test_f32_kernels_are_deterministic(shape):
     """One owner and one summation order a result element: two launches of
     each f32 kernel give bitwise-equal outputs."""

@@ -4,14 +4,15 @@ The JAX CLIs compute in f32 under ``--mixed_precision no``
 (``agenda_tpu/cli/finetune_sd.py:165``, ``finetune_sd_token.py:170``) and run
 their Pallas flash and GroupNorm kernels on f32 operands. On the card the
 port does the same with the f32 kernels of ``csrc/flash_fwd_f32.cu`` (the
-forward on the tensor cores, over three bf16 pieces of each operand),
-``csrc/flash_f32.cu``, ``csrc/flash_bwd_f32_wide.cu`` (the backward above
-D = 160, on the tensor cores too) and the f32 instantiation of
-``csrc/groupnorm.cu`` (held to float64 in ``test_torch_cuda.py``). Here, on
-the CPU: the compute dtype of each choice, the wrappers' dtype checks on
-metadata, the plain f32 versions against the Pallas kernels in interpret
-mode, the pieces and the accuracy budgets of the forward and the wide
-backward emulated, the wide backward's chunk plan, and both fine-tune CLIs
+forward), ``csrc/flash_bwd_f32.cu`` (the backward up to D = 160, one pass),
+``csrc/flash_bwd_f32_wide.cu`` (the backward above D = 160, three passes),
+all on the tensor cores over three bf16 pieces of each operand, and the f32
+instantiation of ``csrc/groupnorm.cu`` (held to float64 in
+``test_torch_cuda.py``). Here, on the CPU: the compute dtype of each choice,
+the wrappers' dtype checks on metadata, the plain f32 versions against the
+Pallas kernels in interpret mode, the pieces and the accuracy budgets of the
+forward and of both backward designs emulated, the wide backward's chunk
+plan, and both fine-tune CLIs
 against the JAX CLIs with the same flags on the tiny fixture, with the JAX
 key stream's draws handed to the port.
 """
@@ -327,6 +328,67 @@ def test_f32_wide_backward_design_fits_the_limit_and_fewer_pieces_do_not(shape, 
         return max((x.double() - r).abs().max().item()
                    / (F32_LIMIT * (p.double() - r).abs().max().item())
                    for x, p, r in zip(got, plain, ref))
+
+    ratios = [over_limit(n) for n in (3, 2, 1)]
+    print(f"{shape}: worst error over the limit with 3, 2, 1 pieces {ratios}")
+    assert ratios[0] <= 1.0 and ratios[1] > 1.0 and ratios[2] > 1.0, ratios
+
+
+# -- the f32 backward up to D = 160: one pass, P and dS split in registers ----------
+#
+# csrc/flash_bwd_f32.cu keeps the owned side's pieces in shared memory and
+# streams the other side's in tiles: S and dP are six piece products over D
+# in one accumulator, P = exp(S scale - lse) and dS = P (dP - delta) are f32
+# and split into three pieces, and each streamed tile's gradient products
+# (dV = P^T dO and dK = dS^T Q over query tiles of 32 rows; dQ = dS K over
+# key tiles of 64 rows at D <= 40, 32 above) start from zero and are added
+# to the f32 sums; the scale multiplies dK and dQ at the end.
+# ``_one_pass_bwd`` is that design in the model above (``_tc_product``).
+
+def _one_pass_bwd(q, k, v, do, lse, delta, keep=3):
+    """(dk, dv, dq) of the one-pass design over (B, S, H, D) f32 inputs, every
+    product a ``_tc_product`` over ``keep`` pieces of its operands."""
+    b, s, h, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    product = functools.partial(_tc_product, keep=keep)
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3).reshape(b * h, s, d) for t in (q, k, v, do))
+    st = product(qh, kh.transpose(1, 2))  # over all of D, one accumulator
+    dpt = product(doh, vh.transpose(1, 2))
+    p = torch.exp(st * scale - lse.reshape(b * h, s, 1))
+    ds = p * (dpt - delta.reshape(b * h, s, 1))
+    dk, dv, dq = (torch.zeros(b * h, s, d) for _ in range(3))
+    for q0 in range(0, s, 32):  # the dK/dV kernel's query tiles
+        r = slice(q0, q0 + 32)
+        dv = dv + product(p[:, r].transpose(1, 2), doh[:, r])
+        dk = dk + product(ds[:, r].transpose(1, 2), qh[:, r])
+    tile = 64 if d <= 40 else 32
+    for k0 in range(0, s, tile):  # the dQ kernel's key tiles
+        c = slice(k0, k0 + tile)
+        dq = dq + product(ds[:, :, c], kh[:, c])
+    return tuple(x.reshape(b, h, s, d).permute(0, 2, 1, 3)
+                 for x in (dk * scale, dv, dq * scale))
+
+
+@pytest.mark.parametrize("shape", [(1, 77, 2, 24), (1, 77, 2, 40), (1, 77, 2, 80),
+                                   (1, 77, 2, 160), (1, 333, 2, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_f32_narrow_backward_design_fits_the_limit_and_fewer_pieces_do_not(shape):
+    """The one-pass backward in the model above (three pieces of every
+    operand and of P and dS, each streamed tile's gradient products from
+    zero) stays within F32_LIMIT x the f32 plain version's max |error|
+    against float64 in dK, dV and dQ at a ragged S; two pieces, or one,
+    break that limit. (As the wide test's, the model cannot show one
+    accumulator over all of S failing: only the card's copy can.)"""
+    rng = np.random.RandomState(shape[1] + shape[3])
+    ins = _bwd_inputs(rng, shape)
+    ref = (*fl.flash_attention_bwd_dkv_reference(*(t.double() for t in ins)),
+           fl.flash_attention_bwd_dq_reference(*(t.double() for t in ins)))
+    plain = (*fl.flash_attention_bwd_dkv_reference(*ins), fl.flash_attention_bwd_dq_reference(*ins))
+
+    def over_limit(keep):
+        return max((x.double() - r).abs().max().item()
+                   / (F32_LIMIT * (p.double() - r).abs().max().item())
+                   for x, p, r in zip(_one_pass_bwd(*ins, keep=keep), plain, ref))
 
     ratios = [over_limit(n) for n in (3, 2, 1)]
     print(f"{shape}: worst error over the limit with 3, 2, 1 pieces {ratios}")
